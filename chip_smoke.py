@@ -1,0 +1,452 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one NVIDIA H100 and check it.
+
+    python3 chip_smoke.py [--seed N]
+
+Phases, each printing JSON lines:
+
+1. device — card, torch/CUDA versions, power limit; TF32 switched off.
+2. build — compile the three CUDA kernels (kernels/csrc) for sm_90a.
+3. kernels — each kernel against its plain PyTorch version on the same
+   CUDA tensors, at the main path's shapes and at edge shapes, and two
+   launches of each compared bitwise.
+4. main path — ``repro_torch.api.fit`` + ``evaluate`` on a HEPMASS-shaped
+   mixture (m = 10.5M, n = 28, 25 components) generated on the card, with
+   k = 25, s = 64,000, 32 chunks, through the kernels (launch counts
+   checked); the same fit on the plain path must reach the same full-data
+   objective within 1e-3.
+5. times — each kernel, its plain version and a PyTorch library call where
+   one computes the same function, by CUDA events over CUDA-graph replays
+   (device time; host launch overhead excluded), beside the bound.
+
+Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
+the final ``{"ok": true, "device": {...}}`` line.  Any failed check raises.
+It needs a CUDA card and the repository's ``src`` beside it.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import torch  # noqa: E402
+
+from repro_torch.api import BigMeansConfig, evaluate, fit  # noqa: E402
+from repro_torch.core.objective import EVAL_BATCH  # noqa: E402
+from repro_torch.data.synthetic import (  # noqa: E402
+    PAPER_DATASETS, GMMSpec, gmm_dataset,
+)
+from repro_torch.kernels import (  # noqa: E402
+    build, distance, fused_step, ops, ref,
+)
+from repro_torch.kernels import update as upd  # noqa: E402
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+F32_FLOP_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+RTOL = 1e-5                    # sums, d, obj: summation order differs
+TIE_RTOL = 1e-4                # ids compared where the top-2 gap exceeds it
+
+KERNELS = {
+    "fused_step_f32": ("src/repro_torch/kernels/csrc/fused_step.cu",
+                       "src/repro/kernels/fused_step.py:297"),
+    "assign_f32": ("src/repro_torch/kernels/csrc/assign.cu",
+                   "src/repro/kernels/distance.py:164"),
+    "update_f32": ("src/repro_torch/kernels/csrc/update.cu",
+                   "src/repro/kernels/update.py:114"),
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+# --------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# --------------------------------------------------------------------------
+
+
+def separated(m: int, k: int, n: int, seed: int):
+    """Points around k well-separated centres, and the centres (on card)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    c = torch.randn((k, n), generator=gen, device="cuda") * 5.0
+    comp = torch.randint(0, k, (m,), generator=gen, device="cuda")
+    x = c[comp] + torch.randn((m, n), generator=gen, device="cuda")
+    return x.contiguous(), c.contiguous()
+
+
+def near_ties(x, c) -> torch.Tensor:
+    """Rows whose best two scores ||c||^2 - 2x.c are within TIE_RTOL."""
+    scores = (c * c).sum(1)[None, :] - 2.0 * (x @ c.T)
+    two = torch.topk(scores, 2, dim=1, largest=False).values
+    return (two[:, 1] - two[:, 0]) <= TIE_RTOL * two[:, 0].abs()
+
+
+def sums_bound(x, ids, k, ties: int):
+    """Per-element error bound for cluster sums: RTOL of sum |x| in the
+    cluster (the sum's condition), plus two points per near tie."""
+    abs_sums, _ = ref.update_ref(x.abs(), ids, k)
+    return RTOL * abs_sums + 2 * ties * float(x.abs().max()) + 1e-30
+
+
+def twice(fn, *args):
+    """Run a kernel twice and require bitwise equal outputs."""
+    a, b = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    for u, v in zip(a, b):
+        check(torch.equal(u, v), f"{fn.__name__}: repeat launch differs")
+    return a
+
+
+def check_assign(x, c, ties) -> float:
+    ids, d = twice(distance.assign_f32, x, c)
+    ids_p, d_p = distance.assign_plain(x, c)
+    ok = ~ties
+    check(torch.equal(ids[ok], ids_p[ok]), "assign ids differ off near ties")
+    # d: condition of x2 - 2x.c + c2 is the magnitude of its terms
+    x2 = (x * x).sum(1)
+    c2 = (c * c).sum(1)
+    scale = x2 + c2[ids_p.long()] + 2 * (x2 * c2[ids_p.long()]).sqrt()
+    err = (d - d_p).abs()
+    check(bool((err[ok] <= RTOL * scale[ok] + 1e-6).all()),
+          f"assign d off by {float(err.max())}")
+    return float(err.max())
+
+
+def check_update(x, ids, k) -> float:
+    ids = ids.clone()
+    ids[::97] = -1                                  # padding never hits
+    ids[1::89] = k + 3                              # out of range adds nothing
+    sums, counts = twice(upd.update_f32, x, ids, k)
+    sums_p, counts_p = upd.update_plain(x, ids, k)
+    check(torch.equal(counts, counts_p), "update counts differ")
+    err = (sums - sums_p).abs()
+    check(bool((err <= sums_bound(x, ids, k, 0)).all()),
+          f"update sums off by {float(err.max())}")
+    return float(err.max())
+
+
+def check_fused(x, c, ties: int, direct: bool = True) -> float:
+    """Kernel A (direct) or the ops two-pass route against the plain step."""
+    k = c.shape[0]
+    if direct:
+        sums, counts, obj = twice(fused_step.fused_step_f32, x, c)
+    else:
+        sums, counts, obj = ops.fused_step(x, c, impl="cuda")
+    sums_p, counts_p, obj_p = fused_step.fused_step_plain(x, c)
+    ids_p, _ = ref.assign_ref(x, c)
+    check(int((counts - counts_p).abs().sum()) <= 2 * ties,
+          "fused counts differ beyond near ties")
+    err = (sums - sums_p).abs()
+    check(bool((err <= sums_bound(x, ids_p, k, ties)).all()),
+          f"fused sums off by {float(err.max())}")
+    check(abs(float(obj) - float(obj_p)) <= RTOL * float(obj_p),
+          f"fused obj {float(obj)} vs plain {float(obj_p)}")
+    return max(float(err.max()), abs(float(obj) - float(obj_p)))
+
+
+def phase_kernels(seed: int) -> dict:
+    shapes = [  # (m, k, n, why)
+        (64_000, 25, 28, "main path chunk"),
+        (64_001, 25, 3, "ragged m, n = 3"),
+        (64_001, 130, 68, "k > 128, n = 68"),
+        (64_001, 1024, 1024, "fused envelope edge"),
+        (20_001, 1024, 1100, "outside the envelope: two-pass route"),
+    ]
+    main_err = {}
+    for m, k, n, why in shapes:
+        x, c = separated(m, k, n, seed)
+        ties = near_ties(x, c)
+        n_ties = int(ties.sum())
+        fits = fused_step.fits(k, n)
+        row = {"phase": "kernels", "m": m, "k": k, "n": n, "case": why,
+               "fits": fits, "near_ties": n_ties}
+        row["assign_max_abs_err"] = check_assign(x, c, ties)
+        ids_p, _ = ref.assign_ref(x, c)
+        row["update_max_abs_err"] = check_update(x, ids_p, k)
+        row["fused_max_abs_err"] = check_fused(x, c, n_ties, direct=fits)
+        row["fused_route"] = "kernel A" if fits else "kernels B + C"
+        check(fits == (n <= 1024), "fits() envelope mismatch")
+        emit(row)
+        if why == "main path chunk":
+            main_err = {"fused_step_f32": row["fused_max_abs_err"],
+                        "assign_f32": row["assign_max_abs_err"],
+                        "update_f32": row["update_max_abs_err"]}
+        del x, c
+        torch.cuda.empty_cache()
+    emit({"kernels": [{"name": name, "route": "cuda", "source": src,
+                       "replaces": rep, "max_abs_err": main_err[name]}
+                      for name, (src, rep) in KERNELS.items()]})
+    return main_err
+
+
+# --------------------------------------------------------------------------
+# phase 4: the main path at full size
+# --------------------------------------------------------------------------
+
+
+def first_parting(a, b):
+    for i, ((_, fa, aa), (_, fb, ab)) in enumerate(zip(a, b)):
+        if aa != ab:
+            return {"chunk": i, "f_new_cuda": fa, "f_new_ref": fb}
+    return None
+
+
+def phase_main(seed: int):
+    m, n = PAPER_DATASETS["hepmass"]
+    spec = GMMSpec(m=m, n=n, components=25, seed=seed)
+    t0 = time.monotonic()
+    X = gmm_dataset(spec, device="cuda")
+    torch.cuda.synchronize()
+    gen_s = time.monotonic() - t0
+    cfg = BigMeansConfig(k=25, s=64_000, n_chunks=32, seed=seed)
+    for impl in ("cuda", "ref"):        # warm both paths (first-use costs)
+        fit(X, cfg.replace(n_chunks=2, impl=impl, seed=seed + 1))
+
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    res = fit(X, cfg, method="auto")
+    ids, f_full = evaluate(res, X)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = ops.launch_counts()
+
+    n_eval = math.ceil(m / EVAL_BATCH)
+    check(res.strategy == "sequential" and res.extras.get("auto"),
+          f"auto resolved to {res.strategy}")
+    check(res.extras["fit"]["impl"] == "cuda", "fit did not use the kernels")
+    check(res.centroids.is_cuda, "centroids are not on the card")
+    check(tuple(res.centroids.shape) == (25, n), "centroid shape")
+    check(bool(torch.isfinite(res.centroids).all()), "non-finite centroids")
+    check(tuple(ids.shape) == (m,) and int(ids.min()) >= 0
+          and int(ids.max()) < 25, "evaluate ids")
+    check(math.isfinite(f_full) and f_full > 0, "full objective")
+    check(launches["fused_step"] == res.n_iterations,
+          f"fused launches {launches['fused_step']} != iterations "
+          f"{res.n_iterations}")
+    check(launches["update"] == cfg.n_chunks,
+          f"update launches {launches['update']} != {cfg.n_chunks}")
+    check(launches["assign"] == cfg.n_chunks + n_eval,
+          f"assign launches {launches['assign']} != {cfg.n_chunks} + "
+          f"{n_eval}")
+
+    t1 = time.monotonic()
+    res_ref = fit(X, cfg.replace(impl="ref"), method="auto")
+    torch.cuda.synchronize()
+    wall_ref_fit = time.monotonic() - t1
+    check(ops.launch_counts() == launches, "the ref fit launched a kernel")
+    _, f_full_ref = evaluate(res_ref, X)
+    rel = abs(f_full - f_full_ref) / f_full_ref
+    walls = {"ref": [], "cuda": []}     # fit wall, in turns: r, c, c, r
+    for impl in ("ref", "cuda", "cuda", "ref"):
+        walls[impl].append(fit(X, cfg.replace(impl=impl)).wall_time_s)
+    emit({"phase": "main_path", "m": m, "n": n, "k": cfg.k, "s": cfg.s,
+          "n_chunks": cfg.n_chunks, "data_gb": X.numel() * 4 / 1e9,
+          "data_gen_s": gen_s, "strategy": res.strategy,
+          "f_best": res.objective, "f_full": f_full,
+          "f_full_per_point": f_full / m, "n_accepted": res.n_accepted,
+          "n_iterations": res.n_iterations, "wall_s": wall,
+          "fit_wall_s": res.wall_time_s,
+          "fit_ms_per_lloyd_iteration": 1e3 * res.wall_time_s
+          / res.n_iterations, "launches": launches,
+          "eval_batches": n_eval,
+          "ref": {"f_best": res_ref.objective, "f_full": f_full_ref,
+                  "n_accepted": res_ref.n_accepted,
+                  "n_iterations": res_ref.n_iterations,
+                  "fit_wall_s": wall_ref_fit},
+          "f_full_rel_diff": rel, "fit_walls_s": walls,
+          "accepts_cuda": [int(a) for _, _, a in res.trace],
+          "accepts_ref": [int(a) for _, _, a in res_ref.trace],
+          "first_parting": first_parting(res.trace, res_ref.trace)})
+    check(rel <= 1e-3, f"full objectives differ by {rel:.3e} (> 1e-3)")
+    return X, res, launches, wall
+
+
+# --------------------------------------------------------------------------
+# phase 5: times
+# --------------------------------------------------------------------------
+
+
+def eager_ms(fn, launches: int) -> float:
+    """Time per call of ``launches`` eager back-to-back calls (warm), by
+    CUDA events: the host's launch cost shows when it exceeds the kernel."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / launches
+
+
+def device_ms(fn, launches: int, replays: int = 5) -> float:
+    """Device time per call: CUDA events around replays of a CUDA graph
+    holding ``launches`` back-to-back calls (warm)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / (launches * replays)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def timing(fn, plain, library, nbytes, flops, launches):
+    b_ms, b_by = bound(nbytes, flops)
+    return {"ms": device_ms(fn, launches),
+            "eager_ms": eager_ms(fn, launches),
+            "plain_ms": device_ms(plain, launches),
+            "library_ms": None if library is None
+            else device_ms(library, launches),
+            "bound_ms": b_ms, "bound_us": 1e3 * b_ms, "bound_by": b_by,
+            "bytes": nbytes,
+            "flops": flops}
+
+
+def phase_times(X, res, seed: int) -> dict:
+    s, k, n = 64_000, res.centroids.shape[0], X.shape[1]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    x = X[torch.randint(0, X.shape[0], (s,), generator=gen,
+                        device="cuda")].contiguous()
+    c = res.centroids.contiguous()
+    ids, _ = distance.assign_plain(x, c)
+    ids64 = ids.long()
+    out = {}
+    out["fused_step_f32"] = timing(
+        lambda: fused_step.fused_step_f32(x, c),
+        lambda: fused_step.fused_step_plain(x, c), None,
+        4 * (s * n + k * n + k * n + k + 1), 2 * s * k * n + s * n, 200)
+    out["assign_f32"] = timing(
+        lambda: distance.assign_f32(x, c),
+        lambda: distance.assign_plain(x, c), None,
+        4 * (s * n + k * n + 2 * s), 2 * s * k * n, 200)
+    out["update_f32"] = timing(
+        lambda: upd.update_f32(x, ids, k),
+        lambda: upd.update_plain(x, ids, k),
+        lambda: torch.zeros((k, n), device="cuda").index_add_(0, ids64, x),
+        4 * (s * n + s + k * n + k), s * n, 200)
+    m = X.shape[0]
+    out["assign_f32"]["at_evaluate"] = timing(
+        lambda: distance.assign_f32(X, c),
+        lambda: distance.assign_plain(X, c), None,
+        4 * (m * n + k * n + 2 * m), 2 * m * k * n, 3)
+    out["assign_f32"]["at_evaluate"]["m"] = m
+    out["update_f32"]["library"] = "index_add_ (sums only; counts excluded)"
+    for name, row in out.items():
+        emit({"phase": "times", "kernel": name, "m": s, "k": k, "n": n,
+              **row})
+    return out
+
+
+def device_share(times: dict, launches: dict, n_eval: int, wall: float):
+    """Kernel device seconds of the main path's run, estimated as launches
+    times graph-replay ms (the evaluate batches at their own size)."""
+    ev = times["assign_f32"]["at_evaluate"]
+    per_batch = ev["ms"] * EVAL_BATCH / ev["m"]
+    s = (launches["fused_step"] * times["fused_step_f32"]["ms"]
+         + (launches["assign"] - n_eval) * times["assign_f32"]["ms"]
+         + n_eval * per_batch
+         + launches["update"] * times["update_f32"]["ms"]) / 1e3
+    emit({"phase": "where_the_time_goes", "kernel_device_s_estimate": s,
+          "main_path_wall_s": wall, "kernel_share_estimate": s / wall})
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 1
+
+    # phase 1: device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi()
+    emit({"phase": "device", "name": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(),
+          "capability": list(torch.cuda.get_device_capability(0)),
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "python": sys.version.split()[0], "nvidia_smi": smi,
+          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
+
+    # phase 2: build
+    build.load(rebuild=True)
+    info = build.info()
+    check(info.built, "the kernels were not built from source")
+    emit({"phase": "build", "arch": build.ARCH, "seconds": info.seconds,
+          "library": str(info.path.relative_to(ROOT)),
+          "ptxas": info.resources})
+
+    # phase 3: kernels vs plain
+    errs = phase_kernels(args.seed)
+
+    # phase 4: main path
+    X, res, launches, wall = phase_main(args.seed)
+
+    # phase 5: times
+    times = phase_times(X, res, args.seed)
+    device_share(times, launches, math.ceil(X.shape[0] / EVAL_BATCH), wall)
+
+    emit({"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[name.removesuffix("_f32")],
+         "max_abs_err": errs[name], **times[name]}
+        for name, (src, rep) in KERNELS.items()]})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,14 @@
+"""Big-means on PyTorch and CUDA (NVIDIA Hopper).
+
+A port of the JAX package ``repro`` that mirrors its layout module for
+module.  The JAX package is the reference: every ported function is held
+against its counterpart by the ``tests/test_torch_*.py`` parity tests.
+
+This package imports ``torch`` and ``numpy`` only — never ``jax`` and
+nothing of ``repro``.  Its entry points (``api.fit``, ``api.evaluate``,
+``core.big_means``, ``engine.incore.sequential``) run on the CUDA device
+unless the caller passes ``device="cpu"``; the CPU runs the kernels' plain
+PyTorch versions.  The three hand-written CUDA kernels of the main path
+live in ``kernels/csrc`` and are built with ``nvcc`` at first use
+(:mod:`repro_torch.kernels.build`).
+"""

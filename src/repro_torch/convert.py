@@ -1,0 +1,33 @@
+"""Carry Big-means state across the two packages as numpy arrays.
+
+A reference ``BigMeansState`` read out as numpy becomes the port's state
+(:func:`state_from_numpy`), and back (:func:`state_to_numpy`), so a run can
+start from an incumbent of the other package mid-trajectory.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.bigmeans import BigMeansState
+
+
+def state_from_numpy(centroids, degenerate, f_best, n_accepted,
+                     n_dist_evals, *, device) -> BigMeansState:
+    """The port's state from the five fields of a reference state."""
+    def t(a, dtype):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    return BigMeansState(
+        centroids=t(centroids, torch.float32),
+        degenerate=t(degenerate, torch.bool),
+        f_best=t(f_best, torch.float32),
+        n_accepted=t(n_accepted, torch.int32),
+        n_dist_evals=t(n_dist_evals, torch.float32),
+    )
+
+
+def state_to_numpy(state: BigMeansState) -> tuple[np.ndarray, ...]:
+    """(centroids, degenerate, f_best, n_accepted, n_dist_evals) as numpy,
+    in the reference's dtypes (f32, bool, f32, int32, f32)."""
+    return tuple(field.detach().cpu().numpy() for field in state)

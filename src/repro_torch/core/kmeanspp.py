@@ -1,0 +1,81 @@
+"""K-means++ seeding (Algorithm 2) and degenerate-cluster re-seeding.
+
+As in the reference: fresh seeding treats every slot as degenerate;
+Big-means re-initialization re-samples only the degenerate slots, measuring
+distances against the surviving centroids and the seeds already placed.
+Each new seed is the best of ``candidates`` D²-sampled proposals ("greedy
+K-means++").  The D² draw is ``argmax(gumbel + logits)``, which is what
+``jax.random.categorical`` computes, drawn through the key-tree backend.
+
+The key schedule is the reference's: one ``split`` per slot, degenerate or
+not; the work of a surviving slot is skipped, its key is still consumed.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import random as rnd
+from repro_torch.kernels.ref import pairwise_sqdist_ref
+
+_BIG = 1e30
+
+
+def _safe_d2_logits(d: torch.Tensor) -> torch.Tensor:
+    """log-weights for D² sampling; uniform when all distances are 0."""
+    total = torch.sum(d)
+    logits = torch.log(torch.clamp_min(d, 1e-30))
+    return torch.where(total > 0, logits, torch.zeros_like(d))
+
+
+def seed(
+    points: torch.Tensor,
+    key,
+    k: int,
+    *,
+    init: torch.Tensor | None = None,
+    degenerate: torch.Tensor | None = None,
+    candidates: int = 3,
+    weights: torch.Tensor | None = None,
+    rng=rnd.TORCH,
+) -> torch.Tensor:
+    """Return [k, n] centroids; non-degenerate rows of ``init`` are kept."""
+    if weights is not None:
+        raise NotImplementedError(
+            "weighted K-means++ is not ported yet (ROADMAP queue 1 item 9)")
+    points = points.float()
+    s, n = points.shape
+    dev = points.device
+    if init is None:
+        init = torch.zeros((k, n), dtype=torch.float32, device=dev)
+        degenerate = torch.ones((k,), dtype=torch.bool, device=dev)
+    if degenerate is None:
+        raise ValueError("init without a degenerate mask")
+    c = init.float().clone()
+
+    # Point norms hoisted out of the seeding loop.
+    x2 = torch.sum(points * points, dim=-1, keepdim=True)
+    # Distance of every point to the nearest *surviving* centroid.
+    d_all = pairwise_sqdist_ref(points, c, x2)                     # [s, k]
+    d_all = torch.where(degenerate[None, :], _BIG, d_all)
+    d = torch.clamp_max(torch.min(d_all, dim=1).values, _BIG)      # [s]
+
+    for j, is_deg in enumerate(degenerate.tolist()):
+        key, k1 = rng.split(key)
+        if not is_deg:
+            continue
+        logits = _safe_d2_logits(d)
+        noise = rng.gumbel(k1, (candidates, s), dev)
+        cand_idx = torch.argmax(noise + logits[None, :], dim=1)    # [L]
+        cands = points[cand_idx]                                   # [L, n]
+        dc = pairwise_sqdist_ref(points, cands, x2)                # [s, L]
+        newd = torch.minimum(d[:, None], dc)                       # [s, L]
+        b = torch.argmin(torch.sum(newd, dim=0))
+        c[j] = cands[b]
+        d = newd[:, b]
+    return c
+
+
+def kmeanspp(points: torch.Tensor, key, k: int, *, candidates: int = 3,
+             rng=rnd.TORCH) -> torch.Tensor:
+    """Fresh K-means++ seeding of k centers (paper Algorithm 2)."""
+    return seed(points, key, k, candidates=candidates, rng=rng)

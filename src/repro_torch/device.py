@@ -1,0 +1,35 @@
+"""Device resolution for the port's entry points.
+
+Entry points run on the CUDA device unless the caller asks for the CPU.
+With no CUDA device and no explicit ``device="cpu"`` they raise: a run never
+moves to the CPU on its own.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def resolve(device=None) -> torch.device:
+    """``None`` -> ``cuda``; anything else is taken as asked.
+
+    Raises ``RuntimeError`` when CUDA is asked for (explicitly or by
+    default) and no CUDA device is present.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch path on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    return dev
+
+
+def to_f32(X, device: torch.device) -> torch.Tensor:
+    """A 2-D array or tensor as contiguous float32 on ``device`` (no copy
+    when it already is one)."""
+    if isinstance(X, np.ndarray):
+        X = torch.from_numpy(np.require(X, requirements="W"))
+    return torch.as_tensor(X).to(device=device,
+                                 dtype=torch.float32).contiguous()

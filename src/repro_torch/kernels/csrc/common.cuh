@@ -1,0 +1,191 @@
+// Shared device code of the three f32 kernels of the main path
+// (assign.cu, update.cu, fused_step.cu).
+//
+// One CTA of TM threads walks point tiles of TM rows; thread t owns row t of
+// the tile.  Point and centroid tiles are staged in shared memory, k-tiled by
+// KT centroids and n-tiled by FT features, so any (k, n) runs with a fixed
+// 40 KB of static shared memory.
+//
+// Determinism: nothing here uses atomics.  Every sum is taken by one thread
+// in a fixed order, and cross-CTA sums go through per-CTA partials that a
+// second launch reduces in CTA order, so two launches on the same inputs
+// (on the same card) give bitwise equal results.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace repro {
+
+constexpr int TM = 256;       // points per tile == threads per CTA
+constexpr int KT = 32;        // centroids per k tile (register accumulators)
+constexpr int FT = 32;        // features per feature tile
+constexpr float BIG = 1e30f;  // initial best score (fused_step.py:_BIG)
+
+struct TileSmem {
+  float xs[TM][FT + 1];  // point tile; +1 keeps row-per-thread reads off
+                         // a single shared-memory bank
+  float cs[KT][FT];      // centroid tile (broadcast reads)
+  float c2[KT];          // ||c||^2 of the current k tile
+  int ids[TM];           // tile assignment; -1 never matches a cluster
+  float red[TM];         // block-reduction scratch
+};
+
+// Stage x[r0 : r0+TM, f0 : f0+fw] into s.xs; rows past m read as 0.
+__device__ __forceinline__ void load_x_tile(TileSmem& s,
+                                            const float* __restrict__ x,
+                                            int64_t m, int n, int64_t r0,
+                                            int f0, int fw) {
+  for (int q = threadIdx.x; q < TM * fw; q += TM) {
+    const int row = q / fw;
+    const int col = q - row * fw;
+    const int64_t r = r0 + row;
+    s.xs[row][col] = r < m ? x[r * n + f0 + col] : 0.f;
+  }
+}
+
+// Stage c[k0 : k0+KT, f0 : f0+fw] into s.cs; rows past k and columns past
+// fw read as 0.
+__device__ __forceinline__ void load_c_tile(TileSmem& s,
+                                            const float* __restrict__ c,
+                                            int k, int n, int k0, int f0,
+                                            int fw) {
+  for (int q = threadIdx.x; q < KT * FT; q += TM) {
+    const int j = q / FT;
+    const int col = q - j * FT;
+    s.cs[j][col] = (k0 + j < k && col < fw)
+                       ? c[(int64_t)(k0 + j) * n + f0 + col]
+                       : 0.f;
+  }
+}
+
+// Nearest centroid of row r0 + threadIdx.x: the running (min, argmin) of
+// score_j = ||c_j||^2 - 2 x.c_j over all k, with a strict '<' so that a tie
+// goes to the lowest index (fused_step.py:_tile_argmin), starting from
+// (BIG, 0).  The dot and both norms are sequential fp32 FMAs over the
+// features.  Every thread of the CTA must call this (it synchronises).
+// On return, when n <= FT, s.xs still holds the whole point tile.
+__device__ __forceinline__ void tile_argmin(TileSmem& s,
+                                            const float* __restrict__ x,
+                                            const float* __restrict__ c,
+                                            int64_t m, int k, int n,
+                                            int64_t r0, int& bidx,
+                                            float& best, float& xsq) {
+  const int t = threadIdx.x;
+  best = BIG;
+  bidx = 0;
+  xsq = 0.f;
+  for (int k0 = 0; k0 < k; k0 += KT) {
+    float acc[KT];
+#pragma unroll
+    for (int j = 0; j < KT; ++j) acc[j] = 0.f;
+    float c2acc = 0.f;
+    for (int f0 = 0; f0 < n; f0 += FT) {
+      const int fw = min(FT, n - f0);
+      __syncthreads();  // earlier readers of s.xs / s.cs / s.c2 are done
+      load_x_tile(s, x, m, n, r0, f0, fw);
+      load_c_tile(s, c, k, n, k0, f0, fw);
+      __syncthreads();
+      if (t < KT) {
+        for (int f = 0; f < fw; ++f) c2acc = fmaf(s.cs[t][f], s.cs[t][f], c2acc);
+      }
+      for (int f = 0; f < fw; ++f) {
+        const float xv = s.xs[t][f];
+        if (k0 == 0) xsq = fmaf(xv, xv, xsq);
+#pragma unroll
+        for (int j = 0; j < KT; ++j) acc[j] = fmaf(xv, s.cs[j][f], acc[j]);
+      }
+    }
+    if (t < KT) s.c2[t] = c2acc;
+    __syncthreads();
+    const int kw = min(KT, k - k0);
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+      if (j < kw) {
+        const float score = s.c2[j] - 2.f * acc[j];
+        if (score < best) {
+          best = score;
+          bidx = k0 + j;
+        }
+      }
+    }
+  }
+}
+
+// Deterministic sum over the CTA (fixed tree order).  All threads call it
+// and all receive the sum.
+__device__ __forceinline__ float block_sum(TileSmem& s, float v) {
+  const int t = threadIdx.x;
+  s.red[t] = v;
+  __syncthreads();
+  for (int w = TM / 2; w > 0; w >>= 1) {
+    if (t < w) s.red[t] += s.red[t + w];
+    __syncthreads();
+  }
+  const float r = s.red[0];
+  __syncthreads();
+  return r;
+}
+
+// One-hot contraction of one point tile into this CTA's partials:
+//   P[j, f] (+)= sum_i [ids_i == j] x[i, f],   Cnt[j] (+)= sum_i [ids_i == j]
+// with s.ids already set (and synchronised) by the caller.  Thread t owns
+// the elements t, t + TM, ... of each (k x feature-tile) block, and sums the
+// tile's rows in order, so every element has one writer and a fixed order.
+// `first` stores instead of accumulating (the CTA's first tile).
+// `x_resident`: s.xs already holds the whole tile (n <= FT).
+__device__ __forceinline__ void tile_accumulate(TileSmem& s,
+                                                const float* __restrict__ x,
+                                                int64_t m, int k, int n,
+                                                int64_t r0, float* P,
+                                                float* Cnt, bool first,
+                                                bool x_resident) {
+  const int t = threadIdx.x;
+  for (int f0 = 0; f0 < n; f0 += FT) {
+    const int fw = min(FT, n - f0);
+    if (!x_resident) {
+      __syncthreads();
+      load_x_tile(s, x, m, n, r0, f0, fw);
+      __syncthreads();
+    }
+    const int ne = k * fw;
+    for (int e = t; e < ne; e += TM) {
+      const int j = e / fw;
+      const int f = e - j * fw;
+      float acc = 0.f;
+      for (int i = 0; i < TM; ++i) acc += (s.ids[i] == j) ? s.xs[i][f] : 0.f;
+      float* dst = P + (int64_t)j * n + f0 + f;
+      *dst = first ? acc : *dst + acc;
+    }
+  }
+  for (int j = t; j < k; j += TM) {
+    float cnt = 0.f;
+    for (int i = 0; i < TM; ++i) cnt += (s.ids[i] == j) ? 1.f : 0.f;
+    Cnt[j] = first ? cnt : Cnt[j] + cnt;
+  }
+}
+
+// out[e] = sum over g = 0..G-1, in order, of part[g * stride + e].
+__device__ __forceinline__ void reduce_partials(const float* __restrict__ part,
+                                                float* __restrict__ out,
+                                                int64_t stride, int G) {
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < stride;
+       e += step) {
+    float acc = 0.f;
+    for (int g = 0; g < G; ++g) acc += part[(int64_t)g * stride + e];
+    out[e] = acc;
+  }
+}
+
+// Zero a CTA's partials when it was given no tile (only when m == 0).
+__device__ __forceinline__ void zero_partials(float* P, int64_t stride) {
+  for (int64_t e = threadIdx.x; e < stride; e += blockDim.x) P[e] = 0.f;
+}
+
+inline int reduce_grid(int64_t stride) {
+  const int64_t blocks = (stride + 255) / 256;
+  return (int)(blocks < 1024 ? (blocks < 1 ? 1 : blocks) : 1024);
+}
+
+}  // namespace repro

@@ -1,0 +1,184 @@
+"""The CUDA kernels' source logic, run on the CPU.
+
+There is no CUDA compiler or card here, so the kernels themselves run only
+on the card (``test_torch_kernels.py``, marked ``cuda``).  This file checks
+their *logic* — tiling, indexing, ragged edges, the tie rule, the ordered
+per-CTA reduction — by compiling ``kernels/csrc/*.cu`` with the host C++
+compiler against a small stand-in for the CUDA runtime: each CTA runs as
+``blockDim`` host threads, ``__syncthreads`` is a barrier and
+``__shared__`` a static shared by the CTA's threads.  Results are held
+against the port's plain versions with the same tolerances as on the card.
+"""
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import build, ref
+
+RTOL = 1e-5
+
+STUB = r"""
+#pragma once
+#include <algorithm>
+#include <barrier>
+#include <cmath>
+#include <cstdint>
+#include <functional>
+#include <thread>
+#include <vector>
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __shared__ static
+#define __restrict__
+#define __launch_bounds__(x)
+struct dim3s { unsigned x = 0, y = 0, z = 0; };
+inline thread_local dim3s threadIdx, blockIdx;
+inline dim3s blockDim, gridDim;
+inline std::barrier<>* cta_barrier = nullptr;
+inline void __syncthreads() { cta_barrier->arrive_and_wait(); }
+using std::min;
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+const int cudaSuccess = 0;
+inline cudaError_t cudaGetLastError() { return 0; }
+inline const char* cudaGetErrorString(cudaError_t) { return ""; }
+// CTAs one after another; the threads of a CTA concurrently.
+inline void launch(unsigned grid, unsigned block, std::function<void()> fn) {
+  gridDim.x = grid;
+  blockDim.x = block;
+  for (unsigned b = 0; b < grid; ++b) {
+    std::barrier<> bar(block);
+    cta_barrier = &bar;
+    std::vector<std::thread> ts;
+    for (unsigned t = 0; t < block; ++t)
+      ts.emplace_back([&, t, b] { threadIdx.x = t; blockIdx.x = b; fn(); });
+    for (auto& th : ts) th.join();
+  }
+}
+"""
+
+HARNESS = r"""
+#include "cuda_runtime.h"
+#include "assign.inc"
+#include "update.inc"
+#include "fused_step.inc"
+#include <cstdio>
+#include <cstdlib>
+// harness m k n grid in out: in = x[m,n] c[k,n] ids[m];
+// out = assign ids, d; update sums ++ counts; fused sums ++ counts ++ obj
+int main(int argc, char** argv) {
+  const int64_t m = atoll(argv[1]);
+  const int k = atoi(argv[2]), n = atoi(argv[3]), grid = atoi(argv[4]);
+  std::vector<float> x(m * n), c((size_t)k * n);
+  std::vector<int32_t> ids(m);
+  FILE* f = fopen(argv[5], "rb");
+  if (fread(x.data(), 4, x.size(), f) != x.size() ||
+      fread(c.data(), 4, c.size(), f) != c.size() ||
+      fread(ids.data(), 4, ids.size(), f) != ids.size()) return 1;
+  fclose(f);
+  const int64_t tiles = (m + TM - 1) / TM;
+  const int64_t su = (int64_t)k * n + k, sf = su + 1;
+  std::vector<int32_t> aids(m);
+  std::vector<float> ad(m), pu(grid * su), ou(su), pf(grid * sf), of(sf);
+  launch(grid, TM, [&] { assign_f32_kernel(x.data(), c.data(), aids.data(),
+                                           ad.data(), m, k, n, tiles); });
+  launch(grid, TM, [&] { update_f32_kernel(x.data(), ids.data(), pu.data(),
+                                           m, k, n, tiles); });
+  launch(2, 256, [&] { update_f32_reduce(pu.data(), ou.data(), su, grid); });
+  launch(grid, TM, [&] { fused_step_f32_kernel(x.data(), c.data(), pf.data(),
+                                               m, k, n, tiles); });
+  launch(3, 256,
+         [&] { fused_step_f32_reduce(pf.data(), of.data(), sf, grid); });
+  FILE* o = fopen(argv[6], "wb");
+  fwrite(aids.data(), 4, m, o);
+  fwrite(ad.data(), 4, m, o);
+  fwrite(ou.data(), 4, su, o);
+  fwrite(of.data(), 4, sf, o);
+  fclose(o);
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def harness(tmp_path_factory):
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs a host C++20 compiler (g++) to emulate the kernels")
+    d = tmp_path_factory.mktemp("csrc")
+    (d / "cuda_runtime.h").write_text(STUB)
+    (d / "harness.cpp").write_text(HARNESS)
+    for name in build.SOURCES:
+        src = (build.CSRC / name).read_text()
+        # a launch becomes a plain call; the harness launches the kernels
+        (d / Path(name).with_suffix(".inc")).write_text(
+            re.sub(r"<<<[^>]*>>>", "", src))
+    exe = d / "harness"
+    out = subprocess.run(
+        [cxx, "-std=c++20", "-O1", "-pthread", f"-I{d}", f"-I{build.CSRC}",
+         str(d / "harness.cpp"), "-o", str(exe)],
+        capture_output=True, text=True)
+    assert out.returncode == 0, out.stderr
+    return exe
+
+
+SHAPES = [  # (m, k, n, grid): ragged tiles, CTAs with several tiles,
+    (600, 25, 28, 2),      # k and n tiles with ragged edges, a single
+    (300, 40, 3, 1),       # cluster, and n > 32 (x reloaded per phase)
+    (513, 70, 68, 2),
+    (100, 33, 40, 1),
+    (257, 1, 5, 3),
+]
+
+
+@pytest.mark.parametrize("shape", SHAPES,
+                         ids=[f"m{m}-k{k}-n{n}-g{g}" for m, k, n, g in SHAPES])
+def test_kernel_sources_match_plain(harness, tmp_path, shape):
+    m, k, n, grid = shape
+    rng = np.random.default_rng(m + k)
+    c = (rng.normal(size=(k, n)) * 5).astype(np.float32)
+    x = (c[rng.integers(0, k, m)] + rng.normal(size=(m, n))).astype(
+        np.float32)
+    if k > 1:
+        c[-1] = c[0]                     # twin centroids: exact score ties
+    X, C = torch.from_numpy(x), torch.from_numpy(c)
+    pids, pd = ref.assign_ref(X, C)
+    ids = pids.numpy().copy()
+    ids[::7] = -1                        # padding: never hits
+    ids[3::11] = k                       # out of range: adds nothing
+    ids[5::13] = k + 40
+    (tmp_path / "in.bin").write_bytes(x.tobytes() + c.tobytes()
+                                      + ids.tobytes())
+    subprocess.run([str(harness), str(m), str(k), str(n), str(grid),
+                    str(tmp_path / "in.bin"), str(tmp_path / "out.bin")],
+                   check=True, timeout=120)
+    out = np.fromfile(tmp_path / "out.bin", dtype=np.uint8)
+    kn = k * n
+    sizes = [4 * m, 4 * m, 4 * (kn + k), 4 * (kn + k + 1)]
+    aids, ad, ou, of = (out[a:b] for a, b in
+                        zip(np.cumsum([0] + sizes[:-1]), np.cumsum(sizes)))
+    aids, ad = aids.view(np.int32), ad.view(np.float32)
+    ou, of = ou.view(np.float32), of.view(np.float32)
+
+    np.testing.assert_array_equal(aids, pids.numpy())
+    if k > 1:
+        assert not np.any(aids == k - 1)  # a tie goes to the lowest index
+    scale = (np.sqrt((x.astype(np.float64) ** 2).sum(1))
+             + np.sqrt((c.astype(np.float64) ** 2).sum(1))[aids]) ** 2
+    assert np.all(np.abs(ad - pd.numpy()) <= RTOL * scale)
+
+    for (sums, counts), used in (((ou[:kn], ou[kn:]), ids),
+                                 ((of[:kn], of[kn:kn + k]), pids.numpy())):
+        want_s, want_c = ref.update_ref(X, torch.from_numpy(used), k)
+        np.testing.assert_array_equal(counts, want_c.numpy())
+        abs_s, _ = ref.update_ref(X.abs(), torch.from_numpy(used), k)
+        assert np.all(np.abs(sums - want_s.numpy().ravel())
+                      <= RTOL * abs_s.numpy().ravel() + 1e-6)
+    np.testing.assert_allclose(of[-1], float(pd.sum()), rtol=RTOL)

@@ -1,0 +1,139 @@
+"""The CUDA kernels on the card, against their plain versions.
+
+Every test here is marked ``cuda``: it decides inside the test whether a
+card is present and skips with the reason where there is none.  This file
+imports neither ``jax`` nor ``repro``, so it runs on a machine that has
+only PyTorch (with ``--noconftest``: the suite's conftest configures JAX):
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+The shared helpers (``blobs`` and the error bounds) are used by the CPU
+parity tests too.
+"""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+RTOL = 1e-5   # f32 sums in another order: ~1e-7 per term, far inside 1e-5
+
+
+def blobs(m, k, n, seed=0):
+    """Points around k well-separated centres (spread 5, unit noise)."""
+    rng = np.random.default_rng(seed)
+    c = (rng.normal(size=(k, n)) * 5.0).astype(np.float32)
+    comp = rng.integers(0, k, size=m)
+    x = (c[comp] + rng.normal(size=(m, n))).astype(np.float32)
+    return x, c
+
+
+def d_bound(x, c, ids):
+    """|error| of x2 - 2x.c + c2 in f32: RTOL of the terms' magnitude."""
+    x2 = np.sum(x.astype(np.float64) ** 2, axis=1)
+    c2 = np.sum(c.astype(np.float64) ** 2, axis=1)[ids]
+    return RTOL * (np.sqrt(x2) + np.sqrt(c2)) ** 2
+
+
+def sums_bound(x, ids, k):
+    """|error| of a cluster's f32 sum: RTOL of the sum of |x| in it."""
+    abs_sums = np.zeros((k, x.shape[1]))
+    ok = (ids >= 0) & (ids < k)
+    np.add.at(abs_sums, ids[ok], np.abs(x[ok]).astype(np.float64))
+    return RTOL * abs_sums + 1e-6
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (sm_90): the kernels run only there")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _near_ties(x, c):
+    scores = (c * c).sum(1)[None, :] - 2.0 * (x @ c.T)
+    two = torch.topk(scores, 2, dim=1, largest=False).values
+    return (two[:, 1] - two[:, 0]) <= 1e-4 * two[:, 0].abs()
+
+
+CARD_SHAPES = [(64_000, 25, 28), (64_001, 25, 3), (64_001, 130, 68),
+               (3_001, 1024, 1024), (2_001, 1024, 1100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CARD_SHAPES,
+                         ids=[f"m{m}-k{k}-n{n}" for m, k, n in CARD_SHAPES])
+def test_kernels_match_plain_on_card(shape):
+    _card()
+    from repro_torch.kernels import distance, fused_step, ops, update
+
+    m, k, n = shape
+    xn, cn = blobs(*shape, seed=6)
+    x, c = torch.from_numpy(xn).cuda(), torch.from_numpy(cn).cuda()
+    ties = _near_ties(x, c)
+    n_ties = int(ties.sum())
+
+    ids, d = distance.assign_f32(x, c)
+    ids2, d2 = distance.assign_f32(x, c)
+    assert torch.equal(ids, ids2) and torch.equal(d, d2)   # bitwise repeat
+    pids, pd = distance.assign_plain(x, c)
+    assert torch.equal(ids[~ties], pids[~ties])
+    pidn = pids.cpu().numpy()
+    assert np.all((d - pd).abs().cpu().numpy()
+                  <= d_bound(xn, cn, pidn) + 1e-6)
+
+    uids = pids.clone()
+    uids[::7] = -1                 # padding: never hits
+    uids[3::11] = k                # out of range: adds nothing
+    sums, counts = update.update_f32(x, uids, k)
+    sums2, counts2 = update.update_f32(x, uids, k)
+    assert torch.equal(sums, sums2) and torch.equal(counts, counts2)
+    psums, pcounts = update.update_plain(x, uids, k)
+    assert torch.equal(counts, pcounts)
+    assert np.all((sums - psums).abs().cpu().numpy()
+                  <= sums_bound(xn, uids.cpu().numpy(), k))
+
+    fs = ops.fused_step(x, c, impl="cuda")        # kernel A or B + C
+    fs2 = ops.fused_step(x, c, impl="cuda")
+    assert all(torch.equal(a, b) for a, b in zip(fs, fs2))
+    psums, pcounts, pobj = fused_step.fused_step_plain(x, c)
+    assert int((fs[1] - pcounts).abs().sum()) <= 2 * n_ties
+    assert np.all((fs[0] - psums).abs().cpu().numpy()
+                  <= sums_bound(xn, pidn, k)
+                  + 2 * n_ties * float(np.abs(xn).max()))
+    np.testing.assert_allclose(float(fs[2]), float(pobj), rtol=RTOL)
+
+
+@pytest.mark.cuda
+def test_fit_on_card_goes_through_the_kernels():
+    _card()
+    from repro_torch import api
+    from repro_torch.core.objective import EVAL_BATCH
+    from repro_torch.data.synthetic import GMMSpec, gmm_dataset
+    from repro_torch.kernels import ops
+
+    X = gmm_dataset(GMMSpec(m=300_000, n=28, components=25, seed=1))
+    cfg = api.BigMeansConfig(k=25, s=8192, n_chunks=8)
+    ops.reset_launch_counts()
+    res = api.fit(X, cfg)
+    _, f = api.evaluate(res, X)
+    counts = ops.launch_counts()
+    assert res.centroids.is_cuda and res.extras["fit"]["impl"] == "cuda"
+    assert counts["fused_step"] == res.n_iterations
+    assert counts["update"] == cfg.n_chunks
+    assert counts["assign"] == cfg.n_chunks + math.ceil(X.shape[0]
+                                                        / EVAL_BATCH)
+    ref = api.fit(X, cfg.replace(impl="ref"))
+    assert ops.launch_counts() == counts          # the plain path: no kernel
+    _, f_ref = api.evaluate(ref, X)
+    assert abs(f - f_ref) <= 1e-3 * f_ref
+
+
+@pytest.mark.cuda
+def test_kernel_library_is_cached_by_source_digest():
+    _card()
+    from repro_torch.kernels import build
+
+    build.load()
+    again = build.build()
+    assert not again.built and again.path == build.info().path
+    assert build.source_digest() in again.path.name

@@ -1,0 +1,133 @@
+"""Ground rules of the port: what it imports, where it runs, what it
+refuses."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import api, device as devices
+from repro_torch.kernels import ops
+from repro_torch.kernels import precision as px
+
+ROOT = Path(__file__).resolve().parents[1]
+X = np.random.default_rng(0).normal(size=(600, 5)).astype(np.float32)
+
+
+def test_port_imports_neither_jax_nor_repro():
+    pkg = ROOT / "src" / "repro_torch"
+    modules = sorted(
+        "repro_torch." + ".".join(p.relative_to(pkg).with_suffix("").parts)
+        for p in pkg.rglob("*.py"))
+    modules = [m.removesuffix(".__init__") for m in modules]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'"
+        " or m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print(len(sys.modules)); assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert len(modules) >= 20
+
+
+def test_no_card_means_no_run(monkeypatch):
+    """Without a CUDA device and without device='cpu' the entry points
+    raise; they never move to the CPU on their own."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = api.BigMeansConfig(k=3, s=100, n_chunks=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.fit(X, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.evaluate(np.zeros((3, 5), np.float32), X)
+    from repro_torch.core import big_means
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        big_means(X, 0, k=3, s=100, n_chunks=2)
+    assert devices.resolve("cpu") == torch.device("cpu")
+
+
+def test_cuda_impl_refuses_cpu_tensors():
+    x, c = torch.from_numpy(X), torch.from_numpy(X[:4])
+    for call in (lambda: ops.assign(x, c, impl="cuda"),
+                 lambda: ops.update(x, torch.zeros(600, dtype=torch.int32),
+                                    4, impl="cuda"),
+                 lambda: ops.fused_step(x, c, impl="cuda")):
+        with pytest.raises(ValueError, match="impl='cuda' needs CUDA"):
+            call()
+    cfg = api.BigMeansConfig(k=3, s=100, n_chunks=2, impl="cuda")
+    with pytest.raises(ValueError, match="impl='cuda' needs CUDA"):
+        api.fit(X, cfg, device="cpu")
+    assert ops.resolve_impl("auto", torch.device("cpu")) == "ref"
+    with pytest.raises(ValueError, match="unknown impl"):
+        ops.resolve_impl("pallas", torch.device("cpu"))
+
+
+@pytest.mark.parametrize("knob,item", [
+    (dict(batch=2), "queue 1 item 5"),
+    (dict(ckpt_dir="ckpt"), "queue 1 item 6"),
+    (dict(time_budget_s=1.0), "queue 1 item 6"),
+    (dict(vns_ladder=(200,)), "queue 1 item 6"),
+    (dict(scheduler="worker"), "queue 1 item 6"),
+    (dict(topology="worker_mesh"), "queue 1 item 8"),
+    (dict(mesh=object()), "queue 1 item 8"),
+    (dict(autotune=True), "queue 1 item 10"),
+    (dict(precision="bf16"), "queue 2 item 4"),
+    (dict(precision="bf16x3"), "queue 2 item 4"),
+    (dict(precision="int8"), "queue 2 items 6-8"),
+], ids=lambda v: next(iter(v)) if isinstance(v, dict) else v)
+def test_unported_knobs_raise(knob, item):
+    with pytest.raises(NotImplementedError, match=item):
+        api.BigMeansConfig(k=3, s=100, n_chunks=2, **knob)
+
+
+@pytest.mark.parametrize("method,item", [
+    ("batched", "queue 1 item 5"), ("streaming", "queue 1 item 6"),
+    ("sharded", "queue 1 item 8"), ("kmeanspp", "queue 1 item 9"),
+    ("coreset", "queue 1 item 9"),
+])
+def test_unported_methods_raise(method, item):
+    cfg = api.BigMeansConfig(k=3, s=100, n_chunks=2)
+    with pytest.raises(NotImplementedError, match=item):
+        api.fit(X, cfg, method=method, device="cpu")
+
+
+def test_unported_inputs_raise():
+    cfg = api.BigMeansConfig(k=3, s=100, n_chunks=2)
+    with pytest.raises(NotImplementedError, match="precision 'bf16'"):
+        api.fit(torch.from_numpy(X).bfloat16(), cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        api.fit(lambda cid: X, cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        ops.update(torch.from_numpy(X), torch.zeros(600, dtype=torch.int32),
+                   3, weights=torch.ones(600))
+    with pytest.raises(KeyError):
+        api.fit(X, cfg, method="nope", device="cpu")
+
+
+def test_config_validation_follows_reference():
+    import repro.api as japi
+
+    bad = [dict(k=0, s=10), dict(k=5, s=4), dict(k=3, s=10, tol=-1.0),
+           dict(k=3, s=10, impl="nope"), dict(k=3, s=10, precision="fp8"),
+           dict(k=3, s=10, sync="sometimes"),
+           dict(k=3, s=10, scheduler="nope"),
+           dict(k=3, s=10, topology="ring"),
+           dict(k=3, s=10, scheduler="competitive_s")]
+    for kw in bad:
+        with pytest.raises(ValueError):
+            japi.BigMeansConfig(**kw)
+        with pytest.raises(ValueError):
+            api.BigMeansConfig(**kw)
+    a = api.BigMeansConfig(k=3, s=10)
+    b = japi.BigMeansConfig(k=3, s=10)
+    for f in ("n_chunks", "max_iters", "tol", "candidates", "seed",
+              "with_replacement", "precision", "batch", "prefetch"):
+        assert getattr(a, f) == getattr(b, f), f
+    assert px.resolve("auto", torch.float32) == "f32"
+    assert px.resolve("auto", torch.float64) == "f32"
