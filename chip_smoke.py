@@ -6,28 +6,38 @@
 Phases, each printing JSON lines:
 
 1. device — card, torch/CUDA versions, power limit; TF32 switched off.
-2. build — compile the three CUDA kernels (kernels/csrc) for sm_90a.
+2. build — compile the four CUDA kernels (kernels/csrc) for sm_90a.
 3. kernels — each kernel against its plain PyTorch version on the same
-   CUDA tensors, at the main path's shapes and at edge shapes, and two
-   launches of each compared bitwise.
-4. main path — ``repro_torch.api.fit`` + ``evaluate`` on a HEPMASS-shaped
-   mixture (m = 10.5M, n = 28, 25 components) generated on the card, with
-   k = 25, s = 64,000, 32 chunks, through the kernels (launch counts
-   checked); the same fit on the plain path must reach the same full-data
-   objective within 1e-3.
-5. times — each kernel, its plain version and a PyTorch library call where
+   CUDA tensors, at the main paths' shapes and at edge shapes, and two
+   launches of each compared bitwise; every stream of the batched kernel D
+   bitwise equal to kernel A on that stream.
+4. main path, sequential — ``repro_torch.api.fit`` + ``evaluate`` on a
+   HEPMASS-shaped mixture (m = 10.5M, n = 28, 25 components) generated on
+   the card, with k = 25, s = 64,000, 32 chunks, through the kernels
+   (launch counts checked); the same fit on the plain path must reach the
+   same full-data objective within 1e-3.
+5. main path, batched — the same data and chunk budget with the paper's
+   ``batch=8, sync_every=2``, through kernel D (launch counts checked
+   against the per-round iterations); the plain path within 1e-3 and with
+   the same accept sequence up to a near-tie decision; a batch=1 batched
+   fit bitwise equal to the sequential fit.
+6. times — each kernel, its plain version and a PyTorch library call where
    one computes the same function, by CUDA events over CUDA-graph replays
-   (device time; host launch overhead excluded), beside the bound.
+   (device time; host launch overhead excluded), beside the bound; kernel D
+   beside 8 back-to-back kernel-A launches; batched and sequential fit
+   walls in turns.
 
-Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
-the final ``{"ok": true, "device": {...}}`` line.  Any failed check raises.
+Then the one ``{"kernels": [...]}`` line, the card's name and power limit,
+and the final ``{"ok": true, "device": {...}}`` line.  Any failed check raises.
 It needs a CUDA card and the repository's ``src`` beside it.
 """
 from __future__ import annotations
 
 import argparse
+import cProfile
 import json
 import math
+import pstats
 import subprocess
 import sys
 import time
@@ -38,7 +48,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 
+from repro_torch import random as rnd  # noqa: E402
 from repro_torch.api import BigMeansConfig, evaluate, fit  # noqa: E402
+from repro_torch.core import big_means_batched  # noqa: E402
 from repro_torch.core.objective import EVAL_BATCH  # noqa: E402
 from repro_torch.data.synthetic import (  # noqa: E402
     PAPER_DATASETS, GMMSpec, gmm_dataset,
@@ -56,11 +68,18 @@ TIE_RTOL = 1e-4                # ids compared where the top-2 gap exceeds it
 KERNELS = {
     "fused_step_f32": ("src/repro_torch/kernels/csrc/fused_step.cu",
                        "src/repro/kernels/fused_step.py:297"),
+    "fused_step_batched_f32": (
+        "src/repro_torch/kernels/csrc/fused_step_batched.cu",
+        "src/repro/kernels/fused_step.py:433"),
     "assign_f32": ("src/repro_torch/kernels/csrc/assign.cu",
                    "src/repro/kernels/distance.py:164"),
     "update_f32": ("src/repro_torch/kernels/csrc/update.cu",
                    "src/repro/kernels/update.py:114"),
 }
+COUNTS = {"fused_step_f32": "fused_step", "assign_f32": "assign",
+          "update_f32": "update",
+          "fused_step_batched_f32": "fused_step_batched"}
+BATCH, SYNC_EVERY = 8, 2        # the paper's (configs/bigmeans_paper.py)
 
 
 def emit(obj) -> None:
@@ -164,6 +183,43 @@ def check_fused(x, c, ties: int, direct: bool = True) -> float:
     return max(float(err.max()), abs(float(obj) - float(obj_p)))
 
 
+def batched_separated(batch: int, m: int, k: int, n: int, seed: int):
+    """``batch`` independent streams of :func:`separated`."""
+    pairs = [separated(m, k, n, seed + b) for b in range(batch)]
+    return (torch.stack([p[0] for p in pairs]),
+            torch.stack([p[1] for p in pairs]))
+
+
+def check_batched(x, c) -> tuple[float, int]:
+    """Kernel D through ``ops`` (outside the envelope: kernels B + C stream
+    by stream) against its plain version, every stream bitwise equal to the
+    single-stream route (kernel A inside the envelope), and two calls
+    bitwise equal.  Returns (max abs err, D launches per call)."""
+    batch, k = c.shape[0], c.shape[1]
+    before = fused_step.batched_launches
+    sums, counts, obj = twice(
+        lambda a, b: ops.fused_step_batched(a, b, impl="cuda"), x, c)
+    per_call = (fused_step.batched_launches - before) // 2
+    sums_p, counts_p, obj_p = fused_step.fused_step_batched_plain(x, c)
+    err = 0.0
+    for b in range(batch):
+        one = ops.fused_step(x[b], c[b], impl="cuda")
+        for u, v in zip((sums[b], counts[b], obj[b]), one):
+            check(torch.equal(u, v),
+                  f"batched stream {b} differs from the single-stream route")
+        ties = int(near_ties(x[b], c[b]).sum())
+        check(int((counts[b] - counts_p[b]).abs().sum()) <= 2 * ties,
+              f"batched counts differ beyond near ties (stream {b})")
+        ids_p, _ = ref.assign_ref(x[b], c[b])
+        e = (sums[b] - sums_p[b]).abs()
+        check(bool((e <= sums_bound(x[b], ids_p, k, ties)).all()),
+              f"batched sums off by {float(e.max())} (stream {b})")
+        check(abs(float(obj[b]) - float(obj_p[b])) <= RTOL * float(obj_p[b]),
+              f"batched obj {float(obj[b])} vs plain {float(obj_p[b])}")
+        err = max(err, float(e.max()), abs(float(obj[b]) - float(obj_p[b])))
+    return err, per_call
+
+
 def phase_kernels(seed: int) -> dict:
     shapes = [  # (m, k, n, why)
         (64_000, 25, 28, "main path chunk"),
@@ -193,14 +249,41 @@ def phase_kernels(seed: int) -> dict:
                         "update_f32": row["update_max_abs_err"]}
         del x, c
         torch.cuda.empty_cache()
-    emit({"kernels": [{"name": name, "route": "cuda", "source": src,
-                       "replaces": rep, "max_abs_err": main_err[name]}
-                      for name, (src, rep) in KERNELS.items()]})
+    batched_shapes = [  # (B, m, k, n, why)
+        (BATCH, 64_000, 25, 28, "batched main path chunks"),
+        (3, 64_001, 25, 3, "ragged m, n = 3"),
+        (2, 64_001, 130, 68, "k > 128, n = 68"),
+        (2, 64_001, 1024, 1024, "envelope edge: one stream per launch"),
+        (2, 20_001, 1024, 1100, "outside the envelope: B + C per stream"),
+    ]
+    for batch, m, k, n, why in batched_shapes:
+        x, c = batched_separated(batch, m, k, n, seed)
+        fits = fused_step.fits_batched(k, n)
+        err, per_call = check_batched(x, c)
+        stride = k * n + k + 1
+        grid = build.grid(x.device, m, stride)
+        group = build.stream_group(grid, stride)
+        want = -(-batch // group) if fits else 0
+        check(per_call == want, f"kernel D launched {per_call} times per "
+              f"call, want {want}")
+        emit({"phase": "kernels", "kernel": "fused_step_batched_f32",
+              "batch": batch, "m": m, "k": k, "n": n, "case": why,
+              "fits": fits, "grid_per_stream": grid,
+              "streams_per_launch": min(group, batch),
+              "launches_per_call": per_call, "max_abs_err": err,
+              "route": "kernel D" if fits else "kernels B + C per stream",
+              "streams_bitwise_equal_to_single_route": True})
+        if why == "batched main path chunks":
+            main_err["fused_step_batched_f32"] = err
+        del x, c
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels_summary", "max_abs_err_at_main_shape":
+          main_err})
     return main_err
 
 
 # --------------------------------------------------------------------------
-# phase 4: the main path at full size
+# phase 4: the sequential main path at full size
 # --------------------------------------------------------------------------
 
 
@@ -278,11 +361,188 @@ def phase_main(seed: int):
           "accepts_ref": [int(a) for _, _, a in res_ref.trace],
           "first_parting": first_parting(res.trace, res_ref.trace)})
     check(rel <= 1e-3, f"full objectives differ by {rel:.3e} (> 1e-3)")
-    return X, res, launches, wall
+    check(all(v > 0 for k, v in launches.items()
+              if k != "fused_step_batched")
+          and launches["fused_step_batched"] == 0,
+          f"sequential path launches {launches}")
+    return X, res, launches, wall, walls
 
 
 # --------------------------------------------------------------------------
-# phase 5: times
+# phase 5: the batched main path at full size
+# --------------------------------------------------------------------------
+
+
+def incumbents_before(trace, batch: int, sync_every: int) -> list:
+    """The incumbent f each chunk of a round-major batched trace was
+    compared with (streams start at inf, exchange the best every
+    ``sync_every`` rounds)."""
+    f_best = [math.inf] * batch
+    out = []
+    for i, (_, f_new, accepted) in enumerate(trace):
+        b = i % batch
+        out.append(f_best[b])
+        if accepted:
+            f_best[b] = f_new
+        if b == batch - 1 and (i // batch + 1) % sync_every == 0:
+            f_best = [min(f_best)] * batch
+    return out
+
+
+def check_accepts(res, res_ref, batch: int, sync_every: int):
+    """The two paths take the same accept decisions up to the first one
+    that is a near tie (f_new within TIE_RTOL of its incumbent on either
+    path); after such a decision the trajectories may part."""
+    parting = first_parting(res.trace, res_ref.trace)
+    if parting is None:
+        return None
+    i = parting["chunk"]
+    near = [abs(tr[i][1] - inc) <= TIE_RTOL * abs(inc)
+            for tr, inc in ((res.trace, incumbents_before(res.trace, batch,
+                                                          sync_every)[i]),
+                            (res_ref.trace,
+                             incumbents_before(res_ref.trace, batch,
+                                               sync_every)[i]))]
+    check(any(near), f"accept sequences part at chunk {i} without a near "
+          f"tie: {parting}")
+    return parting
+
+
+PROFILED = (  # (file under src/repro_torch, function): host time read
+    ("core/bigmeans.py", "sample_chunk"), ("core/kmeanspp.py", "seed"),
+    ("core/kmeanspp.py", "seed_batched"), ("core/kmeans.py", "lloyd"),
+    ("core/kmeans.py", "lloyd_batched"), ("kernels/ops.py", "fused_step"),
+    ("kernels/ops.py", "fused_step_batched"), ("kernels/ops.py", "assign"),
+    ("kernels/ops.py", "update"))
+
+
+def host_profile(path: str, run) -> None:
+    """Cumulative host seconds of the package's main functions over one
+    warm ``run()`` under cProfile (which inflates Python calls: read the
+    shares, not the absolute times)."""
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    prof.enable()
+    run()
+    torch.cuda.synchronize()
+    prof.disable()
+    wall = time.monotonic() - t0
+    stats = pstats.Stats(prof).stats
+    cum = {}
+    for (file, _, fn), (_, calls, _, ct, _) in stats.items():
+        for mod, name in PROFILED:
+            if fn == name and Path(file).as_posix().endswith(
+                    "repro_torch/" + mod):
+                cum[f"{Path(mod).stem}.{name}"] = {"calls": calls,
+                                                    "cum_s": ct}
+    emit({"phase": "host_profile", "path": path, "profiled_wall_s": wall,
+          "functions": cum})
+
+
+def phase_batched(X, seed: int, seq_fit_walls: dict):
+    m, n = X.shape
+    cfg = BigMeansConfig(k=25, s=64_000, n_chunks=32, batch=BATCH,
+                         sync_every=SYNC_EVERY, seed=seed)
+    for impl in ("cuda", "ref"):        # warm both paths (first-use costs)
+        fit(X, cfg.replace(n_chunks=2 * BATCH, impl=impl, seed=seed + 1))
+
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    res = fit(X, cfg, method="auto")
+    ids, f_full = evaluate(res, X)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = ops.launch_counts()
+
+    n_eval = math.ceil(m / EVAL_BATCH)
+    rounds = cfg.n_chunks // BATCH
+    check(res.strategy == "batched" and res.extras.get("auto"),
+          f"auto resolved to {res.strategy}")
+    check(res.extras["batch"] == BATCH and res.extras["rounds"] == rounds,
+          "batched extras")
+    check(res.extras["fit"]["impl"] == "cuda", "fit did not use the kernels")
+    check(res.centroids.is_cuda, "centroids are not on the card")
+    check(tuple(res.centroids.shape) == (25, n), "centroid shape")
+    check(bool(torch.isfinite(res.centroids).all()), "non-finite centroids")
+    check(tuple(ids.shape) == (m,) and int(ids.min()) >= 0
+          and int(ids.max()) < 25, "evaluate ids")
+    check(math.isfinite(f_full) and f_full > 0, "full objective")
+    check(res.n_chunks == cfg.n_chunks and len(res.trace) == cfg.n_chunks,
+          "batched trace length")
+    # Per-chunk Lloyd iterations are not in FitResult: replay the same run
+    # (same key, deterministic kernels) through the core driver.
+    ops.reset_launch_counts()
+    state, infos = big_means_batched(
+        X, rnd.TORCH.key(seed), k=cfg.k, s=cfg.s, batch=BATCH,
+        rounds=rounds, sync_every=SYNC_EVERY)
+    replay_launches = ops.launch_counts()
+    check(torch.equal(state.centroids, res.centroids)
+          and float(state.f_best) == res.objective,
+          "the core replay of the batched fit differs from it")
+    iters = infos.lloyd_iters.view(rounds, BATCH)
+    slowest = int(iters.max(dim=1).values.sum())
+    check(replay_launches["fused_step_batched"] == slowest,
+          f"kernel D launches {replay_launches['fused_step_batched']} != "
+          f"sum over rounds of the slowest stream's iterations {slowest}")
+    check(int(iters.sum()) == res.n_iterations, "iterations")
+    want = {"fused_step": 0, "fused_step_batched": slowest,
+            "update": cfg.n_chunks, "assign": cfg.n_chunks + n_eval}
+    check(launches == want, f"batched path launches {launches} != {want}")
+
+    t1 = time.monotonic()
+    res_ref = fit(X, cfg.replace(impl="ref"), method="auto")
+    torch.cuda.synchronize()
+    wall_ref_fit = time.monotonic() - t1
+    _, f_full_ref = evaluate(res_ref, X, impl="ref")
+    rel = abs(f_full - f_full_ref) / f_full_ref
+    parting = check_accepts(res, res_ref, BATCH, SYNC_EVERY)
+
+    # batch=1 through the batched strategy is the sequential fit, bitwise
+    one_cfg = cfg.replace(batch=1, n_chunks=8)
+    one = fit(X, one_cfg, method="batched")
+    seq = fit(X, one_cfg, method="sequential")
+    check(torch.equal(one.centroids, seq.centroids)
+          and one.objective == seq.objective and one.trace == seq.trace
+          and one.n_dist_evals == seq.n_dist_evals,
+          "batch=1 batched fit differs from the sequential fit")
+
+    walls = {"sequential": [], "batched": []}   # cuda fit walls, in turns
+    for method in ("sequential", "batched", "batched", "sequential"):
+        c = cfg if method == "batched" else cfg.replace(batch=1)
+        walls[method].append(fit(X, c, method=method).wall_time_s)
+    host_profile("sequential", lambda: fit(X, cfg.replace(batch=1),
+                                           method="sequential"))
+    host_profile("batched", lambda: fit(X, cfg, method="batched"))
+    emit({"phase": "main_path_batched", "m": m, "n": n, "k": cfg.k,
+          "s": cfg.s, "n_chunks": cfg.n_chunks, "batch": BATCH,
+          "sync_every": SYNC_EVERY, "rounds": rounds,
+          "strategy": res.strategy, "f_best": res.objective,
+          "f_full": f_full, "f_full_per_point": f_full / m,
+          "n_accepted": res.n_accepted, "n_iterations": res.n_iterations,
+          "iterations_per_chunk": iters.flatten().tolist(),
+          "slowest_stream_iterations_sum": slowest, "wall_s": wall,
+          "fit_wall_s": res.wall_time_s,
+          "fit_ms_per_batched_iteration": 1e3 * res.wall_time_s / slowest,
+          "launches": launches, "eval_batches": n_eval,
+          "ref": {"f_best": res_ref.objective, "f_full": f_full_ref,
+                  "n_accepted": res_ref.n_accepted,
+                  "n_iterations": res_ref.n_iterations,
+                  "fit_wall_s": wall_ref_fit},
+          "f_full_rel_diff": rel,
+          "accepts_cuda": [int(a) for _, _, a in res.trace],
+          "accepts_ref": [int(a) for _, _, a in res_ref.trace],
+          "first_parting": parting,
+          "batch1_bitwise_equal_to_sequential": True,
+          "batch1_n_chunks": one_cfg.n_chunks,
+          "fit_walls_s": walls,
+          "sequential_fit_walls_s_phase4": seq_fit_walls})
+    check(rel <= 1e-3, f"full objectives differ by {rel:.3e} (> 1e-3)")
+    return res, launches, wall
+
+
+# --------------------------------------------------------------------------
+# phase 6: times
 # --------------------------------------------------------------------------
 
 
@@ -378,23 +638,40 @@ def phase_times(X, res, seed: int) -> dict:
         4 * (m * n + k * n + 2 * m), 2 * m * k * n, 3)
     out["assign_f32"]["at_evaluate"]["m"] = m
     out["update_f32"]["library"] = "index_add_ (sums only; counts excluded)"
+    # kernel D on BATCH chunks against the shared incumbent (every stream
+    # starts a round from it after a sync), beside BATCH launches of A
+    xb = X[torch.randint(0, X.shape[0], (BATCH, s), generator=gen,
+                         device="cuda")].contiguous()
+    cb = c.expand(BATCH, k, n).contiguous()
+    out["fused_step_batched_f32"] = timing(
+        lambda: fused_step.fused_step_batched_f32(xb, cb),
+        lambda: fused_step.fused_step_batched_plain(xb, cb), None,
+        4 * BATCH * (s * n + k * n + k * n + k + 1),
+        BATCH * (2 * s * k * n + s * n), 100)
+    out["fused_step_batched_f32"]["batch"] = BATCH
+    out["fused_step_batched_f32"]["kernel_a_x_batch_ms"] = device_ms(
+        lambda: [fused_step.fused_step_f32(xb[b], cb[b])
+                 for b in range(BATCH)], 25)
     for name, row in out.items():
         emit({"phase": "times", "kernel": name, "m": s, "k": k, "n": n,
               **row})
     return out
 
 
-def device_share(times: dict, launches: dict, n_eval: int, wall: float):
-    """Kernel device seconds of the main path's run, estimated as launches
+def device_share(path: str, times: dict, launches: dict, n_eval: int,
+                 wall: float):
+    """Kernel device seconds of a main path's run, estimated as launches
     times graph-replay ms (the evaluate batches at their own size)."""
     ev = times["assign_f32"]["at_evaluate"]
     per_batch = ev["ms"] * EVAL_BATCH / ev["m"]
-    s = (launches["fused_step"] * times["fused_step_f32"]["ms"]
+    s = (n_eval * per_batch
          + (launches["assign"] - n_eval) * times["assign_f32"]["ms"]
-         + n_eval * per_batch
-         + launches["update"] * times["update_f32"]["ms"]) / 1e3
-    emit({"phase": "where_the_time_goes", "kernel_device_s_estimate": s,
-          "main_path_wall_s": wall, "kernel_share_estimate": s / wall})
+         + sum(launches[COUNTS[name]] * times[name]["ms"]
+               for name in ("fused_step_f32", "fused_step_batched_f32",
+                            "update_f32"))) / 1e3
+    emit({"phase": "where_the_time_goes", "path": path,
+          "kernel_device_s_estimate": s, "main_path_wall_s": wall,
+          "kernel_share_estimate": s / wall})
 
 
 def main() -> int:
@@ -429,16 +706,26 @@ def main() -> int:
     # phase 3: kernels vs plain
     errs = phase_kernels(args.seed)
 
-    # phase 4: main path
-    X, res, launches, wall = phase_main(args.seed)
+    # phase 4: the sequential main path
+    X, res, launches, wall, seq_walls = phase_main(args.seed)
 
-    # phase 5: times
+    # phase 5: the batched main path
+    _, launches_b, wall_b = phase_batched(X, args.seed, seq_walls)
+
+    # phase 6: times
     times = phase_times(X, res, args.seed)
-    device_share(times, launches, math.ceil(X.shape[0] / EVAL_BATCH), wall)
+    n_eval = math.ceil(X.shape[0] / EVAL_BATCH)
+    device_share("sequential", times, launches, n_eval, wall)
+    device_share("batched", times, launches_b, n_eval, wall_b)
 
+    # launches: kernel D from the batched path, A, B, C from the
+    # sequential one; both paths' counts beside them
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name.removesuffix("_f32")],
+         "launches": (launches_b if name == "fused_step_batched_f32"
+                      else launches)[COUNTS[name]],
+         "launches_per_path": {"sequential": launches[COUNTS[name]],
+                               "batched": launches_b[COUNTS[name]]},
          "max_abs_err": errs[name], **times[name]}
         for name, (src, rep) in KERNELS.items()]})
     print(smi, flush=True)

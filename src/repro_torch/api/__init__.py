@@ -6,6 +6,7 @@
 
     result = fit(X, k=25, s=64_000, n_chunks=32)        # on the CUDA device
     ids, f = evaluate(result, X)                        # full-data f(C, X)
+    result = fit(X, cfg, batch=8, sync_every=2)         # 8 streams at once
     result = fit(X, cfg, method="sequential", device="cpu")
 
 ``fit`` runs on the CUDA device unless ``device="cpu"`` is passed, and
@@ -66,7 +67,8 @@ def fit(
     * ``data`` — a 2-D numpy array or torch tensor, or an ``.npy`` path.
     * ``config`` — a :class:`BigMeansConfig`; ``overrides`` are applied on
       top (or, with no config, must include at least ``k`` and ``s``).
-    * ``method`` — ``'auto'`` or ``'sequential'``.
+    * ``method`` — ``'auto'``, ``'sequential'`` or ``'batched'`` (``'auto'``
+      picks ``'batched'`` when ``batch > 1``).
     * ``rng`` — the key-tree backend (:class:`repro_torch.random.TorchRNG`
       by default); ``key`` defaults to ``rng.key(config.seed)``.
     * ``device`` — ``None`` runs on the CUDA device; ``'cpu'`` runs the

@@ -5,10 +5,11 @@ The same fields, defaults and validation as the reference's
 raises ``NotImplementedError`` here, naming the ROADMAP item that brings it,
 so that no knob is silently ignored:
 
-* ``batch > 1`` (queue 1 item 5), ``ckpt_dir`` / ``time_budget_s`` /
-  ``vns_ladder`` / ``scheduler != 'uniform'`` (queue 1 item 6),
-  ``topology`` other than ``'auto'``/``'single'`` and ``mesh``
-  (queue 1 item 8), ``autotune=True`` (queue 1 item 10);
+* ``ckpt_dir`` / ``time_budget_s`` / ``vns_ladder`` /
+  ``scheduler != 'uniform'`` (queue 1 item 6), ``topology`` other than
+  ``'auto'``/``'single'`` and ``mesh`` — ``'stream_mesh'`` included, so a
+  batched fit runs its streams on one device — (queue 1 item 8),
+  ``autotune=True`` (queue 1 item 10);
 * ``precision`` other than ``'auto'``/``'f32'`` (queue 2 items 4, 6-8);
   ``'auto'`` resolves against the data's dtype at fit time.
 
@@ -148,8 +149,6 @@ class BigMeansConfig:
         self._check_ported(kind)
 
     def _check_ported(self, kind: str) -> None:
-        if self.batch > 1:
-            raise _not_ported(f"batch={self.batch} (batched streams)", "5")
         if self.ckpt_dir is not None:
             raise _not_ported("ckpt_dir (checkpointing)", "6")
         if self.time_budget_s is not None:

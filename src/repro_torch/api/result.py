@@ -17,13 +17,15 @@ class FitResult:
     * ``centroids`` — [k, n] float32 cluster centers (torch tensor).
     * ``objective`` — f(C, P) on the winning chunk (a sum over ``s`` points);
       :func:`repro_torch.api.evaluate` gives the full-data f(C, X).
-    * ``strategy`` — the strategy that ran ("sequential").
+    * ``strategy`` — the strategy that ran ("sequential" or "batched").
     * ``n_chunks`` / ``n_accepted`` / ``n_iterations`` — chunks processed,
       incumbent improvements, total Lloyd iterations.
     * ``n_dist_evals`` — the paper's analytic n_d counter.
-    * ``trace`` — ``(chunk_idx, f_new, accepted)`` triples.
+    * ``trace`` — ``(chunk_idx, f_new, accepted)`` triples (round-major
+      under ``batched``).
     * ``extras`` — ``extras["fit"]`` records how the fit was dispatched,
-      the impl and device actually used included.
+      the impl and device actually used included; ``batched`` adds
+      ``batch`` and ``rounds``.
     """
 
     centroids: Any

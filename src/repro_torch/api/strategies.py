@@ -2,11 +2,12 @@
 
 The reference registers ``sequential``, ``batched``, ``sharded`` and
 ``streaming`` behind ``fit(config, source, key) -> FitResult`` and resolves
-``auto`` from the config, the source and the devices.  This slice ports
-``sequential`` — the paper's Algorithm 3 — and ``auto``; the other
-strategies raise ``NotImplementedError`` naming their ROADMAP item.
-``auto`` resolves over the one device the caller gave, so an in-core source
-goes to ``sequential``.
+``auto`` from the config, the source and the devices.  The port runs
+``sequential`` — the paper's Algorithm 3 — ``batched`` — B incumbent
+streams on one device — and ``auto``; the other strategies raise
+``NotImplementedError`` naming their ROADMAP item.  ``auto`` resolves over
+the one device the caller gave: an in-core source goes to ``batched`` when
+``batch > 1`` and to ``sequential`` otherwise.
 """
 from __future__ import annotations
 
@@ -23,7 +24,6 @@ StrategyFn = Callable[..., FitResult]
 _STRATEGIES: dict[str, StrategyFn] = {}
 
 NOT_PORTED = {
-    "batched": "ROADMAP queue 1 item 5",
     "streaming": "ROADMAP queue 1 item 6",
     "sharded": "ROADMAP queue 1 item 8",
 }
@@ -74,6 +74,14 @@ def _result_from_state(state, infos, cfg, strategy, **extras) -> FitResult:
     )
 
 
+def _resolve_sync_every(cfg: BigMeansConfig, rounds: int) -> int:
+    """Concrete exchange period from the sync-policy knob (``'competitive'``
+    resolves to a single final exchange)."""
+    from repro_torch.engine import sync as sync_lib
+
+    return sync_lib.from_config(cfg).resolve(rounds)
+
+
 @register_strategy("sequential")
 def _fit_sequential(cfg: BigMeansConfig, source: DataSource, key, *, rng,
                     device) -> FitResult:
@@ -91,16 +99,47 @@ def _fit_sequential(cfg: BigMeansConfig, source: DataSource, key, *, rng,
     return _result_from_state(state, infos, cfg, "sequential")
 
 
+@register_strategy("batched")
+def _fit_batched(cfg: BigMeansConfig, source: DataSource, key, *, rng,
+                 device) -> FitResult:
+    from repro_torch.core import bigmeans
+
+    if cfg.n_chunks % cfg.batch:
+        raise ValueError(
+            f"strategy 'batched' needs batch ({cfg.batch}) to divide "
+            f"n_chunks ({cfg.n_chunks})")
+    rounds = cfg.n_chunks // cfg.batch
+    sync_every = _resolve_sync_every(cfg, rounds)
+    if rounds % sync_every:
+        raise ValueError(
+            f"strategy 'batched' needs sync_every ({sync_every}) to "
+            f"divide the round count ({rounds} = n_chunks / batch)")
+    if not source.in_core:
+        raise TypeError(
+            f"strategy 'batched' needs in-core data, got "
+            f"{type(source).__name__}")
+    state, infos = bigmeans.big_means_batched(
+        source.as_array(), key, k=cfg.k, s=cfg.s, batch=cfg.batch,
+        rounds=rounds, sync_every=sync_every, max_iters=cfg.max_iters,
+        tol=cfg.tol, candidates=cfg.candidates, impl=cfg.impl,
+        with_replacement=cfg.with_replacement, precision=cfg.precision,
+        rng=rng, device=device)
+    return _result_from_state(state, infos, cfg, "batched",
+                              batch=cfg.batch, rounds=rounds)
+
+
 def resolve_auto(cfg: BigMeansConfig, source: DataSource) -> str:
     """Pick a strategy as the reference does, over one device.
 
     Out-of-core or stream-preferring sources go to ``streaming`` (not
-    ported: ``fit`` then raises); everything else goes to ``sequential``
-    (``batch > 1`` and multi-device topologies already raise in the
-    config).
+    ported: ``fit`` then raises); ``batch > 1`` goes to ``batched``;
+    everything else to ``sequential`` (multi-device topologies and the
+    runner-only knobs already raise in the config).
     """
     if not source.in_core or source.prefers_streaming:
         return "streaming"
+    if cfg.batch > 1:
+        return "batched"
     return "sequential"
 
 

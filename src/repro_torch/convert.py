@@ -2,7 +2,9 @@
 
 A reference ``BigMeansState`` read out as numpy becomes the port's state
 (:func:`state_from_numpy`), and back (:func:`state_to_numpy`), so a run can
-start from an incumbent of the other package mid-trajectory.
+start from an incumbent of the other package mid-trajectory.  Both take a
+state with a leading batch axis (the batched driver's per-stream states)
+as they take a single one: every field keeps its shape.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ from repro_torch.core.bigmeans import BigMeansState
 
 def state_from_numpy(centroids, degenerate, f_best, n_accepted,
                      n_dist_evals, *, device) -> BigMeansState:
-    """The port's state from the five fields of a reference state."""
+    """The port's state from the five fields of a reference state (single
+    or batched)."""
     def t(a, dtype):
         return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 

@@ -4,7 +4,10 @@
 keeps the better of the new solution and the incumbent, with the
 reference's accept rule (a strict ``<`` on the chunk objective) and its
 analytic distance-evaluation counter ``n_d``.  :func:`sample_chunk` is the
-uniform decomposition sampler.  The chunk loop lives in
+uniform decomposition sampler.  :func:`chunk_step_batched` is the same step
+for B incumbent streams at once, with the state algebra of the batched
+driver (:func:`broadcast_state`, :func:`reduce_state`,
+:func:`_sync_streams`).  The chunk loops live in
 :mod:`repro_torch.engine.incore`.
 """
 from __future__ import annotations
@@ -19,6 +22,8 @@ from repro_torch.core import kmeans, kmeanspp
 
 
 class BigMeansState(NamedTuple):
+    """One incumbent; batched states carry a leading [B] axis on every
+    field."""
     centroids: torch.Tensor     # [k, n] f32 — incumbent C
     degenerate: torch.Tensor    # [k] bool — degeneracy mask of the incumbent
     f_best: torch.Tensor        # 0-d f32 — f(C, P_C) on its chunk
@@ -74,11 +79,8 @@ def chunk_step(
 
     # lines 9-11: keep the best (objectives of equal-size chunks compared)
     accepted = res.objective < state.f_best
-    # n_d in float32, in the reference's order of operations
-    # (bigmeans.py:102-106): s * (k * (iters + 2) + candidates * n_deg).
-    per_point = (np.float32(k) * np.float32(res.iterations + 2)
-                 + np.float32(candidates) * np.float32(n_deg))
-    n_d = state.n_dist_evals + float(np.float32(s) * per_point)
+    n_d = state.n_dist_evals + float(
+        _n_dist_evals(k, s, candidates, res.iterations, n_deg))
     new_state = BigMeansState(
         centroids=torch.where(accepted, res.centroids, state.centroids),
         degenerate=torch.where(accepted, res.degenerate, state.degenerate),
@@ -105,6 +107,15 @@ def sample_chunk(X: torch.Tensor, key, s: int, *,
     else:
         idx = rng.choice(key, m, s, X.device)
     return X.index_select(0, idx.to(device=X.device, dtype=torch.int64))
+
+
+def _n_dist_evals(k: int, s: int, candidates: int, iterations, n_deg):
+    """The paper's n_d increment in float32, in the reference's order of
+    operations (bigmeans.py:102-106): s * (k * (iters + 2) + candidates *
+    n_deg).  Scalars or [B] arrays of equal shape."""
+    per_point = (np.float32(k) * np.float32(iterations + 2)
+                 + np.float32(candidates) * np.float32(n_deg))
+    return np.float32(s) * per_point
 
 
 def big_means(
@@ -134,3 +145,147 @@ def big_means(
         X, key, k=k, s=s, n_chunks=n_chunks, max_iters=max_iters, tol=tol,
         candidates=candidates, impl=impl, with_replacement=with_replacement,
         precision=precision, rng=rng, device=device)
+
+
+# ---------------------------------------------------------------------------
+# B incumbent streams on one device (the reference's batched driver)
+# ---------------------------------------------------------------------------
+
+
+def broadcast_state(state: BigMeansState, batch: int) -> BigMeansState:
+    """Tile one incumbent into B streams; the stream counters start at zero
+    so :func:`reduce_state` can re-aggregate them onto a base state."""
+    zeroed = state._replace(n_accepted=torch.zeros_like(state.n_accepted),
+                            n_dist_evals=torch.zeros_like(state.n_dist_evals))
+    return BigMeansState(*(a.expand((batch,) + a.shape).clone()
+                           for a in zeroed))
+
+
+def reduce_state(states: BigMeansState,
+                 base: BigMeansState | None = None) -> BigMeansState:
+    """Argmin-reduce B streams into one incumbent (the first stream wins a
+    tie), degenerate mask included.  Counters are summed across streams —
+    they count work done, not who won — and added onto ``base`` when
+    given."""
+    winner = torch.argmin(states.f_best)
+    n_acc = torch.sum(states.n_accepted).to(torch.int32)
+    n_d = torch.sum(states.n_dist_evals)
+    if base is not None:
+        n_acc = n_acc + base.n_accepted
+        n_d = n_d + base.n_dist_evals
+    return BigMeansState(
+        centroids=states.centroids[winner],
+        degenerate=states.degenerate[winner],
+        f_best=states.f_best[winner],
+        n_accepted=n_acc,
+        n_dist_evals=n_d,
+    )
+
+
+def _sync_streams(states: BigMeansState) -> BigMeansState:
+    """Give every stream the winner's incumbent (the first stream wins a
+    tie); counters stay per stream."""
+    winner = torch.argmin(states.f_best)
+    batch = states.f_best.shape[0]
+
+    def tile(a):
+        return a[winner].expand((batch,) + a.shape[1:]).clone()
+
+    return states._replace(centroids=tile(states.centroids),
+                           degenerate=tile(states.degenerate),
+                           f_best=tile(states.f_best))
+
+
+def chunk_step_batched(
+    points: torch.Tensor,
+    states: BigMeansState,
+    keys,
+    *,
+    max_iters: int = 300,
+    tol: float = 1e-4,
+    candidates: int = 3,
+    impl: str = "auto",
+    precision: str = "auto",
+    rng=rnd.TORCH,
+) -> tuple[BigMeansState, ChunkInfo]:
+    """B chunks against B incumbent streams: points [B, s, n], states with
+    a leading batch axis, one key per stream.
+
+    Per stream this is exactly :func:`chunk_step` (re-seed degenerate
+    slots, Lloyd, keep-the-best, n_d); Lloyd advances all streams at once
+    (:func:`kmeans.lloyd_batched`, one kernel-D launch per iteration).
+    """
+    k = states.centroids.shape[1]
+    s = points.shape[1]
+    n_deg = torch.sum(states.degenerate, dim=1).cpu().numpy()    # [B]
+    # seeding is skipped when no stream has a degenerate slot
+    if n_deg.any():
+        c_init = kmeanspp.seed_batched(
+            points, keys, k, init=states.centroids,
+            degenerate=states.degenerate, candidates=candidates, rng=rng)
+    else:
+        c_init = states.centroids.float()
+    res = kmeans.lloyd_batched(points, c_init, max_iters=max_iters, tol=tol,
+                               impl=impl, precision=precision)
+
+    accepted = res.objective < states.f_best                    # [B]
+    n_d = _n_dist_evals(k, s, candidates, res.iterations.cpu().numpy(),
+                        n_deg)
+    new_states = BigMeansState(
+        centroids=torch.where(accepted[:, None, None], res.centroids,
+                              states.centroids),
+        degenerate=torch.where(accepted[:, None], res.degenerate,
+                               states.degenerate),
+        f_best=torch.where(accepted, res.objective, states.f_best),
+        n_accepted=states.n_accepted + accepted.to(torch.int32),
+        n_dist_evals=states.n_dist_evals + torch.from_numpy(n_d).to(
+            states.n_dist_evals.device),
+    )
+    info = ChunkInfo(
+        f_new=res.objective,
+        accepted=accepted,
+        lloyd_iters=res.iterations,
+        n_degenerate=torch.sum(res.degenerate, dim=1),
+    )
+    return new_states, info
+
+
+def big_means_batched(
+    X,
+    key,
+    *,
+    k: int,
+    s: int,
+    batch: int,
+    rounds: int,
+    sync_every: int = 1,
+    max_iters: int = 300,
+    tol: float = 1e-4,
+    candidates: int = 3,
+    impl: str = "auto",
+    with_replacement: bool = True,
+    precision: str = "auto",
+    rng=rnd.TORCH,
+    device=None,
+) -> tuple[BigMeansState, ChunkInfo]:
+    """Batched Big-means: B incumbent streams over ``rounds`` chunk rounds,
+    exchanging incumbents every ``sync_every`` rounds.  Returns the reduced
+    incumbent and a round-major ``[rounds * batch]`` trace.  ``batch=1`` is
+    the sequential :func:`big_means` with ``n_chunks=rounds``: the same key
+    schedule, and in this package the same result bit for bit.
+
+    Runs on the CUDA device unless ``device="cpu"``
+    (:func:`repro_torch.engine.incore.batched_local`).  The reference's
+    ``mesh`` (a stream axis sharded over devices) is not ported (ROADMAP
+    queue 1 item 8).
+    """
+    from repro_torch.engine import incore
+
+    if rounds % sync_every:
+        raise ValueError(
+            f"sync_every ({sync_every}) must divide rounds ({rounds})")
+    return incore.batched_local(
+        X, key, k=k, s=s, batch=batch, rounds=rounds, sync_every=sync_every,
+        max_iters=max_iters, tol=tol, candidates=candidates, impl=impl,
+        with_replacement=with_replacement, precision=precision, rng=rng,
+        device=device)

@@ -5,6 +5,12 @@ loop that stops as soon as the search is inactive, which is what this is.
 Each iteration is one ``ops.fused_step`` (kernel A on the card) followed by
 the stop test on the host, so every iteration waits for the device once.
 
+:func:`lloyd_batched` runs B searches at once: one ``ops.fused_step_batched``
+(kernel D on the card) advances every stream per iteration, with the
+reference's masked ``_advance`` — a stream that has stopped keeps its
+centroids and counters frozen — and one host read of the ``[B]`` active
+mask per iteration; the loop runs until no stream is active.
+
 Convergence follows the paper's §5.7 rule, as the reference's ``_advance``:
 stop when ``|f_prev - f_curr| <= tol * |f_prev|`` or at the iteration cap;
 the first two iterations run unconditionally.  Degenerate (empty) clusters
@@ -21,12 +27,12 @@ from repro_torch.kernels import precision as px
 
 
 class KMeansResult(NamedTuple):
-    centroids: torch.Tensor    # [k, n] f32
-    objective: torch.Tensor    # 0-d f32: f(C_final, P)
-    counts: torch.Tensor       # [k] f32 final cluster sizes
-    degenerate: torch.Tensor   # [k] bool: counts == 0
-    iterations: int            # Lloyd iterations
-    assignments: torch.Tensor  # [m] int32
+    centroids: torch.Tensor    # [k, n] f32                (batched: [B, k, n])
+    objective: torch.Tensor    # 0-d f32: f(C_final, P)            ([B])
+    counts: torch.Tensor       # [k] f32 final cluster sizes       ([B, k])
+    degenerate: torch.Tensor   # [k] bool: counts == 0             ([B, k])
+    iterations: int            # Lloyd iterations  (batched: int32 [B] tensor)
+    assignments: torch.Tensor  # [m] int32                         ([B, m])
 
 
 def lloyd(
@@ -70,4 +76,64 @@ def lloyd(
         degenerate=counts == 0,
         iterations=it,
         assignments=ids,
+    )
+
+
+def lloyd_batched(
+    points: torch.Tensor,
+    init_centroids: torch.Tensor,
+    *,
+    max_iters: int = 300,
+    tol: float = 1e-4,
+    impl: str = "auto",
+    precision: str = "auto",
+) -> KMeansResult:
+    """B concurrent Lloyd searches: ``points`` [B, s, n], ``init`` [B, k, n].
+
+    Every field of the result gains a leading batch axis.  Each stream stops
+    updating once its own test fires (the reference's masked ``_advance``),
+    so ``iterations`` matches B independent :func:`lloyd` calls exactly.
+
+    The epilogue (final assignment, objective and counts) runs stream by
+    stream through ``ops.assign`` / ``ops.update`` with the caller's impl,
+    as :func:`lloyd` does: kernels B and C on the card.  This departs from
+    the reference, whose batched epilogue always runs on the jnp oracle
+    (``repro/core/kmeans.py:205-212``); on the CPU both run the oracle.
+    """
+    precision = px.resolve(precision, points.dtype)
+    points = points.float()
+    c = init_centroids.float()
+    batch, k = c.shape[0], c.shape[1]
+    dev = points.device
+    f_prev = f_curr = torch.full((batch,), float("inf"), device=dev)
+    it = torch.zeros(batch, dtype=torch.int32, device=dev)
+    active = torch.full((batch,), max_iters > 0, device=dev)
+    while bool(active.any()):
+        sums, counts, f = ops.fused_step_batched(points, c, impl=impl,
+                                                 precision=precision)
+        new_c = torch.where(counts[..., None] > 0, sums / counts[..., None], c)
+        c = torch.where(active[:, None, None], new_c, c)
+        f_prev = torch.where(active, f_curr, f_prev)
+        f_curr = torch.where(active, f, f_curr)
+        it = it + active.to(torch.int32)
+        converged = torch.abs(f_prev - f_curr) <= tol * torch.abs(f_prev)
+        active = active & (it < max_iters) & ((it < 2) | ~converged)
+
+    ids, objective, final_counts = [], [], []
+    for b in range(batch):
+        ids_b, d_b = ops.assign(points[b], c[b], impl=impl,
+                                precision=precision)
+        _, counts_b = ops.update(points[b], ids_b, k, impl=impl,
+                                 precision=precision)
+        ids.append(ids_b)
+        objective.append(torch.sum(d_b))
+        final_counts.append(counts_b)
+    counts = torch.stack(final_counts)
+    return KMeansResult(
+        centroids=c,
+        objective=torch.stack(objective),
+        counts=counts,
+        degenerate=counts == 0,
+        iterations=it,
+        assignments=torch.stack(ids),
     )

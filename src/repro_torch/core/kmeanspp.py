@@ -79,3 +79,29 @@ def kmeanspp(points: torch.Tensor, key, k: int, *, candidates: int = 3,
              rng=rnd.TORCH) -> torch.Tensor:
     """Fresh K-means++ seeding of k centers (paper Algorithm 2)."""
     return seed(points, key, k, candidates=candidates, rng=rng)
+
+
+def seed_batched(
+    points: torch.Tensor,
+    keys,
+    k: int,
+    *,
+    init: torch.Tensor,
+    degenerate: torch.Tensor,
+    candidates: int = 3,
+    rng=rnd.TORCH,
+) -> torch.Tensor:
+    """Per-stream re-seeding for B streams: points [B, s, n], ``keys`` one
+    per stream, init [B, k, n], degenerate [B, k] -> [B, k, n].
+
+    The reference vmaps :func:`seed` over the streams.  A stream with no
+    degenerate slot gets ``init`` back unchanged from :func:`seed` (every
+    row is kept), so only the streams with a degenerate slot are seeded.
+    """
+    c = init.float().clone()
+    for b, any_deg in enumerate(degenerate.any(dim=1).tolist()):
+        if any_deg:
+            c[b] = seed(points[b], keys[b], k, init=init[b],
+                        degenerate=degenerate[b], candidates=candidates,
+                        rng=rng)
+    return c

@@ -1,1 +1,2 @@
-"""Execution engine of the port (in-core sequential loop in this slice)."""
+"""Execution engine of the port: the in-core sequential and batched loops
+(``incore``) and the sync policies (``sync``)."""

@@ -24,7 +24,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("assign.cu", "update.cu", "fused_step.cu")
+SOURCES = ("assign.cu", "update.cu", "fused_step.cu",
+           "fused_step_batched.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = "sm_90a"
@@ -39,6 +40,8 @@ SIGNATURES = {
     "repro_assign_f32": (_P, _P, _P, _P, _I64, _I, _I, _I, _P),
     "repro_update_f32": (_P, _P, _P, _P, _I64, _I, _I, _I, _P),
     "repro_fused_step_f32": (_P, _P, _P, _P, _I64, _I, _I, _I, _P),
+    "repro_fused_step_batched_f32": (_P, _P, _P, _P, _I, _I64, _I, _I, _I,
+                                     _P),
 }
 
 
@@ -205,3 +208,10 @@ def grid(device: torch.device, m: int, partial_floats: int = 0) -> int:
     if partial_floats:
         g = min(g, max(1, SCRATCH_BYTES // (4 * partial_floats)))
     return g
+
+
+def stream_group(grid: int, partial_floats: int) -> int:
+    """Streams per launch of a batched kernel whose streams each take
+    ``grid`` CTAs of ``partial_floats`` partials: as many as fit
+    ``SCRATCH_BYTES``, at least one.  The per-stream grid is never cut."""
+    return max(1, SCRATCH_BYTES // (4 * grid * partial_floats))

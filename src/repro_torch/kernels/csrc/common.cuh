@@ -1,5 +1,5 @@
-// Shared device code of the three f32 kernels of the main path
-// (assign.cu, update.cu, fused_step.cu).
+// Shared device code of the f32 kernels (assign.cu, update.cu,
+// fused_step.cu, fused_step_batched.cu).
 //
 // One CTA of TM threads walks point tiles of TM rows; thread t owns row t of
 // the tile.  Point and centroid tiles are staged in shared memory, k-tiled by
@@ -165,6 +165,43 @@ __device__ __forceinline__ void tile_accumulate(TileSmem& s,
   }
 }
 
+// Zero a CTA's partials when it was given no tile (only when m == 0).
+__device__ __forceinline__ void zero_partials(float* P, int64_t stride) {
+  for (int64_t e = threadIdx.x; e < stride; e += blockDim.x) P[e] = 0.f;
+}
+
+// One CTA's share of the fused Lloyd step (kernels A and D): the partial
+// sums [k,n], counts [k] and objective of the point tiles blockIdx.x,
+// blockIdx.x + gridDim.x, ... of x [m,n] against c [k,n], written to
+// P [k*n + k + 1].  Kernel D calls this with per-stream base pointers and
+// the per-stream grid of kernel A, so each of its streams runs exactly
+// kernel A's arithmetic in kernel A's order.
+__device__ __forceinline__ void fused_cta(TileSmem& s,
+                                          const float* __restrict__ x,
+                                          const float* __restrict__ c,
+                                          float* __restrict__ P, int64_t m,
+                                          int k, int n, int64_t num_tiles) {
+  float* Cnt = P + (int64_t)k * n;
+  float* Obj = Cnt + k;
+  if (blockIdx.x >= num_tiles) {
+    zero_partials(P, (int64_t)k * n + k + 1);
+    return;
+  }
+  float obj = 0.f;
+  for (int64_t tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
+    const int64_t r0 = tile * TM;
+    int bidx;
+    float best, xsq;
+    tile_argmin(s, x, c, m, k, n, r0, bidx, best, xsq);
+    const bool valid = r0 + threadIdx.x < m;
+    s.ids[threadIdx.x] = valid ? bidx : -1;
+    obj += block_sum(s, valid ? fmaxf(best + xsq, 0.f) : 0.f);
+    tile_accumulate(s, x, m, k, n, r0, P, Cnt, tile == blockIdx.x, n <= FT);
+    __syncthreads();  // s.ids / s.xs are rewritten by the next tile
+  }
+  if (threadIdx.x == 0) *Obj = obj;
+}
+
 // out[e] = sum over g = 0..G-1, in order, of part[g * stride + e].
 __device__ __forceinline__ void reduce_partials(const float* __restrict__ part,
                                                 float* __restrict__ out,
@@ -176,11 +213,6 @@ __device__ __forceinline__ void reduce_partials(const float* __restrict__ part,
     for (int g = 0; g < G; ++g) acc += part[(int64_t)g * stride + e];
     out[e] = acc;
   }
-}
-
-// Zero a CTA's partials when it was given no tile (only when m == 0).
-__device__ __forceinline__ void zero_partials(float* P, int64_t stride) {
-  for (int64_t e = threadIdx.x; e < stride; e += blockDim.x) P[e] = 0.f;
 }
 
 inline int reduce_grid(int64_t stride) {

@@ -30,26 +30,7 @@ fused_step_f32_kernel(const float* __restrict__ x, const float* __restrict__ c,
                       int64_t num_tiles) {
   __shared__ TileSmem s;
   const int64_t stride = (int64_t)k * n + k + 1;
-  float* P = part + blockIdx.x * stride;
-  float* Cnt = P + (int64_t)k * n;
-  float* Obj = Cnt + k;
-  if (blockIdx.x >= num_tiles) {
-    zero_partials(P, stride);
-    return;
-  }
-  float obj = 0.f;
-  for (int64_t tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
-    const int64_t r0 = tile * TM;
-    int bidx;
-    float best, xsq;
-    tile_argmin(s, x, c, m, k, n, r0, bidx, best, xsq);
-    const bool valid = r0 + threadIdx.x < m;
-    s.ids[threadIdx.x] = valid ? bidx : -1;
-    obj += block_sum(s, valid ? fmaxf(best + xsq, 0.f) : 0.f);
-    tile_accumulate(s, x, m, k, n, r0, P, Cnt, tile == blockIdx.x, n <= FT);
-    __syncthreads();  // s.ids / s.xs are rewritten by the next tile
-  }
-  if (threadIdx.x == 0) *Obj = obj;
+  fused_cta(s, x, c, part + blockIdx.x * stride, m, k, n, num_tiles);
 }
 
 extern "C" __global__ void fused_step_f32_reduce(const float* __restrict__ part,

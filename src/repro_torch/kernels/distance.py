@@ -1,8 +1,9 @@
 """Nearest-centroid assignment: CUDA kernel B (``csrc/assign.cu``).
 
 Replaces ``repro/kernels/distance.py:assign_pallas`` (f32 body).  The
-wrapper :func:`assign_f32` launches the kernel for CUDA tensors and takes the
-plain version (:func:`assign_plain`) only for tensors on the CPU.
+wrapper :func:`assign_f32` launches the kernel on CUDA tensors and raises
+``ValueError`` on any other; :func:`assign_plain` is the plain version that
+``ops`` runs for tensors on the CPU.
 """
 from __future__ import annotations
 
@@ -26,8 +27,6 @@ def assign_f32(x: torch.Tensor, c: torch.Tensor
     ``ids`` minimises ``||c||^2 - 2 x.c`` (ties: lowest index) and
     ``d = max(best + ||x||^2, 0)``.
     """
-    if x.device.type == "cpu":
-        return assign_plain(x, c)
     build.require("x", x, torch.float32, 2)
     build.require("c", c, torch.float32, 2)
     m, n = x.shape

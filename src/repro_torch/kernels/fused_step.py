@@ -1,9 +1,16 @@
-"""One Lloyd iteration in one pass: CUDA kernel A (``csrc/fused_step.cu``).
+"""One Lloyd iteration in one pass: CUDA kernels A and D.
 
-Replaces ``repro/kernels/fused_step.py:fused_step_pallas`` with
-``pipeline="blocks"`` (f32 body): assignment, sums, counts and objective in
-one read of the chunk.  :func:`fits` is the reference's envelope; outside it
-``ops.fused_step`` takes the two-pass route (kernels B and C).
+Kernel A (``csrc/fused_step.cu``, :func:`fused_step_f32`) replaces
+``repro/kernels/fused_step.py:fused_step_pallas`` with ``pipeline="blocks"``
+(f32 body): assignment, sums, counts and objective in one read of the
+chunk.  Kernel D (``csrc/fused_step_batched.cu``,
+:func:`fused_step_batched_f32`) replaces ``fused_step_batched_pallas`` (f32
+body): the same statistics for B streams in one launch, each stream bitwise
+equal to kernel A on it.  The wrappers launch their kernel on CUDA tensors
+and raise ``ValueError`` on any other; ``ops`` runs the plain versions
+(:func:`fused_step_plain`, :func:`fused_step_batched_plain`) for tensors on
+the CPU.  :func:`fits` is the reference's envelope (``fits_batched`` is the
+same); outside it ``ops`` takes the two-pass route (kernels B and C).
 """
 from __future__ import annotations
 
@@ -20,7 +27,8 @@ _MAX_KN_ELEMS = 1 << 20
 _BLOCK_K = 128
 _BLOCK_N = 512
 
-launches = 0        # kernel launches by fused_step_f32 (ops.launch_counts)
+launches = 0          # kernel launches by fused_step_f32 (ops.launch_counts)
+batched_launches = 0  # kernel launches by fused_step_batched_f32
 
 
 def _padded(k: int, n: int) -> tuple[int, int]:
@@ -33,6 +41,10 @@ def _padded(k: int, n: int) -> tuple[int, int]:
 def fits(k: int, n: int) -> bool:
     k_pad, n_pad = _padded(k, n)
     return k <= MAX_K and n <= MAX_N and k_pad * n_pad <= _MAX_KN_ELEMS
+
+
+# The single and batched kernels share one envelope, as in the reference.
+fits_batched = fits
 
 
 def fused_step_plain(x: torch.Tensor, c: torch.Tensor
@@ -48,9 +60,8 @@ def fused_step_f32(x: torch.Tensor, c: torch.Tensor
     """x [m,n] f32, c [k,n] f32 -> (sums f32 [k,n], counts f32 [k], obj f32).
 
     Runs any (k, n); the dispatch in ``ops`` restricts it to :func:`fits`.
+    Raises ``ValueError`` unless x and c are CUDA tensors.
     """
-    if x.device.type == "cpu":
-        return fused_step_plain(x, c)
     build.require("x", x, torch.float32, 2)
     build.require("c", c, torch.float32, 2)
     m, n = x.shape
@@ -70,3 +81,55 @@ def fused_step_f32(x: torch.Tensor, c: torch.Tensor
         grid, torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "fused_step_f32")
     return out[:k * n].view(k, n), out[k * n:k * n + k], out[k * n + k]
+
+
+def fused_step_batched_plain(x: torch.Tensor, c: torch.Tensor
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """The plain PyTorch version: :func:`fused_step_plain` stream by stream
+    (the reference's ``lax.map`` oracle, ``ops._fused_step_batched_ref``)."""
+    sums, counts, obj = zip(*(fused_step_plain(x[b], c[b])
+                              for b in range(x.shape[0])))
+    return torch.stack(sums), torch.stack(counts), torch.stack(obj)
+
+
+def fused_step_batched_f32(x: torch.Tensor, c: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """x [B,m,n] f32, c [B,k,n] f32 -> (sums f32 [B,k,n], counts f32 [B,k],
+    obj f32 [B]).
+
+    Stream b is bitwise equal to :func:`fused_step_f32` on (x[b], c[b]):
+    every stream gets kernel A's grid for (m, k, n).  The per-CTA partials
+    of a launch are capped at ``build.SCRATCH_BYTES``, so the streams go in
+    groups of :func:`build.stream_group` (one launch each; one launch for
+    all B at the main path's shapes).  Runs any (k, n); the dispatch in
+    ``ops`` restricts it to :func:`fits_batched`.  Raises ``ValueError``
+    unless x and c are CUDA tensors.
+    """
+    build.require("x", x, torch.float32, 3)
+    build.require("c", c, torch.float32, 3)
+    batch, m, n = x.shape
+    k = c.shape[1]
+    if (c.shape[0] != batch or c.shape[2] != n or c.device != x.device
+            or batch < 1 or k < 1 or n < 1):
+        raise ValueError(f"bad shapes x {tuple(x.shape)} / c {tuple(c.shape)}"
+                         f" on {x.device} / {c.device}")
+    stride = k * n + k + 1
+    grid = build.grid(x.device, m, stride)
+    group = min(batch, build.stream_group(grid, stride))
+    part = torch.empty(group * grid * stride, dtype=torch.float32,
+                       device=x.device)
+    out = torch.empty((batch, stride), dtype=torch.float32, device=x.device)
+    lib = build.load()
+    st = torch.cuda.current_stream(x.device).cuda_stream
+    global batched_launches
+    for b0 in range(0, batch, group):
+        nb = min(group, batch - b0)
+        batched_launches += 1
+        err = lib.repro_fused_step_batched_f32(
+            x[b0].data_ptr(), c[b0].data_ptr(), part.data_ptr(),
+            out[b0].data_ptr(), nb, m, k, n, grid, st)
+        build.check(err, "fused_step_batched_f32")
+    kn = k * n
+    return out[:, :kn].view(batch, k, n), out[:, kn:kn + k], out[:, kn + k]

@@ -12,7 +12,7 @@ Dispatch policy
 There is no demotion and no fallback: a kernel that fails to build or to
 launch raises.  Outside the fused envelope, ``fused_step`` takes the
 two-pass route through kernels B and C on the card (through the oracles
-under the ref impls).  Each kernel wrapper counts its launches; read them
+under the ref impls), and ``fused_step_batched`` takes it stream by stream.  Each kernel wrapper counts its launches; read them
 with :func:`launch_counts` and zero them with :func:`reset_launch_counts`.
 
 ``precision`` follows :mod:`.precision`: only ``'f32'`` is ported.
@@ -35,11 +35,13 @@ _WEIGHTS = ("weighted steps are not ported yet (ROADMAP queue 1 item 9, "
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last reset, per kernel."""
     return {"fused_step": fused.launches, "assign": distance.launches,
-            "update": upd.launches}
+            "update": upd.launches,
+            "fused_step_batched": fused.batched_launches}
 
 
 def reset_launch_counts() -> None:
     fused.launches = 0
+    fused.batched_launches = 0
     distance.launches = 0
     upd.launches = 0
 
@@ -104,3 +106,26 @@ def fused_step(x: torch.Tensor, c: torch.Tensor, *,
     ids, d = assign(x, c, impl=impl, precision=precision)
     sums, counts = update(x, ids, k, impl=impl, precision=precision)
     return sums, counts, torch.sum(d)
+
+
+def fused_step_batched(x: torch.Tensor, c: torch.Tensor, *,
+                       impl: str = "auto", precision: str = "auto"
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """B concurrent Lloyd iterations: x [B,m,n], c [B,k,n] -> (sums [B,k,n],
+    counts [B,k], obj [B]).
+
+    ``'cuda'``: kernel D inside the fused envelope (one launch for all
+    streams), else the two-pass route through kernels B and C stream by
+    stream.  ``'ref'`` / ``'ref_chunked'``: the plain version, as the
+    reference's batched oracle (``ops._fused_step_batched_ref``).
+    """
+    impl = resolve_impl(impl, x.device)
+    precision = px.resolve(precision, x.dtype)
+    if impl != "cuda":
+        return fused.fused_step_batched_plain(x, c)
+    if fused.fits_batched(c.shape[1], c.shape[2]):
+        return fused.fused_step_batched_f32(x, c)
+    sums, counts, obj = zip(*(fused_step(x[b], c[b], impl="cuda",
+                                         precision=precision)
+                              for b in range(x.shape[0])))
+    return torch.stack(sums), torch.stack(counts), torch.stack(obj)

@@ -1,8 +1,9 @@
 """Centroid-update statistics: CUDA kernel C (``csrc/update.cu``).
 
 Replaces ``repro/kernels/update.py:update_pallas`` (f32 body).  The wrapper
-:func:`update_f32` launches the kernel for CUDA tensors and takes the plain
-version (:func:`update_plain`) only for tensors on the CPU.
+:func:`update_f32` launches the kernel on CUDA tensors and raises
+``ValueError`` on any other; :func:`update_plain` is the plain version that
+``ops`` runs for tensors on the CPU.
 """
 from __future__ import annotations
 
@@ -26,8 +27,6 @@ def update_f32(x: torch.Tensor, ids: torch.Tensor, k: int
     An id outside [0, k) adds nothing.  The per-CTA partials are reduced in
     CTA order, so repeated calls are bitwise equal.
     """
-    if x.device.type == "cpu":
-        return update_plain(x, ids, k)
     build.require("x", x, torch.float32, 2)
     build.require("ids", ids, torch.int32, 1)
     m, n = x.shape

@@ -1,7 +1,7 @@
 """The CUDA kernels' source logic, run on the CPU.
 
 There is no CUDA compiler or card here, so the kernels themselves run only
-on the card (``test_torch_kernels.py``, marked ``cuda``).  This file checks
+on the card (``test_torch_cuda.py``, marked ``cuda``).  This file checks
 their *logic* — tiling, indexing, ragged edges, the tie rule, the ordered
 per-CTA reduction — by compiling ``kernels/csrc/*.cu`` with the host C++
 compiler against a small stand-in for the CUDA runtime: each CTA runs as
@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, fused_step, ref
 
 RTOL = 1e-5
 
@@ -49,18 +49,30 @@ typedef void* cudaStream_t;
 const int cudaSuccess = 0;
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return ""; }
-// CTAs one after another; the threads of a CTA concurrently.
-inline void launch(unsigned grid, unsigned block, std::function<void()> fn) {
-  gridDim.x = grid;
+// CTAs one after another (x fastest); the threads of a CTA concurrently.
+inline void launch2(unsigned gx, unsigned gy, unsigned block,
+                    std::function<void()> fn) {
+  gridDim.x = gx;
+  gridDim.y = gy;
   blockDim.x = block;
-  for (unsigned b = 0; b < grid; ++b) {
-    std::barrier<> bar(block);
-    cta_barrier = &bar;
-    std::vector<std::thread> ts;
-    for (unsigned t = 0; t < block; ++t)
-      ts.emplace_back([&, t, b] { threadIdx.x = t; blockIdx.x = b; fn(); });
-    for (auto& th : ts) th.join();
+  for (unsigned by = 0; by < gy; ++by) {
+    for (unsigned bx = 0; bx < gx; ++bx) {
+      std::barrier<> bar(block);
+      cta_barrier = &bar;
+      std::vector<std::thread> ts;
+      for (unsigned t = 0; t < block; ++t)
+        ts.emplace_back([&, t, bx, by] {
+          threadIdx.x = t;
+          blockIdx.x = bx;
+          blockIdx.y = by;
+          fn();
+        });
+      for (auto& th : ts) th.join();
+    }
   }
+}
+inline void launch(unsigned grid, unsigned block, std::function<void()> fn) {
+  launch2(grid, 1, block, fn);
 }
 """
 
@@ -107,6 +119,52 @@ int main(int argc, char** argv) {
 """
 
 
+HARNESS_BATCHED = r"""
+#include "cuda_runtime.h"
+#include "fused_step.inc"
+#include "fused_step_batched.inc"
+#include <cstdio>
+#include <cstdlib>
+// harness_batched B m k n grid in out: in = x[B,m,n] c[B,k,n];
+// out = kernel D's [B, k*n + k + 1], then kernel A's on each stream
+int main(int argc, char** argv) {
+  const int B = atoi(argv[1]);
+  const int64_t m = atoll(argv[2]);
+  const int k = atoi(argv[3]), n = atoi(argv[4]), grid = atoi(argv[5]);
+  std::vector<float> x(B * m * n), c((size_t)B * k * n);
+  FILE* f = fopen(argv[6], "rb");
+  if (fread(x.data(), 4, x.size(), f) != x.size() ||
+      fread(c.data(), 4, c.size(), f) != c.size()) return 1;
+  fclose(f);
+  const int64_t tiles = (m + TM - 1) / TM;
+  const int64_t sf = (int64_t)k * n + k + 1;
+  std::vector<float> pd(B * grid * sf), od(B * sf), pa(grid * sf),
+      oa(B * sf);
+  launch2(grid, B, TM, [&] {
+    fused_step_batched_f32_kernel(x.data(), c.data(), pd.data(), m, k, n,
+                                  tiles);
+  });
+  launch2(2, B, 256, [&] {
+    fused_step_batched_f32_reduce(pd.data(), od.data(), sf, grid);
+  });
+  for (int b = 0; b < B; ++b) {
+    launch(grid, TM, [&] {
+      fused_step_f32_kernel(x.data() + b * m * n, c.data() + b * k * n,
+                            pa.data(), m, k, n, tiles);
+    });
+    launch(3, 256, [&] {
+      fused_step_f32_reduce(pa.data(), oa.data() + b * sf, sf, grid);
+    });
+  }
+  FILE* o = fopen(argv[7], "wb");
+  fwrite(od.data(), 4, od.size(), o);
+  fwrite(oa.data(), 4, oa.size(), o);
+  fclose(o);
+  return 0;
+}
+"""
+
+
 @pytest.fixture(scope="module")
 def harness(tmp_path_factory):
     cxx = shutil.which("g++")
@@ -120,13 +178,16 @@ def harness(tmp_path_factory):
         # a launch becomes a plain call; the harness launches the kernels
         (d / Path(name).with_suffix(".inc")).write_text(
             re.sub(r"<<<[^>]*>>>", "", src))
-    exe = d / "harness"
-    out = subprocess.run(
+    (d / "harness_batched.cpp").write_text(HARNESS_BATCHED)
+    procs = [subprocess.Popen(
         [cxx, "-std=c++20", "-O1", "-pthread", f"-I{d}", f"-I{build.CSRC}",
-         str(d / "harness.cpp"), "-o", str(exe)],
-        capture_output=True, text=True)
-    assert out.returncode == 0, out.stderr
-    return exe
+         str(d / f"{name}.cpp"), "-o", str(d / name)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in ("harness", "harness_batched")]
+    for proc in procs:
+        _, err = proc.communicate()
+        assert proc.returncode == 0, err
+    return d / "harness"
 
 
 SHAPES = [  # (m, k, n, grid): ragged tiles, CTAs with several tiles,
@@ -182,3 +243,42 @@ def test_kernel_sources_match_plain(harness, tmp_path, shape):
         assert np.all(np.abs(sums - want_s.numpy().ravel())
                       <= RTOL * abs_s.numpy().ravel() + 1e-6)
     np.testing.assert_allclose(of[-1], float(pd.sum()), rtol=RTOL)
+
+
+BATCHED_SHAPES = [  # (B, m, k, n, grid): kernel D, stream by stream
+    (3, 600, 25, 28, 2),   # the main path's k and n, two tiles per CTA
+    (2, 257, 1, 3, 3),     # k = 1, n = 3, a CTA without a full tile
+    (2, 300, 33, 40, 1),   # k not a multiple of 32, n > 32
+]
+
+
+@pytest.mark.parametrize("shape", BATCHED_SHAPES, ids=[
+    f"B{b}-m{m}-k{k}-n{n}-g{g}" for b, m, k, n, g in BATCHED_SHAPES])
+def test_batched_kernel_source_matches_plain_and_kernel_a(harness, tmp_path,
+                                                          shape):
+    B, m, k, n, grid = shape
+    rng = np.random.default_rng(B * m + k)
+    c = (rng.normal(size=(B, k, n)) * 5).astype(np.float32)
+    x = np.stack([c[b][rng.integers(0, k, m)] for b in range(B)])
+    x = (x + rng.normal(size=x.shape)).astype(np.float32)
+    (tmp_path / "in.bin").write_bytes(x.tobytes() + c.tobytes())
+    subprocess.run([str(harness.parent / "harness_batched"), str(B), str(m),
+                    str(k), str(n), str(grid), str(tmp_path / "in.bin"),
+                    str(tmp_path / "out.bin")], check=True, timeout=120)
+    out = np.fromfile(tmp_path / "out.bin", dtype=np.float32)
+    stride = k * n + k + 1
+    d_out, a_out = out[:B * stride], out[B * stride:]
+    # every stream of D is bitwise kernel A on that stream
+    np.testing.assert_array_equal(d_out.view(np.uint32),
+                                  a_out.view(np.uint32))
+    X, C = torch.from_numpy(x), torch.from_numpy(c)
+    sums, counts, obj = fused_step.fused_step_batched_plain(X, C)
+    d_out = d_out.reshape(B, stride)
+    kn = k * n
+    np.testing.assert_array_equal(d_out[:, kn:kn + k], counts.numpy())
+    np.testing.assert_allclose(d_out[:, -1], obj.numpy(), rtol=RTOL)
+    for b in range(B):
+        ids, _ = ref.assign_ref(X[b], C[b])
+        abs_s, _ = ref.update_ref(X[b].abs(), ids, k)
+        assert np.all(np.abs(d_out[b, :kn] - sums[b].numpy().ravel())
+                      <= RTOL * abs_s.numpy().ravel() + 1e-6), b

@@ -128,6 +128,75 @@ def test_fit_on_card_goes_through_the_kernels():
     assert abs(f - f_ref) <= 1e-3 * f_ref
 
 
+BATCHED_CARD_SHAPES = [(8, 64_000, 25, 28), (3, 64_001, 25, 3),
+                       (2, 64_001, 130, 68), (2, 3_001, 1024, 1024),
+                       (2, 2_001, 1024, 1100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BATCHED_CARD_SHAPES, ids=[
+    f"B{b}-m{m}-k{k}-n{n}" for b, m, k, n in BATCHED_CARD_SHAPES])
+def test_batched_kernel_matches_plain_and_kernel_a_on_card(shape):
+    """Kernel D (through ops: outside the envelope the two-pass route) on
+    the card: stream b bitwise equal to kernel A on stream b, two launches
+    bitwise equal, and the plain version within the near-tie allowance."""
+    _card()
+    from repro_torch.kernels import fused_step, ops
+
+    B, m, k, n = shape
+    pairs = [blobs(m, k, n, seed=7 + b) for b in range(B)]
+    x = torch.from_numpy(np.stack([p[0] for p in pairs])).cuda()
+    c = torch.from_numpy(np.stack([p[1] for p in pairs])).cuda()
+    ops.reset_launch_counts()
+    got = ops.fused_step_batched(x, c, impl="cuda")
+    again = ops.fused_step_batched(x, c, impl="cuda")
+    counts = ops.launch_counts()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    fits = fused_step.fits_batched(k, n)
+    assert (counts["fused_step_batched"] > 0) == fits
+    assert counts["fused_step"] == 0
+    plain = fused_step.fused_step_batched_plain(x, c)
+    for b in range(B):
+        one = ops.fused_step(x[b], c[b], impl="cuda")     # A, or B + C
+        assert all(torch.equal(g[b], o) for g, o in zip(got, one)), b
+        n_ties = int(_near_ties(x[b], c[b]).sum())
+        assert int((got[1][b] - plain[1][b]).abs().sum()) <= 2 * n_ties
+        pids = ops.assign(x[b], c[b], impl="ref")[0].cpu().numpy()
+        assert np.all((got[0][b] - plain[0][b]).abs().cpu().numpy()
+                      <= sums_bound(pairs[b][0], pids, k)
+                      + 2 * n_ties * float(np.abs(pairs[b][0]).max()))
+        np.testing.assert_allclose(float(got[2][b]), float(plain[2][b]),
+                                   rtol=RTOL)
+
+
+@pytest.mark.cuda
+def test_batched_fit_on_card_goes_through_kernel_d():
+    _card()
+    from repro_torch import api
+    from repro_torch.data.synthetic import GMMSpec, gmm_dataset
+    from repro_torch.kernels import ops
+
+    X = gmm_dataset(GMMSpec(m=300_000, n=28, components=25, seed=1))
+    cfg = api.BigMeansConfig(k=25, s=8192, n_chunks=8, batch=4, sync_every=2)
+    ops.reset_launch_counts()
+    res = api.fit(X, cfg)
+    counts = ops.launch_counts()
+    assert res.strategy == "batched" and res.centroids.is_cuda
+    assert counts["fused_step"] == 0 and counts["fused_step_batched"] > 0
+    assert counts["update"] == cfg.n_chunks
+    assert counts["assign"] == cfg.n_chunks
+    ref = api.fit(X, cfg.replace(impl="ref"))
+    assert ops.launch_counts() == counts          # the plain path: no kernel
+    _, f = api.evaluate(res, X)
+    _, f_ref = api.evaluate(ref, X)
+    assert abs(f - f_ref) <= 1e-3 * f_ref
+    # batch=1 is the sequential fit, bit for bit
+    one = api.fit(X, cfg.replace(batch=1, n_chunks=4), method="batched")
+    seq = api.fit(X, cfg.replace(batch=1, n_chunks=4), method="sequential")
+    assert torch.equal(one.centroids, seq.centroids)
+    assert one.objective == seq.objective and one.trace == seq.trace
+
+
 @pytest.mark.cuda
 def test_kernel_library_is_cached_by_source_digest():
     _card()

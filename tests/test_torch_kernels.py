@@ -120,17 +120,24 @@ def test_fits_envelope_matches_reference():
 
 
 def test_cpu_wrappers_take_the_plain_version():
+    """A kernel wrapper never takes the plain version: on a CPU tensor it
+    raises, and counts no launch.  Only ``ops`` runs the plain versions, for
+    CPU tensors under the ref impls."""
     x, c = blobs(300, 25, 28, seed=5)
     xt, ct = t(x), t(c)
+    ids, _ = distance.assign_plain(xt, ct)
     ops.reset_launch_counts()
-    ids, d = distance.assign_f32(xt, ct)
-    pids, pd = distance.assign_plain(xt, ct)
-    assert torch.equal(ids, pids) and torch.equal(d, pd)
-    sums, counts = update.update_f32(xt, ids, 25)
-    psums, pcounts = update.update_plain(xt, ids, 25)
-    assert torch.equal(sums, psums) and torch.equal(counts, pcounts)
-    fs = fused_step.fused_step_f32(xt, ct)
-    pf = fused_step.fused_step_plain(xt, ct)
-    assert all(torch.equal(a, b) for a, b in zip(fs, pf))
+    for call in (lambda: distance.assign_f32(xt, ct),
+                 lambda: update.update_f32(xt, ids, 25),
+                 lambda: fused_step.fused_step_f32(xt, ct),
+                 lambda: fused_step.fused_step_batched_f32(xt[None],
+                                                           ct[None])):
+        with pytest.raises(ValueError, match="must be a CUDA tensor"):
+            call()
     assert ops.launch_counts() == {"fused_step": 0, "assign": 0,
-                                   "update": 0}
+                                   "update": 0, "fused_step_batched": 0}
+    sums, counts = ops.update(xt, ids, 25)
+    assert all(torch.equal(a, b) for a, b in
+               zip((sums, counts), update.update_plain(xt, ids, 25)))
+    assert all(torch.equal(a, b) for a, b in
+               zip(ops.fused_step(xt, ct), fused_step.fused_step_plain(xt, ct)))

@@ -44,11 +44,15 @@ def test_no_card_means_no_run(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         api.fit(X, cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.fit(X, cfg, batch=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         api.evaluate(np.zeros((3, 5), np.float32), X)
-    from repro_torch.core import big_means
+    from repro_torch.core import big_means, big_means_batched
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         big_means(X, 0, k=3, s=100, n_chunks=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        big_means_batched(X, 0, k=3, s=100, batch=2, rounds=1)
     assert devices.resolve("cpu") == torch.device("cpu")
 
 
@@ -69,7 +73,7 @@ def test_cuda_impl_refuses_cpu_tensors():
 
 
 @pytest.mark.parametrize("knob,item", [
-    (dict(batch=2), "queue 1 item 5"),
+    (dict(batch=2, topology="stream_mesh"), "queue 1 item 8"),
     (dict(ckpt_dir="ckpt"), "queue 1 item 6"),
     (dict(time_budget_s=1.0), "queue 1 item 6"),
     (dict(vns_ladder=(200,)), "queue 1 item 6"),
@@ -87,7 +91,7 @@ def test_unported_knobs_raise(knob, item):
 
 
 @pytest.mark.parametrize("method,item", [
-    ("batched", "queue 1 item 5"), ("streaming", "queue 1 item 6"),
+    ("forgy", "queue 1 item 9"), ("streaming", "queue 1 item 6"),
     ("sharded", "queue 1 item 8"), ("kmeanspp", "queue 1 item 9"),
     ("coreset", "queue 1 item 9"),
 ])
