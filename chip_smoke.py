@@ -6,11 +6,14 @@
 Phases, each printing JSON lines:
 
 1. device — card, torch/CUDA versions, power limit; TF32 switched off.
-2. build — compile the four CUDA kernels (kernels/csrc) for sm_90a.
-3. kernels — each kernel against its plain PyTorch version on the same
+2. build — compile the eight CUDA kernels (kernels/csrc) for sm_90a.
+3. kernels — each f32 kernel against its plain PyTorch version on the same
    CUDA tensors, at the main paths' shapes and at edge shapes, and two
    launches of each compared bitwise; every stream of the batched kernel D
    bitwise equal to kernel A on that stream.
+3b. int8 kernels — A8, B8, C8 and D8 the same way on quantized chunks: ids
+   equal off counted near ties, int32 sums bitwise given the same ids,
+   every stream of D8 bitwise equal to A8.
 4. main path, sequential — ``repro_torch.api.fit`` + ``evaluate`` on a
    HEPMASS-shaped mixture (m = 10.5M, n = 28, 25 components) generated on
    the card, with k = 25, s = 64,000, 32 chunks, through the kernels
@@ -21,11 +24,25 @@ Phases, each printing JSON lines:
    against the per-round iterations); the plain path within 1e-3 and with
    the same accept sequence up to a near-tie decision; a batch=1 batched
    fit bitwise equal to the sequential fit.
+4b. int8 main path, sequential — phase 4's fit with ``precision="int8"``
+   through kernel A8 (f32 B and C in the epilogue, B8 and C8 never); the
+   plain path within 1e-3 and the same accept sequence up to a near tie;
+   the int8-versus-f32 drift of the objective printed as a finding.
+5b. int8 main path, batched — phase 5's fit with ``precision="int8"``
+   through kernel D8, with the same checks.
+5c. the two-pass route at int8 — a 2,048-entry codebook over 1,024-wide
+   embeddings (k = 2,048, n = 1,024 outside the fused envelope,
+   m = 1,048,576, s = 16,384, 4 chunks): B8 and C8 carry every Lloyd
+   iteration; the plain path within 1e-3; B8, C8 and the two-pass step
+   held against their plain versions at that shape, whose errors the
+   final line reports for B8 and C8.
 6. times — each kernel, its plain version and a PyTorch library call where
    one computes the same function, by CUDA events over CUDA-graph replays
    (device time; host launch overhead excluded), beside the bound; kernel D
-   beside 8 back-to-back kernel-A launches; batched and sequential fit
-   walls in turns.
+   (D8) beside 8 back-to-back kernel-A (A8) launches; A and A8 at the
+   fused envelope's edge (k = n = 1,024); batched and sequential fit walls
+   in turns, f32 and int8 fit walls in turns.  Phase 5c times B8, C8 and C
+   at its own shape.
 
 Then the one ``{"kernels": [...]}`` line, the card's name and power limit,
 and the final ``{"ok": true, "device": {...}}`` line.  Any failed check raises.
@@ -58,10 +75,12 @@ from repro_torch.data.synthetic import (  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     build, distance, fused_step, ops, ref,
 )
+from repro_torch.kernels import precision as px  # noqa: E402
 from repro_torch.kernels import update as upd  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOP_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+INT8_OP_PER_S = 1979e12        # H100 SXM int8 tensor cores (dense)
 RTOL = 1e-5                    # sums, d, obj: summation order differs
 TIE_RTOL = 1e-4                # ids compared where the top-2 gap exceeds it
 
@@ -75,10 +94,28 @@ KERNELS = {
                    "src/repro/kernels/distance.py:164"),
     "update_f32": ("src/repro_torch/kernels/csrc/update.cu",
                    "src/repro/kernels/update.py:114"),
+    "fused_step_int8": ("src/repro_torch/kernels/csrc/fused_step_int8.cu",
+                        "src/repro/kernels/fused_step.py:297"),
+    "fused_step_batched_int8": (
+        "src/repro_torch/kernels/csrc/fused_step_batched_int8.cu",
+        "src/repro/kernels/fused_step.py:433"),
+    "assign_int8": ("src/repro_torch/kernels/csrc/assign_int8.cu",
+                    "src/repro/kernels/distance.py:231"),
+    "update_int8": ("src/repro_torch/kernels/csrc/update_int8.cu",
+                    "src/repro/kernels/update.py:164"),
 }
 COUNTS = {"fused_step_f32": "fused_step", "assign_f32": "assign",
           "update_f32": "update",
-          "fused_step_batched_f32": "fused_step_batched"}
+          "fused_step_batched_f32": "fused_step_batched",
+          "fused_step_int8": "fused_step_int8",
+          "fused_step_batched_int8": "fused_step_batched_int8",
+          "assign_int8": "assign_int8", "update_int8": "update_int8"}
+# The path whose run gives each kernel's launches in the final line.
+PATH_OF = {"fused_step_f32": "sequential", "assign_f32": "sequential",
+           "update_f32": "sequential", "fused_step_batched_f32": "batched",
+           "fused_step_int8": "int8_sequential",
+           "fused_step_batched_int8": "int8_batched",
+           "assign_int8": "int8_two_pass", "update_int8": "int8_two_pass"}
 BATCH, SYNC_EVERY = 8, 2        # the paper's (configs/bigmeans_paper.py)
 
 
@@ -283,6 +320,174 @@ def phase_kernels(seed: int) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 3b: the int8 kernels against their plain versions
+# --------------------------------------------------------------------------
+
+
+def near_ties_int8(qx, c) -> torch.Tensor:
+    """Rows whose best two int8 scores csq - 2 float(xq.cq) t (the
+    kernels' argmin) are within TIE_RTOL."""
+    if c.shape[0] < 2:
+        return torch.zeros(qx.q.shape[0], dtype=torch.bool, device="cuda")
+    cq, t = px.quantize_centroids(c, qx.scale)
+    dots = px.intdot(qx.q, cq, ([1], [1])).float() * t[None, :]
+    scores = px.sqnorm_in_order(c)[None, :] - 2.0 * dots
+    two = torch.topk(scores, 2, dim=1, largest=False).values
+    return (two[:, 1] - two[:, 0]) <= TIE_RTOL * two[:, 0].abs()
+
+
+def check_assign_int8(qx, c, ties):
+    """Kernel B8 twice (bitwise), against the plain version off near ties;
+    returns (max abs err of d, B8's ids)."""
+    ids, d = twice(distance.assign_int8, qx, c)
+    ids_p, d_p = distance.assign_int8_plain(qx, c)
+    ok = ~ties
+    check(torch.equal(ids[ok], ids_p[ok]),
+          "assign_int8 ids differ off near ties")
+    deq = px.dequantize(qx)
+    x2 = (deq * deq).sum(1)
+    c2 = (c * c).sum(1)[ids_p.long()]
+    scale = x2 + c2 + 2 * (x2 * c2).sqrt()
+    err = (d - d_p).abs()
+    check(bool((err[ok] <= RTOL * scale[ok] + 1e-6).all()),
+          f"assign_int8 d off by {float(err.max())}")
+    return float(err.max()), ids
+
+
+def check_update_int8(qx, ids, k) -> float:
+    """Kernel C8 twice (bitwise); int32 sums (so the scaled sums) and
+    counts bitwise equal to the plain version on the same ids."""
+    ids = ids.clone()
+    ids[::97] = -1                                  # padding never hits
+    ids[1::89] = k + 3                              # out of range adds nothing
+    sums, counts = twice(upd.update_int8, qx, ids, k)
+    sums_p, counts_p = upd.update_int8_plain(qx, ids, k)
+    check(torch.equal(counts, counts_p), "update_int8 counts differ")
+    check(torch.equal(sums, sums_p), "update_int8 sums differ")
+    return float((sums - sums_p).abs().max())
+
+
+def check_fused_int8(qx, c, ids_b8, ties: int, direct: bool) -> float:
+    """Kernel A8 (direct) or the ops route (B8 + C8) twice (bitwise): its
+    int32 sums and counts bitwise those of the plain update on kernel B8's
+    ids (the same argmin code), and within the near-tie allowance of the
+    plain step on the plain ids; the objective within RTOL."""
+    k = c.shape[0]
+    if direct:
+        sums, counts, obj = twice(fused_step.fused_step_int8, qx, c)
+    else:
+        sums, counts, obj = twice(
+            lambda a, b: ops.fused_step(a, b, impl="cuda"), qx, c)
+    sums_i, counts_i = upd.update_int8_plain(qx, ids_b8, k)
+    check(torch.equal(sums, sums_i) and torch.equal(counts, counts_i),
+          "fused int8 sums/counts differ from the plain update on B8's ids")
+    sums_p, counts_p, obj_p = fused_step.fused_step_int8_plain(qx, c)
+    check(int((counts - counts_p).abs().sum()) <= 2 * ties,
+          "fused int8 counts differ beyond near ties")
+    room = 2 * ties * 127 * float(qx.scale.max())
+    err = float((sums - sums_p).abs().max())
+    check(err <= room, f"fused int8 sums off by {err} beyond near ties")
+    check(abs(float(obj) - float(obj_p)) <= RTOL * float(obj_p),
+          f"fused int8 obj {float(obj)} vs plain {float(obj_p)}")
+    return max(err, abs(float(obj) - float(obj_p)))
+
+
+def check_batched_int8(qx, c) -> tuple[float, int]:
+    """Kernel D8 through ``ops`` (outside the envelope: B8 + C8 per
+    stream): every stream bitwise equal to the single-stream route (kernel
+    A8 inside the envelope), two calls bitwise equal, the plain version
+    within the near-tie allowance.  Returns (max abs err, D8 launches per
+    call)."""
+    batch = c.shape[0]
+    before = fused_step.batched_int8_launches
+    sums, counts, obj = twice(
+        lambda a, b: ops.fused_step_batched(a, b, impl="cuda"), qx, c)
+    per_call = (fused_step.batched_int8_launches - before) // 2
+    sums_p, counts_p, obj_p = fused_step.fused_step_batched_int8_plain(qx, c)
+    err = 0.0
+    for b in range(batch):
+        qb = px.QuantizedChunk(qx.q[b], qx.scale[b])
+        one = ops.fused_step(qb, c[b], impl="cuda")
+        for u, v in zip((sums[b], counts[b], obj[b]), one):
+            check(torch.equal(u, v), f"int8 batched stream {b} differs "
+                  "from the single-stream route")
+        ties = int(near_ties_int8(qb, c[b]).sum())
+        check(int((counts[b] - counts_p[b]).abs().sum()) <= 2 * ties,
+              f"int8 batched counts differ beyond near ties (stream {b})")
+        e = float((sums[b] - sums_p[b]).abs().max())
+        check(e <= 2 * ties * 127 * float(qb.scale.max()),
+              f"int8 batched sums off by {e} (stream {b})")
+        check(abs(float(obj[b]) - float(obj_p[b])) <= RTOL * float(obj_p[b]),
+              f"int8 batched obj {float(obj[b])} vs plain {float(obj_p[b])}")
+        err = max(err, e, abs(float(obj[b]) - float(obj_p[b])))
+    return err, per_call
+
+
+def phase_kernels_int8(seed: int) -> dict:
+    shapes = [  # (m, k, n, why)
+        (64_000, 25, 28, "main path chunk"),
+        (64_001, 25, 3, "ragged m, n = 3"),
+        (64_001, 129, 68, "k = 129, n = 68"),
+        (64_001, 1024, 1024, "k = n = 1024: fused envelope edge"),
+        (20_001, 1024, 1100, "outside the envelope: B8 + C8"),
+    ]
+    main_err = {}
+    for m, k, n, why in shapes:
+        x, c = separated(m, k, n, seed)
+        qx = px.quantize_chunk(x)
+        ties = near_ties_int8(qx, c)
+        n_ties = int(ties.sum())
+        fits = fused_step.fits(k, n)
+        row = {"phase": "kernels_int8", "m": m, "k": k, "n": n, "case": why,
+               "fits": fits, "near_ties": n_ties}
+        row["assign_int8_max_abs_err"], ids = check_assign_int8(qx, c, ties)
+        ids_p, _ = distance.assign_int8_plain(qx, c)
+        row["update_int8_max_abs_err"] = check_update_int8(qx, ids_p, k)
+        row["fused_int8_max_abs_err"] = check_fused_int8(qx, c, ids, n_ties,
+                                                         direct=fits)
+        row["fused_route"] = "kernel A8" if fits else "kernels B8 + C8"
+        emit(row)
+        if why == "main path chunk":
+            main_err = {"fused_step_int8": row["fused_int8_max_abs_err"],
+                        "assign_int8": row["assign_int8_max_abs_err"],
+                        "update_int8": row["update_int8_max_abs_err"]}
+        del x, c, qx
+        torch.cuda.empty_cache()
+    batched_shapes = [  # (B, m, k, n, why)
+        (BATCH, 64_000, 25, 28, "batched main path chunks"),
+        (3, 64_001, 25, 3, "ragged m, n = 3"),
+        (2, 64_001, 129, 68, "k = 129, n = 68"),
+        (2, 64_001, 1024, 1024, "envelope edge: one stream per launch"),
+        (2, 20_001, 1024, 1100, "outside the envelope: B8 + C8 per stream"),
+    ]
+    for batch, m, k, n, why in batched_shapes:
+        x, c = batched_separated(batch, m, k, n, seed)
+        qx = px.quantize_chunk(x)                   # a scale row per stream
+        fits = fused_step.fits_batched(k, n)
+        err, per_call = check_batched_int8(qx, c)
+        stride = k * n + k + 1
+        grid = build.grid(x.device, m, stride)
+        group = build.stream_group(grid, stride)
+        want = -(-batch // group) if fits else 0
+        check(per_call == want, f"kernel D8 launched {per_call} times per "
+              f"call, want {want}")
+        emit({"phase": "kernels_int8", "kernel": "fused_step_batched_int8",
+              "batch": batch, "m": m, "k": k, "n": n, "case": why,
+              "fits": fits, "grid_per_stream": grid,
+              "streams_per_launch": min(group, batch),
+              "launches_per_call": per_call, "max_abs_err": err,
+              "route": "kernel D8" if fits else "kernels B8 + C8 per stream",
+              "streams_bitwise_equal_to_single_route": True})
+        if why == "batched main path chunks":
+            main_err["fused_step_batched_int8"] = err
+        del x, c, qx
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels_int8_summary", "max_abs_err_at_main_shape":
+          main_err})
+    return main_err
+
+
+# --------------------------------------------------------------------------
 # phase 4: the sequential main path at full size
 # --------------------------------------------------------------------------
 
@@ -361,11 +566,10 @@ def phase_main(seed: int):
           "accepts_ref": [int(a) for _, _, a in res_ref.trace],
           "first_parting": first_parting(res.trace, res_ref.trace)})
     check(rel <= 1e-3, f"full objectives differ by {rel:.3e} (> 1e-3)")
-    check(all(v > 0 for k, v in launches.items()
-              if k != "fused_step_batched")
-          and launches["fused_step_batched"] == 0,
+    check({k for k, v in launches.items() if v}
+          == {"fused_step", "assign", "update"},
           f"sequential path launches {launches}")
-    return X, res, launches, wall, walls
+    return X, res, launches, wall, walls, f_full
 
 
 # --------------------------------------------------------------------------
@@ -486,8 +690,9 @@ def phase_batched(X, seed: int, seq_fit_walls: dict):
           f"kernel D launches {replay_launches['fused_step_batched']} != "
           f"sum over rounds of the slowest stream's iterations {slowest}")
     check(int(iters.sum()) == res.n_iterations, "iterations")
-    want = {"fused_step": 0, "fused_step_batched": slowest,
-            "update": cfg.n_chunks, "assign": cfg.n_chunks + n_eval}
+    want = dict.fromkeys(launches, 0)
+    want.update(fused_step_batched=slowest, update=cfg.n_chunks,
+                assign=cfg.n_chunks + n_eval)
     check(launches == want, f"batched path launches {launches} != {want}")
 
     t1 = time.monotonic()
@@ -542,6 +747,222 @@ def phase_batched(X, seed: int, seq_fit_walls: dict):
 
 
 # --------------------------------------------------------------------------
+# phases 4b, 5b, 5c: the int8 paths at full size
+# --------------------------------------------------------------------------
+
+
+def fit_checks(res, X, ids, f_full, k: int, precision: str) -> None:
+    check(res.extras["fit"]["impl"] == "cuda", "fit did not use the kernels")
+    check(res.extras["fit"]["precision"] == precision,
+          f"fit ran precision {res.extras['fit']['precision']}")
+    check(res.centroids.is_cuda, "centroids are not on the card")
+    check(tuple(res.centroids.shape) == (k, X.shape[1]), "centroid shape")
+    check(bool(torch.isfinite(res.centroids).all()), "non-finite centroids")
+    check(tuple(ids.shape) == (X.shape[0],) and int(ids.min()) >= 0
+          and int(ids.max()) < k, "evaluate ids")
+    check(math.isfinite(f_full) and f_full > 0, "full objective")
+
+
+def phase_main_int8(X, seed: int, f_full_f32: float):
+    """Phase 4's sequential fit under ``precision="int8"`` (kernel A8)."""
+    m, n = X.shape
+    cfg = BigMeansConfig(k=25, s=64_000, n_chunks=32, seed=seed,
+                         precision="int8")
+    for impl in ("cuda", "ref"):        # warm both paths (first-use costs)
+        fit(X, cfg.replace(n_chunks=2, impl=impl, seed=seed + 1))
+
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    res = fit(X, cfg, method="auto")
+    ids, f_full = evaluate(res, X)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = ops.launch_counts()
+
+    n_eval = math.ceil(m / EVAL_BATCH)
+    check(res.strategy == "sequential", f"auto resolved to {res.strategy}")
+    fit_checks(res, X, ids, f_full, cfg.k, "int8")
+    want = dict.fromkeys(launches, 0)
+    want.update(fused_step_int8=res.n_iterations, update=cfg.n_chunks,
+                assign=cfg.n_chunks + n_eval)
+    check(launches == want, f"int8 sequential launches {launches} != {want}")
+
+    res_ref = fit(X, cfg.replace(impl="ref"), method="auto")
+    check(ops.launch_counts() == launches, "the ref fit launched a kernel")
+    _, f_full_ref = evaluate(res_ref, X)
+    rel = abs(f_full - f_full_ref) / f_full_ref
+    parting = check_accepts(res, res_ref, 1, 1)
+    walls = {"f32": [], "int8": []}     # cuda fit walls, in turns
+    for prec in ("f32", "int8", "int8", "f32"):
+        walls[prec].append(fit(X, cfg.replace(precision=prec)).wall_time_s)
+    emit({"phase": "main_path_int8", "m": m, "n": n, "k": cfg.k, "s": cfg.s,
+          "n_chunks": cfg.n_chunks, "strategy": res.strategy,
+          "f_best": res.objective, "f_full": f_full,
+          "f_full_per_point": f_full / m, "n_accepted": res.n_accepted,
+          "n_iterations": res.n_iterations, "wall_s": wall,
+          "fit_wall_s": res.wall_time_s, "launches": launches,
+          "ref": {"f_best": res_ref.objective, "f_full": f_full_ref,
+                  "n_accepted": res_ref.n_accepted,
+                  "n_iterations": res_ref.n_iterations},
+          "f_full_rel_diff": rel,
+          "accepts_cuda": [int(a) for _, _, a in res.trace],
+          "accepts_ref": [int(a) for _, _, a in res_ref.trace],
+          "first_parting": parting,
+          "f32_f_full": f_full_f32,
+          "int8_vs_f32_f_full_drift": (f_full - f_full_f32) / f_full_f32,
+          "fit_walls_s_in_turns": walls})
+    check(rel <= 1e-3, f"int8 full objectives differ by {rel:.3e} (> 1e-3)")
+    return launches, wall
+
+
+def phase_batched_int8(X, seed: int, f_full_f32: float):
+    """Phase 5's batched fit under ``precision="int8"`` (kernel D8)."""
+    m, n = X.shape
+    cfg = BigMeansConfig(k=25, s=64_000, n_chunks=32, batch=BATCH,
+                         sync_every=SYNC_EVERY, seed=seed, precision="int8")
+    for impl in ("cuda", "ref"):        # warm both paths (first-use costs)
+        fit(X, cfg.replace(n_chunks=2 * BATCH, impl=impl, seed=seed + 1))
+
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    res = fit(X, cfg, method="auto")
+    ids, f_full = evaluate(res, X)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = ops.launch_counts()
+
+    n_eval = math.ceil(m / EVAL_BATCH)
+    rounds = cfg.n_chunks // BATCH
+    check(res.strategy == "batched", f"auto resolved to {res.strategy}")
+    fit_checks(res, X, ids, f_full, cfg.k, "int8")
+    ops.reset_launch_counts()           # replay for per-chunk iterations
+    state, infos = big_means_batched(
+        X, rnd.TORCH.key(seed), k=cfg.k, s=cfg.s, batch=BATCH,
+        rounds=rounds, sync_every=SYNC_EVERY, precision="int8")
+    check(torch.equal(state.centroids, res.centroids)
+          and float(state.f_best) == res.objective,
+          "the core replay of the int8 batched fit differs from it")
+    iters = infos.lloyd_iters.view(rounds, BATCH)
+    slowest = int(iters.max(dim=1).values.sum())
+    want = dict.fromkeys(launches, 0)
+    want.update(fused_step_batched_int8=slowest, update=cfg.n_chunks,
+                assign=cfg.n_chunks + n_eval)
+    check(launches == want, f"int8 batched launches {launches} != {want}")
+
+    res_ref = fit(X, cfg.replace(impl="ref"), method="auto")
+    _, f_full_ref = evaluate(res_ref, X, impl="ref")
+    rel = abs(f_full - f_full_ref) / f_full_ref
+    parting = check_accepts(res, res_ref, BATCH, SYNC_EVERY)
+    emit({"phase": "main_path_batched_int8", "m": m, "n": n, "k": cfg.k,
+          "s": cfg.s, "n_chunks": cfg.n_chunks, "batch": BATCH,
+          "sync_every": SYNC_EVERY, "rounds": rounds,
+          "f_best": res.objective, "f_full": f_full,
+          "n_accepted": res.n_accepted, "n_iterations": res.n_iterations,
+          "iterations_per_chunk": iters.flatten().tolist(),
+          "slowest_stream_iterations_sum": slowest, "wall_s": wall,
+          "fit_wall_s": res.wall_time_s, "launches": launches,
+          "ref": {"f_best": res_ref.objective, "f_full": f_full_ref,
+                  "n_accepted": res_ref.n_accepted,
+                  "n_iterations": res_ref.n_iterations},
+          "f_full_rel_diff": rel,
+          "accepts_cuda": [int(a) for _, _, a in res.trace],
+          "accepts_ref": [int(a) for _, _, a in res_ref.trace],
+          "first_parting": parting, "f32_f_full": f_full_f32,
+          "int8_vs_f32_f_full_drift": (f_full - f_full_f32) / f_full_f32})
+    check(rel <= 1e-3, f"int8 batched full objectives differ by {rel:.3e}")
+    return launches, wall
+
+
+def phase_two_pass_int8(seed: int):
+    """An int8 fit outside the fused envelope: a 2,048-entry codebook over
+    1,024-wide embeddings (the d_model of
+    src/repro/configs/seamless_m4t_medium.py:10), so B8 and C8 carry every
+    Lloyd iteration."""
+    spec = GMMSpec(m=1 << 20, n=1024, components=2048, seed=seed)
+    t0 = time.monotonic()
+    X = gmm_dataset(spec, device="cuda")
+    torch.cuda.synchronize()
+    gen_s = time.monotonic() - t0
+    cfg = BigMeansConfig(k=2048, s=16_384, n_chunks=4, seed=seed,
+                         precision="int8")
+    check(not fused_step.fits(cfg.k, spec.n), "k = 2048 fits the envelope")
+
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    res = fit(X, cfg, method="sequential")
+    ids, f_full = evaluate(res, X)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = ops.launch_counts()
+
+    n_eval = math.ceil(spec.m / EVAL_BATCH)
+    fit_checks(res, X, ids, f_full, cfg.k, "int8")
+    want = dict.fromkeys(launches, 0)
+    want.update(assign_int8=res.n_iterations, update_int8=res.n_iterations,
+                update=cfg.n_chunks, assign=cfg.n_chunks + n_eval)
+    check(launches == want, f"two-pass int8 launches {launches} != {want}")
+
+    t1 = time.monotonic()
+    res_ref = fit(X, cfg.replace(impl="ref"), method="sequential")
+    torch.cuda.synchronize()
+    wall_ref_fit = time.monotonic() - t1
+    check(ops.launch_counts() == launches, "the ref fit launched a kernel")
+    _, f_full_ref = evaluate(res_ref, X)
+    rel = abs(f_full - f_full_ref) / f_full_ref
+    parting = check_accepts(res, res_ref, 1, 1)
+
+    # B8 and C8 against their plain versions at the shape this path gives
+    # them (one chunk against the final centroids), then their times
+    k, n, s = cfg.k, spec.n, cfg.s
+    qx = px.quantize_chunk(X[:s].contiguous())
+    c = res.centroids.contiguous()
+    ties = near_ties_int8(qx, c)
+    n_ties = int(ties.sum())
+    errs = {}
+    errs["assign_int8"], ids8 = check_assign_int8(qx, c, ties)
+    ids_p, _ = distance.assign_int8_plain(qx, c)
+    errs["update_int8"] = check_update_int8(qx, ids_p, k)
+    two_pass_err = check_fused_int8(qx, c, ids8, n_ties, direct=False)
+    cq, t = px.quantize_centroids(c, qx.scale)
+    b8 = timing(lambda: distance.launch_assign_int8(qx.q, qx.scale, cq, t,
+                                                    c),
+                lambda: distance.assign_int8_plain(qx, c), None,
+                s * n + 5 * k * n + 4 * k + 4 * n + 8 * s, 2 * s * k * n, 3,
+                INT8_OP_PER_S)
+    c8 = timing(lambda: upd.launch_update_int8(qx.q, ids8, k),
+                lambda: upd.update_int8_plain(qx, ids8, k), None,
+                s * n + 4 * s + 4 * (k * n + k), s * n, 3, INT8_OP_PER_S)
+    xs = X[:s].contiguous()
+    c32 = timing(lambda: upd.update_f32(xs, ids8, k),
+                 lambda: upd.update_plain(xs, ids8, k), None,
+                 4 * (s * n + s + k * n + k), s * n, 3)
+    emit({"phase": "two_pass_int8", "m": spec.m, "n": spec.n, "k": cfg.k,
+          "s": cfg.s, "n_chunks": cfg.n_chunks, "data_gen_s": gen_s,
+          "fits_envelope": False, "f_best": res.objective, "f_full": f_full,
+          "n_accepted": res.n_accepted, "n_iterations": res.n_iterations,
+          "wall_s": wall, "fit_wall_s": res.wall_time_s,
+          "launches": launches,
+          "ref": {"f_best": res_ref.objective, "f_full": f_full_ref,
+                  "n_accepted": res_ref.n_accepted,
+                  "n_iterations": res_ref.n_iterations,
+                  "fit_wall_s": wall_ref_fit},
+          "f_full_rel_diff": rel,
+          "accepts_cuda": [int(a) for _, _, a in res.trace],
+          "accepts_ref": [int(a) for _, _, a in res_ref.trace],
+          "first_parting": parting,
+          "near_ties": n_ties, "max_abs_err_at_this_shape": {
+              **errs, "fused_step_two_pass": two_pass_err},
+          "times_at_this_shape": {"assign_int8": b8, "update_int8": c8,
+                                  "update_f32": c32},
+          "int8_kernels_s_estimate": res.n_iterations
+          * (b8["ms"] + c8["ms"]) / 1e3})
+    check(rel <= 1e-3, f"two-pass int8 full objectives differ by {rel:.3e}")
+    del X
+    torch.cuda.empty_cache()
+    return launches, wall, errs
+
+
+# --------------------------------------------------------------------------
 # phase 6: times
 # --------------------------------------------------------------------------
 
@@ -589,23 +1010,32 @@ def device_ms(fn, launches: int, replays: int = 5) -> float:
     return ms
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, peak: float = F32_FLOP_PER_S
+          ) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOP_PER_S
+    t_ops = flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
-def timing(fn, plain, library, nbytes, flops, launches):
-    b_ms, b_by = bound(nbytes, flops)
-    return {"ms": device_ms(fn, launches),
-            "eager_ms": eager_ms(fn, launches),
-            "plain_ms": device_ms(plain, launches),
-            "library_ms": None if library is None
-            else device_ms(library, launches),
-            "bound_ms": b_ms, "bound_us": 1e3 * b_ms, "bound_by": b_by,
-            "bytes": nbytes,
-            "flops": flops}
+def timing(fn, plain, library, nbytes, flops, launches,
+           peak: float = F32_FLOP_PER_S, wrapper=None):
+    """Device ms of ``fn`` (the kernel's launch), its plain version and a
+    library call, beside the bound; ``wrapper``: the whole wrapper call
+    where it does more than launch (the int8 centroid quantization)."""
+    b_ms, b_by = bound(nbytes, flops, peak)
+    row = {"ms": device_ms(fn, launches),
+           "eager_ms": eager_ms(fn, launches),
+           "plain_ms": device_ms(plain, launches),
+           "library_ms": None if library is None
+           else device_ms(library, launches),
+           "bound_ms": b_ms, "bound_us": 1e3 * b_ms, "bound_by": b_by,
+           "bytes": nbytes, "flops": flops,
+           "peak_ops_per_s": peak}
+    if wrapper is not None:
+        row["wrapper_ms"] = device_ms(wrapper, launches)
+        row["wrapper_eager_ms"] = eager_ms(wrapper, launches)
+    return row
 
 
 def phase_times(X, res, seed: int) -> dict:
@@ -652,6 +1082,69 @@ def phase_times(X, res, seed: int) -> dict:
     out["fused_step_batched_f32"]["kernel_a_x_batch_ms"] = device_ms(
         lambda: [fused_step.fused_step_f32(xb[b], cb[b])
                  for b in range(BATCH)], 25)
+
+    # int8: ``ms`` is the kernel's launch on prepared operands; the
+    # wrapper adds the centroid quantization and the int32 -> f32 scaling
+    qx = px.quantize_chunk(x)
+    q, scale = qx
+    cq, t = px.quantize_centroids(c, scale)
+    ids8, _ = distance.assign_int8_plain(qx, c)
+    q32 = q.int()
+    ops8 = 2 * s * k * n
+    out["fused_step_int8"] = timing(
+        lambda: fused_step.launch_fused_step_int8(q, scale, cq, t, c),
+        lambda: fused_step.fused_step_int8_plain(qx, c), None,
+        s * n + 5 * k * n + 4 * k + 4 * n + 4 * (k * n + k + 1), ops8 + s * n,
+        200, INT8_OP_PER_S,
+        wrapper=lambda: fused_step.fused_step_int8(qx, c))
+    out["assign_int8"] = timing(
+        lambda: distance.launch_assign_int8(q, scale, cq, t, c),
+        lambda: distance.assign_int8_plain(qx, c), None,
+        s * n + 5 * k * n + 4 * k + 4 * n + 8 * s, ops8, 200, INT8_OP_PER_S,
+        wrapper=lambda: distance.assign_int8(qx, c))
+    out["update_int8"] = timing(
+        lambda: upd.launch_update_int8(q, ids8, k),
+        lambda: upd.update_int8_plain(qx, ids8, k),
+        lambda: torch.zeros((k, n), dtype=torch.int32,
+                            device="cuda").index_add_(0, ids8.long(), q32),
+        s * n + 4 * s + 4 * (k * n + k), s * n, 200, INT8_OP_PER_S,
+        wrapper=lambda: upd.update_int8(qx, ids8, k))
+    out["update_int8"]["library"] = ("index_add_ on the int32 codes (sums "
+                                     "only; counts excluded)")
+    qxb = px.quantize_chunk(xb)                 # one scale row per stream
+    cqb, tb = px.quantize_centroids(cb, qxb.scale)
+    out["fused_step_batched_int8"] = timing(
+        lambda: fused_step.launch_fused_step_batched_int8(
+            qxb.q, qxb.scale, cqb, tb, cb),
+        lambda: fused_step.fused_step_batched_int8_plain(qxb, cb), None,
+        BATCH * (s * n + 5 * k * n + 4 * k + 4 * n + 4 * (k * n + k + 1)),
+        BATCH * (ops8 + s * n), 100, INT8_OP_PER_S,
+        wrapper=lambda: fused_step.fused_step_batched_int8(qxb, cb))
+    out["fused_step_batched_int8"]["batch"] = BATCH
+    out["fused_step_batched_int8"]["kernel_a8_x_batch_ms"] = device_ms(
+        lambda: [fused_step.launch_fused_step_int8(
+            qxb.q[b], qxb.scale[b], cqb[b], tb[b], cb[b])
+            for b in range(BATCH)], 25)
+
+    # A and A8 at the fused envelope's edge, where the scores dominate
+    me, ke, ne = 64_000, 1024, 1024
+    xe, ce = separated(me, ke, ne, seed)
+    qe = px.quantize_chunk(xe)
+    cqe, te = px.quantize_centroids(ce, qe.scale)
+    edge_ops = 2 * me * ke * ne + me * ne
+    out["fused_step_f32"]["at_envelope_edge"] = timing(
+        lambda: fused_step.fused_step_f32(xe, ce),
+        lambda: fused_step.fused_step_plain(xe, ce), None,
+        4 * (me * ne + 2 * ke * ne + ke + 1), edge_ops, 3)
+    out["fused_step_int8"]["at_envelope_edge"] = timing(
+        lambda: fused_step.launch_fused_step_int8(qe.q, qe.scale, cqe, te,
+                                                  ce),
+        lambda: fused_step.fused_step_int8_plain(qe, ce), None,
+        me * ne + 5 * ke * ne + 4 * ke + 4 * ne + 4 * (ke * ne + ke + 1),
+        edge_ops, 3, INT8_OP_PER_S)
+    for name in ("fused_step_f32", "fused_step_int8"):
+        out[name]["at_envelope_edge"].update(m=me, k=ke, n=ne)
+    del xe, ce, qe, cqe
     for name, row in out.items():
         emit({"phase": "times", "kernel": name, "m": s, "k": k, "n": n,
               **row})
@@ -660,15 +1153,17 @@ def phase_times(X, res, seed: int) -> dict:
 
 def device_share(path: str, times: dict, launches: dict, n_eval: int,
                  wall: float):
-    """Kernel device seconds of a main path's run, estimated as launches
-    times graph-replay ms (the evaluate batches at their own size)."""
+    """Kernel device seconds of a main path's run at the main shapes,
+    estimated as launches times graph-replay ms (the evaluate batches at
+    their own size; the int8 kernels with their wrappers' centroid
+    quantization)."""
     ev = times["assign_f32"]["at_evaluate"]
     per_batch = ev["ms"] * EVAL_BATCH / ev["m"]
     s = (n_eval * per_batch
          + (launches["assign"] - n_eval) * times["assign_f32"]["ms"]
-         + sum(launches[COUNTS[name]] * times[name]["ms"]
-               for name in ("fused_step_f32", "fused_step_batched_f32",
-                            "update_f32"))) / 1e3
+         + sum(launches[COUNTS[name]]
+               * times[name].get("wrapper_ms", times[name]["ms"])
+               for name in KERNELS if name != "assign_f32")) / 1e3
     emit({"phase": "where_the_time_goes", "path": path,
           "kernel_device_s_estimate": s, "main_path_wall_s": wall,
           "kernel_share_estimate": s / wall})
@@ -703,29 +1198,43 @@ def main() -> int:
           "library": str(info.path.relative_to(ROOT)),
           "ptxas": info.resources})
 
-    # phase 3: kernels vs plain
+    # phase 3: kernels vs plain (3b: the int8 kernels)
     errs = phase_kernels(args.seed)
+    errs.update(phase_kernels_int8(args.seed))
 
-    # phase 4: the sequential main path
-    X, res, launches, wall, seq_walls = phase_main(args.seed)
+    # phase 4: the sequential main path (4b: at int8)
+    X, res, launches, wall, seq_walls, f_full = phase_main(args.seed)
+    paths = {"sequential": (launches, wall)}
 
-    # phase 5: the batched main path
+    # phase 5: the batched main path (5b: at int8)
     _, launches_b, wall_b = phase_batched(X, args.seed, seq_walls)
+    paths["batched"] = (launches_b, wall_b)
+    paths["int8_sequential"] = phase_main_int8(X, args.seed, f_full)
+    paths["int8_batched"] = phase_batched_int8(X, args.seed, f_full)
 
     # phase 6: times
     times = phase_times(X, res, args.seed)
     n_eval = math.ceil(X.shape[0] / EVAL_BATCH)
-    device_share("sequential", times, launches, n_eval, wall)
-    device_share("batched", times, launches_b, n_eval, wall_b)
+    for path, (counts, path_wall) in paths.items():
+        device_share(path, times, counts, n_eval, path_wall)
+    del X
+    torch.cuda.empty_cache()
 
-    # launches: kernel D from the batched path, A, B, C from the
-    # sequential one; both paths' counts beside them
+    # phase 5c: the two-pass route at int8 (its own data set)
+    launches_2p, wall_2p, two_pass_errs = phase_two_pass_int8(args.seed)
+    paths["int8_two_pass"] = (launches_2p, wall_2p)
+    # B8 and C8 run on the main path only at the two-pass shape: their
+    # errors in the final line are those of that shape (phase 3b's summary
+    # holds the main chunk shape's)
+    errs.update(two_pass_errs)
+
+    # launches: each kernel's from the path that drives it (PATH_OF),
+    # every path's counts beside them
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": (launches_b if name == "fused_step_batched_f32"
-                      else launches)[COUNTS[name]],
-         "launches_per_path": {"sequential": launches[COUNTS[name]],
-                               "batched": launches_b[COUNTS[name]]},
+         "launches": paths[PATH_OF[name]][0][COUNTS[name]],
+         "launches_per_path": {p: c[COUNTS[name]]
+                               for p, (c, _) in paths.items()},
          "max_abs_err": errs[name], **times[name]}
         for name, (src, rep) in KERNELS.items()]})
     print(smi, flush=True)

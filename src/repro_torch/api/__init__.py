@@ -8,6 +8,7 @@
     ids, f = evaluate(result, X)                        # full-data f(C, X)
     result = fit(X, cfg, batch=8, sync_every=2)         # 8 streams at once
     result = fit(X, cfg, method="sequential", device="cpu")
+    result = fit(X, cfg, precision="int8")              # int8 Lloyd loop
 
 ``fit`` runs on the CUDA device unless ``device="cpu"`` is passed, and
 raises ``RuntimeError`` when no CUDA device is present and the CPU was not
@@ -32,6 +33,7 @@ from repro_torch.api.strategies import (
 )
 from repro_torch.data import synthetic as synthetic
 from repro_torch.kernels import ops
+from repro_torch.kernels import precision as px
 
 __all__ = [
     "ArraySource", "BigMeansConfig", "DataSource", "FitResult",
@@ -100,7 +102,8 @@ def fit(
     result.extras["fit"] = {
         "method": method,
         "impl": ops.resolve_impl(cfg.impl, dev),
-        "precision": "f32",     # the one ported policy; others raised
+        # the in-core strategies run on the f32 dataset, so 'auto' is f32
+        "precision": px.resolve(cfg.precision, torch.float32),
         "autotune": cfg.autotune,
         "seed": int(cfg.seed),
         "source": type(source).__name__,

@@ -10,8 +10,9 @@ so that no knob is silently ignored:
   ``'auto'``/``'single'`` and ``mesh`` — ``'stream_mesh'`` included, so a
   batched fit runs its streams on one device — (queue 1 item 8),
   ``autotune=True`` (queue 1 item 10);
-* ``precision`` other than ``'auto'``/``'f32'`` (queue 2 items 4, 6-8);
-  ``'auto'`` resolves against the data's dtype at fit time.
+* ``precision`` ``'bf16'`` / ``'bf16x3'`` (queue 2 item 4); ``'f32'`` and
+  ``'int8'`` run, and ``'auto'`` resolves against the data's dtype at fit
+  time.
 
 ``impl`` takes the port's kernel impls: ``'auto'``, ``'cuda'``, ``'ref'``,
 ``'ref_chunked'`` (see :mod:`repro_torch.kernels.ops`).

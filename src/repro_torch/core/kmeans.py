@@ -11,6 +11,11 @@ reference's masked ``_advance`` — a stream that has stopped keeps its
 centroids and counters frozen — and one host read of the ``[B]`` active
 mask per iteration; the loop runs until no stream is active.
 
+Under ``precision="int8"`` both loops run on the chunk quantized once at
+Lloyd entry (kernels A8 / D8 on the card), while a full-width f32 view of
+the chunk feeds the epilogue: the accepting objective and the final counts
+always come from f32 contractions (reference ``kmeans.py:100-146``).
+
 Convergence follows the paper's §5.7 rule, as the reference's ``_advance``:
 stop when ``|f_prev - f_curr| <= tol * |f_prev|`` or at the iteration cap;
 the first two iterations run unconditionally.  Degenerate (empty) clusters
@@ -35,8 +40,23 @@ class KMeansResult(NamedTuple):
     assignments: torch.Tensor  # [m] int32                         ([B, m])
 
 
+def _split_views(points, precision: str):
+    """(loop view, full-width f32 view) of a chunk under ``precision``.
+
+    Under int8 the loop runs on the codes (quantized here unless the chunk
+    arrives quantized) and the epilogue on the full-width view — for a
+    pre-quantized chunk its dequantized values, the best view there is.
+    """
+    if precision == "int8":
+        full = (px.dequantize(points)
+                if isinstance(points, px.QuantizedChunk) else points.float())
+        return px.as_quantized(points), full
+    points = points.float()
+    return points, points
+
+
 def lloyd(
-    points: torch.Tensor,
+    points,
     init_centroids: torch.Tensor,
     weights: torch.Tensor | None = None,
     *,
@@ -45,12 +65,14 @@ def lloyd(
     impl: str = "auto",
     precision: str = "auto",
 ) -> KMeansResult:
-    """Run Lloyd's algorithm from ``init_centroids`` on an in-memory chunk."""
+    """Run Lloyd's algorithm from ``init_centroids`` on an in-memory chunk
+    (a tensor, or under int8 possibly a :class:`~.precision.QuantizedChunk`).
+    """
     if weights is not None:
         raise NotImplementedError(
             "weighted Lloyd is not ported yet (ROADMAP queue 1 item 9)")
-    precision = px.resolve(precision, points.dtype)
-    points = points.float()
+    precision = ops.resolve_precision(precision, points)
+    points, points_eval = _split_views(points, precision)
     c = init_centroids.float()
     k = c.shape[0]
     f_prev = f_curr = torch.tensor(float("inf"), device=points.device)
@@ -66,9 +88,10 @@ def lloyd(
         active = it < max_iters and (it < 2 or not converged)
 
     # One last assignment against the final centroids: exact f(C, P), final
-    # cluster sizes and the degeneracy mask (reference kmeans.py:131-146).
-    ids, d = ops.assign(points, c, impl=impl, precision=precision)
-    _, counts = ops.update(points, ids, k, impl=impl, precision=precision)
+    # cluster sizes and the degeneracy mask (reference kmeans.py:131-146),
+    # with f32 contractions on the full-width view under every policy.
+    ids, d = ops.assign(points_eval, c, impl=impl, precision="f32")
+    _, counts = ops.update(points_eval, ids, k, impl=impl, precision="f32")
     return KMeansResult(
         centroids=c,
         objective=torch.sum(d),
@@ -80,7 +103,7 @@ def lloyd(
 
 
 def lloyd_batched(
-    points: torch.Tensor,
+    points,
     init_centroids: torch.Tensor,
     *,
     max_iters: int = 300,
@@ -99,9 +122,11 @@ def lloyd_batched(
     as :func:`lloyd` does: kernels B and C on the card.  This departs from
     the reference, whose batched epilogue always runs on the jnp oracle
     (``repro/core/kmeans.py:205-212``); on the CPU both run the oracle.
+    Under int8 the loop runs on the chunks quantized once (one scale row
+    per stream) and the epilogue on the full-width view, in f32.
     """
-    precision = px.resolve(precision, points.dtype)
-    points = points.float()
+    precision = ops.resolve_precision(precision, points)
+    points, points_eval = _split_views(points, precision)
     c = init_centroids.float()
     batch, k = c.shape[0], c.shape[1]
     dev = points.device
@@ -121,10 +146,10 @@ def lloyd_batched(
 
     ids, objective, final_counts = [], [], []
     for b in range(batch):
-        ids_b, d_b = ops.assign(points[b], c[b], impl=impl,
-                                precision=precision)
-        _, counts_b = ops.update(points[b], ids_b, k, impl=impl,
-                                 precision=precision)
+        ids_b, d_b = ops.assign(points_eval[b], c[b], impl=impl,
+                                precision="f32")
+        _, counts_b = ops.update(points_eval[b], ids_b, k, impl=impl,
+                                 precision="f32")
         ids.append(ids_b)
         objective.append(torch.sum(d_b))
         final_counts.append(counts_b)

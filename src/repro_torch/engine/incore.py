@@ -26,8 +26,14 @@ from repro_torch.kernels import precision as px
 
 
 def _cast_dataset(X, precision, device: torch.device) -> torch.Tensor:
-    """The dataset as contiguous f32 on ``device`` (f32 is the only ported
-    storage policy; others raise)."""
+    """The dataset as contiguous f32 on ``device`` under every ported
+    policy (unported ones raise).
+
+    int8 keeps the dataset full-width too: scales are a property of the
+    chunk (``s[f]`` over its points), so each sampled chunk is quantized at
+    Lloyd entry — one scale row per stream in the batched loop
+    (reference ``engine/incore.py:49-59``).
+    """
     if isinstance(X, torch.Tensor):
         px.resolve(precision, X.dtype)
     else:

@@ -23,9 +23,12 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import precision as px
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("assign.cu", "update.cu", "fused_step.cu",
-           "fused_step_batched.cu")
+           "fused_step_batched.cu", "assign_int8.cu", "update_int8.cu",
+           "fused_step_int8.cu", "fused_step_batched_int8.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = "sm_90a"
@@ -42,6 +45,13 @@ SIGNATURES = {
     "repro_fused_step_f32": (_P, _P, _P, _P, _I64, _I, _I, _I, _P),
     "repro_fused_step_batched_f32": (_P, _P, _P, _P, _I, _I64, _I, _I, _I,
                                      _P),
+    "repro_assign_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
+                          _P),
+    "repro_update_int8": (_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P),
+    "repro_fused_step_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
+                              _I, _I, _I, _P),
+    "repro_fused_step_batched_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _I, _I64, _I, _I, _I, _P),
 }
 
 
@@ -191,6 +201,26 @@ def require(name: str, t: torch.Tensor, dtype, ndim: int) -> None:
         raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def int8_operands(x, c: torch.Tensor, ndim: int):
+    """Validated (q, scale, c, cq, t) of an int8 launch: ``c`` the
+    full-width f32 centroids, whose norms the launch computes on the card
+    (``common.cuh:sqnorm_rows``), ``(cq, t)`` the centroids quantized in
+    the chunk's scaled space (per stream when batched)."""
+    q, scale = px.as_quantized(x)
+    require("x.q", q, torch.int8, ndim)
+    require("x.scale", scale, torch.float32, ndim - 1)
+    require("c", c, torch.float32, ndim)
+    n = q.shape[-1]
+    if (c.shape[-1] != n or c.shape[:-2] != q.shape[:-2]
+            or scale.shape != q.shape[:-2] + (n,) or c.device != q.device
+            or scale.device != q.device or c.shape[-2] < 1 or n < 1
+            or (ndim == 3 and q.shape[0] < 1)):
+        raise ValueError(f"bad shapes x {tuple(q.shape)} / scale "
+                         f"{tuple(scale.shape)} / c {tuple(c.shape)}")
+    cq, t = px.quantize_centroids(c, scale)
+    return q, scale, c, cq, t
 
 
 TILE_ROWS = 256                # rows per point tile (common.cuh:TM)

@@ -1,5 +1,7 @@
-// Shared device code of the f32 kernels (assign.cu, update.cu,
-// fused_step.cu, fused_step_batched.cu).
+// Shared device code of the kernels: the f32 bodies (assign.cu, update.cu,
+// fused_step.cu, fused_step_batched.cu) and the int8 bodies
+// (assign_int8.cu, update_int8.cu, fused_step_int8.cu,
+// fused_step_batched_int8.cu).
 //
 // One CTA of TM threads walks point tiles of TM rows; thread t owns row t of
 // the tile.  Point and centroid tiles are staged in shared memory, k-tiled by
@@ -113,8 +115,9 @@ __device__ __forceinline__ void tile_argmin(TileSmem& s,
 }
 
 // Deterministic sum over the CTA (fixed tree order).  All threads call it
-// and all receive the sum.
-__device__ __forceinline__ float block_sum(TileSmem& s, float v) {
+// and all receive the sum.  `Smem` is TileSmem or TileSmemQ (its `red`).
+template <typename Smem>
+__device__ __forceinline__ float block_sum(Smem& s, float v) {
   const int t = threadIdx.x;
   s.red[t] = v;
   __syncthreads();
@@ -166,8 +169,9 @@ __device__ __forceinline__ void tile_accumulate(TileSmem& s,
 }
 
 // Zero a CTA's partials when it was given no tile (only when m == 0).
-__device__ __forceinline__ void zero_partials(float* P, int64_t stride) {
-  for (int64_t e = threadIdx.x; e < stride; e += blockDim.x) P[e] = 0.f;
+template <typename T>
+__device__ __forceinline__ void zero_partials(T* P, int64_t stride) {
+  for (int64_t e = threadIdx.x; e < stride; e += blockDim.x) P[e] = T(0);
 }
 
 // One CTA's share of the fused Lloyd step (kernels A and D): the partial
@@ -202,14 +206,16 @@ __device__ __forceinline__ void fused_cta(TileSmem& s,
   if (threadIdx.x == 0) *Obj = obj;
 }
 
-// out[e] = sum over g = 0..G-1, in order, of part[g * stride + e].
-__device__ __forceinline__ void reduce_partials(const float* __restrict__ part,
-                                                float* __restrict__ out,
+// out[e] = sum over g = 0..G-1, in order, of part[g * stride + e] (float
+// partials, or the exact int32 sums of the int8 kernels).
+template <typename T>
+__device__ __forceinline__ void reduce_partials(const T* __restrict__ part,
+                                                T* __restrict__ out,
                                                 int64_t stride, int G) {
   const int64_t step = (int64_t)gridDim.x * blockDim.x;
   for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < stride;
        e += step) {
-    float acc = 0.f;
+    T acc = T(0);
     for (int g = 0; g < G; ++g) acc += part[(int64_t)g * stride + e];
     out[e] = acc;
   }
@@ -218,6 +224,205 @@ __device__ __forceinline__ void reduce_partials(const float* __restrict__ part,
 inline int reduce_grid(int64_t stride) {
   const int64_t blocks = (stride + 255) / 256;
   return (int)(blocks < 1024 ? (blocks < 1 ? 1 : blocks) : 1024);
+}
+
+// --------------------------------------------------------------------------
+// int8 bodies (assign_int8.cu, update_int8.cu, fused_step_int8.cu,
+// fused_step_batched_int8.cu): the scheme of repro/kernels/precision.py.
+// Inputs are the chunk's int8 codes xq [m,n] with per-feature scales
+// scale [n], and the centroids' codes cq [k,n] with per-row scales t [k]
+// and their full-width f32 norms csq [k] (computed from the f32 centroids
+// by sqnorm_rows ahead of the kernel: the codes cannot give them).  Scores
+// are
+//   score_j = csq[j] - 2 * (float(sum_f xq cq_j) * t[j])
+// with the integer dot exact in int32, rounded as the reference's oracle
+// rounds (__fmul_rn / __fsub_rn: no FMA contraction), and
+// ||x||^2 = sum_f (xq * scale[f])^2 from the dequantized codes.  Sums are
+// the exact int32 one-hot x codes contraction; the wrapper scales them to
+// f32 data space after the full reduce.
+// --------------------------------------------------------------------------
+
+constexpr int FTQ = 32;       // features per int8 feature tile
+
+// csq[r] = ||c_r||^2 for `rows` full-width f32 rows of n features: the
+// features added in index order, one rounding per multiply and per add, as
+// the plain version (precision.sqnorm_in_order) and the reference's XLA
+// reduction on the CPU add them.  One thread per row; the int8 entry points
+// launch it ahead of their kernel on the same stream.
+static __global__ void sqnorm_rows(const float* __restrict__ c,
+                                   float* __restrict__ csq, int64_t rows,
+                                   int n) {
+  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= rows) return;
+  const float* row = c + r * n;
+  float acc = __fmul_rn(row[0], row[0]);
+  for (int f = 1; f < n; ++f) acc = __fadd_rn(acc, __fmul_rn(row[f], row[f]));
+  csq[r] = acc;
+}
+
+inline unsigned sqnorm_grid(int64_t rows) {
+  return (unsigned)((rows + 255) / 256);
+}
+
+struct TileSmemQ {
+  int8_t xs[TM][FTQ + 4];  // point codes; a 36-byte row stride (9 words,
+                           // odd) keeps a warp's column reads on 32 banks
+  int8_t cs[KT][FTQ];      // centroid codes (broadcast reads)
+  float sc[FTQ];           // chunk scales of the feature tile
+  float c2[KT];            // full-width ||c||^2 of the k tile
+  float t[KT];             // centroid row scales of the k tile
+  int ids[TM];             // tile assignment; -1 never matches a cluster
+  float red[TM];           // block-reduction scratch (block_sum)
+};
+
+// Stage xq[r0 : r0+TM, f0 : f0+fw] into s.xs; rows past m read as 0.
+__device__ __forceinline__ void load_xq_tile(TileSmemQ& s,
+                                             const int8_t* __restrict__ x,
+                                             int64_t m, int n, int64_t r0,
+                                             int f0, int fw) {
+  for (int q = threadIdx.x; q < TM * fw; q += TM) {
+    const int row = q / fw;
+    const int col = q - row * fw;
+    const int64_t r = r0 + row;
+    s.xs[row][col] = r < m ? x[r * n + f0 + col] : (int8_t)0;
+  }
+}
+
+// Stage cq[k0 : k0+KT, f0 : f0+fw] into s.cs and the feature tile's scales
+// into s.sc; entries past k or fw read as 0.
+__device__ __forceinline__ void load_cq_tile(TileSmemQ& s,
+                                             const int8_t* __restrict__ c,
+                                             const float* __restrict__ scale,
+                                             int k, int n, int k0, int f0,
+                                             int fw) {
+  for (int q = threadIdx.x; q < KT * FTQ; q += TM) {
+    const int j = q / FTQ;
+    const int col = q - j * FTQ;
+    s.cs[j][col] = (k0 + j < k && col < fw)
+                       ? c[(int64_t)(k0 + j) * n + f0 + col]
+                       : (int8_t)0;
+  }
+  if (threadIdx.x < FTQ)
+    s.sc[threadIdx.x] = (int)threadIdx.x < fw ? scale[f0 + threadIdx.x] : 0.f;
+}
+
+// Nearest centroid of row r0 + threadIdx.x under the int8 scheme: the
+// running (min, argmin) of score_j over all k with a strict '<' (ties go to
+// the lowest index, fused_step.py:_tile_argmin), from (BIG, 0), and the
+// dequantized ||x||^2.  Every thread of the CTA must call this.  On return,
+// when n <= FTQ, s.xs still holds the whole point tile.
+__device__ __forceinline__ void tile_argmin_q(
+    TileSmemQ& s, const int8_t* __restrict__ x, const int8_t* __restrict__ c,
+    const float* __restrict__ csq, const float* __restrict__ tq,
+    const float* __restrict__ scale, int64_t m, int k, int n, int64_t r0,
+    int& bidx, float& best, float& xsq) {
+  const int t = threadIdx.x;
+  best = BIG;
+  bidx = 0;
+  xsq = 0.f;
+  for (int k0 = 0; k0 < k; k0 += KT) {
+    int acc[KT];
+#pragma unroll
+    for (int j = 0; j < KT; ++j) acc[j] = 0;
+    for (int f0 = 0; f0 < n; f0 += FTQ) {
+      const int fw = min(FTQ, n - f0);
+      __syncthreads();  // earlier readers of s.xs / s.cs / s.c2 / s.t done
+      load_xq_tile(s, x, m, n, r0, f0, fw);
+      load_cq_tile(s, c, scale, k, n, k0, f0, fw);
+      if (f0 == 0 && t < KT) {
+        s.c2[t] = k0 + t < k ? csq[k0 + t] : 0.f;
+        s.t[t] = k0 + t < k ? tq[k0 + t] : 0.f;
+      }
+      __syncthreads();
+      for (int f = 0; f < fw; ++f) {
+        const int xv = s.xs[t][f];
+        if (k0 == 0) {
+          const float dq = __fmul_rn((float)xv, s.sc[f]);
+          xsq = __fadd_rn(xsq, __fmul_rn(dq, dq));
+        }
+#pragma unroll
+        for (int j = 0; j < KT; ++j) acc[j] += xv * (int)s.cs[j][f];
+      }
+    }
+    const int kw = min(KT, k - k0);
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+      if (j < kw) {
+        const float d = __fmul_rn((float)acc[j], s.t[j]);
+        const float score = __fsub_rn(s.c2[j], 2.f * d);
+        if (score < best) {
+          best = score;
+          bidx = k0 + j;
+        }
+      }
+    }
+  }
+}
+
+// int8 one-hot contraction of one point tile into this CTA's partials:
+//   P[j, f] (+)= sum_i [ids_i == j] xq[i, f]   (exact int32)
+//   Cnt[j]  (+)= sum_i [ids_i == j]            (f32)
+// with the ownership and order of tile_accumulate.  `x_resident`: s.xs
+// already holds the whole tile (n <= FTQ).
+__device__ __forceinline__ void tile_accumulate_q(
+    TileSmemQ& s, const int8_t* __restrict__ x, int64_t m, int k, int n,
+    int64_t r0, int32_t* P, float* Cnt, bool first, bool x_resident) {
+  const int t = threadIdx.x;
+  for (int f0 = 0; f0 < n; f0 += FTQ) {
+    const int fw = min(FTQ, n - f0);
+    if (!x_resident) {
+      __syncthreads();
+      load_xq_tile(s, x, m, n, r0, f0, fw);
+      __syncthreads();
+    }
+    const int ne = k * fw;
+    for (int e = t; e < ne; e += TM) {
+      const int j = e / fw;
+      const int f = e - j * fw;
+      int32_t acc = 0;
+      for (int i = 0; i < TM; ++i) acc += (s.ids[i] == j) ? (int)s.xs[i][f] : 0;
+      int32_t* dst = P + (int64_t)j * n + f0 + f;
+      *dst = first ? acc : *dst + acc;
+    }
+  }
+  for (int j = t; j < k; j += TM) {
+    float cnt = 0.f;
+    for (int i = 0; i < TM; ++i) cnt += (s.ids[i] == j) ? 1.f : 0.f;
+    Cnt[j] = first ? cnt : Cnt[j] + cnt;
+  }
+}
+
+// One CTA's share of the int8 fused Lloyd step (kernels A8 and D8): the
+// partial int32 sums P [k*n] and the f32 counts and objective F [k + 1] of
+// the point tiles blockIdx.x, blockIdx.x + gridDim.x, ...  Kernel D8 calls
+// this with per-stream base pointers and kernel A8's per-stream grid, so
+// each of its streams runs kernel A8's arithmetic in kernel A8's order.
+__device__ __forceinline__ void fused_cta_q(
+    TileSmemQ& s, const int8_t* __restrict__ x, const int8_t* __restrict__ c,
+    const float* __restrict__ csq, const float* __restrict__ tq,
+    const float* __restrict__ scale, int32_t* __restrict__ P,
+    float* __restrict__ F, int64_t m, int k, int n, int64_t num_tiles) {
+  float* Cnt = F;
+  float* Obj = F + k;
+  if (blockIdx.x >= num_tiles) {
+    zero_partials(P, (int64_t)k * n);
+    zero_partials(F, (int64_t)k + 1);
+    return;
+  }
+  float obj = 0.f;
+  for (int64_t tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
+    const int64_t r0 = tile * TM;
+    int bidx;
+    float best, xsq;
+    tile_argmin_q(s, x, c, csq, tq, scale, m, k, n, r0, bidx, best, xsq);
+    const bool valid = r0 + threadIdx.x < m;
+    s.ids[threadIdx.x] = valid ? bidx : -1;
+    obj += block_sum(s, valid ? fmaxf(best + xsq, 0.f) : 0.f);
+    tile_accumulate_q(s, x, m, k, n, r0, P, Cnt, tile == blockIdx.x,
+                      n <= FTQ);
+    __syncthreads();  // s.ids / s.xs are rewritten by the next tile
+  }
+  if (threadIdx.x == 0) *Obj = obj;
 }
 
 }  // namespace repro

@@ -1,17 +1,22 @@
-"""Nearest-centroid assignment: CUDA kernel B (``csrc/assign.cu``).
+"""Nearest-centroid assignment: CUDA kernels B and B8.
 
-Replaces ``repro/kernels/distance.py:assign_pallas`` (f32 body).  The
-wrapper :func:`assign_f32` launches the kernel on CUDA tensors and raises
-``ValueError`` on any other; :func:`assign_plain` is the plain version that
-``ops`` runs for tensors on the CPU.
+Kernel B (``csrc/assign.cu``, :func:`assign_f32`) replaces
+``repro/kernels/distance.py:assign_pallas`` (f32 body); kernel B8
+(``csrc/assign_int8.cu``, :func:`assign_int8`) replaces its int8 variant
+``_assign_pallas_q``.  The wrappers launch their kernel on CUDA tensors and
+raise ``ValueError`` on any other; :func:`assign_plain` and
+:func:`assign_int8_plain` are the plain versions that ``ops`` runs for
+tensors on the CPU.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels import precision as px
 
 launches = 0            # kernel launches by assign_f32 (see ops.launch_counts)
+int8_launches = 0       # kernel launches by assign_int8
 
 
 def assign_plain(x: torch.Tensor, c: torch.Tensor
@@ -44,4 +49,47 @@ def assign_f32(x: torch.Tensor, c: torch.Tensor
         x.data_ptr(), c.data_ptr(), ids.data_ptr(), d.data_ptr(), m, k, n,
         build.grid(x.device, m), stream)
     build.check(err, "assign_f32")
+    return ids, d
+
+
+def assign_int8_plain(x, c: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of :func:`assign_int8`."""
+    return ref.assign_ref(px.as_quantized(x), c, precision="int8")
+
+
+def assign_int8(x, c: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: a :class:`~.precision.QuantizedChunk` (codes int8 [m,n], scales
+    f32 [n]; a plain tensor is quantized first), c [k,n] f32 -> (ids int32
+    [m], d f32 [m]).
+
+    ``ids`` minimises ``csq - 2 * float(xq.cq) * t`` (ties: lowest index)
+    with ``csq = ||c||^2`` from the full-width centroids and ``(cq, t)`` the
+    centroids quantized in the chunk's scaled space; ``d = max(best +
+    ||dequantize(x)||^2, 0)``.
+    """
+    q, scale, c, cq, t = build.int8_operands(x, c, 2)
+    return launch_assign_int8(q, scale, cq, t, c)
+
+
+def launch_assign_int8(q: torch.Tensor, scale: torch.Tensor,
+                       cq: torch.Tensor, t: torch.Tensor, c: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B8 on validated operands (see :func:`assign_int8`; ``c`` the
+    full-width f32 centroids, whose norms it takes first)."""
+    m, n = q.shape
+    k = cq.shape[0]
+    csq = torch.empty(k, dtype=torch.float32, device=q.device)
+    ids = torch.empty(m, dtype=torch.int32, device=q.device)
+    d = torch.empty(m, dtype=torch.float32, device=q.device)
+    lib = build.load()
+    global int8_launches
+    int8_launches += 1
+    err = lib.repro_assign_int8(
+        q.data_ptr(), cq.data_ptr(), c.data_ptr(), csq.data_ptr(),
+        t.data_ptr(), scale.data_ptr(), ids.data_ptr(), d.data_ptr(), m, k,
+        n, build.grid(q.device, m),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "assign_int8")
     return ids, d

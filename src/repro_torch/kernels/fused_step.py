@@ -1,4 +1,4 @@
-"""One Lloyd iteration in one pass: CUDA kernels A and D.
+"""One Lloyd iteration in one pass: CUDA kernels A, D, A8 and D8.
 
 Kernel A (``csrc/fused_step.cu``, :func:`fused_step_f32`) replaces
 ``repro/kernels/fused_step.py:fused_step_pallas`` with ``pipeline="blocks"``
@@ -6,17 +6,22 @@ Kernel A (``csrc/fused_step.cu``, :func:`fused_step_f32`) replaces
 chunk.  Kernel D (``csrc/fused_step_batched.cu``,
 :func:`fused_step_batched_f32`) replaces ``fused_step_batched_pallas`` (f32
 body): the same statistics for B streams in one launch, each stream bitwise
-equal to kernel A on it.  The wrappers launch their kernel on CUDA tensors
-and raise ``ValueError`` on any other; ``ops`` runs the plain versions
-(:func:`fused_step_plain`, :func:`fused_step_batched_plain`) for tensors on
-the CPU.  :func:`fits` is the reference's envelope (``fits_batched`` is the
-same); outside it ``ops`` takes the two-pass route (kernels B and C).
+equal to kernel A on it.  Kernels A8 and D8 (``csrc/fused_step_int8.cu``,
+``csrc/fused_step_batched_int8.cu``; :func:`fused_step_int8`,
+:func:`fused_step_batched_int8`) are the int8 bodies of the same two Pallas
+kernels, on a :class:`~.precision.QuantizedChunk`; D8's stream b is bitwise
+A8 on it.  The wrappers launch their kernel on CUDA tensors and raise
+``ValueError`` on any other; ``ops`` runs the plain versions
+(``*_plain``) for tensors on the CPU.  :func:`fits` is the reference's
+envelope (``fits_batched`` is the same); outside it ``ops`` takes the
+two-pass route (kernels B and C, or B8 and C8).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels import precision as px
 
 # The reference's envelope (repro/kernels/fused_step.py:MAX_K, MAX_N,
 # _MAX_KN_ELEMS, _batched_tiles): the dispatch follows it so that both
@@ -29,6 +34,8 @@ _BLOCK_N = 512
 
 launches = 0          # kernel launches by fused_step_f32 (ops.launch_counts)
 batched_launches = 0  # kernel launches by fused_step_batched_f32
+int8_launches = 0     # kernel launches by fused_step_int8
+batched_int8_launches = 0  # kernel launches by fused_step_batched_int8
 
 
 def _padded(k: int, n: int) -> tuple[int, int]:
@@ -133,3 +140,133 @@ def fused_step_batched_f32(x: torch.Tensor, c: torch.Tensor
         build.check(err, "fused_step_batched_f32")
     kn = k * n
     return out[:, :kn].view(batch, k, n), out[:, kn:kn + k], out[:, kn + k]
+
+
+# --------------------------------------------------------------------------
+# int8 bodies (kernels A8 and D8)
+# --------------------------------------------------------------------------
+
+
+def fused_step_int8_plain(x, c: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """The plain PyTorch version of :func:`fused_step_int8`: two passes
+    through the int8 oracles on one quantized chunk (the reference's
+    ``ops.fused_step(..., impl="ref", precision="int8")``)."""
+    qx = px.as_quantized(x)
+    ids, d = ref.assign_ref(qx, c, precision="int8")
+    sums, counts = ref.update_ref(qx, ids, c.shape[0], precision="int8")
+    return sums, counts, torch.sum(d)
+
+
+def fused_step_batched_int8_plain(x, c: torch.Tensor
+                                  ) -> tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """The plain PyTorch version of :func:`fused_step_batched_int8`:
+    :func:`fused_step_int8_plain` stream by stream, each stream with its
+    own scale row."""
+    qx = px.as_quantized(x)
+    sums, counts, obj = zip(*(
+        fused_step_int8_plain(px.QuantizedChunk(qx.q[b], qx.scale[b]), c[b])
+        for b in range(qx.q.shape[0])))
+    return torch.stack(sums), torch.stack(counts), torch.stack(obj)
+
+
+def fused_step_int8(x, c: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: a :class:`~.precision.QuantizedChunk` (codes int8 [m,n], scales
+    f32 [n]; a plain tensor is quantized first), c [k,n] f32 -> (sums f32
+    [k,n], counts f32 [k], obj f32).
+
+    Quantizes the centroids into the chunk's scaled space, launches kernel
+    A8 (:func:`launch_fused_step_int8`) and turns its exact int32 sums into
+    f32 data space (``isums.float() * scale``) after the full reduce, as
+    the reference's wrapper does (``fused_step.py:400-403``).  Runs any
+    (k, n); the dispatch in ``ops`` restricts it to :func:`fits`.  Raises
+    ``ValueError`` unless the operands are CUDA tensors.
+    """
+    q, scale, c, cq, t = build.int8_operands(x, c, 2)
+    isums, counts, obj = launch_fused_step_int8(q, scale, cq, t, c)
+    return isums.float() * scale[None, :], counts, obj
+
+
+def launch_fused_step_int8(q: torch.Tensor, scale: torch.Tensor,
+                           cq: torch.Tensor, t: torch.Tensor,
+                           c: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Kernel A8 on validated operands (see :func:`fused_step_int8`;
+    ``c`` the full-width f32 centroids, whose norms it takes first):
+    (isums int32 [k,n], counts f32 [k], obj f32)."""
+    m, n = q.shape
+    k = cq.shape[0]
+    kn = k * n
+    grid = build.grid(q.device, m, kn + k + 1)
+    csq = torch.empty(k, dtype=torch.float32, device=q.device)
+    psum = torch.empty(grid * kn, dtype=torch.int32, device=q.device)
+    pf = torch.empty(grid * (k + 1), dtype=torch.float32, device=q.device)
+    isums = torch.empty((k, n), dtype=torch.int32, device=q.device)
+    out = torch.empty(k + 1, dtype=torch.float32, device=q.device)
+    lib = build.load()
+    global int8_launches
+    int8_launches += 1
+    err = lib.repro_fused_step_int8(
+        q.data_ptr(), cq.data_ptr(), c.data_ptr(), csq.data_ptr(),
+        t.data_ptr(), scale.data_ptr(), psum.data_ptr(), pf.data_ptr(),
+        isums.data_ptr(), out.data_ptr(), m, k, n, grid,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "fused_step_int8")
+    return isums, out[:k], out[k]
+
+
+def fused_step_batched_int8(x, c: torch.Tensor
+                            ) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """x: a batched :class:`~.precision.QuantizedChunk` (codes int8
+    [B,m,n], one scale row per stream [B,n]), c [B,k,n] f32 -> (sums f32
+    [B,k,n], counts f32 [B,k], obj f32 [B]).
+
+    Stream b is bitwise equal to :func:`fused_step_int8` on stream b: the
+    centroids are quantized per stream, every stream gets kernel A8's grid,
+    and the streams go in groups of :func:`build.stream_group` as in
+    :func:`fused_step_batched_f32`.  Raises ``ValueError`` unless the
+    operands are CUDA tensors.
+    """
+    q, scale, c, cq, t = build.int8_operands(x, c, 3)
+    isums, counts, obj = launch_fused_step_batched_int8(q, scale, cq, t, c)
+    return isums.float() * scale[:, None, :], counts, obj
+
+
+def launch_fused_step_batched_int8(q: torch.Tensor, scale: torch.Tensor,
+                                   cq: torch.Tensor, t: torch.Tensor,
+                                   c: torch.Tensor
+                                   ) -> tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """Kernel D8 on validated operands (see :func:`fused_step_batched_int8`;
+    ``c`` the full-width f32 centroids [B,k,n]): (isums int32 [B,k,n],
+    counts f32 [B,k], obj f32 [B])."""
+    batch, m, n = q.shape
+    k = cq.shape[1]
+    kn = k * n
+    grid = build.grid(q.device, m, kn + k + 1)
+    group = min(batch, build.stream_group(grid, kn + k + 1))
+    psum = torch.empty(group * grid * kn, dtype=torch.int32, device=q.device)
+    pf = torch.empty(group * grid * (k + 1), dtype=torch.float32,
+                     device=q.device)
+    isums = torch.empty((batch, k, n), dtype=torch.int32, device=q.device)
+    out = torch.empty((batch, k + 1), dtype=torch.float32, device=q.device)
+    csq = torch.empty((batch, k), dtype=torch.float32, device=q.device)
+    lib = build.load()
+    st = torch.cuda.current_stream(q.device).cuda_stream
+    global batched_int8_launches
+    for b0 in range(0, batch, group):
+        nb = min(group, batch - b0)
+        batched_int8_launches += 1
+        err = lib.repro_fused_step_batched_int8(
+            q[b0].data_ptr(), cq[b0].data_ptr(), c[b0].data_ptr(),
+            csq[b0].data_ptr(), t[b0].data_ptr(), scale[b0].data_ptr(),
+            psum.data_ptr(),
+            pf.data_ptr(), isums[b0].data_ptr(), out[b0].data_ptr(), nb, m,
+            k, n, grid, st)
+        build.check(err, "fused_step_batched_int8")
+    return isums, out[:, :k], out[:, k]

@@ -12,10 +12,17 @@ Dispatch policy
 There is no demotion and no fallback: a kernel that fails to build or to
 launch raises.  Outside the fused envelope, ``fused_step`` takes the
 two-pass route through kernels B and C on the card (through the oracles
-under the ref impls), and ``fused_step_batched`` takes it stream by stream.  Each kernel wrapper counts its launches; read them
-with :func:`launch_counts` and zero them with :func:`reset_launch_counts`.
+under the ref impls), and ``fused_step_batched`` takes it stream by
+stream.  Each kernel wrapper counts its launches; read them with
+:func:`launch_counts` and zero them with :func:`reset_launch_counts`.
 
-``precision`` follows :mod:`.precision`: only ``'f32'`` is ported.
+``precision`` follows :mod:`.precision`: ``'f32'`` and ``'int8'`` are
+ported.  A :class:`~.precision.QuantizedChunk` input is int8 whatever the
+knob says.  Under ``'int8'`` the card runs kernels A8 / D8 inside the fused
+envelope and B8 + C8 outside it.  That two-pass route on the card departs
+from the reference, whose int8 envelope miss falls back to its jnp oracle
+(``repro/kernels/ops.py:327-336``); the results are the same computation,
+held to the oracle in ``chip_smoke.py`` and the ``cuda`` tests.
 """
 from __future__ import annotations
 
@@ -36,14 +43,31 @@ def launch_counts() -> dict[str, int]:
     """Kernel launches since the last reset, per kernel."""
     return {"fused_step": fused.launches, "assign": distance.launches,
             "update": upd.launches,
-            "fused_step_batched": fused.batched_launches}
+            "fused_step_batched": fused.batched_launches,
+            "fused_step_int8": fused.int8_launches,
+            "fused_step_batched_int8": fused.batched_int8_launches,
+            "assign_int8": distance.int8_launches,
+            "update_int8": upd.int8_launches}
 
 
 def reset_launch_counts() -> None:
     fused.launches = 0
     fused.batched_launches = 0
+    fused.int8_launches = 0
+    fused.batched_int8_launches = 0
     distance.launches = 0
+    distance.int8_launches = 0
     upd.launches = 0
+    upd.int8_launches = 0
+
+
+def resolve_precision(precision: str | None, x) -> str:
+    """The concrete policy for chunk ``x``: ``'int8'`` for a
+    :class:`~.precision.QuantizedChunk`, else the knob resolved against the
+    data's dtype (:func:`.precision.resolve`)."""
+    if isinstance(x, px.QuantizedChunk):
+        return "int8"
+    return px.resolve(precision, x.dtype)
 
 
 def resolve_impl(impl: str | None, device: torch.device) -> str:
@@ -62,70 +86,92 @@ def resolve_impl(impl: str | None, device: torch.device) -> str:
     return impl
 
 
-def assign(x: torch.Tensor, c: torch.Tensor, *, impl: str = "auto",
+def assign(x, c: torch.Tensor, *, impl: str = "auto",
            precision: str = "auto", chunk: int = 65536
            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Nearest centroid: x [m,n], c [k,n] -> (ids int32 [m], d f32 [m])."""
     impl = resolve_impl(impl, x.device)
-    precision = px.resolve(precision, x.dtype)
-    if impl == "cuda":
+    precision = resolve_precision(precision, x)
+    if precision == "int8":
+        x = px.as_quantized(x)          # one scale row for the whole chunk
+        if impl == "cuda":
+            return distance.assign_int8(x, c)
+    elif impl == "cuda":
         return distance.assign_f32(x, c)
     if impl == "ref":
         return ref.assign_ref(x, c, precision=precision)
-    parts = [ref.assign_ref(x[i:i + chunk], c, precision=precision)
-             for i in range(0, x.shape[0], chunk)]
+    starts = range(0, x.shape[0], chunk)
+    blocks = ([px.QuantizedChunk(x.q[i:i + chunk], x.scale) for i in starts]
+              if precision == "int8" else [x[i:i + chunk] for i in starts])
+    parts = [ref.assign_ref(b, c, precision=precision) for b in blocks]
     return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
 
 
-def update(x: torch.Tensor, ids: torch.Tensor, k: int, *,
+def update(x, ids: torch.Tensor, k: int, *,
            weights: torch.Tensor | None = None, impl: str = "auto",
            precision: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
     """Cluster sums/counts: x [m,n], ids [m] -> (sums [k,n], counts [k])."""
     if weights is not None:
         raise NotImplementedError(_WEIGHTS)
     impl = resolve_impl(impl, x.device)
-    precision = px.resolve(precision, x.dtype)
+    precision = resolve_precision(precision, x)
     if impl == "cuda":
+        if precision == "int8":
+            return upd.update_int8(x, ids, k)
         return upd.update_f32(x, ids, k)
     return ref.update_ref(x, ids, k, precision=precision)
 
 
-def fused_step(x: torch.Tensor, c: torch.Tensor, *,
+def fused_step(x, c: torch.Tensor, *,
                weights: torch.Tensor | None = None, impl: str = "auto",
                precision: str = "auto"
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One Lloyd iteration's (sums, counts, objective): kernel A inside the
-    fused envelope, two passes (assign + update) outside it."""
+    """One Lloyd iteration's (sums, counts, objective): kernel A (int8: A8)
+    inside the fused envelope, two passes (assign + update: kernels B and
+    C, int8: B8 and C8) outside it."""
     if weights is not None:
         raise NotImplementedError(_WEIGHTS)
     impl = resolve_impl(impl, x.device)
-    precision = px.resolve(precision, x.dtype)
+    precision = resolve_precision(precision, x)
+    if precision == "int8":
+        x = px.as_quantized(x)          # quantized once for both passes
     k = c.shape[0]
     if impl == "cuda" and fused.fits(k, c.shape[1]):
+        if precision == "int8":
+            return fused.fused_step_int8(x, c)
         return fused.fused_step_f32(x, c)
     ids, d = assign(x, c, impl=impl, precision=precision)
     sums, counts = update(x, ids, k, impl=impl, precision=precision)
     return sums, counts, torch.sum(d)
 
 
-def fused_step_batched(x: torch.Tensor, c: torch.Tensor, *,
+def fused_step_batched(x, c: torch.Tensor, *,
                        impl: str = "auto", precision: str = "auto"
                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """B concurrent Lloyd iterations: x [B,m,n], c [B,k,n] -> (sums [B,k,n],
     counts [B,k], obj [B]).
 
-    ``'cuda'``: kernel D inside the fused envelope (one launch for all
-    streams), else the two-pass route through kernels B and C stream by
-    stream.  ``'ref'`` / ``'ref_chunked'``: the plain version, as the
-    reference's batched oracle (``ops._fused_step_batched_ref``).
+    ``'cuda'``: kernel D (int8: D8) inside the fused envelope (one launch
+    for all streams), else the two-pass route through kernels B and C
+    (int8: B8 and C8) stream by stream.  ``'ref'`` / ``'ref_chunked'``: the
+    plain version, as the reference's batched oracle
+    (``ops._fused_step_batched_ref``).  Under int8 each stream has its own
+    scale row.
     """
     impl = resolve_impl(impl, x.device)
-    precision = px.resolve(precision, x.dtype)
+    precision = resolve_precision(precision, x)
+    int8 = precision == "int8"
+    if int8:
+        x = px.as_quantized(x)
     if impl != "cuda":
-        return fused.fused_step_batched_plain(x, c)
+        return (fused.fused_step_batched_int8_plain(x, c) if int8
+                else fused.fused_step_batched_plain(x, c))
     if fused.fits_batched(c.shape[1], c.shape[2]):
-        return fused.fused_step_batched_f32(x, c)
-    sums, counts, obj = zip(*(fused_step(x[b], c[b], impl="cuda",
+        return (fused.fused_step_batched_int8(x, c) if int8
+                else fused.fused_step_batched_f32(x, c))
+    streams = ((px.QuantizedChunk(x.q[b], x.scale[b]) if int8 else x[b])
+               for b in range(x.shape[0]))
+    sums, counts, obj = zip(*(fused_step(xb, c[b], impl="cuda",
                                          precision=precision)
-                              for b in range(x.shape[0])))
+                              for b, xb in enumerate(streams)))
     return torch.stack(sums), torch.stack(counts), torch.stack(obj)

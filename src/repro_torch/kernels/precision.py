@@ -1,21 +1,46 @@
-"""Precision policy of the kernel stack (f32 only in this slice).
+"""Precision policy of the kernel stack: ``'f32'`` and ``'int8'``.
 
 The reference (``repro.kernels.precision``) knows four policies: ``'f32'``,
 ``'bf16'``, ``'bf16x3'`` and ``'int8'``.  The port accepts the same names;
-only ``'f32'`` is ported, and the others raise ``NotImplementedError``
-naming the ROADMAP item that brings them.  ``'f32'`` means true float32:
-no TF32 and no reduced-precision operands anywhere.
+``'bf16'`` and ``'bf16x3'`` are not ported yet and raise
+``NotImplementedError`` naming the ROADMAP item that brings them.  ``'f32'``
+means true float32: no TF32 and no reduced-precision operands anywhere.
+
+``'int8'`` is the reference's scheme, bit for bit:
+
+* chunk side (once per chunk, at Lloyd entry): per-feature scales
+  ``s[f] = max_m |x[m, f]| / 127`` (floored at ``_SCALE_FLOOR``) and codes
+  ``xq = round(x / s)`` clamped to [-127, 127];
+* centroid side (per Lloyd iteration): ``cs = c * s``, per-row scales
+  ``t[j] = max_f |cs[j, f]| / 127`` and codes ``cq = round(cs / t)``;
+* ``x . c_j ~= (sum_f xq cq_j) * t[j]``, an exact int32 contraction, with
+  the f32 correction terms ``||c||^2`` (full-width centroids) and
+  ``||x||^2`` (dequantized codes).
+
+Rounding is half-to-even (``torch.round``, as ``jnp.round``), scales divide
+with ``/`` (never a multiplied reciprocal) and codes are clamped before the
+int8 cast, so quantization here is bitwise the reference's.  The accepting
+objective never goes through the quantized contraction: the Lloyd loops
+keep a full-width view for the epilogue (``core/kmeans.py``).
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 PRECISIONS = ("f32", "bf16", "bf16x3", "int8")
 
+INT8_MAX = 127.0
+
+# Smallest admissible quantization scale: guards the x / s division against
+# all-zero features without perturbing any real scale.
+_SCALE_FLOOR = 1e-30
+
 _NOT_PORTED = {
     "bf16": "ROADMAP queue 2 item 4",
     "bf16x3": "ROADMAP queue 2 item 4",
-    "int8": "ROADMAP queue 2 items 6-8",
 }
 
 
@@ -31,7 +56,7 @@ def check(precision: str) -> str:
     if precision in _NOT_PORTED:
         raise NotImplementedError(
             f"precision {precision!r} is not ported yet "
-            f"({_NOT_PORTED[precision]}); only 'f32' runs")
+            f"({_NOT_PORTED[precision]}); 'f32' and 'int8' run")
     return precision
 
 
@@ -52,15 +77,36 @@ def resolve(precision: str | None, dtype) -> str:
     return check(precision)
 
 
+def storage_dtype(precision: str) -> torch.dtype:
+    """The dtype chunk data is stored in under a concrete policy (for
+    ``'int8'`` the code dtype of a :class:`QuantizedChunk`)."""
+    return torch.int8 if check(precision) == "int8" else torch.float32
+
+
+def cast_storage(x, precision: str | None):
+    """Data in its storage form under ``precision`` (auto-aware): a
+    :class:`QuantizedChunk` for ``'int8'`` (a quantized chunk passes
+    through unchanged), f32 otherwise."""
+    if isinstance(x, QuantizedChunk):
+        return x
+    if resolve(precision, x.dtype) == "int8":
+        return quantize_chunk(x)
+    return x.float()
+
+
 def dot(a: torch.Tensor, b: torch.Tensor, dims, precision: str
         ) -> torch.Tensor:
     """Contraction ``tensordot(a, b, dims)`` under the policy, f32 result.
 
     ``dims`` is ``(dims_a, dims_b)``, the contracted axes — the
     ``dimension_numbers`` of the reference's ``lax.dot_general`` without
-    batch axes.
+    batch axes.  As in the reference there is no generic int8 path: the
+    scale algebra is contraction-specific (:func:`intdot`).
     """
-    check(precision)
+    if check(precision) == "int8":
+        raise ValueError(
+            "dot has no generic int8 path: use quantize_chunk / "
+            "quantize_centroids / intdot (see the ref.py oracles)")
     return torch.tensordot(a.float(), b.float(), dims=dims)
 
 
@@ -68,3 +114,111 @@ def sqnorm(a: torch.Tensor, dim=-1, keepdim: bool = False) -> torch.Tensor:
     """``sum(a*a)`` in f32 regardless of storage dtype."""
     a = a.float()
     return torch.sum(a * a, dim=dim, keepdim=keepdim)
+
+
+def sqnorm_in_order(a: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+    """``sum(a*a)`` over the last axis in f32, the features added one by
+    one in index order: the order of the int8 kernels' ``||x||^2`` and of
+    the reference's norms as XLA reduces them on the CPU (bitwise there
+    for n <= 29, the paper's widths).  The int8 scores turn on these
+    norms: an ulp in ``||c||^2`` flips a near-tie point, and int8 Lloyd,
+    whose objective need not settle within the tolerance, then runs a
+    different number of iterations.  One op per feature."""
+    sq = a.float() * a.float()
+    acc = sq[..., 0]
+    for f in range(1, sq.shape[-1]):
+        acc = acc + sq[..., f]
+    return acc[..., None] if keepdim else acc
+
+
+# ---------------------------------------------------------------------------
+# int8 quantization scheme (reference precision.py:173-281)
+# ---------------------------------------------------------------------------
+
+
+class QuantizedChunk(NamedTuple):
+    """An int8-quantized chunk: codes plus per-feature scales.
+
+    ``q`` is int8 ``[..., m, n]``; ``scale`` is f32 ``[..., n]`` (one scale
+    per feature; batched chunks carry one scale row per stream).
+    """
+
+    q: torch.Tensor
+    scale: torch.Tensor
+
+    @property
+    def shape(self):
+        return self.q.shape
+
+    @property
+    def dtype(self):
+        return self.q.dtype
+
+    @property
+    def device(self):
+        return self.q.device
+
+
+def feature_scales(x: torch.Tensor, dim: int = -2) -> torch.Tensor:
+    """Per-feature quantization scales ``max|x| / 127`` over the points
+    axis."""
+    absmax = torch.amax(torch.abs(x.float()), dim=dim)
+    return torch.clamp_min(absmax / INT8_MAX, _SCALE_FLOOR)
+
+
+def quantize_chunk(x: torch.Tensor) -> QuantizedChunk:
+    """Quantize a chunk ``[..., m, n]`` to int8 codes + per-feature
+    scales."""
+    x = x.float()
+    scale = feature_scales(x)                                 # [..., n]
+    q = torch.clamp(torch.round(x / scale[..., None, :]), -INT8_MAX,
+                    INT8_MAX)
+    return QuantizedChunk(q.to(torch.int8), scale)
+
+
+def as_quantized(x) -> QuantizedChunk:
+    """Coerce a chunk to its quantized form (idempotent)."""
+    return x if isinstance(x, QuantizedChunk) else quantize_chunk(x)
+
+
+def dequantize(qx: QuantizedChunk) -> torch.Tensor:
+    """The f32 values the int8 contraction actually sees."""
+    return qx.q.float() * qx.scale[..., None, :]
+
+
+def quantize_centroids(c: torch.Tensor, scale: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantize centroids ``[..., k, n]`` into the chunk's scaled feature
+    space (``scale`` ``[..., n]``): ``(cq int8 [..., k, n], t f32 [..., k])``
+    with ``c[j] . x[m] ~= (cq[j] . xq[m]) * t[j]``.  A leading batch axis
+    quantizes each stream against its own scale row."""
+    cs = c.float() * scale[..., None, :]                      # scaled space
+    t = torch.clamp_min(torch.amax(torch.abs(cs), dim=-1) / INT8_MAX,
+                        _SCALE_FLOOR)
+    cq = torch.clamp(torch.round(cs / t[..., None]), -INT8_MAX, INT8_MAX)
+    return cq.to(torch.int8), t
+
+
+def intdot(a: torch.Tensor, b: torch.Tensor, dims) -> torch.Tensor:
+    """int8 x int8 ``tensordot(a, b, dims)`` as exact int32.
+
+    On the CPU the contraction runs in int32; CUDA has no int32 matmul, so
+    there it runs in float64, which is exact for ``|sum| < 2**53`` (any
+    feature width here: a product is at most 127**2) before the int32
+    cast.  The plain versions use this; the kernels accumulate in int32.
+    """
+    if a.device.type == "cpu":
+        return torch.tensordot(a.to(torch.int32), b.to(torch.int32),
+                               dims=dims)
+    return torch.tensordot(a.double(), b.double(), dims=dims).to(torch.int32)
+
+
+def host_quantize(arr) -> tuple[np.ndarray, np.ndarray]:
+    """NumPy twin of :func:`quantize_chunk`: ``(q int8 [..., m, n], scale
+    f32 [..., n])`` with the same round-half-to-even semantics, bitwise
+    equal to the tensor path."""
+    arr = np.asarray(arr, dtype=np.float32)
+    scale = np.maximum(np.abs(arr).max(axis=-2) / INT8_MAX, _SCALE_FLOOR)
+    scale = scale.astype(np.float32)
+    q = np.clip(np.round(arr / scale[..., None, :]), -INT8_MAX, INT8_MAX)
+    return q.astype(np.int8), scale

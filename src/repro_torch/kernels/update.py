@@ -1,17 +1,22 @@
-"""Centroid-update statistics: CUDA kernel C (``csrc/update.cu``).
+"""Centroid-update statistics: CUDA kernels C and C8.
 
-Replaces ``repro/kernels/update.py:update_pallas`` (f32 body).  The wrapper
-:func:`update_f32` launches the kernel on CUDA tensors and raises
-``ValueError`` on any other; :func:`update_plain` is the plain version that
-``ops`` runs for tensors on the CPU.
+Kernel C (``csrc/update.cu``, :func:`update_f32`) replaces
+``repro/kernels/update.py:update_pallas`` (f32 body); kernel C8
+(``csrc/update_int8.cu``, :func:`update_int8`) replaces its int8 variant
+``_update_pallas_q``.  The wrappers launch their kernel on CUDA tensors and
+raise ``ValueError`` on any other; :func:`update_plain` and
+:func:`update_int8_plain` are the plain versions that ``ops`` runs for
+tensors on the CPU.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels import precision as px
 
 launches = 0            # kernel launches by update_f32 (see ops.launch_counts)
+int8_launches = 0       # kernel launches by update_int8
 
 
 def update_plain(x: torch.Tensor, ids: torch.Tensor, k: int
@@ -45,3 +50,55 @@ def update_f32(x: torch.Tensor, ids: torch.Tensor, k: int
         n, grid, torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "update_f32")
     return out[:k * n].view(k, n), out[k * n:]
+
+
+def update_int8_plain(x, ids: torch.Tensor, k: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of :func:`update_int8`."""
+    return ref.update_ref(px.as_quantized(x), ids, k, precision="int8")
+
+
+def update_int8(x, ids: torch.Tensor, k: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: a :class:`~.precision.QuantizedChunk` (codes int8 [m,n], scales
+    f32 [n]; a plain tensor is quantized first), ids [m] int32 -> (sums f32
+    [k,n], counts f32 [k]).
+
+    The kernel sums the codes in exact int32; the sums become f32 data
+    space (``isums.float() * scale``) after the full reduce, as the
+    reference's wrapper does.  An id outside [0, k) adds nothing.
+    """
+    q, scale = px.as_quantized(x)
+    build.require("x.q", q, torch.int8, 2)
+    build.require("x.scale", scale, torch.float32, 1)
+    build.require("ids", ids, torch.int32, 1)
+    m, n = q.shape
+    if (ids.shape[0] != m or scale.shape[0] != n or ids.device != q.device
+            or scale.device != q.device or k < 1 or n < 1):
+        raise ValueError(f"bad shapes x {tuple(q.shape)} / scale "
+                         f"{tuple(scale.shape)} / ids {tuple(ids.shape)} / "
+                         f"k={k}")
+    isums, counts = launch_update_int8(q, ids, k)
+    return isums.float() * scale[None, :], counts
+
+
+def launch_update_int8(q: torch.Tensor, ids: torch.Tensor, k: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel C8 on validated operands (see :func:`update_int8`):
+    (isums int32 [k,n], counts f32 [k])."""
+    m, n = q.shape
+    kn = k * n
+    grid = build.grid(q.device, m, kn + k)
+    psum = torch.empty(grid * kn, dtype=torch.int32, device=q.device)
+    pcnt = torch.empty(grid * k, dtype=torch.float32, device=q.device)
+    isums = torch.empty((k, n), dtype=torch.int32, device=q.device)
+    counts = torch.empty(k, dtype=torch.float32, device=q.device)
+    lib = build.load()
+    global int8_launches
+    int8_launches += 1
+    err = lib.repro_update_int8(
+        q.data_ptr(), ids.data_ptr(), psum.data_ptr(), pcnt.data_ptr(),
+        isums.data_ptr(), counts.data_ptr(), m, k, n, grid,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "update_int8")
+    return isums, counts

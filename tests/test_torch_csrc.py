@@ -6,8 +6,10 @@ their *logic* — tiling, indexing, ragged edges, the tie rule, the ordered
 per-CTA reduction — by compiling ``kernels/csrc/*.cu`` with the host C++
 compiler against a small stand-in for the CUDA runtime: each CTA runs as
 ``blockDim`` host threads, ``__syncthreads`` is a barrier and
-``__shared__`` a static shared by the CTA's threads.  Results are held
-against the port's plain versions with the same tolerances as on the card.
+``__shared__`` a static shared by the CTA's threads, and the rounding
+intrinsics (``__fmul_rn``, ``__fadd_rn``, ``__fsub_rn``) single float
+operations.  Results are held against the port's plain versions with the
+same tolerances as on the card; the int8 kernels' int32 sums bitwise.
 """
 import re
 import shutil
@@ -19,6 +21,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import build, fused_step, ref
+from repro_torch.kernels import precision as px
+from test_torch_cuda import int8_exact_blobs
 
 RTOL = 1e-5
 
@@ -44,6 +48,10 @@ inline dim3s blockDim, gridDim;
 inline std::barrier<>* cta_barrier = nullptr;
 inline void __syncthreads() { cta_barrier->arrive_and_wait(); }
 using std::min;
+// one IEEE single operation each, rounded to nearest (no contraction)
+inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
+inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
+inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 const int cudaSuccess = 0;
@@ -165,6 +173,100 @@ int main(int argc, char** argv) {
 """
 
 
+HARNESS_INT8 = r"""
+#include "cuda_runtime.h"
+#include "assign_int8.inc"
+#include "update_int8.inc"
+#include "fused_step_int8.inc"
+#include "fused_step_batched_int8.inc"
+#include <cstdio>
+#include <cstdlib>
+// harness_int8 B m k n grid in out:
+// in = xq[B,m,n] i8, cq[B,k,n] i8, scale[B,n], cf[B,k,n] f32, t[B,k],
+// ids[m] i32
+// out = csq[B,k] (sqnorm_rows on cf); B8 on stream 0 (ids, d); C8 on
+// stream 0 with ids (isums i32 ++ counts); A8 on each stream (isums i32 ++
+// counts ++ obj); D8 (all streams' isums, then all streams' counts ++ obj)
+template <typename T>
+static bool get(FILE* f, std::vector<T>& v) {
+  return fread(v.data(), sizeof(T), v.size(), f) == v.size();
+}
+template <typename T>
+static void put(FILE* f, const std::vector<T>& v) {
+  fwrite(v.data(), sizeof(T), v.size(), f);
+}
+int main(int argc, char** argv) {
+  const int B = atoi(argv[1]);
+  const int64_t m = atoll(argv[2]);
+  const int k = atoi(argv[3]), n = atoi(argv[4]), grid = atoi(argv[5]);
+  const int64_t kn = (int64_t)k * n;
+  std::vector<int8_t> x(B * m * n), c(B * kn);
+  std::vector<float> sc((size_t)B * n), cf(B * kn), csq((size_t)B * k),
+      t((size_t)B * k);
+  std::vector<int32_t> ids(m);
+  FILE* f = fopen(argv[6], "rb");
+  if (!get(f, x) || !get(f, c) || !get(f, sc) || !get(f, cf) || !get(f, t)
+      || !get(f, ids)) return 1;
+  fclose(f);
+  const int64_t tiles = (m + TM - 1) / TM;
+  FILE* o = fopen(argv[7], "wb");
+  launch(sqnorm_grid(B * k), 256,
+         [&] { sqnorm_rows(cf.data(), csq.data(), B * k, n); });
+  put(o, csq);
+  std::vector<int32_t> aids(m);
+  std::vector<float> ad(m);
+  launch(grid, TM, [&] {
+    assign_int8_kernel(x.data(), c.data(), csq.data(), t.data(), sc.data(),
+                       aids.data(), ad.data(), m, k, n, tiles);
+  });
+  put(o, aids);
+  put(o, ad);
+  std::vector<int32_t> ps(grid * kn), os(kn);
+  std::vector<float> pc(grid * k), oc(k);
+  launch(grid, TM, [&] {
+    update_int8_kernel(x.data(), ids.data(), ps.data(), pc.data(), m, k, n,
+                       tiles);
+  });
+  launch(2, 256, [&] {
+    update_int8_reduce(ps.data(), pc.data(), os.data(), oc.data(), kn, k,
+                       grid);
+  });
+  put(o, os);
+  put(o, oc);
+  std::vector<float> pf(grid * (k + 1)), of(k + 1);
+  for (int b = 0; b < B; ++b) {
+    launch(grid, TM, [&] {
+      fused_step_int8_kernel(x.data() + b * m * n, c.data() + b * kn,
+                             csq.data() + b * k, t.data() + b * k,
+                             sc.data() + b * n, ps.data(), pf.data(), m, k,
+                             n, tiles);
+    });
+    launch(3, 256, [&] {
+      fused_step_int8_reduce(ps.data(), pf.data(), os.data(), of.data(), kn,
+                             k + 1, grid);
+    });
+    put(o, os);
+    put(o, of);
+  }
+  std::vector<int32_t> pds(B * grid * kn), ods(B * kn);
+  std::vector<float> pdf(B * grid * (k + 1)), odf(B * (k + 1));
+  launch2(grid, B, TM, [&] {
+    fused_step_batched_int8_kernel(x.data(), c.data(), csq.data(), t.data(),
+                                   sc.data(), pds.data(), pdf.data(), m, k, n,
+                                   tiles);
+  });
+  launch2(2, B, 256, [&] {
+    fused_step_batched_int8_reduce(pds.data(), pdf.data(), ods.data(),
+                                   odf.data(), kn, k + 1, grid);
+  });
+  put(o, ods);
+  put(o, odf);
+  fclose(o);
+  return 0;
+}
+"""
+
+
 @pytest.fixture(scope="module")
 def harness(tmp_path_factory):
     cxx = shutil.which("g++")
@@ -179,11 +281,12 @@ def harness(tmp_path_factory):
         (d / Path(name).with_suffix(".inc")).write_text(
             re.sub(r"<<<[^>]*>>>", "", src))
     (d / "harness_batched.cpp").write_text(HARNESS_BATCHED)
+    (d / "harness_int8.cpp").write_text(HARNESS_INT8)
     procs = [subprocess.Popen(
         [cxx, "-std=c++20", "-O1", "-pthread", f"-I{d}", f"-I{build.CSRC}",
          str(d / f"{name}.cpp"), "-o", str(d / name)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for name in ("harness", "harness_batched")]
+        for name in ("harness", "harness_batched", "harness_int8")]
     for proc in procs:
         _, err = proc.communicate()
         assert proc.returncode == 0, err
@@ -282,3 +385,136 @@ def test_batched_kernel_source_matches_plain_and_kernel_a(harness, tmp_path,
         abs_s, _ = ref.update_ref(X[b].abs(), ids, k)
         assert np.all(np.abs(d_out[b, :kn] - sums[b].numpy().ravel())
                       <= RTOL * abs_s.numpy().ravel() + 1e-6), b
+
+
+# --------------------------------------------------------------------------
+# int8 kernels A8, B8, C8, D8
+# --------------------------------------------------------------------------
+
+
+def run_int8(harness, tmp_path, x, c, ids, grid):
+    """Quantize x [B,m,n] and c [B,k,n] as the wrappers do, run the int8
+    harness and split its output (see HARNESS_INT8)."""
+    B, m, n = x.shape
+    k = c.shape[1]
+    qx = px.quantize_chunk(torch.from_numpy(x))
+    C = torch.from_numpy(c)
+    cq, t = px.quantize_centroids(C, qx.scale)
+    (tmp_path / "in.bin").write_bytes(b"".join(
+        a.numpy().tobytes() for a in (qx.q, cq, qx.scale, C, t))
+        + ids.tobytes())
+    subprocess.run([str(harness.parent / "harness_int8"), str(B), str(m),
+                    str(k), str(n), str(grid), str(tmp_path / "in.bin"),
+                    str(tmp_path / "out.bin")], check=True, timeout=120)
+    raw = np.fromfile(tmp_path / "out.bin", dtype=np.uint8)
+    kn = k * n
+    layout = ([("csq", np.float32, B * k),
+               ("ids", np.int32, m), ("d", np.float32, m),
+               ("c8_sums", np.int32, kn), ("c8_counts", np.float32, k)]
+              + [row for b in range(B) for row in
+                 ((f"a8_sums_{b}", np.int32, kn),
+                  (f"a8_cf_{b}", np.float32, k + 1))]
+              + [("d8_sums", np.int32, B * kn),
+                 ("d8_cf", np.float32, B * (k + 1))])
+    out, at = {}, 0
+    for name, dtype, size in layout:
+        out[name] = raw[at:at + 4 * size].view(dtype)
+        at += 4 * size
+    assert at == raw.size
+    return qx, out
+
+
+def int_sums(q, ids, k):
+    """Exact per-cluster sums of the codes (int64), ids outside [0, k)
+    dropped."""
+    sums = np.zeros((k, q.shape[1]), np.int64)
+    ok = (ids >= 0) & (ids < k)
+    np.add.at(sums, ids[ok], q[ok].astype(np.int64))
+    return sums
+
+
+INT8_SHAPES = [  # (B, m, k, n, grid): ragged tiles, CTAs with several
+    (2, 600, 25, 28, 2),   # tiles, k and n tiles with ragged edges, n > 32
+    (1, 300, 40, 3, 1),    # (codes reloaded per phase), k = 1, a CTA
+    (2, 513, 70, 68, 2),   # without a tile
+    (3, 257, 1, 5, 3),
+]
+
+
+@pytest.mark.parametrize("data", ["blobs", "exact"])
+@pytest.mark.parametrize("shape", INT8_SHAPES, ids=[
+    f"B{b}-m{m}-k{k}-n{n}-g{g}" for b, m, k, n, g in INT8_SHAPES])
+def test_int8_kernel_sources_match_plain(harness, tmp_path, shape, data):
+    """Kernels A8, B8, C8, D8 against the plain int8 versions.
+
+    Tolerances: the centroid norms of the first launch, B8's ids and d,
+    int32 sums and counts bitwise (norms added in the plain version's
+    order, scores rounded as it rounds them, sums exact integers); on the
+    exact blobs everything bitwise (every value an integer below 2**24);
+    on float blobs the objective within ``RTOL`` of the plain version (its
+    rows summed in another order); D8's stream b bitwise A8 on stream b.
+    """
+    B, m, k, n, grid = shape
+    if data == "exact":
+        pairs = [int8_exact_blobs(m, n, k, seed=b + 3) for b in range(B)]
+    else:
+        rng = np.random.default_rng(m + k)
+        pairs = []
+        for _ in range(B):
+            c = (rng.normal(size=(k, n)) * 5).astype(np.float32)
+            x = c[rng.integers(0, k, m)] + rng.normal(size=(m, n))
+            pairs.append((x.astype(np.float32), c))
+    x = np.stack([p[0] for p in pairs])
+    c = np.stack([p[1] for p in pairs])
+    X0, C0 = torch.from_numpy(x[0]), torch.from_numpy(c[0])
+    pids, pd = ref.assign_ref(X0, C0, precision="int8")
+    ids = pids.numpy().copy()
+    ids[::7] = -1                        # padding: never hits
+    ids[3::11] = k                       # out of range: adds nothing
+    qx, out = run_int8(harness, tmp_path, x, c, ids, grid)
+    q0 = qx.q[0].numpy()
+    scale = qx.scale.numpy()
+
+    # the norms' first launch: features in order, as the plain version
+    np.testing.assert_array_equal(
+        out["csq"], px.sqnorm_in_order(torch.from_numpy(c)).numpy().ravel())
+    # B8: ids and d
+    np.testing.assert_array_equal(out["ids"], pids.numpy())
+    np.testing.assert_array_equal(out["d"], pd.numpy())
+    # C8: int32 sums exact given the ids, counts exact
+    np.testing.assert_array_equal(out["c8_sums"].reshape(k, n),
+                                  int_sums(q0, ids, k))
+    want_s, want_c = ref.update_ref(
+        px.QuantizedChunk(qx.q[0], qx.scale[0]), torch.from_numpy(ids), k,
+        precision="int8")
+    np.testing.assert_array_equal(out["c8_counts"], want_c.numpy())
+    got_s = torch.from_numpy(out["c8_sums"]).float().view(k, n) \
+        * qx.scale[0][None, :]
+    assert torch.equal(got_s, want_s)    # scaled after the full reduce
+
+    for b in range(B):
+        a_sums, a_cf = out[f"a8_sums_{b}"], out[f"a8_cf_{b}"]
+        qb = px.QuantizedChunk(qx.q[b], qx.scale[b])
+        bids, bd = ref.assign_ref(qb, torch.from_numpy(c[b]),
+                                  precision="int8")
+        np.testing.assert_array_equal(a_sums.reshape(k, n),
+                                      int_sums(qx.q[b].numpy(),
+                                               bids.numpy(), k))
+        sums_p, counts_p, obj_p = fused_step.fused_step_int8_plain(
+            qb, torch.from_numpy(c[b]))
+        np.testing.assert_array_equal(a_cf[:k], counts_p.numpy())
+        got = torch.from_numpy(a_sums).float().view(k, n) \
+            * qx.scale[b][None, :]
+        assert torch.equal(got, sums_p)
+        if data == "exact":
+            assert float(a_cf[k]) == float(obj_p)
+        else:
+            np.testing.assert_allclose(a_cf[k], float(obj_p), rtol=RTOL)
+        # D8's stream b is bitwise A8 on stream b
+        np.testing.assert_array_equal(out["d8_sums"][b * k * n:
+                                                     (b + 1) * k * n],
+                                      a_sums)
+        np.testing.assert_array_equal(
+            out["d8_cf"][b * (k + 1):(b + 1) * (k + 1)].view(np.uint32),
+            a_cf.view(np.uint32))
+    assert scale.shape == (B, n)

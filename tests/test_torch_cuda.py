@@ -7,8 +7,8 @@ only PyTorch (with ``--noconftest``: the suite's conftest configures JAX):
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-The shared helpers (``blobs`` and the error bounds) are used by the CPU
-parity tests too.
+The shared helpers (``blobs``, ``int8_exact_blobs`` and the error bounds)
+are used by the CPU parity tests too.
 """
 import math
 
@@ -25,6 +25,24 @@ def blobs(m, k, n, seed=0):
     c = (rng.normal(size=(k, n)) * 5.0).astype(np.float32)
     comp = rng.integers(0, k, size=m)
     x = (c[comp] + rng.normal(size=(m, n))).astype(np.float32)
+    return x, c
+
+
+def int8_exact_blobs(m=300, n=24, k=25, seed=0):
+    """Integer data on which int8 quantization is exact: a copy of the
+    reference's ``tests/test_precision.py:_int8_exact_blobs``.
+
+    One point row of +/-127 pins every per-feature scale to 1, a 127
+    column in the centroids pins every per-row scale to 1; codes then
+    reproduce the values and every sum stays an integer below 2**24, so
+    int8 results compare bitwise whatever the tiling or the order.
+    """
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-8, 9, size=(m, n)).astype(np.float32)
+    x[0, :] = 127.0
+    x[1, :] = -127.0
+    c = rng.integers(-8, 9, size=(k, n)).astype(np.float32)
+    c[:, 0] = 127.0
     return x, c
 
 
@@ -51,6 +69,21 @@ def _card():
 
 def _near_ties(x, c):
     scores = (c * c).sum(1)[None, :] - 2.0 * (x @ c.T)
+    two = torch.topk(scores, 2, dim=1, largest=False).values
+    return (two[:, 1] - two[:, 0]) <= 1e-4 * two[:, 0].abs()
+
+
+def near_ties_int8(qx, c):
+    """Rows whose best two int8 scores csq - 2 float(xq.cq) t are within
+    1e-4 relative (the kernels' argmin; the oracle's adds ||x||^2)."""
+    from repro_torch.kernels import precision as px
+
+    cq, t = px.quantize_centroids(c, qx.scale)
+    dots = px.intdot(qx.q, cq, ([1], [1])).float() * t[None, :]
+    scores = px.sqnorm_in_order(c)[None, :] - 2.0 * dots
+    if scores.shape[1] < 2:
+        return torch.zeros(scores.shape[0], dtype=torch.bool,
+                           device=scores.device)
     two = torch.topk(scores, 2, dim=1, largest=False).values
     return (two[:, 1] - two[:, 0]) <= 1e-4 * two[:, 0].abs()
 
@@ -206,3 +239,148 @@ def test_kernel_library_is_cached_by_source_digest():
     again = build.build()
     assert not again.built and again.path == build.info().path
     assert build.source_digest() in again.path.name
+
+
+# --------------------------------------------------------------------------
+# int8 kernels A8, B8, C8, D8
+# --------------------------------------------------------------------------
+
+INT8_CARD_SHAPES = [(64_000, 25, 28), (64_001, 25, 3), (64_001, 129, 68),
+                    (3_001, 1024, 1024), (2_001, 1024, 1100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data", ["blobs", "exact"])
+@pytest.mark.parametrize("shape", INT8_CARD_SHAPES, ids=[
+    f"m{m}-k{k}-n{n}" for m, k, n in INT8_CARD_SHAPES])
+def test_int8_kernels_match_plain_on_card(shape, data):
+    """Kernels B8, C8 and A8 (outside the envelope: B8 + C8) on the card
+    against the plain int8 versions: two launches bitwise equal; int32
+    sums bitwise given the same ids (C8) and counts exact; ids equal off
+    near ties and d within the f32 norm bound; on the exact blobs ids,
+    sums, counts and d bitwise (the kernel and the plain version both add
+    ||x||^2 and ||c||^2 feature by feature, so d matches past 2**24 too,
+    where the order decides the rounding).  The objective, a sum of m
+    integers, passes 2**24 at these m: it is held to ``RTOL``."""
+    _card()
+    from repro_torch.kernels import distance, fused_step, ops, update
+    from repro_torch.kernels import precision as px
+
+    m, k, n = shape
+    if data == "blobs":
+        xn, cn = blobs(m, k, n, seed=6)
+    else:
+        xn, cn = int8_exact_blobs(m, n, k, seed=6)
+    x, c = torch.from_numpy(xn).cuda(), torch.from_numpy(cn).cuda()
+    qx = px.quantize_chunk(x)
+    ties = near_ties_int8(qx, c)
+    n_ties = int(ties.sum())
+    exact = data == "exact"
+
+    ids, d = distance.assign_int8(qx, c)
+    ids2, d2 = distance.assign_int8(qx, c)
+    assert torch.equal(ids, ids2) and torch.equal(d, d2)   # bitwise repeat
+    pids, pd = distance.assign_int8_plain(qx, c)
+    assert torch.equal(ids[~ties], pids[~ties])
+    if exact:
+        assert torch.equal(ids, pids)
+        assert torch.equal(d, pd)
+    deq = px.dequantize(qx).cpu().numpy()
+    assert np.all((d - pd).abs().cpu().numpy()
+                  <= d_bound(deq, cn, pids.cpu().numpy()) + 1e-6)
+
+    uids = pids.clone()
+    uids[::7] = -1                 # padding: never hits
+    uids[3::11] = k                # out of range: adds nothing
+    sums, counts = update.update_int8(qx, uids, k)
+    sums2, counts2 = update.update_int8(qx, uids, k)
+    assert torch.equal(sums, sums2) and torch.equal(counts, counts2)
+    psums, pcounts = update.update_int8_plain(qx, uids, k)
+    assert torch.equal(counts, pcounts) and torch.equal(sums, psums)
+
+    fs = ops.fused_step(qx, c, impl="cuda")       # kernel A8 or B8 + C8
+    fs2 = ops.fused_step(qx, c, impl="cuda")
+    assert all(torch.equal(a, b) for a, b in zip(fs, fs2))
+    psums, pcounts, pobj = fused_step.fused_step_int8_plain(qx, c)
+    if exact or n_ties == 0:
+        assert torch.equal(fs[0], psums) and torch.equal(fs[1], pcounts)
+    assert int((fs[1] - pcounts).abs().sum()) <= 2 * n_ties
+    tie_room = 2 * n_ties * 127 * float(qx.scale.max())
+    assert float((fs[0] - psums).abs().max()) <= tie_room
+    np.testing.assert_allclose(float(fs[2]), float(pobj), rtol=RTOL)
+
+
+INT8_BATCHED_CARD_SHAPES = [(8, 64_000, 25, 28), (3, 64_001, 25, 3),
+                            (2, 3_001, 1024, 1024), (2, 2_001, 1024, 1100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", INT8_BATCHED_CARD_SHAPES, ids=[
+    f"B{b}-m{m}-k{k}-n{n}" for b, m, k, n in INT8_BATCHED_CARD_SHAPES])
+def test_int8_batched_kernel_matches_kernel_a8_on_card(shape):
+    """Kernel D8 (through ops: outside the envelope B8 + C8 per stream):
+    stream b bitwise equal to the single-stream route on stream b, two
+    calls bitwise equal, and the plain version within the near-tie
+    allowance."""
+    _card()
+    from repro_torch.kernels import fused_step, ops
+    from repro_torch.kernels import precision as px
+
+    B, m, k, n = shape
+    pairs = [blobs(m, k, n, seed=7 + b) for b in range(B)]
+    x = torch.from_numpy(np.stack([p[0] for p in pairs])).cuda()
+    c = torch.from_numpy(np.stack([p[1] for p in pairs])).cuda()
+    qx = px.quantize_chunk(x)                 # one scale row per stream
+    ops.reset_launch_counts()
+    got = ops.fused_step_batched(qx, c, impl="cuda")
+    again = ops.fused_step_batched(qx, c, impl="cuda")
+    counts = ops.launch_counts()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    fits = fused_step.fits_batched(k, n)
+    assert (counts["fused_step_batched_int8"] > 0) == fits
+    assert counts["fused_step_int8"] == 0 and counts["fused_step_batched"] == 0
+    plain = fused_step.fused_step_batched_int8_plain(qx, c)
+    for b in range(B):
+        qb = px.QuantizedChunk(qx.q[b], qx.scale[b])
+        one = ops.fused_step(qb, c[b], impl="cuda")        # A8, or B8 + C8
+        assert all(torch.equal(g[b], o) for g, o in zip(got, one)), b
+        n_ties = int(near_ties_int8(qb, c[b]).sum())
+        assert int((got[1][b] - plain[1][b]).abs().sum()) <= 2 * n_ties
+        tie_room = 2 * n_ties * 127 * float(qb.scale.max())
+        assert float((got[0][b] - plain[0][b]).abs().max()) <= tie_room
+        np.testing.assert_allclose(float(got[2][b]), float(plain[2][b]),
+                                   rtol=RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 4], ids=["sequential", "batched"])
+def test_int8_fit_on_card_goes_through_the_int8_kernels(batch):
+    """fit(precision="int8"): A8 (D8 when batched) in the Lloyd loop, f32
+    kernels B and C in the epilogue, B8 and C8 never (inside the
+    envelope); the plain path reaches the same full-data objective within
+    1e-3."""
+    _card()
+    from repro_torch import api
+    from repro_torch.data.synthetic import GMMSpec, gmm_dataset
+    from repro_torch.kernels import ops
+
+    X = gmm_dataset(GMMSpec(m=300_000, n=28, components=25, seed=1))
+    cfg = api.BigMeansConfig(k=25, s=8192, n_chunks=8, batch=batch,
+                             sync_every=2 if batch > 1 else 1,
+                             precision="int8")
+    ops.reset_launch_counts()
+    res = api.fit(X, cfg)
+    counts = ops.launch_counts()
+    assert res.extras["fit"]["precision"] == "int8"
+    fused = "fused_step_batched_int8" if batch > 1 else "fused_step_int8"
+    assert counts[fused] > 0
+    if batch == 1:
+        assert counts[fused] == res.n_iterations
+    assert counts["assign_int8"] == counts["update_int8"] == 0
+    assert counts["fused_step"] == counts["fused_step_batched"] == 0
+    assert counts["update"] == counts["assign"] == cfg.n_chunks
+    ref = api.fit(X, cfg.replace(impl="ref"))
+    assert ops.launch_counts() == counts          # the plain path: no kernel
+    _, f = api.evaluate(res, X)
+    _, f_ref = api.evaluate(ref, X)
+    assert abs(f - f_ref) <= 1e-3 * f_ref

@@ -1,0 +1,471 @@
+"""Parity of the port's int8 precision path with the reference's.
+
+Both packages get the same numpy inputs (made from a seed); the JAX side
+runs its oracles (``impl="ref"``) and its Pallas kernels in interpret mode,
+as the reference's own tests do.  Tolerances, per test:
+
+* quantization (codes, scales, centroid codes and row scales, the numpy
+  twin) is bitwise — it is the same arithmetic, round-half-to-even;
+* on ``int8_exact_blobs`` (integer data on which int8 quantization is
+  exact and every sum an integer below 2**24) every output is bitwise;
+* elsewhere ids are identical off near-tie rows (none on the well-separated
+  blobs used here), and sums, counts, objectives and centroids agree to
+  ``RTOL`` (f32 norms and sums taken in another order);
+* whole fits take the reference's decisions one by one through the
+  jax-replay RNG backend: the same accept sequence, per-chunk Lloyd
+  iterations and ``n_accepted``, objectives within ``RTOL``.
+
+The reference's own drift test
+``tests/test_precision.py::test_fit_int8_within_1pct_of_f32_on_quick_datasets
+[hepmass-16k]`` fails on the reference tree, run alone on the CPU: relative
+int8-versus-f32 drift 0.0253 (objectives 262,653.5625 f32 and 269,310.625
+int8), a deterministic drift of the reference itself, not a flake.  The
+port is held to the reference functions' outputs on the same inputs, not
+to that 1% assertion.
+"""
+import importlib
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.api as japi
+from repro.core import bigmeans as jbm
+from repro.core import kmeans as jkm
+from repro.data.synthetic import GMMSpec, gmm_dataset
+from repro.evalsuite.datasets import get_dataset
+from repro.kernels import fused_step as jfused
+from repro.kernels import ops as jops
+from repro.kernels import precision as jpx
+from repro.kernels import ref as jref
+from repro.kernels.update import update_pallas
+from repro_torch import api, convert
+from repro_torch.core import bigmeans, kmeans
+from repro_torch.kernels import distance, fused_step, ops, ref, update
+from repro_torch.kernels import precision as px
+from test_torch_cuda import blobs, int8_exact_blobs, near_ties_int8
+from test_torch_rng import REPLAY
+
+jkpp = importlib.import_module("repro.core.kmeanspp")
+
+RTOL = 1e-5   # f32 norms and sums of the same values in another order
+
+
+def t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def bits(a):
+    """An array's bytes as unsigned integers: bitwise comparison."""
+    a = np.asarray(a)
+    return a.view({1: np.uint8, 4: np.uint32}[a.dtype.itemsize])
+
+
+def half_ties(m=64, n=6, seed=0):
+    """Values at exact half-code ties: per-feature scales are powers of two
+    (a +/-127 * 2**e row pins them), every other value sits at
+    (j + 1/2) * 2**e, so x / s is exactly j + 1/2 and rounding decides
+    half-to-even."""
+    rng = np.random.default_rng(seed)
+    e = 2.0 ** rng.integers(-3, 4, size=n)
+    j = rng.integers(-126, 126, size=(m, n))
+    x = ((j + 0.5) * e).astype(np.float32)
+    x[0] = 127 * e
+    x[1] = -127 * e
+    return x
+
+
+def quant_data(kind):
+    rng = np.random.default_rng(11)
+    if kind == "normal":
+        return (rng.normal(size=(500, 28)) * 3).astype(np.float32)
+    if kind == "exact":
+        return int8_exact_blobs()[0]
+    if kind == "half_ties":
+        return half_ties()
+    return (rng.normal(size=(3, 400, 28)) * 2).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["normal", "exact", "half_ties", "batched"])
+def test_quantization_bitwise_equal_to_reference(kind):
+    """quantize_chunk, quantize_centroids, dequantize and host_quantize:
+    bitwise the reference's (batched: one scale row per stream)."""
+    x = quant_data(kind)
+    qj = jpx.quantize_chunk(jnp.asarray(x))
+    qt = px.quantize_chunk(t(x))
+    assert qt.q.dtype == torch.int8 and qt.scale.dtype == torch.float32
+    assert tuple(qt.scale.shape) == x.shape[:-2] + (x.shape[-1],)
+    np.testing.assert_array_equal(qt.q.numpy(), np.asarray(qj.q))
+    np.testing.assert_array_equal(bits(qt.scale.numpy()), bits(qj.scale))
+    np.testing.assert_array_equal(bits(px.dequantize(qt).numpy()),
+                                  bits(jpx.dequantize(qj)))
+    hq, hs = px.host_quantize(x)
+    np.testing.assert_array_equal(hq, qt.q.numpy())
+    np.testing.assert_array_equal(bits(hs), bits(qt.scale.numpy()))
+    if kind == "half_ties":             # every code decided half-to-even
+        frac = np.abs(x[2:] / qt.scale.numpy()) % 1
+        assert np.all(frac == 0.5)
+        assert np.all(qt.q.numpy()[2:] % 2 == 0)
+
+    rng = np.random.default_rng(5)
+    c = (rng.normal(size=x.shape[:-2] + (25, x.shape[-1])) * 2).astype(
+        np.float32)
+    cq, tt = px.quantize_centroids(t(c), qt.scale)
+    if kind == "batched":
+        cqj, tj = jax.vmap(jpx.quantize_centroids)(jnp.asarray(c), qj.scale)
+    else:
+        cqj, tj = jpx.quantize_centroids(jnp.asarray(c), qj.scale)
+    np.testing.assert_array_equal(cq.numpy(), np.asarray(cqj))
+    np.testing.assert_array_equal(bits(tt.numpy()), bits(tj))
+
+    # the pair travels between the packages as numpy
+    back = convert.quantized_from_numpy(*convert.quantized_to_numpy(qt),
+                                        device="cpu")
+    assert torch.equal(back.q, qt.q) and torch.equal(back.scale, qt.scale)
+
+
+def test_int8_policy():
+    assert px.check("int8") == "int8"
+    assert px.storage_dtype("int8") == torch.int8
+    assert px.resolve("auto", torch.int8) == "int8"
+    assert px.resolve("auto", torch.float32) == "f32"
+    qx = px.cast_storage(torch.ones(4, 3), "int8")
+    assert isinstance(qx, px.QuantizedChunk) and qx.dtype == torch.int8
+    assert px.cast_storage(qx, "int8") is qx                # idempotent
+    assert px.as_quantized(qx) is qx
+    assert ops.resolve_precision("f32", qx) == "int8"   # codes are int8
+    assert ops.resolve_precision("auto", torch.ones(2, 2)) == "f32"
+    with pytest.raises(ValueError, match="no generic int8 path"):
+        px.dot(torch.ones(2, 2), torch.ones(2, 2), ([1], [1]), "int8")
+    for name in ("bf16", "bf16x3"):
+        with pytest.raises(NotImplementedError, match="queue 2 item 4"):
+            px.check(name)
+    # intdot is exact int32 on the CPU
+    a = torch.full((3, 4096), 127, dtype=torch.int8)
+    assert int(px.intdot(a, a, ([1], [1]))[0, 0]) == 127 * 127 * 4096
+
+
+ORACLE_CASES = [  # (data, m, k, n)
+    ("exact", 300, 25, 24),
+    ("exact", 257, 5, 29),
+    ("exact", 100, 129, 30),
+    ("blobs", 500, 25, 28),
+    ("blobs", 301, 130, 68),
+]
+
+
+def oracle_data(kind, m, k, n):
+    if kind == "exact":
+        return int8_exact_blobs(m, n, k, seed=3)
+    return blobs(m, k, n, seed=4)
+
+
+@pytest.mark.parametrize("case", ORACLE_CASES,
+                         ids=[f"{d}-m{m}-k{k}-n{n}"
+                              for d, m, k, n in ORACLE_CASES])
+def test_int8_oracles_match_reference(case):
+    """assign_ref, update_ref and the two-pass fused step under int8
+    against ``repro.kernels.ref.*(precision="int8")`` and
+    ``repro.kernels.ops.fused_step(impl="ref", precision="int8")``:
+    bitwise on exact blobs, ids off near ties and RTOL elsewhere."""
+    kind, m, k, n = case
+    x, c = oracle_data(kind, m, k, n)
+    exact = kind == "exact"
+    X, C = t(x), t(c)
+    ties = near_ties_int8(px.quantize_chunk(X), C).numpy()
+    if not exact:
+        assert not ties.any()           # well separated: every id decided
+
+    ids, d = ops.assign(X, C, impl="ref", precision="int8")
+    jids, jd = jref.assign_ref(x, c, precision="int8")
+    np.testing.assert_array_equal(ids.numpy()[~ties], np.asarray(jids)[~ties])
+    if exact:
+        np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
+        np.testing.assert_array_equal(bits(d.numpy()), bits(jd))
+    else:
+        np.testing.assert_allclose(d.numpy(), np.asarray(jd), rtol=RTOL,
+                                   atol=RTOL * float(np.max(jd)))
+
+    uids = np.asarray(jids).copy()
+    uids[::7] = -1                      # padding rows: never hit
+    uids[3::11] = k                     # out of range: adds nothing
+    sums, counts = ops.update(X, t(uids), k, impl="ref", precision="int8")
+    jsums, jcounts = jref.update_ref(x, uids, k, precision="int8")
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(jcounts))
+    # int32 sums scaled once after the contraction: bitwise everywhere
+    np.testing.assert_array_equal(bits(sums.numpy()), bits(jsums))
+
+    fs = ops.fused_step(X, C, impl="ref", precision="int8")
+    jfs = jops.fused_step(x, c, impl="ref", precision="int8")
+    plain = fused_step.fused_step_int8_plain(X, C)
+    assert all(torch.equal(a, b) for a, b in zip(fs, plain))
+    np.testing.assert_array_equal(fs[1].numpy(), np.asarray(jfs[1]))
+    np.testing.assert_array_equal(bits(fs[0].numpy()), bits(jfs[0]))
+    if exact:
+        assert float(fs[2]) == float(jfs[2])
+    np.testing.assert_allclose(float(fs[2]), float(jfs[2]), rtol=RTOL)
+
+
+@pytest.mark.parametrize("block_m", [128, 256])
+def test_int8_plain_fused_step_bitwise_equal_to_interpreted_pallas(block_m):
+    """The port's plain int8 fused step against ``fused_step_pallas(...,
+    precision="int8", interpret=True)`` on exact blobs: bitwise, from a raw
+    chunk and from the same pre-quantized chunk."""
+    x, c = int8_exact_blobs()
+    js, jn, jo = jfused.fused_step_pallas(x, c, precision="int8",
+                                          block_m=block_m, interpret=True)
+    qj = jpx.quantize_chunk(jnp.asarray(x))
+    qx = convert.quantized_from_numpy(qj.q, qj.scale, device="cpu")
+    for got in (fused_step.fused_step_int8_plain(t(x), t(c)),
+                ops.fused_step(qx, t(c), impl="ref")):
+        np.testing.assert_array_equal(bits(got[0].numpy()), bits(js))
+        np.testing.assert_array_equal(bits(got[1].numpy()), bits(jn))
+        assert float(got[2]) == float(jo)
+
+
+def test_int8_plain_batched_fused_step_bitwise_equal_to_interpreted_pallas():
+    """The port's plain batched int8 step (one scale row per stream)
+    against ``fused_step_batched_pallas(..., precision="int8",
+    interpret=True)`` on exact blobs: bitwise."""
+    pairs = [int8_exact_blobs(300, 24, 25, seed=b) for b in range(3)]
+    x = np.stack([p[0] for p in pairs])
+    c = np.stack([p[1] for p in pairs])
+    js, jn, jo = jfused.fused_step_batched_pallas(x, c, precision="int8",
+                                                  interpret=True)
+    qx = px.quantize_chunk(t(x))
+    for got in (fused_step.fused_step_batched_int8_plain(qx, t(c)),
+                ops.fused_step_batched(t(x), t(c), impl="ref",
+                                       precision="int8")):
+        np.testing.assert_array_equal(bits(got[0].numpy()), bits(js))
+        np.testing.assert_array_equal(bits(got[1].numpy()), bits(jn))
+        np.testing.assert_array_equal(bits(got[2].numpy()), bits(jo))
+    # and each stream is the single-stream plain step on it
+    single = [fused_step.fused_step_int8_plain(t(x[b]), t(c[b]))
+              for b in range(3)]
+    for b, one in enumerate(single):
+        assert all(torch.equal(g[b], o) for g, o in zip(got, one))
+
+
+@pytest.mark.parametrize("m,n,k", [(257, 29, 5), (100, 30, 129)])
+def test_int8_assign_and_update_match_interpreted_pallas(m, n, k):
+    """The reference's padding cases: the port's int8 assign against
+    ``ops.assign(impl="pallas_interpret", precision="int8")`` and its int8
+    update against ``update_pallas(precision="int8", interpret=True)``,
+    bitwise; zero-padding by 7 features changes nothing (their scales
+    floor, their codes are 0)."""
+    x, c = int8_exact_blobs(m, n, k, seed=3)
+    jids, jd = jops.assign(x, c, impl="pallas_interpret", precision="int8")
+    ids, d = distance.assign_int8_plain(t(x), t(c))
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
+    np.testing.assert_array_equal(bits(d.numpy()), bits(jd))
+    xp = np.pad(x, ((0, 0), (0, 7)))
+    cp = np.pad(c, ((0, 0), (0, 7)))
+    pids, pdd = ops.assign(t(xp), t(cp), impl="ref", precision="int8")
+    assert torch.equal(pids, ids) and torch.equal(pdd, d)
+
+    jsums, jcounts = update_pallas(x, jids, k, precision="int8",
+                                   interpret=True)
+    sums, counts = update.update_int8_plain(t(x), ids, k)
+    np.testing.assert_array_equal(bits(sums.numpy()), bits(jsums))
+    np.testing.assert_array_equal(bits(counts.numpy()), bits(jcounts))
+    psums, pcounts = ops.update(t(xp), ids, k, impl="ref", precision="int8")
+    assert torch.equal(psums[:, :n], sums) and torch.equal(pcounts, counts)
+    assert not psums[:, n:].any()
+    # 'ref_chunked' quantizes once and keeps the whole chunk's scales
+    cids, cd = ops.assign(t(x), t(c), impl="ref_chunked", precision="int8",
+                          chunk=64)
+    assert torch.equal(cids, ids) and torch.equal(cd, d)
+
+
+DATA = {n: np.asarray(gmm_dataset(GMMSpec(m=4096, n=n, components=15,
+                                          seed=2)))
+        for n in (3, 28)}
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["raw", "prequant"])
+@pytest.mark.parametrize("n", [3, 28])
+@pytest.mark.parametrize("max_iters,tol", [(300, 1e-4), (3, 0.0)])
+def test_int8_lloyd_matches_reference(n, max_iters, tol, quantized):
+    """``lloyd(..., precision="int8")`` against the reference's: the same
+    iterations, assignments and counts; centroids and the (f32, full-width)
+    objective within RTOL.  ``prequant``: the chunk arrives quantized, as
+    the reference's streaming engine ships it."""
+    X = DATA[n][:2048]
+    init = np.asarray(jkpp.kmeanspp(X, jax.random.PRNGKey(n), 15))
+    if quantized:
+        qj = jpx.quantize_chunk(jnp.asarray(X))
+        jpts = qj
+        pts = convert.quantized_from_numpy(qj.q, qj.scale, device="cpu")
+    else:
+        jpts, pts = X, t(X)
+    want = jkm.lloyd(jpts, init, max_iters=max_iters, tol=tol, impl="ref",
+                     precision="int8")
+    got = kmeans.lloyd(pts, t(init), max_iters=max_iters, tol=tol,
+                       impl="ref", precision="int8")
+    assert got.iterations == int(want.iterations)
+    np.testing.assert_array_equal(got.assignments.numpy(),
+                                  np.asarray(want.assignments))
+    np.testing.assert_array_equal(got.counts.numpy(),
+                                  np.asarray(want.counts))
+    scale = float(np.abs(np.asarray(want.centroids)).max())
+    np.testing.assert_allclose(got.centroids.numpy(),
+                               np.asarray(want.centroids), rtol=RTOL,
+                               atol=RTOL * scale)
+    np.testing.assert_allclose(float(got.objective), float(want.objective),
+                               rtol=RTOL)
+
+
+@pytest.mark.parametrize("n", [3, 28])
+def test_int8_lloyd_batched_matches_reference(n):
+    """``lloyd_batched(..., precision="int8")`` (one scale row per stream)
+    against the reference's: the same per-stream iterations, final
+    assignments and counts, objectives within RTOL; each stream equal to a
+    single-stream port ``lloyd`` bit for bit.
+
+    Centroids are held (to RTOL) against the reference run op by op
+    (``jax.disable_jit()``).  Under ``jit`` XLA fuses ``(c2 - 2*dots) +
+    x2`` and rounds some distances differently by an ulp (0.00037 of
+    ~1e4 here), which flips one near-tie point in one Lloyd iteration of
+    stream 1 at n = 28 and moves one centroid coordinate by 0.0025 (2.7e-4
+    relative); op by op the reference and the port take every decision
+    alike and their centroids agree."""
+    X, B, s, k = DATA[n], 3, 1000, 15
+    pts = np.stack([X[i * s:(i + 1) * s] for i in range(B)])
+    init = np.stack([np.asarray(jkpp.kmeanspp(pts[i],
+                                              jax.random.PRNGKey(i), k))
+                     for i in range(B)])
+    want = jkm.lloyd_batched(pts, init, impl="ref", precision="int8")
+    got = kmeans.lloyd_batched(t(pts), t(init), impl="ref", precision="int8")
+    np.testing.assert_array_equal(got.iterations.numpy(),
+                                  np.asarray(want.iterations))
+    for field in ("assignments", "counts", "degenerate"):
+        np.testing.assert_array_equal(getattr(got, field).numpy(),
+                                      np.asarray(getattr(want, field)),
+                                      err_msg=field)
+    np.testing.assert_allclose(got.objective.numpy(),
+                               np.asarray(want.objective), rtol=RTOL)
+    with jax.disable_jit():
+        eager = jkm.lloyd_batched(pts, init, impl="ref", precision="int8")
+    np.testing.assert_array_equal(got.iterations.numpy(),
+                                  np.asarray(eager.iterations))
+    scale = float(np.abs(np.asarray(eager.centroids)).max())
+    np.testing.assert_allclose(got.centroids.numpy(),
+                               np.asarray(eager.centroids), rtol=RTOL,
+                               atol=RTOL * scale)
+    for b in range(B):
+        one = kmeans.lloyd(t(pts)[b], t(init)[b], impl="ref",
+                           precision="int8")
+        assert one.iterations == int(got.iterations[b])
+        assert torch.equal(one.centroids, got.centroids[b])
+        assert torch.equal(one.objective, got.objective[b])
+
+
+SLOW_CHUNK = Path(__file__).parent / "data" / "int8_slow_chunk.npz"
+
+
+def test_int8_lloyd_matches_reference_on_a_slow_card_chunk():
+    """A chunk on which int8 Lloyd does not settle: stream 2 of round 1 of
+    the batched int8 HEPMASS-size fit on the card (seed 0), captured with
+    its initial centroids by ``tools/int8_slow_chunk.py``.  From the same
+    start f32 Lloyd stops after 3 iterations; at int8 the loop objective
+    wanders by ~1e-3 relative, above the 1e-4 tolerance, so the stop comes
+    late and where it comes turns on single near-tie points.  Norms
+    ``||c||^2`` and ``||x||^2`` summed in torch's order, an ulp off XLA's
+    here, flip one point in iteration 9 and the port then stops after 33
+    iterations against the reference's 17; the int8 norms therefore add
+    the features in order, as XLA does on the CPU
+    (``precision.sqnorm_in_order``).
+
+    Tolerances: the same iterations as the reference, jitted and op by op,
+    single and batched (B = 1); against the op-by-op reference ids, counts
+    and centroids bitwise and the objective within RTOL; against the
+    jitted one (which rounds some fused distances differently, see
+    ``test_int8_lloyd_batched_matches_reference``) the objective within
+    RTOL; the batched port bitwise equal to the single one."""
+    z = np.load(SLOW_CHUNK)
+    qj = jpx.QuantizedChunk(jnp.asarray(z["q"]), jnp.asarray(z["scale"]))
+    qt = convert.quantized_from_numpy(z["q"], z["scale"], device="cpu")
+    init = z["init"]
+    got = kmeans.lloyd(qt, t(init), impl="ref", precision="int8")
+    got_b = kmeans.lloyd_batched(
+        px.QuantizedChunk(qt.q[None], qt.scale[None]), t(init)[None],
+        impl="ref", precision="int8")
+    want = jkm.lloyd(qj, init, impl="ref", precision="int8")
+    want_b = jkm.lloyd_batched(
+        jpx.QuantizedChunk(qj.q[None], qj.scale[None]), init[None],
+        impl="ref", precision="int8")
+    with jax.disable_jit():
+        eager = jkm.lloyd(qj, init, impl="ref", precision="int8")
+    assert got.iterations == int(want.iterations) == int(eager.iterations)
+    assert int(got_b.iterations[0]) == int(want_b.iterations[0])
+    for field in ("assignments", "counts", "centroids"):
+        np.testing.assert_array_equal(getattr(got, field).numpy(),
+                                      np.asarray(getattr(eager, field)),
+                                      err_msg=field)
+    for ref_run in (eager, want):
+        np.testing.assert_allclose(float(got.objective),
+                                   float(ref_run.objective), rtol=RTOL)
+    assert torch.equal(got_b.centroids[0], got.centroids)
+    assert torch.equal(got_b.objective[0], got.objective)
+
+
+FITS = {"sequential": dict(),
+        "batched": dict(batch=4, sync_every=2)}
+
+
+@pytest.fixture(scope="module", params=("road3d-24k", "hepmass-16k"))
+def dataset(request):
+    spec = get_dataset(request.param)
+    return spec, np.asarray(gmm_dataset(spec.gmm))
+
+
+@pytest.mark.parametrize("method", FITS)
+def test_int8_fit_matches_reference(dataset, method):
+    """``fit(..., precision="int8", device="cpu")`` against
+    ``repro.api.fit(method=..., impl="ref", precision="int8")`` with the
+    reference test's reduced chunk budget (8 chunks), through the
+    jax-replay RNG: the same accept sequence, per-chunk Lloyd iterations
+    and ``n_accepted``; objectives and centroids within RTOL."""
+    spec, X = dataset
+    cfg = dict(k=spec.k, s=spec.s, n_chunks=8, **FITS[method])
+    want = japi.fit(X, japi.BigMeansConfig(**cfg), method=method,
+                    impl="ref", precision="int8")
+    got = api.fit(X, api.BigMeansConfig(**cfg), method=method, device="cpu",
+                  rng=REPLAY, precision="int8")
+    assert got.strategy == method
+    assert got.extras["fit"]["precision"] == "int8"
+    assert [a for *_, a in got.trace] == [a for *_, a in want.trace]
+    assert got.n_accepted == want.n_accepted
+    assert got.n_iterations == want.n_iterations
+    np.testing.assert_allclose([f for _, f, _ in got.trace],
+                               [f for _, f, _ in want.trace], rtol=RTOL)
+    np.testing.assert_allclose(got.objective, want.objective, rtol=RTOL)
+    ref_c = np.asarray(want.centroids)
+    np.testing.assert_allclose(got.centroids.numpy(), ref_c, rtol=RTOL,
+                               atol=RTOL * float(np.abs(ref_c).max()))
+    _, f = api.evaluate(got, X, device="cpu")
+    _, jf = japi.evaluate(want, X)
+    np.testing.assert_allclose(f, jf, rtol=RTOL)
+
+    # per chunk: Lloyd iterations, accepts and degenerate counts
+    key = dict(k=spec.k, s=spec.s)
+    if method == "batched":
+        kw = dict(key, batch=4, rounds=2, sync_every=2)
+        _, jinfos = jbm.big_means_batched(X, jax.random.PRNGKey(0),
+                                          impl="ref", precision="int8", **kw)
+        _, infos = bigmeans.big_means_batched(
+            X, REPLAY.key(0), rng=REPLAY, device="cpu", precision="int8",
+            **kw)
+    else:
+        kw = dict(key, n_chunks=8)
+        _, jinfos = jbm.big_means(X, jax.random.PRNGKey(0), impl="ref",
+                                  precision="int8", **kw)
+        _, infos = bigmeans.big_means(X, REPLAY.key(0), rng=REPLAY,
+                                      device="cpu", precision="int8", **kw)
+    for field in ("lloyd_iters", "accepted", "n_degenerate"):
+        np.testing.assert_array_equal(getattr(infos, field).numpy(),
+                                      np.asarray(getattr(jinfos, field)),
+                                      err_msg=field)

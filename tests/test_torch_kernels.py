@@ -20,6 +20,7 @@ from repro.kernels import ref as jref
 from repro.kernels.distance import assign_pallas
 from repro.kernels.update import update_pallas
 from repro_torch.kernels import distance, fused_step, ops, ref, update
+from repro_torch.kernels import precision as px
 from test_torch_cuda import RTOL, blobs, d_bound, sums_bound
 
 SHAPES = [  # (m, k, n): ragged m everywhere (tiles of 256 rows)
@@ -126,16 +127,24 @@ def test_cpu_wrappers_take_the_plain_version():
     x, c = blobs(300, 25, 28, seed=5)
     xt, ct = t(x), t(c)
     ids, _ = distance.assign_plain(xt, ct)
+    qx = px.quantize_chunk(xt)
+    qb = px.quantize_chunk(xt[None])
     ops.reset_launch_counts()
     for call in (lambda: distance.assign_f32(xt, ct),
                  lambda: update.update_f32(xt, ids, 25),
                  lambda: fused_step.fused_step_f32(xt, ct),
                  lambda: fused_step.fused_step_batched_f32(xt[None],
-                                                           ct[None])):
+                                                           ct[None]),
+                 lambda: distance.assign_int8(qx, ct),
+                 lambda: update.update_int8(qx, ids, 25),
+                 lambda: fused_step.fused_step_int8(qx, ct),
+                 lambda: fused_step.fused_step_batched_int8(qb, ct[None])):
         with pytest.raises(ValueError, match="must be a CUDA tensor"):
             call()
-    assert ops.launch_counts() == {"fused_step": 0, "assign": 0,
-                                   "update": 0, "fused_step_batched": 0}
+    assert ops.launch_counts() == {
+        "fused_step": 0, "assign": 0, "update": 0, "fused_step_batched": 0,
+        "fused_step_int8": 0, "fused_step_batched_int8": 0,
+        "assign_int8": 0, "update_int8": 0}
     sums, counts = ops.update(xt, ids, 25)
     assert all(torch.equal(a, b) for a, b in
                zip((sums, counts), update.update_plain(xt, ids, 25)))

@@ -83,11 +83,23 @@ def test_cuda_impl_refuses_cpu_tensors():
     (dict(autotune=True), "queue 1 item 10"),
     (dict(precision="bf16"), "queue 2 item 4"),
     (dict(precision="bf16x3"), "queue 2 item 4"),
-    (dict(precision="int8"), "queue 2 items 6-8"),
 ], ids=lambda v: next(iter(v)) if isinstance(v, dict) else v)
 def test_unported_knobs_raise(knob, item):
     with pytest.raises(NotImplementedError, match=item):
         api.BigMeansConfig(k=3, s=100, n_chunks=2, **knob)
+
+
+def test_int8_precision_is_ported():
+    """precision="int8" validates as a config field and as a fit override,
+    and the fit reports the resolved policy ('auto' on the f32 dataset is
+    'f32')."""
+    cfg = api.BigMeansConfig(k=3, s=100, n_chunks=2, precision="int8")
+    assert cfg.precision == "int8"
+    assert api.fit(X, cfg, device="cpu").extras["fit"]["precision"] == "int8"
+    base = api.BigMeansConfig(k=3, s=100, n_chunks=2)
+    res = api.fit(X, base, device="cpu", precision="int8")
+    assert res.extras["fit"]["precision"] == "int8"
+    assert api.fit(X, base, device="cpu").extras["fit"]["precision"] == "f32"
 
 
 @pytest.mark.parametrize("method,item", [
