@@ -6,7 +6,8 @@
 Phases, each printing JSON lines:
 
 1. device — card, torch/CUDA versions, power limit; TF32 switched off.
-2. build — compile the eight CUDA kernels (kernels/csrc) for sm_90a.
+2. build — compile the CUDA sources (kernels/csrc: the sixteen entry
+   points of kernels A-D and their int8, bf16 and bf16x3 bodies) for sm_90a.
 3. kernels — each f32 kernel against its plain PyTorch version on the same
    CUDA tensors, at the main paths' shapes and at edge shapes, and two
    launches of each compared bitwise; every stream of the batched kernel D
@@ -14,6 +15,11 @@ Phases, each printing JSON lines:
 3b. int8 kernels — A8, B8, C8 and D8 the same way on quantized chunks: ids
    equal off counted near ties, int32 sums bitwise given the same ids,
    every stream of D8 bitwise equal to A8.
+3c. bf16 and bf16x3 kernels — A16, B16, C16, D16 and A3, B3, C3, D3 the
+   same way at phase 3's cases, against the plain versions at the policy
+   (x cast to its storage first): ids equal off near ties, d, sums and obj
+   within 1e-5, counts equal on the same ids, repeat launches bitwise, every
+   stream of D16 (D3) bitwise equal to A16 (A3).
 4. main path, sequential — ``repro_torch.api.fit`` + ``evaluate`` on a
    HEPMASS-shaped mixture (m = 10.5M, n = 28, 25 components) generated on
    the card, with k = 25, s = 64,000, 32 chunks, through the kernels
@@ -30,19 +36,30 @@ Phases, each printing JSON lines:
    the int8-versus-f32 drift of the objective printed as a finding.
 5b. int8 main path, batched — phase 5's fit with ``precision="int8"``
    through kernel D8, with the same checks.
+4c, 4d. bf16 and bf16x3 main path, sequential — phase 4's fit with
+   ``precision="bf16"`` (A16 in the loop, f32 B and C16 in the epilogue)
+   and ``"bf16x3"`` (A3; B3 and C3); launch counts checked, the plain path
+   within 1e-3 and the same accepts up to a near tie, the full-data
+   objective within 1 % of the f32 fit's; ``'auto'`` on a bf16 tensor
+   bitwise equal to ``precision="bf16"``.
+5d, 5e. bf16 and bf16x3 main path, batched — phase 5's fit at each policy
+   through D16 / D3, with the same checks.
 5c. the two-pass route at int8 — a 2,048-entry codebook over 1,024-wide
    embeddings (k = 2,048, n = 1,024 outside the fused envelope,
    m = 1,048,576, s = 16,384, 4 chunks): B8 and C8 carry every Lloyd
    iteration; the plain path within 1e-3; B8, C8 and the two-pass step
    held against their plain versions at that shape, whose errors the
    final line reports for B8 and C8.
+5f. the two-pass route at bf16 — 5c's fit at ``precision="bf16"``: B16 and
+   C16 carry every Lloyd iteration, held against their plain versions at
+   that shape (the final line reports B16's error there).
 6. times — each kernel, its plain version and a PyTorch library call where
    one computes the same function, by CUDA events over CUDA-graph replays
    (device time; host launch overhead excluded), beside the bound; kernel D
-   (D8) beside 8 back-to-back kernel-A (A8) launches; A and A8 at the
-   fused envelope's edge (k = n = 1,024); batched and sequential fit walls
-   in turns, f32 and int8 fit walls in turns.  Phase 5c times B8, C8 and C
-   at its own shape.
+   (D8, D16, D3) beside 8 back-to-back single-stream launches; A and A8 at
+   the fused envelope's edge (k = n = 1,024); batched and sequential fit
+   walls in turns, f32 against int8, bf16 and bf16x3 fit walls in turns.
+   Phases 5c and 5f time B8, C8, C, B16 and C16 at their own shape.
 
 Then the one ``{"kernels": [...]}`` line, the card's name and power limit,
 and the final ``{"ok": true, "device": {...}}`` line.  Any failed check raises.
@@ -81,6 +98,7 @@ from repro_torch.kernels import update as upd  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOP_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 INT8_OP_PER_S = 1979e12        # H100 SXM int8 tensor cores (dense)
+BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores (dense)
 RTOL = 1e-5                    # sums, d, obj: summation order differs
 TIE_RTOL = 1e-4                # ids compared where the top-2 gap exceeds it
 
@@ -103,19 +121,32 @@ KERNELS = {
                     "src/repro/kernels/distance.py:231"),
     "update_int8": ("src/repro_torch/kernels/csrc/update_int8.cu",
                     "src/repro/kernels/update.py:164"),
+    **{f"{entry}_{prec}": (f"src/repro_torch/kernels/csrc/{src}_bf16.cu", rep)
+       for prec in ("bf16", "bf16x3")
+       for entry, src, rep in (
+           ("fused_step", "fused_step", "src/repro/kernels/fused_step.py:297"),
+           ("fused_step_batched", "fused_step_batched",
+            "src/repro/kernels/fused_step.py:433"),
+           ("assign", "assign", "src/repro/kernels/distance.py:164"),
+           ("update", "update", "src/repro/kernels/update.py:114"))},
 }
 COUNTS = {"fused_step_f32": "fused_step", "assign_f32": "assign",
           "update_f32": "update",
           "fused_step_batched_f32": "fused_step_batched",
-          "fused_step_int8": "fused_step_int8",
-          "fused_step_batched_int8": "fused_step_batched_int8",
-          "assign_int8": "assign_int8", "update_int8": "update_int8"}
+          **{name: name for name in KERNELS if not name.endswith("_f32")}}
 # The path whose run gives each kernel's launches in the final line.
 PATH_OF = {"fused_step_f32": "sequential", "assign_f32": "sequential",
            "update_f32": "sequential", "fused_step_batched_f32": "batched",
            "fused_step_int8": "int8_sequential",
            "fused_step_batched_int8": "int8_batched",
-           "assign_int8": "int8_two_pass", "update_int8": "int8_two_pass"}
+           "assign_int8": "int8_two_pass", "update_int8": "int8_two_pass",
+           "fused_step_bf16": "bf16_sequential",
+           "fused_step_batched_bf16": "bf16_batched",
+           "assign_bf16": "bf16_two_pass", "update_bf16": "bf16_sequential",
+           "fused_step_bf16x3": "bf16x3_sequential",
+           "fused_step_batched_bf16x3": "bf16x3_batched",
+           "assign_bf16x3": "bf16x3_sequential",
+           "update_bf16x3": "bf16x3_sequential"}
 BATCH, SYNC_EVERY = 8, 2        # the paper's (configs/bigmeans_paper.py)
 
 
@@ -483,6 +514,179 @@ def phase_kernels_int8(seed: int) -> dict:
         del x, c, qx
         torch.cuda.empty_cache()
     emit({"phase": "kernels_int8_summary", "max_abs_err_at_main_shape":
+          main_err})
+    return main_err
+
+
+# --------------------------------------------------------------------------
+# phase 3c: the bf16 and bf16x3 kernels against their plain versions
+# --------------------------------------------------------------------------
+
+POLICIES16 = ("bf16", "bf16x3")
+
+
+def near_ties_16(x, c, prec: str) -> torch.Tensor:
+    """Rows whose best two scores ||c||^2 - 2 dot(x, c) at the policy (x in
+    its storage) are within TIE_RTOL."""
+    xs = px.cast_storage(x, prec)
+    scores = px.sqnorm(c)[None, :] - 2.0 * px.dot(xs, c, ([1], [1]), prec)
+    two = torch.topk(scores, 2, dim=1, largest=False).values
+    return (two[:, 1] - two[:, 0]) <= TIE_RTOL * two[:, 0].abs()
+
+
+def check_assign_16(x, c, ties, prec: str):
+    """Kernel B16 / B3 twice (bitwise), against the plain version (x cast
+    to the policy's storage) off near ties; returns (max abs err of d,
+    the kernel's ids)."""
+    ids, d = twice(lambda a, b: distance.assign_16(a, b, prec), x, c)
+    ids_p, d_p = distance.assign_plain(x, c, prec)
+    ok = ~ties
+    check(torch.equal(ids[ok], ids_p[ok]),
+          f"assign_{prec} ids differ off near ties")
+    xs = px.cast_storage(x, prec).float()
+    x2 = (xs * xs).sum(1)
+    c2 = (c * c).sum(1)[ids_p.long()]
+    scale = x2 + c2 + 2 * (x2 * c2).sqrt()
+    err = (d - d_p).abs()
+    check(bool((err[ok] <= RTOL * scale[ok] + 1e-6).all()),
+          f"assign_{prec} d off by {float(err.max())}")
+    return float(err.max()), ids
+
+
+def check_update_16(x, ids, k, prec: str) -> float:
+    """Kernel C16 / C3 twice (bitwise); counts equal to the plain
+    version's on the same ids, sums within RTOL of each cluster's sum of
+    |x| (x in its storage)."""
+    ids = ids.clone()
+    ids[::97] = -1                                  # padding never hits
+    ids[1::89] = k + 3                              # out of range adds nothing
+    sums, counts = twice(lambda a, b: upd.update_16(a, b, k, prec), x, ids)
+    sums_p, counts_p = upd.update_plain(x, ids, k, prec)
+    check(torch.equal(counts, counts_p), f"update_{prec} counts differ")
+    err = (sums - sums_p).abs()
+    xs = px.cast_storage(x, prec).float()
+    check(bool((err <= sums_bound(xs, ids, k, 0)).all()),
+          f"update_{prec} sums off by {float(err.max())}")
+    return float(err.max())
+
+
+def check_fused_16(x, c, ties: int, prec: str, direct: bool) -> float:
+    """Kernel A16 / A3 (direct) or the ops route (outside the envelope: B
+    and C at the policy) twice (bitwise), against the plain step."""
+    k = c.shape[0]
+    sums, counts, obj = twice(
+        (lambda a, b: fused_step.fused_step_16(a, b, prec)) if direct else
+        (lambda a, b: ops.fused_step(a, b, impl="cuda", precision=prec)),
+        x, c)
+    sums_p, counts_p, obj_p = fused_step.fused_step_plain(x, c, prec)
+    ids_p, _ = distance.assign_plain(x, c, prec)
+    xs = px.cast_storage(x, prec).float()
+    check(int((counts - counts_p).abs().sum()) <= 2 * ties,
+          f"fused {prec} counts differ beyond near ties")
+    err = (sums - sums_p).abs()
+    check(bool((err <= sums_bound(xs, ids_p, k, ties)).all()),
+          f"fused {prec} sums off by {float(err.max())}")
+    check(abs(float(obj) - float(obj_p)) <= RTOL * float(obj_p),
+          f"fused {prec} obj {float(obj)} vs plain {float(obj_p)}")
+    return max(float(err.max()), abs(float(obj) - float(obj_p)))
+
+
+def check_batched_16(x, c, prec: str) -> tuple[float, int]:
+    """Kernel D16 / D3 through ``ops`` (outside the envelope: B and C at
+    the policy, stream by stream): every stream bitwise equal to the
+    single-stream route (A16 / A3 inside the envelope), two calls bitwise
+    equal, the plain version within the near-tie allowance.  Returns (max
+    abs err, D launches per call)."""
+    batch, k = c.shape[0], c.shape[1]
+    before = fused_step.batched_launches16[prec]
+    sums, counts, obj = twice(
+        lambda a, b: ops.fused_step_batched(a, b, impl="cuda",
+                                            precision=prec), x, c)
+    per_call = (fused_step.batched_launches16[prec] - before) // 2
+    sums_p, counts_p, obj_p = fused_step.fused_step_batched_plain(x, c, prec)
+    err = 0.0
+    for b in range(batch):
+        one = ops.fused_step(x[b], c[b], impl="cuda", precision=prec)
+        for u, v in zip((sums[b], counts[b], obj[b]), one):
+            check(torch.equal(u, v), f"{prec} batched stream {b} differs "
+                  "from the single-stream route")
+        ties = int(near_ties_16(x[b], c[b], prec).sum())
+        check(int((counts[b] - counts_p[b]).abs().sum()) <= 2 * ties,
+              f"{prec} batched counts differ beyond near ties (stream {b})")
+        ids_p, _ = distance.assign_plain(x[b], c[b], prec)
+        xs = px.cast_storage(x[b], prec).float()
+        e = (sums[b] - sums_p[b]).abs()
+        check(bool((e <= sums_bound(xs, ids_p, k, ties)).all()),
+              f"{prec} batched sums off by {float(e.max())} (stream {b})")
+        check(abs(float(obj[b]) - float(obj_p[b])) <= RTOL * float(obj_p[b]),
+              f"{prec} batched obj {float(obj[b])} vs plain "
+              f"{float(obj_p[b])}")
+        err = max(err, float(e.max()), abs(float(obj[b]) - float(obj_p[b])))
+    return err, per_call
+
+
+def phase_kernels_16(seed: int) -> dict:
+    """Phase 3's cases for the eight bf16 / bf16x3 entry points."""
+    shapes = [  # (m, k, n, why)
+        (64_000, 25, 28, "main path chunk"),
+        (64_001, 25, 3, "ragged m, n = 3"),
+        (64_001, 129, 68, "k = 129, n = 68"),
+        (64_001, 1024, 1024, "k = n = 1024: fused envelope edge"),
+        (20_001, 1024, 1100, "outside the envelope: two-pass route"),
+    ]
+    batched_shapes = [  # (B, m, k, n, why)
+        (BATCH, 64_000, 25, 28, "batched main path chunks"),
+        (3, 64_001, 25, 3, "ragged m, n = 3"),
+        (2, 64_001, 129, 68, "k = 129, n = 68"),
+        (2, 64_001, 1024, 1024, "envelope edge: one stream per launch"),
+        (2, 20_001, 1024, 1100, "outside the envelope: B + C per stream"),
+    ]
+    main_err = {}
+    for prec in POLICIES16:
+        for m, k, n, why in shapes:
+            x, c = separated(m, k, n, seed)
+            ties = near_ties_16(x, c, prec)
+            n_ties = int(ties.sum())
+            fits = fused_step.fits(k, n)
+            row = {"phase": "kernels_16", "precision": prec, "m": m, "k": k,
+                   "n": n, "case": why, "fits": fits, "near_ties": n_ties}
+            row["assign_max_abs_err"], _ = check_assign_16(x, c, ties, prec)
+            ids_p, _ = distance.assign_plain(x, c, prec)
+            row["update_max_abs_err"] = check_update_16(x, ids_p, k, prec)
+            row["fused_max_abs_err"] = check_fused_16(x, c, n_ties, prec,
+                                                      direct=fits)
+            row["fused_route"] = (f"fused_step_{prec}" if fits
+                                  else f"assign_{prec} + update_{prec}")
+            emit(row)
+            if why == "main path chunk":
+                main_err.update({
+                    f"fused_step_{prec}": row["fused_max_abs_err"],
+                    f"assign_{prec}": row["assign_max_abs_err"],
+                    f"update_{prec}": row["update_max_abs_err"]})
+            del x, c
+            torch.cuda.empty_cache()
+        for batch, m, k, n, why in batched_shapes:
+            x, c = batched_separated(batch, m, k, n, seed)
+            fits = fused_step.fits_batched(k, n)
+            err, per_call = check_batched_16(x, c, prec)
+            stride = k * n + k + 1
+            grid = build.grid(x.device, m, stride)
+            group = build.stream_group(grid, stride)
+            want = -(-batch // group) if fits else 0
+            check(per_call == want, f"fused_step_batched_{prec} launched "
+                  f"{per_call} times per call, want {want}")
+            emit({"phase": "kernels_16", "precision": prec,
+                  "kernel": f"fused_step_batched_{prec}", "batch": batch,
+                  "m": m, "k": k, "n": n, "case": why, "fits": fits,
+                  "grid_per_stream": grid,
+                  "streams_per_launch": min(group, batch),
+                  "launches_per_call": per_call, "max_abs_err": err,
+                  "streams_bitwise_equal_to_single_route": True})
+            if why == "batched main path chunks":
+                main_err[f"fused_step_batched_{prec}"] = err
+            del x, c
+            torch.cuda.empty_cache()
+    emit({"phase": "kernels_16_summary", "max_abs_err_at_main_shape":
           main_err})
     return main_err
 
@@ -873,16 +1077,22 @@ def phase_batched_int8(X, seed: int, f_full_f32: float):
     return launches, wall
 
 
-def phase_two_pass_int8(seed: int):
-    """An int8 fit outside the fused envelope: a 2,048-entry codebook over
-    1,024-wide embeddings (the d_model of
-    src/repro/configs/seamless_m4t_medium.py:10), so B8 and C8 carry every
-    Lloyd iteration."""
+def two_pass_data(seed: int):
+    """The two-pass paths' data set (phases 5c and 5f): a 2,048-component
+    mixture of 1,048,576 embeddings 1,024 wide (the d_model of
+    src/repro/configs/seamless_m4t_medium.py:10), generated on the card;
+    returns (spec, X, seconds to generate)."""
     spec = GMMSpec(m=1 << 20, n=1024, components=2048, seed=seed)
     t0 = time.monotonic()
     X = gmm_dataset(spec, device="cuda")
     torch.cuda.synchronize()
-    gen_s = time.monotonic() - t0
+    return spec, X, time.monotonic() - t0
+
+
+def phase_two_pass_int8(spec, X, gen_s: float, seed: int):
+    """An int8 fit outside the fused envelope: a 2,048-entry codebook over
+    1,024-wide embeddings (:func:`two_pass_data`), so B8 and C8 carry every
+    Lloyd iteration."""
     cfg = BigMeansConfig(k=2048, s=16_384, n_chunks=4, seed=seed,
                          precision="int8")
     check(not fused_step.fits(cfg.k, spec.n), "k = 2048 fits the envelope")
@@ -957,8 +1167,231 @@ def phase_two_pass_int8(seed: int):
           "int8_kernels_s_estimate": res.n_iterations
           * (b8["ms"] + c8["ms"]) / 1e3})
     check(rel <= 1e-3, f"two-pass int8 full objectives differ by {rel:.3e}")
-    del X
-    torch.cuda.empty_cache()
+    return launches, wall, errs
+
+
+# --------------------------------------------------------------------------
+# phases 4c, 4d, 5d, 5e, 5f: the bf16 and bf16x3 paths at full size
+# --------------------------------------------------------------------------
+
+
+def epilogue_launches(prec: str, n_chunks: int, n_eval: int) -> dict:
+    """Launches of the Lloyd epilogue (one per chunk) and of ``evaluate``
+    under a float policy: the final assignment runs f32 kernel B under
+    bf16 (on the widened bf16 view) and B3 under bf16x3; the final counts
+    run C16 / C3; ``evaluate`` runs f32 kernel B."""
+    if prec == "bf16":
+        return {"assign": n_chunks + n_eval, "update_bf16": n_chunks}
+    return {"assign": n_eval, f"assign_{prec}": n_chunks,
+            f"update_{prec}": n_chunks}
+
+
+def phase_main_16(X, seed: int, prec: str, f_full_f32: float):
+    """Phase 4's sequential fit under ``precision=prec`` (A16 / A3)."""
+    m, n = X.shape
+    cfg = BigMeansConfig(k=25, s=64_000, n_chunks=32, seed=seed,
+                         precision=prec)
+    for impl in ("cuda", "ref"):        # warm both paths (first-use costs)
+        fit(X, cfg.replace(n_chunks=2, impl=impl, seed=seed + 1))
+
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    res = fit(X, cfg, method="auto")
+    ids, f_full = evaluate(res, X)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = ops.launch_counts()
+
+    n_eval = math.ceil(m / EVAL_BATCH)
+    check(res.strategy == "sequential", f"auto resolved to {res.strategy}")
+    fit_checks(res, X, ids, f_full, cfg.k, prec)
+    want = dict.fromkeys(launches, 0)
+    want[f"fused_step_{prec}"] = res.n_iterations
+    want.update(epilogue_launches(prec, cfg.n_chunks, n_eval))
+    check(launches == want, f"{prec} sequential launches {launches} != "
+          f"{want}")
+
+    res_ref = fit(X, cfg.replace(impl="ref"), method="auto")
+    check(ops.launch_counts() == launches, "the ref fit launched a kernel")
+    _, f_full_ref = evaluate(res_ref, X)
+    rel = abs(f_full - f_full_ref) / f_full_ref
+    parting = check_accepts(res, res_ref, 1, 1)
+    drift = (f_full - f_full_f32) / f_full_f32
+    row = {}
+    if prec == "bf16":
+        # 'auto' on a bf16 tensor is this fit, bit for bit
+        Xb = X.bfloat16()
+        auto = fit(Xb, cfg.replace(precision="auto"))
+        check(auto.extras["fit"]["precision"] == "bf16",
+              f"'auto' on bf16 data ran {auto.extras['fit']['precision']}")
+        check(torch.equal(auto.centroids, res.centroids)
+              and auto.trace == res.trace,
+              "'auto' on a bf16 tensor differs from precision='bf16'")
+        row["auto_on_bf16_tensor_bitwise_equal"] = True
+        del Xb
+    walls = {"f32": [], prec: []}       # cuda fit walls, in turns
+    for p in ("f32", prec, prec, "f32"):
+        walls[p].append(fit(X, cfg.replace(precision=p)).wall_time_s)
+    emit({"phase": f"main_path_{prec}", "m": m, "n": n, "k": cfg.k,
+          "s": cfg.s, "n_chunks": cfg.n_chunks, "strategy": res.strategy,
+          "f_best": res.objective, "f_full": f_full,
+          "f_full_per_point": f_full / m, "n_accepted": res.n_accepted,
+          "n_iterations": res.n_iterations, "wall_s": wall,
+          "fit_wall_s": res.wall_time_s, "launches": launches,
+          "ref": {"f_best": res_ref.objective, "f_full": f_full_ref,
+                  "n_accepted": res_ref.n_accepted,
+                  "n_iterations": res_ref.n_iterations},
+          "f_full_rel_diff": rel,
+          "accepts_cuda": [int(a) for _, _, a in res.trace],
+          "accepts_ref": [int(a) for _, _, a in res_ref.trace],
+          "first_parting": parting, "f32_f_full": f_full_f32,
+          f"{prec}_vs_f32_f_full_drift": drift,
+          "fit_walls_s_in_turns": walls, **row})
+    check(rel <= 1e-3, f"{prec} full objectives differ by {rel:.3e} (> 1e-3)")
+    check(abs(drift) <= 1e-2, f"{prec} full objective drifts {drift:.3e} "
+          "from f32's (> 1 %)")
+    return launches, wall
+
+
+def phase_batched_16(X, seed: int, prec: str, f_full_f32: float):
+    """Phase 5's batched fit under ``precision=prec`` (D16 / D3)."""
+    m, n = X.shape
+    cfg = BigMeansConfig(k=25, s=64_000, n_chunks=32, batch=BATCH,
+                         sync_every=SYNC_EVERY, seed=seed, precision=prec)
+    for impl in ("cuda", "ref"):        # warm both paths (first-use costs)
+        fit(X, cfg.replace(n_chunks=2 * BATCH, impl=impl, seed=seed + 1))
+
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    res = fit(X, cfg, method="auto")
+    ids, f_full = evaluate(res, X)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = ops.launch_counts()
+
+    n_eval = math.ceil(m / EVAL_BATCH)
+    rounds = cfg.n_chunks // BATCH
+    check(res.strategy == "batched", f"auto resolved to {res.strategy}")
+    fit_checks(res, X, ids, f_full, cfg.k, prec)
+    ops.reset_launch_counts()           # replay for per-chunk iterations
+    state, infos = big_means_batched(
+        X, rnd.TORCH.key(seed), k=cfg.k, s=cfg.s, batch=BATCH,
+        rounds=rounds, sync_every=SYNC_EVERY, precision=prec)
+    check(torch.equal(state.centroids, res.centroids)
+          and float(state.f_best) == res.objective,
+          f"the core replay of the {prec} batched fit differs from it")
+    iters = infos.lloyd_iters.view(rounds, BATCH)
+    slowest = int(iters.max(dim=1).values.sum())
+    want = dict.fromkeys(launches, 0)
+    want[f"fused_step_batched_{prec}"] = slowest
+    want.update(epilogue_launches(prec, cfg.n_chunks, n_eval))
+    check(launches == want, f"{prec} batched launches {launches} != {want}")
+
+    res_ref = fit(X, cfg.replace(impl="ref"), method="auto")
+    _, f_full_ref = evaluate(res_ref, X, impl="ref")
+    rel = abs(f_full - f_full_ref) / f_full_ref
+    parting = check_accepts(res, res_ref, BATCH, SYNC_EVERY)
+    drift = (f_full - f_full_f32) / f_full_f32
+    emit({"phase": f"main_path_batched_{prec}", "m": m, "n": n, "k": cfg.k,
+          "s": cfg.s, "n_chunks": cfg.n_chunks, "batch": BATCH,
+          "sync_every": SYNC_EVERY, "rounds": rounds,
+          "f_best": res.objective, "f_full": f_full,
+          "n_accepted": res.n_accepted, "n_iterations": res.n_iterations,
+          "iterations_per_chunk": iters.flatten().tolist(),
+          "slowest_stream_iterations_sum": slowest, "wall_s": wall,
+          "fit_wall_s": res.wall_time_s, "launches": launches,
+          "ref": {"f_best": res_ref.objective, "f_full": f_full_ref,
+                  "n_accepted": res_ref.n_accepted,
+                  "n_iterations": res_ref.n_iterations},
+          "f_full_rel_diff": rel,
+          "accepts_cuda": [int(a) for _, _, a in res.trace],
+          "accepts_ref": [int(a) for _, _, a in res_ref.trace],
+          "first_parting": parting, "f32_f_full": f_full_f32,
+          f"{prec}_vs_f32_f_full_drift": drift})
+    check(rel <= 1e-3, f"{prec} batched full objectives differ by {rel:.3e}")
+    check(abs(drift) <= 1e-2, f"{prec} batched full objective drifts "
+          f"{drift:.3e} from f32's (> 1 %)")
+    return launches, wall
+
+
+def phase_two_pass_16(X, seed: int):
+    """Phase 5c's fit at ``precision="bf16"``: k = 2,048, n = 1,024 lies
+    outside the fused envelope, so B16 and C16 carry every Lloyd
+    iteration (the epilogue runs f32 B and C16)."""
+    m, n = X.shape
+    cfg = BigMeansConfig(k=2048, s=16_384, n_chunks=4, seed=seed,
+                         precision="bf16")
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    res = fit(X, cfg, method="sequential")
+    ids, f_full = evaluate(res, X)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = ops.launch_counts()
+
+    n_eval = math.ceil(m / EVAL_BATCH)
+    fit_checks(res, X, ids, f_full, cfg.k, "bf16")
+    want = dict.fromkeys(launches, 0)
+    want.update(assign_bf16=res.n_iterations,
+                update_bf16=res.n_iterations + cfg.n_chunks,
+                assign=cfg.n_chunks + n_eval)
+    check(launches == want, f"two-pass bf16 launches {launches} != {want}")
+
+    t1 = time.monotonic()
+    res_ref = fit(X, cfg.replace(impl="ref"), method="sequential")
+    torch.cuda.synchronize()
+    wall_ref_fit = time.monotonic() - t1
+    check(ops.launch_counts() == launches, "the ref fit launched a kernel")
+    _, f_full_ref = evaluate(res_ref, X)
+    rel = abs(f_full - f_full_ref) / f_full_ref
+    parting = check_accepts(res, res_ref, 1, 1)
+
+    # B16 and C16 against their plain versions at the shape this path
+    # gives them (one bf16 chunk against the final centroids), then times
+    k, s = cfg.k, cfg.s
+    xb = X[:s].bfloat16()
+    c = res.centroids.contiguous()
+    ties = near_ties_16(xb, c, "bf16")
+    n_ties = int(ties.sum())
+    errs = {}
+    errs["assign_bf16"], ids16 = check_assign_16(xb, c, ties, "bf16")
+    ids_p, _ = distance.assign_plain(xb, c, "bf16")
+    errs["update_bf16"] = check_update_16(xb, ids_p, k, "bf16")
+    two_pass_err = check_fused_16(xb, c, n_ties, "bf16", direct=False)
+    b16 = timing(lambda: distance.assign_16(xb, c, "bf16"),
+                 lambda: distance.assign_plain(xb, c, "bf16"), None,
+                 2 * s * n + 4 * (k * n + k) + 8 * s, 2 * s * k * n, 3,
+                 BF16_FLOP_PER_S)
+    c16 = timing(lambda: upd.update_16(xb, ids16, k, "bf16"),
+                 lambda: upd.update_plain(xb, ids16, k, "bf16"), None,
+                 2 * s * n + 4 * s + 4 * (k * n + k), s * n, 3,
+                 BF16_FLOP_PER_S)
+    x32 = X[:s].contiguous()             # kernel B beside B16 there
+    b32 = timing(lambda: distance.assign_f32(x32, c),
+                 lambda: distance.assign_plain(x32, c), None,
+                 4 * (s * n + k * n) + 8 * s, 2 * s * k * n, 3)
+    emit({"phase": "two_pass_bf16", "m": m, "n": n, "k": cfg.k, "s": cfg.s,
+          "n_chunks": cfg.n_chunks, "fits_envelope": False,
+          "f_best": res.objective, "f_full": f_full,
+          "n_accepted": res.n_accepted, "n_iterations": res.n_iterations,
+          "wall_s": wall, "fit_wall_s": res.wall_time_s,
+          "launches": launches,
+          "ref": {"f_best": res_ref.objective, "f_full": f_full_ref,
+                  "n_accepted": res_ref.n_accepted,
+                  "n_iterations": res_ref.n_iterations,
+                  "fit_wall_s": wall_ref_fit},
+          "f_full_rel_diff": rel,
+          "accepts_cuda": [int(a) for _, _, a in res.trace],
+          "accepts_ref": [int(a) for _, _, a in res_ref.trace],
+          "first_parting": parting,
+          "near_ties": n_ties, "max_abs_err_at_this_shape": {
+              **errs, "fused_step_two_pass": two_pass_err},
+          "times_at_this_shape": {"assign_bf16": b16, "update_bf16": c16,
+                                  "assign_f32": b32},
+          "bf16_kernels_s_estimate": (res.n_iterations * b16["ms"]
+                                      + (res.n_iterations + cfg.n_chunks)
+                                      * c16["ms"]) / 1e3})
+    check(rel <= 1e-3, f"two-pass bf16 full objectives differ by {rel:.3e}")
     return launches, wall, errs
 
 
@@ -1126,6 +1559,12 @@ def phase_times(X, res, seed: int) -> dict:
             qxb.q[b], qxb.scale[b], cqb[b], tb[b], cb[b])
             for b in range(BATCH)], 25)
 
+    # bf16 / bf16x3: each wrapper on the chunk in its storage, as the Lloyd
+    # loop passes it, so ``ms`` is the norms' launch, the kernel and the
+    # reduce
+    for prec in POLICIES16:
+        out.update(times_16(prec, x, c, xb, cb))
+
     # A and A8 at the fused envelope's edge, where the scores dominate
     me, ke, ne = 64_000, 1024, 1024
     xe, ce = separated(me, ke, ne, seed)
@@ -1142,12 +1581,66 @@ def phase_times(X, res, seed: int) -> dict:
         lambda: fused_step.fused_step_int8_plain(qe, ce), None,
         me * ne + 5 * ke * ne + 4 * ke + 4 * ne + 4 * (ke * ne + ke + 1),
         edge_ops, 3, INT8_OP_PER_S)
-    for name in ("fused_step_f32", "fused_step_int8"):
+    for prec in POLICIES16:              # A16 and A3 there too
+        xse = px.cast_storage(xe, prec)
+        mult = 1 if prec == "bf16" else 3
+        out[f"fused_step_{prec}"]["at_envelope_edge"] = timing(
+            lambda: fused_step.fused_step_16(xse, ce, prec),
+            lambda: fused_step.fused_step_plain(xse, ce, prec), None,
+            xse.element_size() * me * ne + 4 * (2 * ke * ne + ke + 1),
+            mult * 2 * me * ke * ne + me * ne, 3, BF16_FLOP_PER_S)
+        del xse
+    for name in ("fused_step_f32", "fused_step_int8", "fused_step_bf16",
+                 "fused_step_bf16x3"):
         out[name]["at_envelope_edge"].update(m=me, k=ke, n=ne)
     del xe, ce, qe, cqe
     for name, row in out.items():
         emit({"phase": "times", "kernel": name, "m": s, "k": k, "n": n,
               **row})
+    return out
+
+
+def times_16(prec: str, x, c, xb, cb) -> dict:
+    """Phase 6's rows of the four ``prec`` entry points at the main path's
+    shapes: x [s,n] and xb [BATCH,s,n] f32 chunks, c [k,n] and cb [BATCH,
+    k,n] centroids.  Bounds: x read once at its storage width (2 bytes
+    under bf16), the centroids and outputs at 4; the policy's bf16
+    products (three per product under bf16x3) over the bf16 tensor-core
+    peak."""
+    s, n = x.shape
+    k = c.shape[0]
+    xs, xbs = px.cast_storage(x, prec), px.cast_storage(xb, prec)
+    eb = xs.element_size()
+    mult = 1 if prec == "bf16" else 3        # bf16 products per product
+    adds = (1 if prec == "bf16" else 2) * s * n  # one-hot sums (hi + lo)
+    ids, _ = distance.assign_plain(xs, c, prec)
+    out = {}
+    out[f"fused_step_{prec}"] = timing(
+        lambda: fused_step.fused_step_16(xs, c, prec),
+        lambda: fused_step.fused_step_plain(xs, c, prec), None,
+        eb * s * n + 4 * (2 * k * n + k + 1), mult * 2 * s * k * n + adds,
+        200, BF16_FLOP_PER_S)
+    out[f"assign_{prec}"] = timing(
+        lambda: distance.assign_16(xs, c, prec),
+        lambda: distance.assign_plain(xs, c, prec), None,
+        eb * s * n + 4 * (k * n + k) + 8 * s, mult * 2 * s * k * n, 200,
+        BF16_FLOP_PER_S)
+    out[f"update_{prec}"] = timing(
+        lambda: upd.update_16(xs, ids, k, prec),
+        lambda: upd.update_plain(xs, ids, k, prec), None,
+        eb * s * n + 4 * s + 4 * (k * n + k), adds, 200, BF16_FLOP_PER_S)
+    name = f"fused_step_batched_{prec}"
+    out[name] = timing(
+        lambda: fused_step.fused_step_batched_16(xbs, cb, prec),
+        lambda: fused_step.fused_step_batched_plain(xbs, cb, prec), None,
+        BATCH * (eb * s * n + 4 * (2 * k * n + k + 1)),
+        BATCH * (mult * 2 * s * k * n + adds), 100, BF16_FLOP_PER_S)
+    out[name]["batch"] = BATCH
+    out[name]["single_x_batch_ms"] = device_ms(
+        lambda: [fused_step.fused_step_16(xbs[b], cb[b], prec)
+                 for b in range(BATCH)], 25)
+    for row in out.values():
+        row["library"] = "none (no single call computes it)"
     return out
 
 
@@ -1198,9 +1691,10 @@ def main() -> int:
           "library": str(info.path.relative_to(ROOT)),
           "ptxas": info.resources})
 
-    # phase 3: kernels vs plain (3b: the int8 kernels)
+    # phase 3: kernels vs plain (3b: the int8 kernels; 3c: bf16, bf16x3)
     errs = phase_kernels(args.seed)
     errs.update(phase_kernels_int8(args.seed))
+    errs.update(phase_kernels_16(args.seed))
 
     # phase 4: the sequential main path (4b: at int8)
     X, res, launches, wall, seq_walls, f_full = phase_main(args.seed)
@@ -1211,6 +1705,13 @@ def main() -> int:
     paths["batched"] = (launches_b, wall_b)
     paths["int8_sequential"] = phase_main_int8(X, args.seed, f_full)
     paths["int8_batched"] = phase_batched_int8(X, args.seed, f_full)
+    # phases 4c, 4d (sequential) and 5d, 5e (batched): bf16 and bf16x3
+    for prec in POLICIES16:
+        paths[f"{prec}_sequential"] = phase_main_16(X, args.seed, prec,
+                                                    f_full)
+    for prec in POLICIES16:
+        paths[f"{prec}_batched"] = phase_batched_16(X, args.seed, prec,
+                                                    f_full)
 
     # phase 6: times
     times = phase_times(X, res, args.seed)
@@ -1220,13 +1721,22 @@ def main() -> int:
     del X
     torch.cuda.empty_cache()
 
-    # phase 5c: the two-pass route at int8 (its own data set)
-    launches_2p, wall_2p, two_pass_errs = phase_two_pass_int8(args.seed)
+    # phases 5c, 5f: the two-pass route at int8 and at bf16 (their own
+    # data set)
+    spec2, X2, gen_s = two_pass_data(args.seed)
+    launches_2p, wall_2p, two_pass_errs = phase_two_pass_int8(
+        spec2, X2, gen_s, args.seed)
     paths["int8_two_pass"] = (launches_2p, wall_2p)
-    # B8 and C8 run on the main path only at the two-pass shape: their
-    # errors in the final line are those of that shape (phase 3b's summary
-    # holds the main chunk shape's)
+    launches_2p, wall_2p, two_pass_errs_16 = phase_two_pass_16(X2,
+                                                               args.seed)
+    paths["bf16_two_pass"] = (launches_2p, wall_2p)
+    del X2
+    torch.cuda.empty_cache()
+    # B8, C8 and B16 run on the main path only at the two-pass shape: their
+    # errors in the final line are those of that shape (phases 3b and 3c
+    # hold the main chunk shape's)
     errs.update(two_pass_errs)
+    errs["assign_bf16"] = two_pass_errs_16["assign_bf16"]
 
     # launches: each kernel's from the path that drives it (PATH_OF),
     # every path's counts beside them

@@ -9,6 +9,9 @@
     result = fit(X, cfg, batch=8, sync_every=2)         # 8 streams at once
     result = fit(X, cfg, method="sequential", device="cpu")
     result = fit(X, cfg, precision="int8")              # int8 Lloyd loop
+    result = fit(X, cfg, precision="bf16")              # bf16 storage
+    result = fit(X, cfg, precision="bf16x3")            # 3 bf16 products
+    result = fit(X.bfloat16(), cfg)                     # 'auto': bf16
 
 ``fit`` runs on the CUDA device unless ``device="cpu"`` is passed, and
 raises ``RuntimeError`` when no CUDA device is present and the CPU was not
@@ -102,8 +105,8 @@ def fit(
     result.extras["fit"] = {
         "method": method,
         "impl": ops.resolve_impl(cfg.impl, dev),
-        # the in-core strategies run on the f32 dataset, so 'auto' is f32
-        "precision": px.resolve(cfg.precision, torch.float32),
+        # 'auto' follows the data: bf16 for a bf16 tensor, f32 otherwise
+        "precision": px.resolve(cfg.precision, source.data_dtype),
         "autotune": cfg.autotune,
         "seed": int(cfg.seed),
         "source": type(source).__name__,

@@ -9,10 +9,13 @@ so that no knob is silently ignored:
   ``scheduler != 'uniform'`` (queue 1 item 6), ``topology`` other than
   ``'auto'``/``'single'`` and ``mesh`` — ``'stream_mesh'`` included, so a
   batched fit runs its streams on one device — (queue 1 item 8),
-  ``autotune=True`` (queue 1 item 10);
-* ``precision`` ``'bf16'`` / ``'bf16x3'`` (queue 2 item 4); ``'f32'`` and
-  ``'int8'`` run, and ``'auto'`` resolves against the data's dtype at fit
-  time.
+  ``autotune=True`` (queue 1 item 10).
+
+``precision`` takes the reference's four policies, ``'f32'``, ``'bf16'``
+(bf16 storage and bf16 products), ``'bf16x3'`` (f32 storage, three bf16
+products per contraction) and ``'int8'``, and ``'auto'``, which resolves
+against the data's dtype at fit time (``'bf16'`` for a ``torch.bfloat16``
+tensor, ``'f32'`` otherwise).
 
 ``impl`` takes the port's kernel impls: ``'auto'``, ``'cuda'``, ``'ref'``,
 ``'ref_chunked'`` (see :mod:`repro_torch.kernels.ops`).

@@ -13,6 +13,8 @@ from typing import Any, Protocol
 import numpy as np
 import torch
 
+from repro_torch import device as devices
+
 
 class DataSource(Protocol):
     @property
@@ -27,13 +29,21 @@ class DataSource(Protocol):
     @property
     def prefers_streaming(self) -> bool: ...
 
+    @property
+    def data_dtype(self) -> torch.dtype:
+        """The dtype the in-core loops read the data as ('auto'
+        precision follows it)."""
+        ...
+
     def as_array(self):
         """The full dataset as a 2-D array or tensor."""
         ...
 
 
 class ArraySource:
-    """In-core array (numpy or torch)."""
+    """In-core array (numpy or torch).  numpy has no bf16, so a bf16
+    dataset is a ``torch.bfloat16`` tensor: it stays bf16, and ``'auto'``
+    precision runs it at ``'bf16'``."""
 
     prefers_streaming = False
     in_core = True
@@ -51,6 +61,10 @@ class ArraySource:
     @property
     def n_rows(self) -> int:
         return self.X.shape[0]
+
+    @property
+    def data_dtype(self) -> torch.dtype:
+        return devices.data_dtype(self.X)
 
     def as_array(self):
         return self.X
@@ -79,6 +93,10 @@ class MemmapSource:
     @property
     def n_rows(self) -> int:
         return self.mm.shape[0]
+
+    @property
+    def data_dtype(self) -> torch.dtype:
+        return torch.float32            # as_array() is a numpy array
 
     def as_array(self):
         return np.asarray(self.mm, dtype=self.dtype)

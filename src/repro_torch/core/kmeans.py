@@ -13,8 +13,14 @@ mask per iteration; the loop runs until no stream is active.
 
 Under ``precision="int8"`` both loops run on the chunk quantized once at
 Lloyd entry (kernels A8 / D8 on the card), while a full-width f32 view of
-the chunk feeds the epilogue: the accepting objective and the final counts
-always come from f32 contractions (reference ``kmeans.py:100-146``).
+the chunk feeds the epilogue.  Under ``"bf16"`` the loops run on the chunk
+in bf16 storage (A16 / D16) and ``"bf16x3"`` on the f32 chunk (A3 / D3).
+The epilogue follows the reference (``kmeans.py:131-146``, ``:217-229``):
+the final assignment — the accepting objective — runs f32 contractions
+under bf16 and int8 (f32 kernel B on the widened bf16 view, or on the
+full-width view) and bf16x3 contractions under bf16x3 (B3); the final
+counts come from the update at the policy on the loop's chunk (C16, C3),
+at f32 on the full-width view under int8.
 
 Convergence follows the paper's §5.7 rule, as the reference's ``_advance``:
 stop when ``|f_prev - f_curr| <= tol * |f_prev|`` or at the iteration cap;
@@ -41,18 +47,29 @@ class KMeansResult(NamedTuple):
 
 
 def _split_views(points, precision: str):
-    """(loop view, full-width f32 view) of a chunk under ``precision``.
+    """(loop view, epilogue view) of a chunk under ``precision``.
 
     Under int8 the loop runs on the codes (quantized here unless the chunk
     arrives quantized) and the epilogue on the full-width view — for a
     pre-quantized chunk its dequantized values, the best view there is.
+    The float policies run both on the chunk in its storage (bf16 under
+    ``'bf16'``, f32 otherwise).
     """
     if precision == "int8":
         full = (px.dequantize(points)
                 if isinstance(points, px.QuantizedChunk) else points.float())
         return px.as_quantized(points), full
-    points = points.float()
+    points = px.cast_storage(points, precision)
     return points, points
+
+
+def _epilogue_precisions(precision: str) -> tuple[str, str]:
+    """(assign, update) precisions of the epilogue (reference
+    ``kmeans.py:139-144``): the accepting objective never contracts in
+    bf16 or int8."""
+    eval_prec = "f32" if precision in ("bf16", "int8") else precision
+    upd_prec = "f32" if precision == "int8" else precision
+    return eval_prec, upd_prec
 
 
 def lloyd(
@@ -88,10 +105,11 @@ def lloyd(
         active = it < max_iters and (it < 2 or not converged)
 
     # One last assignment against the final centroids: exact f(C, P), final
-    # cluster sizes and the degeneracy mask (reference kmeans.py:131-146),
-    # with f32 contractions on the full-width view under every policy.
-    ids, d = ops.assign(points_eval, c, impl=impl, precision="f32")
-    _, counts = ops.update(points_eval, ids, k, impl=impl, precision="f32")
+    # cluster sizes and the degeneracy mask (reference kmeans.py:131-146).
+    eval_prec, upd_prec = _epilogue_precisions(precision)
+    ids, d = ops.assign(points_eval, c, impl=impl, precision=eval_prec)
+    _, counts = ops.update(points_eval, ids, k, impl=impl,
+                           precision=upd_prec)
     return KMeansResult(
         centroids=c,
         objective=torch.sum(d),
@@ -144,12 +162,13 @@ def lloyd_batched(
         converged = torch.abs(f_prev - f_curr) <= tol * torch.abs(f_prev)
         active = active & (it < max_iters) & ((it < 2) | ~converged)
 
+    eval_prec, upd_prec = _epilogue_precisions(precision)
     ids, objective, final_counts = [], [], []
     for b in range(batch):
         ids_b, d_b = ops.assign(points_eval[b], c[b], impl=impl,
-                                precision="f32")
+                                precision=eval_prec)
         _, counts_b = ops.update(points_eval[b], ids_b, k, impl=impl,
-                                 precision="f32")
+                                 precision=upd_prec)
         ids.append(ids_b)
         objective.append(torch.sum(d_b))
         final_counts.append(counts_b)

@@ -9,6 +9,11 @@ K-means++").  The D² draw is ``argmax(gumbel + logits)``, which is what
 
 The key schedule is the reference's: one ``split`` per slot, degenerate or
 not; the work of a surviving slot is skipped, its key is still consumed.
+
+A bf16 chunk is seeded as it is stored (reference ``kmeanspp.py:55-56``):
+its distances contract in bf16 (``pairwise_sqdist_ref`` follows the
+dtype), the point norms are f32 of the stored values, and the chosen
+candidates are widened to the f32 centroids.
 """
 from __future__ import annotations
 
@@ -42,7 +47,8 @@ def seed(
     if weights is not None:
         raise NotImplementedError(
             "weighted K-means++ is not ported yet (ROADMAP queue 1 item 9)")
-    points = points.float()
+    if points.dtype != torch.bfloat16:
+        points = points.float()
     s, n = points.shape
     dev = points.device
     if init is None:
@@ -52,8 +58,9 @@ def seed(
         raise ValueError("init without a degenerate mask")
     c = init.float().clone()
 
-    # Point norms hoisted out of the seeding loop.
-    x2 = torch.sum(points * points, dim=-1, keepdim=True)
+    # Point norms hoisted out of the seeding loop (f32 of the stored values).
+    pf = points.float()
+    x2 = torch.sum(pf * pf, dim=-1, keepdim=True)
     # Distance of every point to the nearest *surviving* centroid.
     d_all = pairwise_sqdist_ref(points, c, x2)                     # [s, k]
     d_all = torch.where(degenerate[None, :], _BIG, d_all)

@@ -29,7 +29,18 @@ def resolve(device=None) -> torch.device:
 def to_f32(X, device: torch.device) -> torch.Tensor:
     """A 2-D array or tensor as contiguous float32 on ``device`` (no copy
     when it already is one)."""
+    return to_dtype(X, device, torch.float32)
+
+
+def to_dtype(X, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """A 2-D array or tensor as a contiguous ``dtype`` tensor on ``device``
+    (no copy when it already is one)."""
     if isinstance(X, np.ndarray):
         X = torch.from_numpy(np.require(X, requirements="W"))
-    return torch.as_tensor(X).to(device=device,
-                                 dtype=torch.float32).contiguous()
+    return torch.as_tensor(X).to(device=device, dtype=dtype).contiguous()
+
+
+def data_dtype(X) -> torch.dtype:
+    """The dtype the in-core loops read ``X`` as: a tensor's own, f32 for
+    anything else (numpy has no bf16, so a bf16 dataset is a tensor)."""
+    return X.dtype if isinstance(X, torch.Tensor) else torch.float32

@@ -26,19 +26,17 @@ from repro_torch.kernels import precision as px
 
 
 def _cast_dataset(X, precision, device: torch.device) -> torch.Tensor:
-    """The dataset as contiguous f32 on ``device`` under every ported
-    policy (unported ones raise).
+    """The dataset in its storage on ``device`` (reference
+    ``engine/incore.py:49-59``): bf16 under ``'bf16'`` (half the device
+    memory; ``'auto'`` on a bf16 tensor is ``'bf16'``), f32 otherwise.
 
-    int8 keeps the dataset full-width too: scales are a property of the
-    chunk (``s[f]`` over its points), so each sampled chunk is quantized at
-    Lloyd entry — one scale row per stream in the batched loop
-    (reference ``engine/incore.py:49-59``).
+    int8 keeps the dataset full-width: scales are a property of the chunk
+    (``s[f]`` over its points), so each sampled chunk is quantized at Lloyd
+    entry — one scale row per stream in the batched loop.
     """
-    if isinstance(X, torch.Tensor):
-        px.resolve(precision, X.dtype)
-    else:
-        px.resolve(precision, torch.float32)
-    return devices.to_f32(X, device)
+    prec = px.resolve(precision, devices.data_dtype(X))
+    dtype = torch.float32 if prec == "int8" else px.storage_dtype(prec)
+    return devices.to_dtype(X, device, dtype)
 
 
 def sequential(

@@ -28,7 +28,9 @@ from repro_torch.kernels import precision as px
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("assign.cu", "update.cu", "fused_step.cu",
            "fused_step_batched.cu", "assign_int8.cu", "update_int8.cu",
-           "fused_step_int8.cu", "fused_step_batched_int8.cu")
+           "fused_step_int8.cu", "fused_step_batched_int8.cu",
+           "assign_bf16.cu", "update_bf16.cu", "fused_step_bf16.cu",
+           "fused_step_batched_bf16.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = "sm_90a"
@@ -53,6 +55,15 @@ SIGNATURES = {
     "repro_fused_step_batched_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _I, _I64, _I, _I, _I, _P),
 }
+# The bf16 and bf16x3 entry points of each kernel share one signature.
+SIGNATURES.update({
+    f"repro_{entry}_{prec}": argtypes for prec in ("bf16", "bf16x3")
+    for entry, argtypes in (
+        ("assign", (_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P)),
+        ("update", (_P, _P, _P, _P, _I64, _I, _I, _I, _P)),
+        ("fused_step", (_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P)),
+        ("fused_step_batched", (_P, _P, _P, _P, _P, _I, _I64, _I, _I, _I,
+                                _P)))})
 
 
 @dataclasses.dataclass
@@ -201,6 +212,18 @@ def require(name: str, t: torch.Tensor, dtype, ndim: int) -> None:
         raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def xc_shapes(x: torch.Tensor, c: torch.Tensor) -> tuple[int, ...]:
+    """(m, k, n), or (B, m, k, n) for batched operands; raises unless the
+    shapes and devices of x [..., m, n] and c [..., k, n] agree."""
+    *lead, m, n = x.shape
+    k = c.shape[-2]
+    if (c.shape[-1] != n or list(c.shape[:-2]) != lead or c.device != x.device
+            or k < 1 or n < 1 or (lead and lead[0] < 1)):
+        raise ValueError(f"bad shapes x {tuple(x.shape)} / c {tuple(c.shape)}"
+                         f" on {x.device} / {c.device}")
+    return (*lead, m, k, n)
 
 
 def int8_operands(x, c: torch.Tensor, ndim: int):

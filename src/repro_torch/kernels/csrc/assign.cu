@@ -12,7 +12,8 @@
 // batches, k = 25, n = 28) that is ~0.3 flop per byte, far below the card's
 // fp32 ratio.  Design: one thread per point, the point tile staged through
 // shared memory with coalesced loads, centroids k-tiled in shared memory
-// and the KT scores of a k tile held in registers (common.cuh:tile_argmin).
+// and the KT scores of a k tile held in registers (common.cuh:assign_cta,
+// tile_argmin).
 // fp32 FMAs only: no tensor cores, no TF32.
 #include "common.cuh"
 
@@ -23,17 +24,7 @@ assign_f32_kernel(const float* __restrict__ x, const float* __restrict__ c,
                   int32_t* __restrict__ ids, float* __restrict__ d, int64_t m,
                   int k, int n, int64_t num_tiles) {
   __shared__ TileSmem s;
-  for (int64_t tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
-    const int64_t r0 = tile * TM;
-    int bidx;
-    float best, xsq;
-    tile_argmin(s, x, c, m, k, n, r0, bidx, best, xsq);
-    const int64_t r = r0 + threadIdx.x;
-    if (r < m) {
-      ids[r] = bidx;
-      d[r] = fmaxf(best + xsq, 0.f);
-    }
-  }
+  assign_cta(s, x, c, ids, d, m, k, n, num_tiles);
 }
 
 extern "C" int repro_assign_f32(const float* x, const float* c, int32_t* ids,

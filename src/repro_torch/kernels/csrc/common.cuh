@@ -1,12 +1,17 @@
-// Shared device code of the kernels: the f32 bodies (assign.cu, update.cu,
-// fused_step.cu, fused_step_batched.cu) and the int8 bodies
-// (assign_int8.cu, update_int8.cu, fused_step_int8.cu,
-// fused_step_batched_int8.cu).
+// Shared device code of the kernels: the float CTA bodies (assign.cu,
+// update.cu, fused_step.cu, fused_step_batched.cu and their bf16 / bf16x3
+// twins *_bf16.cu) and the int8 bodies (assign_int8.cu, update_int8.cu,
+// fused_step_int8.cu, fused_step_batched_int8.cu).
 //
 // One CTA of TM threads walks point tiles of TM rows; thread t owns row t of
 // the tile.  Point and centroid tiles are staged in shared memory, k-tiled by
-// KT centroids and n-tiled by FT features, so any (k, n) runs with a fixed
-// 40 KB of static shared memory.
+// Ops::kt centroids and n-tiled by FT features, so any (k, n) runs with a
+// fixed, static amount of shared memory.
+//
+// The float bodies are templates over an operand policy (F32Ops, Bf16Ops,
+// Bf16x3Ops): how x is stored, how the centroid tile is staged and how a
+// product is accumulated.  Everything else — tiling, the tie rule, the
+// one-hot contraction, the ordered reductions — is one code path.
 //
 // Determinism: nothing here uses atomics.  Every sum is taken by one thread
 // in a fixed order, and cross-CTA sums go through per-CTA partials that a
@@ -14,6 +19,7 @@
 // (on the same card) give bitwise equal results.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -24,87 +30,242 @@ constexpr int KT = 32;        // centroids per k tile (register accumulators)
 constexpr int FT = 32;        // features per feature tile
 constexpr float BIG = 1e30f;  // initial best score (fused_step.py:_BIG)
 
-struct TileSmem {
-  float xs[TM][FT + 1];  // point tile; +1 keeps row-per-thread reads off
-                         // a single shared-memory bank
-  float cs[KT][FT];      // centroid tile (broadcast reads)
-  float c2[KT];          // ||c||^2 of the current k tile
-  int ids[TM];           // tile assignment; -1 never matches a cluster
-  float red[TM];         // block-reduction scratch
+// bf16(v) as a float: round to nearest, ties to even (XLA's and torch's
+// f32 -> bf16 conversion).
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// hi = bf16(v), lo = bf16(v - hi) (precision.py:_split_bf16); v - hi is
+// exact in f32.
+__device__ __forceinline__ void split_bf16(float v, float& hi, float& lo) {
+  hi = round_bf16(v);
+  lo = round_bf16(v - hi);
+}
+
+// --------------------------------------------------------------------------
+// Operand policies.  Each gives:
+//   X           the element type of x in device and shared memory;
+//   kt          centroids per k tile (its accumulators live in registers);
+//   xpad        padding of a shared x row, so that the row-per-thread reads
+//               of a warp fall on 32 different banks;
+//   csq_given   ||c||^2 comes from a full-width f32 array csq (a first
+//               launch, sqnorm_rows) instead of the staged tile;
+//   xsq_by_tile ||x||^2 adds one partial sum per feature tile instead of
+//               every square: a sequential f32 sum of bf16 squares, whose
+//               low bits are not random, rounds with a bias (-5.6e-5 of d
+//               at n = 1,024, where d is 26 times smaller than ||x||^2);
+//   split       the product is the bf16x3 sum of three bf16 products;
+//   CTile       the staged centroid tile, stage() writes one element of it;
+//   Acc, madd   the k tile's dot accumulators and one feature's update;
+//   dot         the finished dot of centroid j;
+//   widen       a stored x element as f32.
+// --------------------------------------------------------------------------
+
+// Kernels A-D: true fp32, sequential FMAs over the features.
+struct F32Ops {
+  using X = float;
+  static constexpr int kt = KT;
+  static constexpr int xpad = 1;
+  static constexpr bool csq_given = false;
+  static constexpr bool xsq_by_tile = false;
+  static constexpr bool split = false;
+  struct CTile {
+    float cs[KT][FT];  // centroid tile (broadcast reads)
+  };
+  struct Acc {
+    float a[KT];
+  };
+  __device__ static float widen(float v) { return v; }
+  __device__ static void stage(CTile& ct, int j, int col, float v) {
+    ct.cs[j][col] = v;
+  }
+  __device__ static void zero(Acc& acc) {
+#pragma unroll
+    for (int j = 0; j < KT; ++j) acc.a[j] = 0.f;
+  }
+  __device__ static void madd(Acc& acc, float xv, const CTile& ct, int f) {
+#pragma unroll
+    for (int j = 0; j < KT; ++j) acc.a[j] = fmaf(xv, ct.cs[j][f], acc.a[j]);
+  }
+  __device__ static float dot(const Acc& acc, int j) { return acc.a[j]; }
 };
 
+// Kernels A16-D16 (precision 'bf16'): x stored bf16 (half the bytes), c
+// rounded to bf16 as it is staged, products accumulated in f32.  A product
+// of two bf16 values is exact in f32, so fmaf rounds once, as an f32
+// accumulation of bf16 x bf16 products does.  ||c||^2 from the f32
+// centroids (csq), ||x||^2 from the stored bf16 values.
+struct Bf16Ops {
+  using X = __nv_bfloat16;
+  static constexpr int kt = KT;
+  static constexpr int xpad = 2;  // a 68-byte row stride (17 words, odd)
+  static constexpr bool csq_given = true;
+  static constexpr bool xsq_by_tile = true;
+  static constexpr bool split = false;
+  struct CTile {
+    float cs[KT][FT];  // bf16(c) as floats
+  };
+  using Acc = F32Ops::Acc;
+  __device__ static float widen(__nv_bfloat16 v) {
+    return __bfloat162float(v);
+  }
+  __device__ static void stage(CTile& ct, int j, int col, float v) {
+    ct.cs[j][col] = round_bf16(v);
+  }
+  __device__ static void zero(Acc& acc) { F32Ops::zero(acc); }
+  __device__ static void madd(Acc& acc, float xv, const CTile& ct, int f) {
+#pragma unroll
+    for (int j = 0; j < KT; ++j) acc.a[j] = fmaf(xv, ct.cs[j][f], acc.a[j]);
+  }
+  __device__ static float dot(const Acc& acc, int j) { return acc.a[j]; }
+};
+
+// Kernels A3-D3 (precision 'bf16x3'): x and c stored f32 and split into
+// bf16 hi + lo; three accumulators hh = sum xh ch, hl = sum xh cl,
+// lh = sum xl ch, each exact products accumulated in f32, added as
+// (hh + hl) + lh — the reference's association (precision.py:dot).
+// ||c||^2 from the f32 centroids (csq), ||x||^2 from the f32 values.  A k
+// tile of KT3 = 16 centroids: with KT's 3 x 32 accumulators ptxas spilled.
+constexpr int KT3 = 16;
+struct Bf16x3Ops {
+  using X = float;
+  static constexpr int kt = KT3;
+  static constexpr int xpad = 1;
+  static constexpr bool csq_given = true;
+  static constexpr bool xsq_by_tile = false;
+  static constexpr bool split = true;
+  struct CTile {
+    float hi[KT3][FT];  // bf16(c)
+    float lo[KT3][FT];  // bf16(c - hi)
+  };
+  struct Acc {
+    float hh[KT3], hl[KT3], lh[KT3];
+  };
+  __device__ static float widen(float v) { return v; }
+  __device__ static void stage(CTile& ct, int j, int col, float v) {
+    split_bf16(v, ct.hi[j][col], ct.lo[j][col]);
+  }
+  __device__ static void zero(Acc& acc) {
+#pragma unroll
+    for (int j = 0; j < KT3; ++j) acc.hh[j] = acc.hl[j] = acc.lh[j] = 0.f;
+  }
+  __device__ static void madd(Acc& acc, float xv, const CTile& ct, int f) {
+    float xh, xl;
+    split_bf16(xv, xh, xl);
+#pragma unroll
+    for (int j = 0; j < KT3; ++j) {
+      acc.hh[j] = fmaf(xh, ct.hi[j][f], acc.hh[j]);
+      acc.hl[j] = fmaf(xh, ct.lo[j][f], acc.hl[j]);
+      acc.lh[j] = fmaf(xl, ct.hi[j][f], acc.lh[j]);
+    }
+  }
+  __device__ static float dot(const Acc& acc, int j) {
+    return (acc.hh[j] + acc.hl[j]) + acc.lh[j];
+  }
+};
+
+template <class Ops>
+struct TileSmemT {
+  typename Ops::X xs[TM][FT + Ops::xpad];  // point tile (row-per-thread)
+  typename Ops::CTile ct;                  // centroid tile
+  float c2[Ops::kt];                       // ||c||^2 of the current k tile
+  int ids[TM];    // tile assignment; -1 never matches a cluster
+  float red[TM];  // block-reduction scratch
+};
+
+using TileSmem = TileSmemT<F32Ops>;
+
 // Stage x[r0 : r0+TM, f0 : f0+fw] into s.xs; rows past m read as 0.
-__device__ __forceinline__ void load_x_tile(TileSmem& s,
-                                            const float* __restrict__ x,
-                                            int64_t m, int n, int64_t r0,
-                                            int f0, int fw) {
+template <class Ops>
+__device__ __forceinline__ void load_x_tile(
+    TileSmemT<Ops>& s, const typename Ops::X* __restrict__ x, int64_t m,
+    int n, int64_t r0, int f0, int fw) {
   for (int q = threadIdx.x; q < TM * fw; q += TM) {
     const int row = q / fw;
     const int col = q - row * fw;
     const int64_t r = r0 + row;
-    s.xs[row][col] = r < m ? x[r * n + f0 + col] : 0.f;
+    s.xs[row][col] = r < m ? x[r * n + f0 + col] : typename Ops::X();
   }
 }
 
-// Stage c[k0 : k0+KT, f0 : f0+fw] into s.cs; rows past k and columns past
-// fw read as 0.
-__device__ __forceinline__ void load_c_tile(TileSmem& s,
+// Stage c[k0 : k0+kt, f0 : f0+fw] (f32) into s.ct; rows past k and columns
+// past fw read as 0.
+template <class Ops>
+__device__ __forceinline__ void load_c_tile(TileSmemT<Ops>& s,
                                             const float* __restrict__ c,
                                             int k, int n, int k0, int f0,
                                             int fw) {
-  for (int q = threadIdx.x; q < KT * FT; q += TM) {
+  for (int q = threadIdx.x; q < Ops::kt * FT; q += TM) {
     const int j = q / FT;
     const int col = q - j * FT;
-    s.cs[j][col] = (k0 + j < k && col < fw)
-                       ? c[(int64_t)(k0 + j) * n + f0 + col]
-                       : 0.f;
+    Ops::stage(s.ct, j, col,
+               (k0 + j < k && col < fw) ? c[(int64_t)(k0 + j) * n + f0 + col]
+                                        : 0.f);
   }
 }
 
 // Nearest centroid of row r0 + threadIdx.x: the running (min, argmin) of
 // score_j = ||c_j||^2 - 2 x.c_j over all k, with a strict '<' so that a tie
 // goes to the lowest index (fused_step.py:_tile_argmin), starting from
-// (BIG, 0).  The dot and both norms are sequential fp32 FMAs over the
-// features.  Every thread of the CTA must call this (it synchronises).
-// On return, when n <= FT, s.xs still holds the whole point tile.
-__device__ __forceinline__ void tile_argmin(TileSmem& s,
-                                            const float* __restrict__ x,
-                                            const float* __restrict__ c,
-                                            int64_t m, int k, int n,
-                                            int64_t r0, int& bidx,
-                                            float& best, float& xsq) {
+// (BIG, 0).  The dot is the policy's (sequential FMAs over the features);
+// ||x||^2 is a sequential FMA over the stored values (by feature tile
+// under xsq_by_tile); ||c||^2 is summed from the staged f32 tile (F32Ops)
+// or read from csq.  Every thread of the
+// CTA must call this (it synchronises).  On return, when n <= FT, s.xs
+// still holds the whole point tile.
+template <class Ops>
+__device__ __forceinline__ void tile_argmin(
+    TileSmemT<Ops>& s, const typename Ops::X* __restrict__ x,
+    const float* __restrict__ c, int64_t m, int k, int n, int64_t r0,
+    int& bidx, float& best, float& xsq,
+    const float* __restrict__ csq = nullptr) {
   const int t = threadIdx.x;
   best = BIG;
   bidx = 0;
   xsq = 0.f;
-  for (int k0 = 0; k0 < k; k0 += KT) {
-    float acc[KT];
-#pragma unroll
-    for (int j = 0; j < KT; ++j) acc[j] = 0.f;
+  for (int k0 = 0; k0 < k; k0 += Ops::kt) {
+    typename Ops::Acc acc;
+    Ops::zero(acc);
     float c2acc = 0.f;
     for (int f0 = 0; f0 < n; f0 += FT) {
       const int fw = min(FT, n - f0);
-      __syncthreads();  // earlier readers of s.xs / s.cs / s.c2 are done
+      __syncthreads();  // earlier readers of s.xs / s.ct / s.c2 are done
       load_x_tile(s, x, m, n, r0, f0, fw);
       load_c_tile(s, c, k, n, k0, f0, fw);
+      if constexpr (Ops::csq_given) {
+        if (f0 == 0 && t < Ops::kt) s.c2[t] = k0 + t < k ? csq[k0 + t] : 0.f;
+      }
       __syncthreads();
-      if (t < KT) {
-        for (int f = 0; f < fw; ++f) c2acc = fmaf(s.cs[t][f], s.cs[t][f], c2acc);
+      if constexpr (!Ops::csq_given) {
+        if (t < Ops::kt) {
+          for (int f = 0; f < fw; ++f)
+            c2acc = fmaf(s.ct.cs[t][f], s.ct.cs[t][f], c2acc);
+        }
       }
+      float xsq_tile = 0.f;  // xsq_by_tile: this feature tile's share
       for (int f = 0; f < fw; ++f) {
-        const float xv = s.xs[t][f];
-        if (k0 == 0) xsq = fmaf(xv, xv, xsq);
-#pragma unroll
-        for (int j = 0; j < KT; ++j) acc[j] = fmaf(xv, s.cs[j][f], acc[j]);
+        const float xv = Ops::widen(s.xs[t][f]);
+        if (k0 == 0) {
+          if constexpr (Ops::xsq_by_tile) {
+            xsq_tile = fmaf(xv, xv, xsq_tile);
+          } else {
+            xsq = fmaf(xv, xv, xsq);
+          }
+        }
+        Ops::madd(acc, xv, s.ct, f);
       }
+      if constexpr (Ops::xsq_by_tile) xsq += xsq_tile;
     }
-    if (t < KT) s.c2[t] = c2acc;
-    __syncthreads();
-    const int kw = min(KT, k - k0);
+    if constexpr (!Ops::csq_given) {
+      if (t < Ops::kt) s.c2[t] = c2acc;
+      __syncthreads();
+    }
+    const int kw = min(Ops::kt, k - k0);
 #pragma unroll
-    for (int j = 0; j < KT; ++j) {
+    for (int j = 0; j < Ops::kt; ++j) {
       if (j < kw) {
-        const float score = s.c2[j] - 2.f * acc[j];
+        const float score = s.c2[j] - 2.f * Ops::dot(acc, j);
         if (score < best) {
           best = score;
           bidx = k0 + j;
@@ -115,7 +276,7 @@ __device__ __forceinline__ void tile_argmin(TileSmem& s,
 }
 
 // Deterministic sum over the CTA (fixed tree order).  All threads call it
-// and all receive the sum.  `Smem` is TileSmem or TileSmemQ (its `red`).
+// and all receive the sum.  `Smem` is a TileSmemT or TileSmemQ (its `red`).
 template <typename Smem>
 __device__ __forceinline__ float block_sum(Smem& s, float v) {
   const int t = threadIdx.x;
@@ -130,6 +291,31 @@ __device__ __forceinline__ float block_sum(Smem& s, float v) {
   return r;
 }
 
+// sum_i [ids_i == j] x[i, f] over the tile's rows, in row order.  Under
+// bf16x3 the one-hot has no low part, so this is sum(x_hi) + sum(x_lo)
+// (the reference's px.dot(onehot, x, 'bf16x3')), not the f32 sum.
+template <class Ops>
+__device__ __forceinline__ float onehot_sum(const TileSmemT<Ops>& s, int j,
+                                            int f) {
+  if constexpr (Ops::split) {
+    float hi = 0.f, lo = 0.f;
+    for (int i = 0; i < TM; ++i) {
+      if (s.ids[i] == j) {
+        float h, l;
+        split_bf16(s.xs[i][f], h, l);
+        hi += h;
+        lo += l;
+      }
+    }
+    return hi + lo;
+  } else {
+    float acc = 0.f;
+    for (int i = 0; i < TM; ++i)
+      acc += (s.ids[i] == j) ? Ops::widen(s.xs[i][f]) : 0.f;
+    return acc;
+  }
+}
+
 // One-hot contraction of one point tile into this CTA's partials:
 //   P[j, f] (+)= sum_i [ids_i == j] x[i, f],   Cnt[j] (+)= sum_i [ids_i == j]
 // with s.ids already set (and synchronised) by the caller.  Thread t owns
@@ -137,12 +323,11 @@ __device__ __forceinline__ float block_sum(Smem& s, float v) {
 // tile's rows in order, so every element has one writer and a fixed order.
 // `first` stores instead of accumulating (the CTA's first tile).
 // `x_resident`: s.xs already holds the whole tile (n <= FT).
-__device__ __forceinline__ void tile_accumulate(TileSmem& s,
-                                                const float* __restrict__ x,
-                                                int64_t m, int k, int n,
-                                                int64_t r0, float* P,
-                                                float* Cnt, bool first,
-                                                bool x_resident) {
+template <class Ops>
+__device__ __forceinline__ void tile_accumulate(
+    TileSmemT<Ops>& s, const typename Ops::X* __restrict__ x, int64_t m,
+    int k, int n, int64_t r0, float* P, float* Cnt, bool first,
+    bool x_resident) {
   const int t = threadIdx.x;
   for (int f0 = 0; f0 < n; f0 += FT) {
     const int fw = min(FT, n - f0);
@@ -155,8 +340,7 @@ __device__ __forceinline__ void tile_accumulate(TileSmem& s,
     for (int e = t; e < ne; e += TM) {
       const int j = e / fw;
       const int f = e - j * fw;
-      float acc = 0.f;
-      for (int i = 0; i < TM; ++i) acc += (s.ids[i] == j) ? s.xs[i][f] : 0.f;
+      const float acc = onehot_sum(s, j, f);
       float* dst = P + (int64_t)j * n + f0 + f;
       *dst = first ? acc : *dst + acc;
     }
@@ -174,17 +358,17 @@ __device__ __forceinline__ void zero_partials(T* P, int64_t stride) {
   for (int64_t e = threadIdx.x; e < stride; e += blockDim.x) P[e] = T(0);
 }
 
-// One CTA's share of the fused Lloyd step (kernels A and D): the partial
-// sums [k,n], counts [k] and objective of the point tiles blockIdx.x,
-// blockIdx.x + gridDim.x, ... of x [m,n] against c [k,n], written to
-// P [k*n + k + 1].  Kernel D calls this with per-stream base pointers and
-// the per-stream grid of kernel A, so each of its streams runs exactly
-// kernel A's arithmetic in kernel A's order.
-__device__ __forceinline__ void fused_cta(TileSmem& s,
-                                          const float* __restrict__ x,
-                                          const float* __restrict__ c,
-                                          float* __restrict__ P, int64_t m,
-                                          int k, int n, int64_t num_tiles) {
+// One CTA's share of the fused Lloyd step (kernels A and D, and their
+// bf16 / bf16x3 twins): the partial sums [k,n], counts [k] and objective of
+// the point tiles blockIdx.x, blockIdx.x + gridDim.x, ... of x [m,n]
+// against c [k,n], written to P [k*n + k + 1].  Kernel D calls this with
+// per-stream base pointers and the per-stream grid of kernel A, so each of
+// its streams runs exactly kernel A's arithmetic in kernel A's order.
+template <class Ops>
+__device__ __forceinline__ void fused_cta(
+    TileSmemT<Ops>& s, const typename Ops::X* __restrict__ x,
+    const float* __restrict__ c, float* __restrict__ P, int64_t m, int k,
+    int n, int64_t num_tiles, const float* __restrict__ csq = nullptr) {
   float* Cnt = P + (int64_t)k * n;
   float* Obj = Cnt + k;
   if (blockIdx.x >= num_tiles) {
@@ -196,7 +380,7 @@ __device__ __forceinline__ void fused_cta(TileSmem& s,
     const int64_t r0 = tile * TM;
     int bidx;
     float best, xsq;
-    tile_argmin(s, x, c, m, k, n, r0, bidx, best, xsq);
+    tile_argmin(s, x, c, m, k, n, r0, bidx, best, xsq, csq);
     const bool valid = r0 + threadIdx.x < m;
     s.ids[threadIdx.x] = valid ? bidx : -1;
     obj += block_sum(s, valid ? fmaxf(best + xsq, 0.f) : 0.f);
@@ -204,6 +388,51 @@ __device__ __forceinline__ void fused_cta(TileSmem& s,
     __syncthreads();  // s.ids / s.xs are rewritten by the next tile
   }
   if (threadIdx.x == 0) *Obj = obj;
+}
+
+// One CTA's share of the assignment (kernel B and its twins): ids and
+// d = max(best + ||x||^2, 0) of the rows of its point tiles.
+template <class Ops>
+__device__ __forceinline__ void assign_cta(
+    TileSmemT<Ops>& s, const typename Ops::X* __restrict__ x,
+    const float* __restrict__ c, int32_t* __restrict__ ids,
+    float* __restrict__ d, int64_t m, int k, int n, int64_t num_tiles,
+    const float* __restrict__ csq = nullptr) {
+  for (int64_t tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
+    const int64_t r0 = tile * TM;
+    int bidx;
+    float best, xsq;
+    tile_argmin(s, x, c, m, k, n, r0, bidx, best, xsq, csq);
+    const int64_t r = r0 + threadIdx.x;
+    if (r < m) {
+      ids[r] = bidx;
+      d[r] = fmaxf(best + xsq, 0.f);
+    }
+  }
+}
+
+// One CTA's share of the update (kernel C and its twins): the partial sums
+// [k,n] and counts [k] of its point tiles, written to P [k*n + k]; an id
+// outside [0, k) adds nothing.
+template <class Ops>
+__device__ __forceinline__ void update_cta(
+    TileSmemT<Ops>& s, const typename Ops::X* __restrict__ x,
+    const int32_t* __restrict__ ids, float* __restrict__ P, int64_t m, int k,
+    int n, int64_t num_tiles) {
+  float* Cnt = P + (int64_t)k * n;
+  if (blockIdx.x >= num_tiles) {
+    zero_partials(P, (int64_t)k * n + k);
+    return;
+  }
+  for (int64_t tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
+    const int64_t r0 = tile * TM;
+    const int64_t r = r0 + threadIdx.x;
+    int id = r < m ? ids[r] : -1;
+    s.ids[threadIdx.x] = (id >= 0 && id < k) ? id : -1;
+    __syncthreads();
+    tile_accumulate(s, x, m, k, n, r0, P, Cnt, tile == blockIdx.x, false);
+    __syncthreads();  // s.ids / s.xs are rewritten by the next tile
+  }
 }
 
 // out[e] = sum over g = 0..G-1, in order, of part[g * stride + e] (float
@@ -247,8 +476,8 @@ constexpr int FTQ = 32;       // features per int8 feature tile
 // csq[r] = ||c_r||^2 for `rows` full-width f32 rows of n features: the
 // features added in index order, one rounding per multiply and per add, as
 // the plain version (precision.sqnorm_in_order) and the reference's XLA
-// reduction on the CPU add them.  One thread per row; the int8 entry points
-// launch it ahead of their kernel on the same stream.
+// reduction on the CPU add them.  One thread per row; the int8, bf16 and
+// bf16x3 entry points launch it ahead of their kernel on the same stream.
 static __global__ void sqnorm_rows(const float* __restrict__ c,
                                    float* __restrict__ csq, int64_t rows,
                                    int n) {

@@ -11,8 +11,8 @@
 // deterministic without atomics — each CTA walks a fixed set of point
 // tiles, and each thread owns a fixed set of (cluster, feature) elements of
 // the CTA's partial sums, which it adds up over the tile's rows in order
-// (common.cuh:tile_accumulate).  A second launch reduces the per-CTA
-// partials in CTA order.
+// (common.cuh:update_cta, tile_accumulate).  A second launch reduces the
+// per-CTA partials in CTA order.
 #include "common.cuh"
 
 using namespace repro;
@@ -23,21 +23,7 @@ update_f32_kernel(const float* __restrict__ x, const int32_t* __restrict__ ids,
                   int64_t num_tiles) {
   __shared__ TileSmem s;
   const int64_t stride = (int64_t)k * n + k;
-  float* P = part + blockIdx.x * stride;
-  float* Cnt = P + (int64_t)k * n;
-  if (blockIdx.x >= num_tiles) {
-    zero_partials(P, stride);
-    return;
-  }
-  for (int64_t tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
-    const int64_t r0 = tile * TM;
-    const int64_t r = r0 + threadIdx.x;
-    int id = r < m ? ids[r] : -1;
-    s.ids[threadIdx.x] = (id >= 0 && id < k) ? id : -1;
-    __syncthreads();
-    tile_accumulate(s, x, m, k, n, r0, P, Cnt, tile == blockIdx.x, false);
-    __syncthreads();  // s.ids / s.xs are rewritten by the next tile
-  }
+  update_cta(s, x, ids, part + blockIdx.x * stride, m, k, n, num_tiles);
 }
 
 extern "C" __global__ void update_f32_reduce(const float* __restrict__ part,

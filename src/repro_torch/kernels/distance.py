@@ -1,9 +1,12 @@
-"""Nearest-centroid assignment: CUDA kernels B and B8.
+"""Nearest-centroid assignment: CUDA kernels B, B8, B16 and B3.
 
 Kernel B (``csrc/assign.cu``, :func:`assign_f32`) replaces
 ``repro/kernels/distance.py:assign_pallas`` (f32 body); kernel B8
 (``csrc/assign_int8.cu``, :func:`assign_int8`) replaces its int8 variant
-``_assign_pallas_q``.  The wrappers launch their kernel on CUDA tensors and
+``_assign_pallas_q``; kernels B16 and B3 (``csrc/assign_bf16.cu``,
+:func:`assign_16`) its bf16 and bf16x3 bodies,
+whose wrapper casts x to the policy's storage before the kernel takes its
+norm and its dot.  The wrappers launch their kernel on CUDA tensors and
 raise ``ValueError`` on any other; :func:`assign_plain` and
 :func:`assign_int8_plain` are the plain versions that ``ops`` runs for
 tensors on the CPU.
@@ -17,12 +20,17 @@ from repro_torch.kernels import precision as px
 
 launches = 0            # kernel launches by assign_f32 (see ops.launch_counts)
 int8_launches = 0       # kernel launches by assign_int8
+# kernel launches by assign_16, per policy
+launches16 = dict.fromkeys(("bf16", "bf16x3"), 0)
 
 
-def assign_plain(x: torch.Tensor, c: torch.Tensor
+def assign_plain(x: torch.Tensor, c: torch.Tensor, precision: str = "f32"
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The plain PyTorch version: (ids int32 [m], d f32 [m])."""
-    return ref.assign_ref(x, c, precision="f32")
+    """The plain PyTorch version of kernel B (B16, B3 under ``'bf16'``,
+    ``'bf16x3'``), x cast to the policy's storage as the kernel's wrapper
+    casts it: (ids int32 [m], d f32 [m])."""
+    return ref.assign_ref(px.cast_storage(x, precision), c,
+                          precision=precision)
 
 
 def assign_f32(x: torch.Tensor, c: torch.Tensor
@@ -34,11 +42,7 @@ def assign_f32(x: torch.Tensor, c: torch.Tensor
     """
     build.require("x", x, torch.float32, 2)
     build.require("c", c, torch.float32, 2)
-    m, n = x.shape
-    k = c.shape[0]
-    if c.shape[1] != n or c.device != x.device or k < 1 or n < 1:
-        raise ValueError(f"bad shapes x {tuple(x.shape)} / c {tuple(c.shape)}"
-                         f" on {x.device} / {c.device}")
+    m, k, n = build.xc_shapes(x, c)
     ids = torch.empty(m, dtype=torch.int32, device=x.device)
     d = torch.empty(m, dtype=torch.float32, device=x.device)
     lib = build.load()
@@ -49,6 +53,33 @@ def assign_f32(x: torch.Tensor, c: torch.Tensor
         x.data_ptr(), c.data_ptr(), ids.data_ptr(), d.data_ptr(), m, k, n,
         build.grid(x.device, m), stream)
     build.check(err, "assign_f32")
+    return ids, d
+
+
+def assign_16(x: torch.Tensor, c: torch.Tensor, precision: str
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B16 (``precision="bf16"``) or B3 (``"bf16x3"``).
+
+    ``ids`` minimises ``||c||^2 - 2 x.c`` with the policy's dot (ties:
+    lowest index) and ``d = max(best + ||x||^2, 0)``; ``||x||^2`` from x
+    cast to the policy's storage, ``||c||^2`` from the f32 centroids (the
+    kernel's first launch).
+    """
+    if precision not in launches16:
+        raise ValueError(f"not a bf16 / bf16x3 body: {precision!r}")
+    x = px.cast_storage(x, precision)
+    build.require("x", x, px.storage_dtype(precision), 2)
+    build.require("c", c, torch.float32, 2)
+    m, k, n = build.xc_shapes(x, c)
+    csq = torch.empty(k, dtype=torch.float32, device=x.device)
+    ids = torch.empty(m, dtype=torch.int32, device=x.device)
+    d = torch.empty(m, dtype=torch.float32, device=x.device)
+    launch = getattr(build.load(), f"repro_assign_{precision}")
+    launches16[precision] += 1
+    err = launch(x.data_ptr(), c.data_ptr(), csq.data_ptr(), ids.data_ptr(),
+                 d.data_ptr(), m, k, n, build.grid(x.device, m),
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, f"assign_{precision}")
     return ids, d
 
 

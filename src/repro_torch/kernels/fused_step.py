@@ -1,4 +1,5 @@
-"""One Lloyd iteration in one pass: CUDA kernels A, D, A8 and D8.
+"""One Lloyd iteration in one pass: CUDA kernels A, D, A8, D8 and the bf16 /
+bf16x3 bodies A16, A3, D16, D3.
 
 Kernel A (``csrc/fused_step.cu``, :func:`fused_step_f32`) replaces
 ``repro/kernels/fused_step.py:fused_step_pallas`` with ``pipeline="blocks"``
@@ -10,11 +11,17 @@ equal to kernel A on it.  Kernels A8 and D8 (``csrc/fused_step_int8.cu``,
 ``csrc/fused_step_batched_int8.cu``; :func:`fused_step_int8`,
 :func:`fused_step_batched_int8`) are the int8 bodies of the same two Pallas
 kernels, on a :class:`~.precision.QuantizedChunk`; D8's stream b is bitwise
-A8 on it.  The wrappers launch their kernel on CUDA tensors and raise
+A8 on it.  Kernels A16 / A3 (``csrc/fused_step_bf16.cu``,
+:func:`fused_step_16`) and D16 / D3 (``csrc/fused_step_batched_bf16.cu``,
+:func:`fused_step_batched_16`) are the bf16 and bf16x3 bodies; their
+wrappers cast x to the policy's storage (bf16, or f32) before the kernel
+takes both its norm and its dot, as the Pallas wrapper does
+(``fused_step.py:330-332``), and the kernel takes ``||c||^2`` from the f32
+centroids.  The wrappers launch their kernel on CUDA tensors and raise
 ``ValueError`` on any other; ``ops`` runs the plain versions
 (``*_plain``) for tensors on the CPU.  :func:`fits` is the reference's
 envelope (``fits_batched`` is the same); outside it ``ops`` takes the
-two-pass route (kernels B and C, or B8 and C8).
+two-pass route (kernels B and C, or their int8 / bf16 / bf16x3 bodies).
 """
 from __future__ import annotations
 
@@ -36,6 +43,9 @@ launches = 0          # kernel launches by fused_step_f32 (ops.launch_counts)
 batched_launches = 0  # kernel launches by fused_step_batched_f32
 int8_launches = 0     # kernel launches by fused_step_int8
 batched_int8_launches = 0  # kernel launches by fused_step_batched_int8
+# kernel launches by fused_step_16 / fused_step_batched_16, per policy
+launches16 = dict.fromkeys(("bf16", "bf16x3"), 0)
+batched_launches16 = dict.fromkeys(("bf16", "bf16x3"), 0)
 
 
 def _padded(k: int, n: int) -> tuple[int, int]:
@@ -54,11 +64,14 @@ def fits(k: int, n: int) -> bool:
 fits_batched = fits
 
 
-def fused_step_plain(x: torch.Tensor, c: torch.Tensor
+def fused_step_plain(x: torch.Tensor, c: torch.Tensor, precision: str = "f32"
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The plain PyTorch version: two passes through the oracles."""
-    ids, d = ref.assign_ref(x, c, precision="f32")
-    sums, counts = ref.update_ref(x, ids, c.shape[0], precision="f32")
+    """The plain PyTorch version of kernel A (A16, A3 under ``'bf16'``,
+    ``'bf16x3'``): x cast to the policy's storage, as the kernel's wrapper
+    casts it, then two passes through the oracles."""
+    x = px.cast_storage(x, precision)
+    ids, d = ref.assign_ref(x, c, precision=precision)
+    sums, counts = ref.update_ref(x, ids, c.shape[0], precision=precision)
     return sums, counts, torch.sum(d)
 
 
@@ -71,11 +84,7 @@ def fused_step_f32(x: torch.Tensor, c: torch.Tensor
     """
     build.require("x", x, torch.float32, 2)
     build.require("c", c, torch.float32, 2)
-    m, n = x.shape
-    k = c.shape[0]
-    if c.shape[1] != n or c.device != x.device or k < 1 or n < 1:
-        raise ValueError(f"bad shapes x {tuple(x.shape)} / c {tuple(c.shape)}"
-                         f" on {x.device} / {c.device}")
+    m, k, n = build.xc_shapes(x, c)
     stride = k * n + k + 1
     grid = build.grid(x.device, m, stride)
     part = torch.empty(grid * stride, dtype=torch.float32, device=x.device)
@@ -90,12 +99,13 @@ def fused_step_f32(x: torch.Tensor, c: torch.Tensor
     return out[:k * n].view(k, n), out[k * n:k * n + k], out[k * n + k]
 
 
-def fused_step_batched_plain(x: torch.Tensor, c: torch.Tensor
+def fused_step_batched_plain(x: torch.Tensor, c: torch.Tensor,
+                             precision: str = "f32"
                              ) -> tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
-    """The plain PyTorch version: :func:`fused_step_plain` stream by stream
-    (the reference's ``lax.map`` oracle, ``ops._fused_step_batched_ref``)."""
-    sums, counts, obj = zip(*(fused_step_plain(x[b], c[b])
+    """The plain PyTorch version of kernel D (D16, D3):
+    :func:`fused_step_plain` stream by stream."""
+    sums, counts, obj = zip(*(fused_step_plain(x[b], c[b], precision)
                               for b in range(x.shape[0])))
     return torch.stack(sums), torch.stack(counts), torch.stack(obj)
 
@@ -116,12 +126,7 @@ def fused_step_batched_f32(x: torch.Tensor, c: torch.Tensor
     """
     build.require("x", x, torch.float32, 3)
     build.require("c", c, torch.float32, 3)
-    batch, m, n = x.shape
-    k = c.shape[1]
-    if (c.shape[0] != batch or c.shape[2] != n or c.device != x.device
-            or batch < 1 or k < 1 or n < 1):
-        raise ValueError(f"bad shapes x {tuple(x.shape)} / c {tuple(c.shape)}"
-                         f" on {x.device} / {c.device}")
+    batch, m, k, n = build.xc_shapes(x, c)
     stride = k * n + k + 1
     grid = build.grid(x.device, m, stride)
     group = min(batch, build.stream_group(grid, stride))
@@ -138,6 +143,77 @@ def fused_step_batched_f32(x: torch.Tensor, c: torch.Tensor
             x[b0].data_ptr(), c[b0].data_ptr(), part.data_ptr(),
             out[b0].data_ptr(), nb, m, k, n, grid, st)
         build.check(err, "fused_step_batched_f32")
+    kn = k * n
+    return out[:, :kn].view(batch, k, n), out[:, kn:kn + k], out[:, kn + k]
+
+
+# --------------------------------------------------------------------------
+# bf16 and bf16x3 bodies (kernels A16, A3, D16, D3)
+# --------------------------------------------------------------------------
+
+
+def fused_step_16(x: torch.Tensor, c: torch.Tensor, precision: str
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel A16 (``precision="bf16"``) or A3 (``"bf16x3"``).
+
+    x is cast to the policy's storage first, so ``||x||^2`` comes from the
+    stored values; the kernel's first launch takes ``||c||^2`` from the f32
+    centroids.  Runs any (k, n); the dispatch in ``ops`` restricts it to
+    :func:`fits`.  Raises ``ValueError`` unless x and c are CUDA tensors.
+    """
+    if precision not in launches16:
+        raise ValueError(f"not a bf16 / bf16x3 body: {precision!r}")
+    x = px.cast_storage(x, precision)
+    build.require("x", x, px.storage_dtype(precision), 2)
+    build.require("c", c, torch.float32, 2)
+    m, k, n = build.xc_shapes(x, c)
+    stride = k * n + k + 1
+    grid = build.grid(x.device, m, stride)
+    csq = torch.empty(k, dtype=torch.float32, device=x.device)
+    part = torch.empty(grid * stride, dtype=torch.float32, device=x.device)
+    out = torch.empty(stride, dtype=torch.float32, device=x.device)
+    launch = getattr(build.load(), f"repro_fused_step_{precision}")
+    launches16[precision] += 1
+    err = launch(x.data_ptr(), c.data_ptr(), csq.data_ptr(), part.data_ptr(),
+                 out.data_ptr(), m, k, n, grid,
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, f"fused_step_{precision}")
+    return out[:k * n].view(k, n), out[k * n:k * n + k], out[k * n + k]
+
+
+def fused_step_batched_16(x: torch.Tensor, c: torch.Tensor, precision: str
+                          ) -> tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """Kernel D16 (``precision="bf16"``) or D3 (``"bf16x3"``): (sums f32
+    [B,k,n], counts f32 [B,k], obj f32 [B]).
+
+    Stream b is bitwise equal to :func:`fused_step_16` on (x[b], c[b]):
+    every stream gets that kernel's grid, and the streams go in groups of
+    :func:`build.stream_group` as in :func:`fused_step_batched_f32`.
+    Raises ``ValueError`` unless x and c are CUDA tensors.
+    """
+    if precision not in launches16:
+        raise ValueError(f"not a bf16 / bf16x3 body: {precision!r}")
+    x = px.cast_storage(x, precision)
+    build.require("x", x, px.storage_dtype(precision), 3)
+    build.require("c", c, torch.float32, 3)
+    batch, m, k, n = build.xc_shapes(x, c)
+    stride = k * n + k + 1
+    grid = build.grid(x.device, m, stride)
+    group = min(batch, build.stream_group(grid, stride))
+    csq = torch.empty((batch, k), dtype=torch.float32, device=x.device)
+    part = torch.empty(group * grid * stride, dtype=torch.float32,
+                       device=x.device)
+    out = torch.empty((batch, stride), dtype=torch.float32, device=x.device)
+    launch = getattr(build.load(), f"repro_fused_step_batched_{precision}")
+    st = torch.cuda.current_stream(x.device).cuda_stream
+    for b0 in range(0, batch, group):
+        nb = min(group, batch - b0)
+        batched_launches16[precision] += 1
+        err = launch(x[b0].data_ptr(), c[b0].data_ptr(), csq[b0].data_ptr(),
+                     part.data_ptr(), out[b0].data_ptr(), nb, m, k, n, grid,
+                     st)
+        build.check(err, f"fused_step_batched_{precision}")
     kn = k * n
     return out[:, :kn].view(batch, k, n), out[:, kn:kn + k], out[:, kn + k]
 

@@ -16,15 +16,23 @@ under the ref impls), and ``fused_step_batched`` takes it stream by
 stream.  Each kernel wrapper counts its launches; read them with
 :func:`launch_counts` and zero them with :func:`reset_launch_counts`.
 
-``precision`` follows :mod:`.precision`: ``'f32'`` and ``'int8'`` are
-ported.  A :class:`~.precision.QuantizedChunk` input is int8 whatever the
-knob says.  Under ``'int8'`` the card runs kernels A8 / D8 inside the fused
-envelope and B8 + C8 outside it.  That two-pass route on the card departs
-from the reference, whose int8 envelope miss falls back to its jnp oracle
-(``repro/kernels/ops.py:327-336``); the results are the same computation,
-held to the oracle in ``chip_smoke.py`` and the ``cuda`` tests.
+``precision`` follows :mod:`.precision`: all four policies are ported.  A
+:class:`~.precision.QuantizedChunk` input is int8 whatever the knob says.
+Each policy has its bodies of kernels A, B, C and D on the card (int8: A8,
+B8, C8, D8; ``'bf16'``: A16, B16, C16, D16; ``'bf16x3'``: A3, B3, C3, D3),
+and the ``'cuda'`` route casts x to the policy's storage before the kernel,
+as the reference's Pallas wrappers do; the ``'ref'`` routes run the
+oracles on x as given, as the reference's do (for an f32 chunk at
+``'bf16'`` the two differ: the oracle takes ``||x||^2`` from the f32
+values).  Under ``'int8'`` the two-pass route on the card (B8 + C8)
+departs from the reference, whose int8 envelope miss falls back to its jnp
+oracle (``repro/kernels/ops.py:327-336``); the results are the same
+computation, held to the oracle in ``chip_smoke.py`` and the ``cuda``
+tests.
 """
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 
@@ -39,15 +47,40 @@ _WEIGHTS = ("weighted steps are not ported yet (ROADMAP queue 1 item 9, "
             "the §5 baselines that use them)")
 
 
+# (name prefix, per-policy launch counts) of the bf16 / bf16x3 bodies
+_COUNTS16 = (("fused_step", fused.launches16),
+             ("fused_step_batched", fused.batched_launches16),
+             ("assign", distance.launches16), ("update", upd.launches16))
+
+# The kernel wrappers of each policy, by entry point.
+_KERNELS = {
+    "f32": dict(fused=fused.fused_step_f32,
+                batched=fused.fused_step_batched_f32,
+                assign=distance.assign_f32, update=upd.update_f32),
+    "int8": dict(fused=fused.fused_step_int8,
+                 batched=fused.fused_step_batched_int8,
+                 assign=distance.assign_int8, update=upd.update_int8),
+    **{prec: dict(fused=partial(fused.fused_step_16, precision=prec),
+                  batched=partial(fused.fused_step_batched_16,
+                                  precision=prec),
+                  assign=partial(distance.assign_16, precision=prec),
+                  update=partial(upd.update_16, precision=prec))
+       for prec in ("bf16", "bf16x3")},
+}
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last reset, per kernel."""
-    return {"fused_step": fused.launches, "assign": distance.launches,
-            "update": upd.launches,
-            "fused_step_batched": fused.batched_launches,
-            "fused_step_int8": fused.int8_launches,
-            "fused_step_batched_int8": fused.batched_int8_launches,
-            "assign_int8": distance.int8_launches,
-            "update_int8": upd.int8_launches}
+    counts = {"fused_step": fused.launches, "assign": distance.launches,
+              "update": upd.launches,
+              "fused_step_batched": fused.batched_launches,
+              "fused_step_int8": fused.int8_launches,
+              "fused_step_batched_int8": fused.batched_int8_launches,
+              "assign_int8": distance.int8_launches,
+              "update_int8": upd.int8_launches}
+    for name, per_policy in _COUNTS16:
+        counts.update({f"{name}_{p}": v for p, v in per_policy.items()})
+    return counts
 
 
 def reset_launch_counts() -> None:
@@ -59,6 +92,8 @@ def reset_launch_counts() -> None:
     distance.int8_launches = 0
     upd.launches = 0
     upd.int8_launches = 0
+    for _, per_policy in _COUNTS16:
+        per_policy.update(dict.fromkeys(per_policy, 0))
 
 
 def resolve_precision(precision: str | None, x) -> str:
@@ -94,10 +129,9 @@ def assign(x, c: torch.Tensor, *, impl: str = "auto",
     precision = resolve_precision(precision, x)
     if precision == "int8":
         x = px.as_quantized(x)          # one scale row for the whole chunk
-        if impl == "cuda":
-            return distance.assign_int8(x, c)
-    elif impl == "cuda":
-        return distance.assign_f32(x, c)
+    if impl == "cuda":
+        kernel = _KERNELS[precision]["assign"]
+        return kernel(px.cast_storage(x, precision), c)
     if impl == "ref":
         return ref.assign_ref(x, c, precision=precision)
     starts = range(0, x.shape[0], chunk)
@@ -116,9 +150,8 @@ def update(x, ids: torch.Tensor, k: int, *,
     impl = resolve_impl(impl, x.device)
     precision = resolve_precision(precision, x)
     if impl == "cuda":
-        if precision == "int8":
-            return upd.update_int8(x, ids, k)
-        return upd.update_f32(x, ids, k)
+        kernel = _KERNELS[precision]["update"]
+        return kernel(px.cast_storage(x, precision), ids, k)
     return ref.update_ref(x, ids, k, precision=precision)
 
 
@@ -126,9 +159,9 @@ def fused_step(x, c: torch.Tensor, *,
                weights: torch.Tensor | None = None, impl: str = "auto",
                precision: str = "auto"
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One Lloyd iteration's (sums, counts, objective): kernel A (int8: A8)
-    inside the fused envelope, two passes (assign + update: kernels B and
-    C, int8: B8 and C8) outside it."""
+    """One Lloyd iteration's (sums, counts, objective): kernel A at the
+    policy (A8, A16, A3) inside the fused envelope, two passes (assign +
+    update: kernels B and C at the policy) outside it."""
     if weights is not None:
         raise NotImplementedError(_WEIGHTS)
     impl = resolve_impl(impl, x.device)
@@ -137,9 +170,8 @@ def fused_step(x, c: torch.Tensor, *,
         x = px.as_quantized(x)          # quantized once for both passes
     k = c.shape[0]
     if impl == "cuda" and fused.fits(k, c.shape[1]):
-        if precision == "int8":
-            return fused.fused_step_int8(x, c)
-        return fused.fused_step_f32(x, c)
+        kernel = _KERNELS[precision]["fused"]
+        return kernel(px.cast_storage(x, precision), c)
     ids, d = assign(x, c, impl=impl, precision=precision)
     sums, counts = update(x, ids, k, impl=impl, precision=precision)
     return sums, counts, torch.sum(d)
@@ -151,12 +183,12 @@ def fused_step_batched(x, c: torch.Tensor, *,
     """B concurrent Lloyd iterations: x [B,m,n], c [B,k,n] -> (sums [B,k,n],
     counts [B,k], obj [B]).
 
-    ``'cuda'``: kernel D (int8: D8) inside the fused envelope (one launch
-    for all streams), else the two-pass route through kernels B and C
-    (int8: B8 and C8) stream by stream.  ``'ref'`` / ``'ref_chunked'``: the
-    plain version, as the reference's batched oracle
-    (``ops._fused_step_batched_ref``).  Under int8 each stream has its own
-    scale row.
+    ``'cuda'``: kernel D at the policy (D8, D16, D3) inside the fused
+    envelope (one launch for all streams), else the two-pass route through
+    kernels B and C at the policy stream by stream.  ``'ref'`` /
+    ``'ref_chunked'``: the reference's batched oracle
+    (``ops._fused_step_batched_ref``), the oracles stream by stream on x as
+    given.  Under int8 each stream has its own scale row.
     """
     impl = resolve_impl(impl, x.device)
     precision = resolve_precision(precision, x)
@@ -164,11 +196,15 @@ def fused_step_batched(x, c: torch.Tensor, *,
     if int8:
         x = px.as_quantized(x)
     if impl != "cuda":
-        return (fused.fused_step_batched_int8_plain(x, c) if int8
-                else fused.fused_step_batched_plain(x, c))
+        if int8:
+            return fused.fused_step_batched_int8_plain(x, c)
+        sums, counts, obj = zip(*(fused_step(x[b], c[b], impl="ref",
+                                             precision=precision)
+                                  for b in range(x.shape[0])))
+        return torch.stack(sums), torch.stack(counts), torch.stack(obj)
     if fused.fits_batched(c.shape[1], c.shape[2]):
-        return (fused.fused_step_batched_int8(x, c) if int8
-                else fused.fused_step_batched_f32(x, c))
+        kernel = _KERNELS[precision]["batched"]
+        return kernel(px.cast_storage(x, precision), c)
     streams = ((px.QuantizedChunk(x.q[b], x.scale[b]) if int8 else x[b])
                for b in range(x.shape[0]))
     sums, counts, obj = zip(*(fused_step(xb, c[b], impl="cuda",

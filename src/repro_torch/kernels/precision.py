@@ -1,10 +1,22 @@
-"""Precision policy of the kernel stack: ``'f32'`` and ``'int8'``.
+"""Precision policy of the kernel stack: ``'f32'``, ``'bf16'``,
+``'bf16x3'`` and ``'int8'``, the reference's four
+(``repro.kernels.precision``).
 
-The reference (``repro.kernels.precision``) knows four policies: ``'f32'``,
-``'bf16'``, ``'bf16x3'`` and ``'int8'``.  The port accepts the same names;
-``'bf16'`` and ``'bf16x3'`` are not ported yet and raise
-``NotImplementedError`` naming the ROADMAP item that brings them.  ``'f32'``
-means true float32: no TF32 and no reduced-precision operands anywhere.
+``'f32'`` means true float32: no TF32 and no reduced-precision operands
+anywhere.
+
+``'bf16'`` stores the chunk as bfloat16 (half the bytes) and contracts
+bf16 x bf16 with f32 accumulation.  A bf16 product is exact in f32, so
+:func:`dot` rounds both operands to bf16 (round-to-nearest-even, as
+``astype(bfloat16)``), widens them and contracts in f32: the MXU's
+arithmetic up to the order of the sums.  Norms, sums, counts and the
+objective stay f32.
+
+``'bf16x3'`` keeps f32 storage and runs every contraction as three bf16
+products ``dot(hi_a, hi_b) + dot(hi_a, lo_b) + dot(lo_a, hi_b)`` with
+``hi = bf16(a)`` and ``lo = bf16(a - hi)``, added in that order.  Under it
+the one-hot of the update has no low part, so its sums are
+``sum(x_hi) + sum(x_lo)``, not the f32 sums.
 
 ``'int8'`` is the reference's scheme, bit for bit:
 
@@ -38,25 +50,12 @@ INT8_MAX = 127.0
 # all-zero features without perturbing any real scale.
 _SCALE_FLOOR = 1e-30
 
-_NOT_PORTED = {
-    "bf16": "ROADMAP queue 2 item 4",
-    "bf16x3": "ROADMAP queue 2 item 4",
-}
-
-
 def check(precision: str) -> str:
-    """Validate and return a concrete ``precision``.
-
-    Unknown names raise ``ValueError``; known but unported policies raise
-    ``NotImplementedError``.
-    """
+    """Validate and return a concrete ``precision`` (unknown names raise
+    ``ValueError``)."""
     if precision not in PRECISIONS:
         raise ValueError(
             f"unknown precision {precision!r}; known: {PRECISIONS}")
-    if precision in _NOT_PORTED:
-        raise NotImplementedError(
-            f"precision {precision!r} is not ported yet "
-            f"({_NOT_PORTED[precision]}); 'f32' and 'int8' run")
     return precision
 
 
@@ -80,18 +79,32 @@ def resolve(precision: str | None, dtype) -> str:
 def storage_dtype(precision: str) -> torch.dtype:
     """The dtype chunk data is stored in under a concrete policy (for
     ``'int8'`` the code dtype of a :class:`QuantizedChunk`)."""
-    return torch.int8 if check(precision) == "int8" else torch.float32
+    return {"bf16": torch.bfloat16, "int8": torch.int8}.get(
+        check(precision), torch.float32)
 
 
 def cast_storage(x, precision: str | None):
     """Data in its storage form under ``precision`` (auto-aware): a
     :class:`QuantizedChunk` for ``'int8'`` (a quantized chunk passes
-    through unchanged), f32 otherwise."""
+    through unchanged), bf16 for ``'bf16'``, f32 otherwise."""
     if isinstance(x, QuantizedChunk):
         return x
-    if resolve(precision, x.dtype) == "int8":
+    prec = resolve(precision, x.dtype)
+    if prec == "int8":
         return quantize_chunk(x)
-    return x.float()
+    return x.to(storage_dtype(prec))
+
+
+def _bf16(a: torch.Tensor) -> torch.Tensor:
+    """``a`` rounded to bf16 (nearest, ties to even), as f32 values."""
+    return a.to(torch.bfloat16).float()
+
+
+def _split_bf16(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)`` with ``hi = bf16(a)`` and ``lo = bf16(a - hi)``, as
+    f32 values (reference ``precision._split_bf16``)."""
+    hi = _bf16(a)
+    return hi, _bf16(a - hi)
 
 
 def dot(a: torch.Tensor, b: torch.Tensor, dims, precision: str
@@ -100,14 +113,26 @@ def dot(a: torch.Tensor, b: torch.Tensor, dims, precision: str
 
     ``dims`` is ``(dims_a, dims_b)``, the contracted axes — the
     ``dimension_numbers`` of the reference's ``lax.dot_general`` without
-    batch axes.  As in the reference there is no generic int8 path: the
-    scale algebra is contraction-specific (:func:`intdot`).
+    batch axes.  The bf16 operands are contracted as the f32 values they
+    hold: their products are exact in f32.  As in the reference there is
+    no generic int8 path: the scale algebra is contraction-specific
+    (:func:`intdot`).
     """
-    if check(precision) == "int8":
+    prec = check(precision)
+    if prec == "int8":
         raise ValueError(
             "dot has no generic int8 path: use quantize_chunk / "
             "quantize_centroids / intdot (see the ref.py oracles)")
-    return torch.tensordot(a.float(), b.float(), dims=dims)
+    a, b = a.float(), b.float()
+    if prec == "f32":
+        return torch.tensordot(a, b, dims=dims)
+    if prec == "bf16":
+        return torch.tensordot(_bf16(a), _bf16(b), dims=dims)
+    ah, al = _split_bf16(a)
+    bh, bl = _split_bf16(b)
+    return (torch.tensordot(ah, bh, dims=dims)
+            + torch.tensordot(ah, bl, dims=dims)
+            + torch.tensordot(al, bh, dims=dims))
 
 
 def sqnorm(a: torch.Tensor, dim=-1, keepdim: bool = False) -> torch.Tensor:

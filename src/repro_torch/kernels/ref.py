@@ -3,8 +3,9 @@
 These are the semantic ground truth of the port: on the CPU they are the
 production path, and on the card ``chip_smoke.py`` and the ``cuda`` tests
 hold every CUDA kernel against them on the same tensors.  Accumulation —
-norms, sums, counts, objective — is float32; under ``'int8'`` the
-contractions are exact int32 (:func:`repro_torch.kernels.precision.intdot`).
+norms, sums, counts, objective — is float32; the contractions run under
+the ``precision`` policy (:func:`repro_torch.kernels.precision.dot`; under
+``'int8'`` exact int32, :func:`repro_torch.kernels.precision.intdot`).
 """
 from __future__ import annotations
 
@@ -21,6 +22,10 @@ def pairwise_sqdist_ref(x, c: torch.Tensor,
     Associates as ``x2 - 2*dots + c2`` and clamps at 0, as the reference
     does (``repro/kernels/ref.py``).  ``x2`` (optional [m,1]) hoists the
     point norms out of loops that probe many candidate centroid sets.
+    ``precision=None`` follows x's dtype (a bf16 tensor contracts in bf16).
+    Under ``'bf16'`` / ``'bf16x3'`` only the dot runs at the policy: ``x2``
+    comes from x as given (for an f32 chunk, its f32 values, as the
+    reference's oracle takes it) and ``c2`` from the f32 centroids.
 
     Under ``'int8'`` (or for a :class:`~.precision.QuantizedChunk` ``x``)
     the contraction is the int8 scheme: ``dots = intdot(xq, cq) * t``,

@@ -1,12 +1,14 @@
-"""Centroid-update statistics: CUDA kernels C and C8.
+"""Centroid-update statistics: CUDA kernels C, C8, C16 and C3.
 
 Kernel C (``csrc/update.cu``, :func:`update_f32`) replaces
 ``repro/kernels/update.py:update_pallas`` (f32 body); kernel C8
 (``csrc/update_int8.cu``, :func:`update_int8`) replaces its int8 variant
-``_update_pallas_q``.  The wrappers launch their kernel on CUDA tensors and
-raise ``ValueError`` on any other; :func:`update_plain` and
-:func:`update_int8_plain` are the plain versions that ``ops`` runs for
-tensors on the CPU.
+``_update_pallas_q``; kernels C16 and C3 (``csrc/update_bf16.cu``,
+:func:`update_16`) its bf16 and bf16x3 bodies,
+whose wrapper casts x to the policy's storage first.  The wrappers launch
+their kernel on CUDA tensors and raise ``ValueError`` on any other;
+:func:`update_plain` and :func:`update_int8_plain` are the plain versions
+that ``ops`` runs for tensors on the CPU.
 """
 from __future__ import annotations
 
@@ -17,12 +19,17 @@ from repro_torch.kernels import precision as px
 
 launches = 0            # kernel launches by update_f32 (see ops.launch_counts)
 int8_launches = 0       # kernel launches by update_int8
+# kernel launches by update_16, per policy
+launches16 = dict.fromkeys(("bf16", "bf16x3"), 0)
 
 
-def update_plain(x: torch.Tensor, ids: torch.Tensor, k: int
-                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The plain PyTorch version: (sums f32 [k,n], counts f32 [k])."""
-    return ref.update_ref(x, ids, k, precision="f32")
+def update_plain(x: torch.Tensor, ids: torch.Tensor, k: int,
+                 precision: str = "f32") -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of kernel C (C16, C3 under ``'bf16'``,
+    ``'bf16x3'``), x cast to the policy's storage as the kernel's wrapper
+    casts it: (sums f32 [k,n], counts f32 [k])."""
+    return ref.update_ref(px.cast_storage(x, precision), ids, k,
+                          precision=precision)
 
 
 def update_f32(x: torch.Tensor, ids: torch.Tensor, k: int
@@ -49,6 +56,33 @@ def update_f32(x: torch.Tensor, ids: torch.Tensor, k: int
         x.data_ptr(), ids.data_ptr(), part.data_ptr(), out.data_ptr(), m, k,
         n, grid, torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "update_f32")
+    return out[:k * n].view(k, n), out[k * n:]
+
+
+def update_16(x: torch.Tensor, ids: torch.Tensor, k: int, precision: str
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel C16 (``precision="bf16"``) or C3 (``"bf16x3"``).  An id
+    outside [0, k) adds nothing; the per-CTA partials are reduced in CTA
+    order, so repeated calls are bitwise equal."""
+    if precision not in launches16:
+        raise ValueError(f"not a bf16 / bf16x3 body: {precision!r}")
+    x = px.cast_storage(x, precision)
+    build.require("x", x, px.storage_dtype(precision), 2)
+    build.require("ids", ids, torch.int32, 1)
+    m, n = x.shape
+    if ids.shape[0] != m or ids.device != x.device or k < 1 or n < 1:
+        raise ValueError(f"bad shapes x {tuple(x.shape)} / ids "
+                         f"{tuple(ids.shape)} / k={k}")
+    stride = k * n + k
+    grid = build.grid(x.device, m, stride)
+    part = torch.empty(grid * stride, dtype=torch.float32, device=x.device)
+    out = torch.empty(stride, dtype=torch.float32, device=x.device)
+    launch = getattr(build.load(), f"repro_update_{precision}")
+    launches16[precision] += 1
+    err = launch(x.data_ptr(), ids.data_ptr(), part.data_ptr(),
+                 out.data_ptr(), m, k, n, grid,
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, f"update_{precision}")
     return out[:k * n].view(k, n), out[k * n:]
 
 

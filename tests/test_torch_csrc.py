@@ -6,9 +6,10 @@ their *logic* — tiling, indexing, ragged edges, the tie rule, the ordered
 per-CTA reduction — by compiling ``kernels/csrc/*.cu`` with the host C++
 compiler against a small stand-in for the CUDA runtime: each CTA runs as
 ``blockDim`` host threads, ``__syncthreads`` is a barrier and
-``__shared__`` a static shared by the CTA's threads, and the rounding
+``__shared__`` a static shared by the CTA's threads, the rounding
 intrinsics (``__fmul_rn``, ``__fadd_rn``, ``__fsub_rn``) single float
-operations.  Results are held against the port's plain versions with the
+operations, and ``__nv_bfloat16`` its 16 bits with round-to-nearest-even
+conversions.  Results are held against the port's plain versions with the
 same tolerances as on the card; the int8 kernels' int32 sums bitwise.
 """
 import re
@@ -20,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import build, fused_step, ref
+from repro_torch.kernels import build, distance, fused_step, ref, update
 from repro_torch.kernels import precision as px
 from test_torch_cuda import int8_exact_blobs
 
@@ -81,6 +82,27 @@ inline void launch2(unsigned gx, unsigned gy, unsigned block,
 }
 inline void launch(unsigned grid, unsigned block, std::function<void()> fn) {
   launch2(grid, 1, block, fn);
+}
+"""
+
+BF16_STUB = r"""
+#pragma once
+#include <cstdint>
+#include <cstring>
+// bf16 as its 16 bits: the high half of an f32
+struct __nv_bfloat16 { uint16_t bits; };
+inline float __bfloat162float(__nv_bfloat16 h) {
+  uint32_t u = (uint32_t)h.bits << 16;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+// round to nearest, ties to even (finite values)
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  u += 0x7FFFu + ((u >> 16) & 1u);
+  return __nv_bfloat16{(uint16_t)(u >> 16)};
 }
 """
 
@@ -267,6 +289,106 @@ int main(int argc, char** argv) {
 """
 
 
+HARNESS_16 = r"""
+#include "cuda_runtime.h"
+#include "assign_bf16.inc"
+#include "update_bf16.inc"
+#include "fused_step_bf16.inc"
+#include "fused_step_batched_bf16.inc"
+#include <cstdio>
+#include <cstdlib>
+// harness_16 B m k n grid in out:
+// in = x[B,m,n] f32, xb[B,m,n] bf16, c[B,k,n] f32, ids[m] i32
+// out = csq[B,k] (sqnorm_rows on c); then for bf16 (on xb) and bf16x3 (on
+// x): B16/B3 on stream 0 (ids, d); C16/C3 on stream 0 with ids (sums ++
+// counts); A16/A3 on each stream (sums ++ counts ++ obj); D16/D3 (all
+// streams, each sums ++ counts ++ obj)
+template <typename T>
+static bool get(FILE* f, std::vector<T>& v) {
+  return fread(v.data(), sizeof(T), v.size(), f) == v.size();
+}
+template <typename T>
+static void put(FILE* f, const std::vector<T>& v) {
+  fwrite(v.data(), sizeof(T), v.size(), f);
+}
+struct In {
+  int B, k, n, grid;
+  int64_t m, tiles;
+  std::vector<float> c, csq;
+  std::vector<int32_t> ids;
+};
+template <typename X, typename A, typename U, typename F, typename D>
+static void run(FILE* o, const In& in, const std::vector<X>& x, A assign_k,
+                U update_k, F fused_k, D batched_k) {
+  const int B = in.B, k = in.k, n = in.n, grid = in.grid;
+  const int64_t m = in.m, tiles = in.tiles, kn = (int64_t)k * n;
+  const int64_t su = kn + k, sf = su + 1;
+  std::vector<int32_t> aids(m);
+  std::vector<float> ad(m);
+  launch(grid, TM, [&] {
+    assign_k(x.data(), in.c.data(), in.csq.data(), aids.data(), ad.data(),
+             m, k, n, tiles);
+  });
+  put(o, aids);
+  put(o, ad);
+  std::vector<float> pu(grid * su), ou(su);
+  launch(grid, TM, [&] {
+    update_k(x.data(), in.ids.data(), pu.data(), m, k, n, tiles);
+  });
+  launch(2, 256, [&] { update_16_reduce(pu.data(), ou.data(), su, grid); });
+  put(o, ou);
+  std::vector<float> pf(grid * sf), of(sf);
+  for (int b = 0; b < B; ++b) {
+    launch(grid, TM, [&] {
+      fused_k(x.data() + b * m * n, in.c.data() + b * kn,
+              in.csq.data() + b * k, pf.data(), m, k, n, tiles);
+    });
+    launch(3, 256,
+           [&] { fused_step_16_reduce(pf.data(), of.data(), sf, grid); });
+    put(o, of);
+  }
+  std::vector<float> pd(B * grid * sf), od(B * sf);
+  launch2(grid, B, TM, [&] {
+    batched_k(x.data(), in.c.data(), in.csq.data(), pd.data(), m, k, n,
+              tiles);
+  });
+  launch2(2, B, 256, [&] {
+    fused_step_batched_16_reduce(pd.data(), od.data(), sf, grid);
+  });
+  put(o, od);
+}
+int main(int argc, char** argv) {
+  In in;
+  in.B = atoi(argv[1]);
+  in.m = atoll(argv[2]);
+  in.k = atoi(argv[3]);
+  in.n = atoi(argv[4]);
+  in.grid = atoi(argv[5]);
+  in.tiles = (in.m + TM - 1) / TM;
+  const int64_t size = in.B * in.m * in.n;
+  std::vector<float> x(size);
+  std::vector<__nv_bfloat16> xb(size);
+  in.c.resize((size_t)in.B * in.k * in.n);
+  in.csq.resize((size_t)in.B * in.k);
+  in.ids.resize(in.m);
+  FILE* f = fopen(argv[6], "rb");
+  if (!get(f, x) || !get(f, xb) || !get(f, in.c) || !get(f, in.ids)) return 1;
+  fclose(f);
+  FILE* o = fopen(argv[7], "wb");
+  const int64_t rows = (int64_t)in.B * in.k;
+  launch(sqnorm_grid(rows), 256,
+         [&] { sqnorm_rows(in.c.data(), in.csq.data(), rows, in.n); });
+  put(o, in.csq);
+  run(o, in, xb, assign_bf16_kernel, update_bf16_kernel,
+      fused_step_bf16_kernel, fused_step_batched_bf16_kernel);
+  run(o, in, x, assign_bf16x3_kernel, update_bf16x3_kernel,
+      fused_step_bf16x3_kernel, fused_step_batched_bf16x3_kernel);
+  fclose(o);
+  return 0;
+}
+"""
+
+
 @pytest.fixture(scope="module")
 def harness(tmp_path_factory):
     cxx = shutil.which("g++")
@@ -274,6 +396,7 @@ def harness(tmp_path_factory):
         pytest.skip("needs a host C++20 compiler (g++) to emulate the kernels")
     d = tmp_path_factory.mktemp("csrc")
     (d / "cuda_runtime.h").write_text(STUB)
+    (d / "cuda_bf16.h").write_text(BF16_STUB)
     (d / "harness.cpp").write_text(HARNESS)
     for name in build.SOURCES:
         src = (build.CSRC / name).read_text()
@@ -282,11 +405,13 @@ def harness(tmp_path_factory):
             re.sub(r"<<<[^>]*>>>", "", src))
     (d / "harness_batched.cpp").write_text(HARNESS_BATCHED)
     (d / "harness_int8.cpp").write_text(HARNESS_INT8)
+    (d / "harness_16.cpp").write_text(HARNESS_16)
     procs = [subprocess.Popen(
         [cxx, "-std=c++20", "-O1", "-pthread", f"-I{d}", f"-I{build.CSRC}",
          str(d / f"{name}.cpp"), "-o", str(d / name)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for name in ("harness", "harness_batched", "harness_int8")]
+        for name in ("harness", "harness_batched", "harness_int8",
+                     "harness_16")]
     for proc in procs:
         _, err = proc.communicate()
         assert proc.returncode == 0, err
@@ -518,3 +643,128 @@ def test_int8_kernel_sources_match_plain(harness, tmp_path, shape, data):
             out["d8_cf"][b * (k + 1):(b + 1) * (k + 1)].view(np.uint32),
             a_cf.view(np.uint32))
     assert scale.shape == (B, n)
+
+
+# --------------------------------------------------------------------------
+# bf16 and bf16x3 kernels A16, B16, C16, D16 and A3, B3, C3, D3
+# --------------------------------------------------------------------------
+
+
+def run_16(harness, tmp_path, x, c, ids, grid):
+    """Run the bf16 / bf16x3 harness on x [B,m,n], c [B,k,n] and split its
+    output (see HARNESS_16): {"csq": ..., "bf16": {...}, "bf16x3": {...}}."""
+    B, m, n = x.shape
+    k = c.shape[1]
+    xb = torch.from_numpy(x).bfloat16().view(torch.int16).numpy()
+    (tmp_path / "in.bin").write_bytes(x.tobytes() + xb.tobytes()
+                                      + c.tobytes() + ids.tobytes())
+    subprocess.run([str(harness.parent / "harness_16"), str(B), str(m),
+                    str(k), str(n), str(grid), str(tmp_path / "in.bin"),
+                    str(tmp_path / "out.bin")], check=True, timeout=300)
+    raw = np.fromfile(tmp_path / "out.bin", dtype=np.uint8)
+    kn = k * n
+    per = ([("ids", np.int32, m), ("d", np.float32, m),
+            ("update", np.float32, kn + k)]
+           + [(f"fused_{b}", np.float32, kn + k + 1) for b in range(B)]
+           + [("batched", np.float32, B * (kn + k + 1))])
+    layout = [("csq", np.float32, B * k)] + [
+        ((p, name), dtype, size) for p in ("bf16", "bf16x3")
+        for name, dtype, size in per]
+    out, at = {"bf16": {}, "bf16x3": {}}, 0
+    for name, dtype, size in layout:
+        part = raw[at:at + 4 * size].view(dtype)
+        if isinstance(name, tuple):
+            out[name[0]][name[1]] = part
+        else:
+            out[name] = part
+        at += 4 * size
+    assert at == raw.size
+    return out
+
+
+def near_ties_16(x, c, precision):
+    """Rows whose best two scores ||c||^2 - 2 dot(x, c) under the policy
+    (x in its storage) are within 1e-4 relative."""
+    xs = px.cast_storage(x, precision)
+    scores = px.sqnorm(c)[None, :] - 2.0 * px.dot(xs, c, ([1], [1]),
+                                                   precision)
+    if scores.shape[1] < 2:
+        return torch.zeros(scores.shape[0], dtype=torch.bool)
+    two = torch.topk(scores, 2, dim=1, largest=False).values
+    return (two[:, 1] - two[:, 0]) <= 1e-4 * two[:, 0].abs()
+
+
+BF16_SHAPES = [  # (B, m, k, n, grid): ragged tiles, CTAs with several
+    (2, 600, 25, 28, 2),   # tiles, k and n tiles with ragged edges, n > 32
+    (1, 300, 40, 3, 1),    # (x reloaded per phase), k = 1, a CTA without
+    (2, 513, 70, 68, 2),   # a tile
+    (3, 257, 1, 5, 3),
+]
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES, ids=[
+    f"B{b}-m{m}-k{k}-n{n}-g{g}" for b, m, k, n, g in BF16_SHAPES])
+def test_bf16_kernel_sources_match_plain(harness, tmp_path, shape):
+    """Kernels A16/A3, B16/B3, C16/C3 and D16/D3 against the plain versions
+    at their policy (x cast to its storage first).
+
+    Tolerances: the centroid norms of the first launch bitwise (features in
+    order, as ``sqnorm_in_order``); ids equal off near ties (none on these
+    blobs) and a twin centroid never chosen (ties go to the lowest index);
+    d within RTOL of the terms' magnitude (norms and dots summed in another
+    order; bf16 products are exact in f32, so only the order differs);
+    counts exact; sums within RTOL of the cluster's sum of |x|; the
+    objective within RTOL; D's stream b bitwise A's on stream b.
+    """
+    B, m, k, n, grid = shape
+    rng = np.random.default_rng(m + k + 1)
+    c = (rng.normal(size=(B, k, n)) * 5).astype(np.float32)
+    if k > 1:
+        c[:, -1] = c[:, 0]               # twin centroids: exact score ties
+    x = np.stack([c[b][rng.integers(0, k, m)] for b in range(B)])
+    x = (x + rng.normal(size=x.shape)).astype(np.float32)
+    X, C = torch.from_numpy(x), torch.from_numpy(c)
+    ids = distance.assign_plain(X[0], C[0], "bf16")[0].numpy().copy()
+    ids[::7] = -1                        # padding: never hits
+    ids[3::11] = k                       # out of range: adds nothing
+    out = run_16(harness, tmp_path, x, c, ids, grid)
+    np.testing.assert_array_equal(
+        out["csq"], px.sqnorm_in_order(C).numpy().ravel())
+    kn = k * n
+    for prec in ("bf16", "bf16x3"):
+        got = out[prec]
+        xs0 = px.cast_storage(X[0], prec).float().numpy()
+        pids, pd = distance.assign_plain(X[0], C[0], prec)
+        ties = near_ties_16(X[0], C[0][:max(k - 1, 1)], prec).numpy()
+        assert ties.sum() <= 2
+        np.testing.assert_array_equal(got["ids"][~ties], pids.numpy()[~ties])
+        if k > 1:
+            assert not np.any(got["ids"] == k - 1), prec
+        bound = (np.sqrt((xs0.astype(np.float64) ** 2).sum(1))
+                 + np.sqrt((c[0].astype(np.float64) ** 2).sum(1))[
+                     pids.numpy()]) ** 2
+        assert np.all(np.abs(got["d"] - pd.numpy()) <= RTOL * bound), prec
+
+        usums, ucounts = update.update_plain(X[0], torch.from_numpy(ids), k,
+                                             prec)
+        abs_u, _ = ref.update_ref(torch.from_numpy(np.abs(xs0)),
+                                  torch.from_numpy(ids), k)
+        np.testing.assert_array_equal(got["update"][kn:], ucounts.numpy())
+        assert np.all(np.abs(got["update"][:kn] - usums.numpy().ravel())
+                      <= RTOL * abs_u.numpy().ravel() + 1e-6), prec
+
+        for b in range(B):
+            a_out = got[f"fused_{b}"]
+            sums_p, counts_p, obj_p = fused_step.fused_step_plain(X[b], C[b],
+                                                                  prec)
+            bids, _ = distance.assign_plain(X[b], C[b], prec)
+            xsb = px.cast_storage(X[b], prec).float().abs()
+            abs_s, _ = ref.update_ref(xsb, bids, k)
+            np.testing.assert_array_equal(a_out[kn:kn + k], counts_p.numpy())
+            assert np.all(np.abs(a_out[:kn] - sums_p.numpy().ravel())
+                          <= RTOL * abs_s.numpy().ravel() + 1e-6), (prec, b)
+            np.testing.assert_allclose(a_out[-1], float(obj_p), rtol=RTOL)
+            # D's stream b is bitwise A's on stream b
+            np.testing.assert_array_equal(
+                got["batched"][b * (kn + k + 1):(b + 1) * (kn + k + 1)]
+                .view(np.uint32), a_out.view(np.uint32))

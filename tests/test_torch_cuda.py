@@ -384,3 +384,161 @@ def test_int8_fit_on_card_goes_through_the_int8_kernels(batch):
     _, f = api.evaluate(res, X)
     _, f_ref = api.evaluate(ref, X)
     assert abs(f - f_ref) <= 1e-3 * f_ref
+
+
+# --------------------------------------------------------------------------
+# bf16 and bf16x3 kernels A16, B16, C16, D16 and A3, B3, C3, D3
+# --------------------------------------------------------------------------
+
+BF16_CARD_SHAPES = [(64_000, 25, 28), (64_001, 25, 3), (64_001, 129, 68),
+                    (3_001, 1024, 1024), (2_001, 1024, 1100)]
+
+
+def near_ties_16(x, c, precision):
+    """Rows whose best two scores ||c||^2 - 2 dot(x, c) at the policy (x
+    in its storage) are within 1e-4 relative."""
+    from repro_torch.kernels import precision as px
+
+    xs = px.cast_storage(x, precision)
+    scores = px.sqnorm(c)[None, :] - 2.0 * px.dot(xs, c, ([1], [1]),
+                                                   precision)
+    two = torch.topk(scores, 2, dim=1, largest=False).values
+    return (two[:, 1] - two[:, 0]) <= 1e-4 * two[:, 0].abs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["bf16", "bf16x3"])
+@pytest.mark.parametrize("shape", BF16_CARD_SHAPES, ids=[
+    f"m{m}-k{k}-n{n}" for m, k, n in BF16_CARD_SHAPES])
+def test_bf16_kernels_match_plain_on_card(shape, precision):
+    """Kernels B16/B3, C16/C3 and A16/A3 (outside the envelope: B + C at
+    the policy) on the card against the plain versions at the policy (x
+    cast to its storage first, as the wrappers cast it): two launches
+    bitwise equal; ids equal off near ties and d within the f32 norm
+    bound; counts exact on the same ids and sums within RTOL of the sum of
+    |x|; the objective within RTOL.  bf16 products are exact in f32, so
+    only the order of the sums differs."""
+    _card()
+    from repro_torch.kernels import distance, fused_step, ops, update
+    from repro_torch.kernels import precision as px
+
+    m, k, n = shape
+    xn, cn = blobs(m, k, n, seed=6)
+    x, c = torch.from_numpy(xn).cuda(), torch.from_numpy(cn).cuda()
+    ties = near_ties_16(x, c, precision)
+    n_ties = int(ties.sum())
+    xs = px.cast_storage(x, precision).float().cpu().numpy()
+
+    ids, d = distance.assign_16(x, c, precision)
+    ids2, d2 = distance.assign_16(x, c, precision)
+    assert torch.equal(ids, ids2) and torch.equal(d, d2)   # bitwise repeat
+    pids, pd = distance.assign_plain(x, c, precision)
+    assert torch.equal(ids[~ties], pids[~ties])
+    pidn = pids.cpu().numpy()
+    assert np.all((d - pd).abs().cpu().numpy()
+                  <= d_bound(xs, cn, pidn) + 1e-6)
+
+    uids = pids.clone()
+    uids[::7] = -1                 # padding: never hits
+    uids[3::11] = k                # out of range: adds nothing
+    sums, counts = update.update_16(x, uids, k, precision)
+    sums2, counts2 = update.update_16(x, uids, k, precision)
+    assert torch.equal(sums, sums2) and torch.equal(counts, counts2)
+    psums, pcounts = update.update_plain(x, uids, k, precision)
+    assert torch.equal(counts, pcounts)
+    assert np.all((sums - psums).abs().cpu().numpy()
+                  <= sums_bound(xs, uids.cpu().numpy(), k))
+
+    fs = ops.fused_step(x, c, impl="cuda", precision=precision)
+    fs2 = ops.fused_step(x, c, impl="cuda", precision=precision)
+    assert all(torch.equal(a, b) for a, b in zip(fs, fs2))
+    psums, pcounts, pobj = fused_step.fused_step_plain(x, c, precision)
+    assert int((fs[1] - pcounts).abs().sum()) <= 2 * n_ties
+    assert np.all((fs[0] - psums).abs().cpu().numpy()
+                  <= sums_bound(xs, pidn, k)
+                  + 2 * n_ties * float(np.abs(xs).max()))
+    np.testing.assert_allclose(float(fs[2]), float(pobj), rtol=RTOL)
+
+
+BF16_BATCHED_CARD_SHAPES = [(8, 64_000, 25, 28), (3, 64_001, 25, 3),
+                            (2, 3_001, 1024, 1024), (2, 2_001, 1024, 1100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["bf16", "bf16x3"])
+@pytest.mark.parametrize("shape", BF16_BATCHED_CARD_SHAPES, ids=[
+    f"B{b}-m{m}-k{k}-n{n}" for b, m, k, n in BF16_BATCHED_CARD_SHAPES])
+def test_bf16_batched_kernel_matches_single_on_card(shape, precision):
+    """Kernel D16 / D3 (through ops: outside the envelope B + C at the
+    policy per stream): stream b bitwise equal to the single-stream route
+    on stream b, two calls bitwise equal, and the plain version within the
+    near-tie allowance."""
+    _card()
+    from repro_torch.kernels import fused_step, ops
+    from repro_torch.kernels import precision as px
+
+    B, m, k, n = shape
+    pairs = [blobs(m, k, n, seed=7 + b) for b in range(B)]
+    x = torch.from_numpy(np.stack([p[0] for p in pairs])).cuda()
+    c = torch.from_numpy(np.stack([p[1] for p in pairs])).cuda()
+    ops.reset_launch_counts()
+    got = ops.fused_step_batched(x, c, impl="cuda", precision=precision)
+    again = ops.fused_step_batched(x, c, impl="cuda", precision=precision)
+    counts = ops.launch_counts()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    fits = fused_step.fits_batched(k, n)
+    assert (counts[f"fused_step_batched_{precision}"] > 0) == fits
+    assert counts[f"fused_step_{precision}"] == 0
+    plain = fused_step.fused_step_batched_plain(x, c, precision)
+    for b in range(B):
+        one = ops.fused_step(x[b], c[b], impl="cuda", precision=precision)
+        assert all(torch.equal(g[b], o) for g, o in zip(got, one)), b
+        n_ties = int(near_ties_16(x[b], c[b], precision).sum())
+        assert int((got[1][b] - plain[1][b]).abs().sum()) <= 2 * n_ties
+        xs = px.cast_storage(x[b], precision).float().cpu().numpy()
+        pids = ops.assign(px.cast_storage(x[b], precision), c[b],
+                          impl="ref", precision=precision)[0].cpu().numpy()
+        assert np.all((got[0][b] - plain[0][b]).abs().cpu().numpy()
+                      <= sums_bound(xs, pids, k)
+                      + 2 * n_ties * float(np.abs(xs).max()))
+        np.testing.assert_allclose(float(got[2][b]), float(plain[2][b]),
+                                   rtol=RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["bf16", "bf16x3"])
+@pytest.mark.parametrize("batch", [1, 4], ids=["sequential", "batched"])
+def test_bf16_fit_on_card_goes_through_the_policy_kernels(batch, precision):
+    """fit(precision="bf16" | "bf16x3"): A16 / A3 (D16 / D3 when batched)
+    in the Lloyd loop; in the epilogue f32 B and C16 under bf16, B3 and C3
+    under bf16x3; the plain path reaches the same full-data objective
+    within 1e-3, and bf16 stays within 1 % of the f32 fit's."""
+    _card()
+    from repro_torch import api
+    from repro_torch.data.synthetic import GMMSpec, gmm_dataset
+    from repro_torch.kernels import ops
+
+    X = gmm_dataset(GMMSpec(m=300_000, n=28, components=25, seed=1))
+    cfg = api.BigMeansConfig(k=25, s=8192, n_chunks=8, batch=batch,
+                             sync_every=2 if batch > 1 else 1,
+                             precision=precision)
+    ops.reset_launch_counts()
+    res = api.fit(X, cfg)
+    counts = ops.launch_counts()
+    assert res.extras["fit"]["precision"] == precision
+    fused = (f"fused_step_batched_{precision}" if batch > 1
+             else f"fused_step_{precision}")
+    assert counts[fused] > 0
+    if batch == 1:
+        assert counts[fused] == res.n_iterations
+    assert counts[f"update_{precision}"] == cfg.n_chunks
+    epilogue_assign = "assign" if precision == "bf16" else "assign_bf16x3"
+    assert counts[epilogue_assign] == cfg.n_chunks
+    assert counts["fused_step"] == counts["fused_step_batched"] == 0
+    ref = api.fit(X, cfg.replace(impl="ref"))
+    assert ops.launch_counts() == counts          # the plain path: no kernel
+    _, f = api.evaluate(res, X)
+    _, f_ref = api.evaluate(ref, X)
+    assert abs(f - f_ref) <= 1e-3 * f_ref
+    _, f32 = api.evaluate(api.fit(X, cfg.replace(precision="f32")), X)
+    assert abs(f - f32) <= 1e-2 * f32

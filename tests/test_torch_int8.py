@@ -140,9 +140,10 @@ def test_int8_policy():
     assert ops.resolve_precision("auto", torch.ones(2, 2)) == "f32"
     with pytest.raises(ValueError, match="no generic int8 path"):
         px.dot(torch.ones(2, 2), torch.ones(2, 2), ([1], [1]), "int8")
-    for name in ("bf16", "bf16x3"):
-        with pytest.raises(NotImplementedError, match="queue 2 item 4"):
-            px.check(name)
+    for name in ("bf16", "bf16x3"):             # ported: not int8
+        assert px.check(name) == name
+        assert ops.resolve_precision(name, torch.ones(2, 2)) == name
+        assert ops.resolve_precision(name, qx) == "int8"
     # intdot is exact int32 on the CPU
     a = torch.full((3, 4096), 127, dtype=torch.int8)
     assert int(px.intdot(a, a, ([1], [1]))[0, 0]) == 127 * 127 * 4096

@@ -138,13 +138,18 @@ def test_cpu_wrappers_take_the_plain_version():
                  lambda: distance.assign_int8(qx, ct),
                  lambda: update.update_int8(qx, ids, 25),
                  lambda: fused_step.fused_step_int8(qx, ct),
-                 lambda: fused_step.fused_step_batched_int8(qb, ct[None])):
+                 lambda: fused_step.fused_step_batched_int8(qb, ct[None]),
+                 *(call for p in ("bf16", "bf16x3") for call in (
+                     lambda p=p: distance.assign_16(xt, ct, p),
+                     lambda p=p: update.update_16(xt, ids, 25, p),
+                     lambda p=p: fused_step.fused_step_16(xt, ct, p),
+                     lambda p=p: fused_step.fused_step_batched_16(
+                         xt[None], ct[None], p)))):
         with pytest.raises(ValueError, match="must be a CUDA tensor"):
             call()
-    assert ops.launch_counts() == {
-        "fused_step": 0, "assign": 0, "update": 0, "fused_step_batched": 0,
-        "fused_step_int8": 0, "fused_step_batched_int8": 0,
-        "assign_int8": 0, "update_int8": 0}
+    entry = ("fused_step", "assign", "update", "fused_step_batched")
+    assert ops.launch_counts() == dict.fromkeys(
+        [e + p for p in ("", "_int8", "_bf16", "_bf16x3") for e in entry], 0)
     sums, counts = ops.update(xt, ids, 25)
     assert all(torch.equal(a, b) for a, b in
                zip((sums, counts), update.update_plain(xt, ids, 25)))

@@ -81,8 +81,6 @@ def test_cuda_impl_refuses_cpu_tensors():
     (dict(topology="worker_mesh"), "queue 1 item 8"),
     (dict(mesh=object()), "queue 1 item 8"),
     (dict(autotune=True), "queue 1 item 10"),
-    (dict(precision="bf16"), "queue 2 item 4"),
-    (dict(precision="bf16x3"), "queue 2 item 4"),
 ], ids=lambda v: next(iter(v)) if isinstance(v, dict) else v)
 def test_unported_knobs_raise(knob, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -102,6 +100,36 @@ def test_int8_precision_is_ported():
     assert api.fit(X, base, device="cpu").extras["fit"]["precision"] == "f32"
 
 
+@pytest.mark.parametrize("precision", ["bf16", "bf16x3"])
+def test_bf16_precisions_are_ported(precision):
+    """precision="bf16" / "bf16x3" validate as a config field and as a fit
+    override, and a bf16 tensor under 'auto' fits at bf16, its dataset kept
+    in bf16."""
+    from repro_torch.engine import incore
+
+    cfg = api.BigMeansConfig(k=3, s=100, n_chunks=2, precision=precision)
+    assert cfg.precision == precision
+    res = api.fit(X, cfg, device="cpu")
+    assert res.extras["fit"]["precision"] == precision
+    base = api.BigMeansConfig(k=3, s=100, n_chunks=2)
+    assert api.fit(X, base, device="cpu", precision=precision
+                   ).extras["fit"]["precision"] == precision
+    xb = torch.from_numpy(X).bfloat16()
+    auto = api.fit(xb, base, device="cpu")
+    assert auto.extras["fit"]["precision"] == "bf16"
+    assert api.ArraySource(xb).data_dtype == torch.bfloat16
+    want = torch.bfloat16 if precision == "bf16" else torch.float32
+    for data in (X, xb):
+        assert incore._cast_dataset(data, precision, torch.device("cpu")
+                                    ).dtype == want
+    assert incore._cast_dataset(xb, "auto", torch.device("cpu")
+                                ).dtype == torch.bfloat16
+    # a bf16 tensor at 'auto' is the f32 data fitted at 'bf16', bit for bit
+    same = api.fit(X, base, device="cpu", precision="bf16")
+    assert torch.equal(auto.centroids, same.centroids)
+    assert auto.trace == same.trace
+
+
 @pytest.mark.parametrize("method,item", [
     ("forgy", "queue 1 item 9"), ("streaming", "queue 1 item 6"),
     ("sharded", "queue 1 item 8"), ("kmeanspp", "queue 1 item 9"),
@@ -115,8 +143,6 @@ def test_unported_methods_raise(method, item):
 
 def test_unported_inputs_raise():
     cfg = api.BigMeansConfig(k=3, s=100, n_chunks=2)
-    with pytest.raises(NotImplementedError, match="precision 'bf16'"):
-        api.fit(torch.from_numpy(X).bfloat16(), cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         api.fit(lambda cid: X, cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):

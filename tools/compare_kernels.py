@@ -1,0 +1,99 @@
+#!/usr/bin/env python3
+"""Hold the f32 and int8 kernels of this checkout bitwise to another tree's.
+
+    python3 tools/compare_kernels.py --against DIR
+
+``DIR`` is another checkout of the repository (for example the parent
+commit unpacked with ``git archive`` into ``build/parent``).  Each tree
+builds its own kernel library and runs kernels A, B, C, D (f32) and A8,
+B8, C8, D8 (int8) through ``repro_torch.kernels.ops`` on the same inputs
+(five shapes, generated on the card from fixed seeds), in a process of
+its own; the outputs are compared bit for bit.  Prints one JSON line —
+how many outputs were compared and which differ — and exits 1 if any
+differs.  Needs a CUDA card (sm_90).  ``--dump SRC OUT`` is the per-tree
+step: run the kernels of the package under ``SRC`` and save the outputs.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+SHAPES = [(64_000, 25, 28), (64_001, 25, 3), (64_001, 130, 68),
+          (3_001, 1024, 1024), (2_001, 1024, 1100)]   # (m, k, n)
+
+
+def dump(src: str, out: str) -> None:
+    """Run the f32 and int8 entry points of the package under ``src`` and
+    save every output to ``out``."""
+    sys.path.insert(0, src)
+    import torch
+
+    from repro_torch.kernels import distance, ops, update
+    from repro_torch.kernels import precision as px
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    results = {}
+    for m, k, n in SHAPES:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(m + k + n)
+        c = torch.randn((k, n), generator=gen, device="cuda") * 5.0
+        comp = torch.randint(0, k, (m,), generator=gen, device="cuda")
+        x = (c[comp] + torch.randn((m, n), generator=gen, device="cuda")
+             ).contiguous()
+        qx = px.quantize_chunk(x)
+        ids, d = distance.assign_f32(x, c)
+        xb = torch.stack([x, x.flip(0), x * 0.5])
+        cb = torch.stack([c, c + 0.1, c * 0.5])
+        shape = f"{m},{k},{n}"
+        results.update({
+            f"B {shape}": (ids, d),
+            f"C {shape}": update.update_f32(x, ids, k),
+            f"A {shape}": ops.fused_step(x, c, impl="cuda"),
+            f"D {shape}": ops.fused_step_batched(xb, cb, impl="cuda"),
+            f"B8 {shape}": distance.assign_int8(qx, c),
+            f"C8 {shape}": update.update_int8(qx, ids, k),
+            f"A8 {shape}": ops.fused_step(qx, c, impl="cuda"),
+            f"D8 {shape}": ops.fused_step_batched(px.quantize_chunk(xb), cb,
+                                                  impl="cuda"),
+        })
+    torch.cuda.synchronize()
+    torch.save({key: tuple(t.cpu() for t in val)
+                for key, val in results.items()}, out)
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--against", help="the other tree's root")
+    parser.add_argument("--dump", nargs=2, metavar=("SRC", "OUT"))
+    args = parser.parse_args()
+    if args.dump:
+        dump(*args.dump)
+        return 0
+    if not args.against:
+        parser.error("--against DIR or --dump SRC OUT is needed")
+    import torch
+
+    outdir = ROOT / "build" / "compare_kernels"
+    outdir.mkdir(parents=True, exist_ok=True)
+    saved = []
+    for name, root in (("other", Path(args.against).resolve()),
+                       ("this", ROOT)):
+        out = outdir / f"{name}.pt"
+        subprocess.run([sys.executable, __file__, "--dump",
+                        str(root / "src"), str(out)], check=True)
+        saved.append(torch.load(out))
+    other, this = saved
+    differ = sorted(key for key in other if key not in this or not all(
+        torch.equal(a, b) for a, b in zip(other[key], this[key])))
+    print(json.dumps({"compare_kernels": {
+        "against": args.against, "outputs": len(other),
+        "differ": differ}}), flush=True)
+    return 1 if differ else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
