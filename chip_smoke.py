@@ -6,8 +6,9 @@
 Phases, each printing JSON lines:
 
 1. device — card, torch/CUDA versions, power limit; TF32 switched off.
-2. build — compile the CUDA sources (kernels/csrc: the sixteen entry
-   points of kernels A-D and their int8, bf16 and bf16x3 bodies) for sm_90a.
+2. build — compile the CUDA sources (kernels/csrc: the twenty-one entry
+   points of kernels A-D and their int8, bf16 and bf16x3 bodies, the dma
+   pipeline of kernel A under each policy, and kernel P) for sm_90a.
 3. kernels — each f32 kernel against its plain PyTorch version on the same
    CUDA tensors, at the main paths' shapes and at edge shapes, and two
    launches of each compared bitwise; every stream of the batched kernel D
@@ -20,6 +21,15 @@ Phases, each printing JSON lines:
    (x cast to its storage first): ids equal off near ties, d, sums and obj
    within 1e-5, counts equal on the same ids, repeat launches bitwise, every
    stream of D16 (D3) bitwise equal to A16 (A3).
+3d. dma kernels — A-dma, A8-dma, A16-dma, A3-dma bitwise kernels A, A8,
+   A16, A3 at phase 3c's fused shapes and at n = 37 from a base one element
+   off its buffer, held against the plain versions with phase 3's
+   tolerances, repeat launches bitwise.
+3e. kernel P — ``kpp_probe_cuda`` against ``kpp_probe_plain`` at the
+   reference test's shapes and the seeding shape (m = 64,000, n = 28,
+   L = 3): newd within 1e-5 of its terms' magnitude, pot within 1e-5
+   relative, repeat launches bitwise; then the entry point ``kpp_probe``
+   once at the seeding shape, its launch counted.
 4. main path, sequential — ``repro_torch.api.fit`` + ``evaluate`` on a
    HEPMASS-shaped mixture (m = 10.5M, n = 28, 25 components) generated on
    the card, with k = 25, s = 64,000, 32 chunks, through the kernels
@@ -53,12 +63,21 @@ Phases, each printing JSON lines:
 5f. the two-pass route at bf16 — 5c's fit at ``precision="bf16"``: B16 and
    C16 carry every Lloyd iteration, held against their plain versions at
    that shape (the final line reports B16's error there).
+4e. the autotuned path — ``fit(autotune=True)`` under each policy,
+   sequential and ``batch=8, sync_every=2`` (every candidate's time and
+   the winners printed), and with tuning off a cache file under build/
+   pinning
+   ``{"pipeline": "dma"}``, the sequential fit under each policy (the dma
+   kernel launched once per Lloyd iteration): each bitwise the untuned fit
+   (trace, centroids, full-data objective).
 6. times — each kernel, its plain version and a PyTorch library call where
    one computes the same function, by CUDA events over CUDA-graph replays
    (device time; host launch overhead excluded), beside the bound; kernel D
    (D8, D16, D3) beside 8 back-to-back single-stream launches; A and A8 at
    the fused envelope's edge (k = n = 1,024); batched and sequential fit
-   walls in turns, f32 against int8, bf16 and bf16x3 fit walls in turns.
+   walls in turns, f32 against int8, bf16 and bf16x3 fit walls in turns;
+   each dma kernel beside its blocks twin in turns, at the main shape and
+   at the envelope's edge; kernel P at the seeding shape.
    Phases 5c and 5f time B8, C8, C, B16 and C16 at their own shape.
 
 Then the one ``{"kernels": [...]}`` line, the card's name and power limit,
@@ -90,8 +109,9 @@ from repro_torch.data.synthetic import (  # noqa: E402
     PAPER_DATASETS, GMMSpec, gmm_dataset,
 )
 from repro_torch.kernels import (  # noqa: E402
-    build, distance, fused_step, ops, ref,
+    autotune, build, distance, fused_step, ops, ref,
 )
+from repro_torch.kernels import kpp_probe as kpp  # noqa: E402
 from repro_torch.kernels import precision as px  # noqa: E402
 from repro_torch.kernels import update as upd  # noqa: E402
 
@@ -129,10 +149,17 @@ KERNELS = {
             "src/repro/kernels/fused_step.py:433"),
            ("assign", "assign", "src/repro/kernels/distance.py:164"),
            ("update", "update", "src/repro/kernels/update.py:114"))},
+    **{f"fused_step_dma_{prec}": ("src/repro_torch/kernels/csrc/"
+                                  "fused_step_dma.cu",
+                                  "src/repro/kernels/fused_step.py:297")
+       for prec in ("f32", "int8", "bf16", "bf16x3")},
+    "kpp_probe": ("src/repro_torch/kernels/csrc/kpp_probe.cu",
+                  "src/repro/kernels/kpp_probe.py:64"),
 }
 COUNTS = {"fused_step_f32": "fused_step", "assign_f32": "assign",
           "update_f32": "update",
           "fused_step_batched_f32": "fused_step_batched",
+          "fused_step_dma_f32": "fused_step_dma",
           **{name: name for name in KERNELS if not name.endswith("_f32")}}
 # The path whose run gives each kernel's launches in the final line.
 PATH_OF = {"fused_step_f32": "sequential", "assign_f32": "sequential",
@@ -146,7 +173,10 @@ PATH_OF = {"fused_step_f32": "sequential", "assign_f32": "sequential",
            "fused_step_bf16x3": "bf16x3_sequential",
            "fused_step_batched_bf16x3": "bf16x3_batched",
            "assign_bf16x3": "bf16x3_sequential",
-           "update_bf16x3": "bf16x3_sequential"}
+           "update_bf16x3": "bf16x3_sequential",
+           **{f"fused_step_dma_{prec}": f"dma_{prec}_sequential"
+              for prec in ("f32", "int8", "bf16", "bf16x3")},
+           "kpp_probe": "kpp_probe_entry"}
 BATCH, SYNC_EVERY = 8, 2        # the paper's (configs/bigmeans_paper.py)
 
 
@@ -232,11 +262,14 @@ def check_update(x, ids, k) -> float:
     return float(err.max())
 
 
-def check_fused(x, c, ties: int, direct: bool = True) -> float:
-    """Kernel A (direct) or the ops two-pass route against the plain step."""
+def check_fused(x, c, ties: int, direct: bool = True,
+                pipeline: str = "blocks") -> float:
+    """Kernel A (direct; A-dma under ``pipeline="dma"``) or the ops
+    two-pass route against the plain step."""
     k = c.shape[0]
     if direct:
-        sums, counts, obj = twice(fused_step.fused_step_f32, x, c)
+        sums, counts, obj = twice(
+            lambda a, b: fused_step.fused_step_f32(a, b, pipeline), x, c)
     else:
         sums, counts, obj = ops.fused_step(x, c, impl="cuda")
     sums_p, counts_p, obj_p = fused_step.fused_step_plain(x, c)
@@ -398,14 +431,17 @@ def check_update_int8(qx, ids, k) -> float:
     return float((sums - sums_p).abs().max())
 
 
-def check_fused_int8(qx, c, ids_b8, ties: int, direct: bool) -> float:
-    """Kernel A8 (direct) or the ops route (B8 + C8) twice (bitwise): its
-    int32 sums and counts bitwise those of the plain update on kernel B8's
-    ids (the same argmin code), and within the near-tie allowance of the
-    plain step on the plain ids; the objective within RTOL."""
+def check_fused_int8(qx, c, ids_b8, ties: int, direct: bool,
+                     pipeline: str = "blocks") -> float:
+    """Kernel A8 (direct; A8-dma under ``pipeline="dma"``) or the ops route
+    (B8 + C8) twice (bitwise): its int32 sums and counts bitwise those of
+    the plain update on kernel B8's ids (the same argmin code), and within
+    the near-tie allowance of the plain step on the plain ids; the
+    objective within RTOL."""
     k = c.shape[0]
     if direct:
-        sums, counts, obj = twice(fused_step.fused_step_int8, qx, c)
+        sums, counts, obj = twice(
+            lambda a, b: fused_step.fused_step_int8(a, b, pipeline), qx, c)
     else:
         sums, counts, obj = twice(
             lambda a, b: ops.fused_step(a, b, impl="cuda"), qx, c)
@@ -570,12 +606,15 @@ def check_update_16(x, ids, k, prec: str) -> float:
     return float(err.max())
 
 
-def check_fused_16(x, c, ties: int, prec: str, direct: bool) -> float:
-    """Kernel A16 / A3 (direct) or the ops route (outside the envelope: B
-    and C at the policy) twice (bitwise), against the plain step."""
+def check_fused_16(x, c, ties: int, prec: str, direct: bool,
+                   pipeline: str = "blocks") -> float:
+    """Kernel A16 / A3 (direct; their dma twins under ``pipeline="dma"``)
+    or the ops route (outside the envelope: B and C at the policy) twice
+    (bitwise), against the plain step."""
     k = c.shape[0]
     sums, counts, obj = twice(
-        (lambda a, b: fused_step.fused_step_16(a, b, prec)) if direct else
+        (lambda a, b: fused_step.fused_step_16(a, b, prec, pipeline))
+        if direct else
         (lambda a, b: ops.fused_step(a, b, impl="cuda", precision=prec)),
         x, c)
     sums_p, counts_p, obj_p = fused_step.fused_step_plain(x, c, prec)
@@ -689,6 +728,155 @@ def phase_kernels_16(seed: int) -> dict:
     emit({"phase": "kernels_16_summary", "max_abs_err_at_main_shape":
           main_err})
     return main_err
+
+
+# --------------------------------------------------------------------------
+# phase 3d: the dma kernels against kernels A, A8, A16, A3
+# --------------------------------------------------------------------------
+
+POLICIES = ("f32", "int8", "bf16", "bf16x3")
+
+
+def fused_entry(prec: str):
+    """The single-chunk fused step at ``prec``: ``f(x, c, pipeline)``."""
+    if prec == "f32":
+        return fused_step.fused_step_f32
+    if prec == "int8":
+        return fused_step.fused_step_int8
+    return lambda x, c, pipeline="blocks": fused_step.fused_step_16(
+        x, c, prec, pipeline)
+
+
+def offset_view(x, elements: int):
+    """A contiguous copy of ``x`` whose first element lies ``elements``
+    elements into its buffer (a bf16 or int8 row then starts off a 4-byte
+    word)."""
+    buf = torch.empty(x.numel() + elements, dtype=x.dtype, device=x.device)
+    view = buf[elements:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def phase_kernels_dma(seed: int) -> dict:
+    """Phase 3d: A-dma, A8-dma, A16-dma and A3-dma bitwise kernels A, A8,
+    A16 and A3 at phase 3c's fused shapes and at an odd n > 32 from a base
+    one element off its buffer; each held against the plain version with
+    phase 3's tolerances, two launches bitwise equal."""
+    shapes = [  # (m, k, n, why, base offset in elements)
+        (64_000, 25, 28, "main path chunk", 0),
+        (64_001, 25, 3, "ragged m, n = 3", 0),
+        (64_001, 129, 68, "k = 129, n = 68", 0),
+        (64_001, 1024, 1024, "k = n = 1024: fused envelope edge", 0),
+        (64_001, 40, 37, "n = 37 (odd, > 32), x off its buffer's start", 1),
+    ]
+    main_err = {}
+    for m, k, n, why, off in shapes:
+        x, c = separated(m, k, n, seed)
+        row = {"phase": "kernels_dma", "m": m, "k": k, "n": n, "case": why,
+               "base_offset_elements": off}
+        for prec in POLICIES:
+            fn = fused_entry(prec)
+            if prec == "int8":
+                qx = px.quantize_chunk(x)
+                xs = px.QuantizedChunk(offset_view(qx.q, off), qx.scale)
+            else:
+                xs = offset_view(px.cast_storage(x, prec), off)
+            blocks, dma = fn(xs, c, "blocks"), fn(xs, c, "dma")
+            torch.cuda.synchronize()
+            for u, v in zip(blocks, dma):
+                check(torch.equal(u, v), f"fused_step_dma_{prec} differs "
+                      f"from its blocks twin at {why}")
+            if prec == "f32":
+                err = check_fused(xs, c, int(near_ties(x, c).sum()),
+                                  pipeline="dma")
+            elif prec == "int8":
+                ids8, _ = distance.assign_int8(xs, c)
+                err = check_fused_int8(xs, c, ids8,
+                                       int(near_ties_int8(xs, c).sum()),
+                                       True, "dma")
+            else:
+                err = check_fused_16(xs, c,
+                                     int(near_ties_16(x, c, prec).sum()),
+                                     prec, True, "dma")
+            row[f"{prec}_bitwise_blocks"] = True
+            row[f"{prec}_max_abs_err"] = err
+            if why == "main path chunk":
+                main_err[f"fused_step_dma_{prec}"] = err
+            del xs, blocks, dma
+        emit(row)
+        del x, c
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels_dma_summary", "max_abs_err_at_main_shape":
+          main_err})
+    return main_err
+
+
+# --------------------------------------------------------------------------
+# phase 3e: kernel P against its plain version
+# --------------------------------------------------------------------------
+
+
+def seeding_probe(x, seed: int):
+    """The probe's inputs as K-means++ gives them on chunk x: a first seed
+    and three candidates drawn from x, d the distances to the first."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    idx = torch.randint(0, x.shape[0], (4,), generator=gen, device="cuda")
+    d = ((x - x[idx[0]]) ** 2).sum(1)
+    return x[idx[1:]].contiguous(), d.contiguous()
+
+
+def phase_kpp(seed: int):
+    """Phase 3e: kernel P against ``kpp_probe_plain`` at the reference
+    test's shapes (standard normal x and candidates, d uniform in [0, 5))
+    and at the seeding shape (a main path chunk, candidates drawn from it).
+    newd within RTOL of its terms' magnitude (||x|| + ||c||)^2, the
+    condition of (csq - 2 dot) + xsq (a candidate's own row has newd ~ 0);
+    pot within RTOL; repeat launches bitwise.  Then the entry point
+    ``kpp_probe`` once at the seeding shape, its launches counted: P's own
+    path.  Returns (max abs err at the seeding shape, the path's counts)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    cases = []
+    for m, n, L in ((100, 7, 3), (513, 28, 3), (300, 768, 8),
+                    (1000, 68, 128)):
+        cases.append(("reference test shape",
+                      torch.randn((m, n), generator=gen, device="cuda"),
+                      torch.randn((L, n), generator=gen, device="cuda"),
+                      torch.rand((m,), generator=gen, device="cuda") * 5.0))
+    x, _ = separated(64_000, 25, 28, seed)
+    cands, d = seeding_probe(x, seed)
+    cases.append(("seeding shape", x, cands, d))
+    err = 0.0
+    for why, xc, cc, dc in cases:
+        newd, pot = twice(kpp.kpp_probe_cuda, xc, cc, dc)
+        newd_p, pot_p = kpp.kpp_probe_plain(xc, cc, dc)
+        terms = (xc.norm(dim=1)[:, None] + cc.norm(dim=1)[None, :]) ** 2
+        e = (newd - newd_p).abs()
+        check(bool((e <= RTOL * terms).all()),
+              f"kpp_probe newd off by {float(e.max())} at {why}")
+        pe = (pot - pot_p).abs()
+        check(bool((pe <= RTOL * pot_p.abs()).all()),
+              f"kpp_probe pot off by {float(pe.max())} at {why}")
+        row_err = max(float(e.max()), float(pe.max()))
+        emit({"phase": "kernels_kpp", "m": xc.shape[0], "n": xc.shape[1],
+              "L": cc.shape[0], "case": why, "newd_max_abs_err":
+              float(e.max()), "pot_max_rel_err": float((pe / pot_p).max()),
+              "repeat_bitwise": True})
+        if why == "seeding shape":
+            err = row_err
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    newd, pot = kpp.kpp_probe(x, cands, d)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = ops.launch_counts()
+    want = dict.fromkeys(launches, 0)
+    want["kpp_probe"] = 1
+    check(launches == want, f"kpp_probe entry launches {launches}")
+    check(tuple(newd.shape) == (64_000, 3) and bool(torch.isfinite(pot).all()),
+          "kpp_probe entry outputs")
+    return err, (launches, wall)
 
 
 # --------------------------------------------------------------------------
@@ -947,7 +1135,7 @@ def phase_batched(X, seed: int, seq_fit_walls: dict):
           "fit_walls_s": walls,
           "sequential_fit_walls_s_phase4": seq_fit_walls})
     check(rel <= 1e-3, f"full objectives differ by {rel:.3e} (> 1e-3)")
-    return res, launches, wall
+    return res, f_full, launches, wall
 
 
 # --------------------------------------------------------------------------
@@ -1396,6 +1584,116 @@ def phase_two_pass_16(X, seed: int):
 
 
 # --------------------------------------------------------------------------
+# phase 4e: the autotuned path at HEPMASS size
+# --------------------------------------------------------------------------
+
+
+def same_fit(res, f_full, want, f_want, what: str) -> None:
+    """Bitwise the same run: accepts and every f_new of the trace,
+    iterations, centroids and the full-data objective."""
+    check(res.trace == want.trace, f"{what}: the trace differs")
+    check(res.n_iterations == want.n_iterations, f"{what}: iterations")
+    check(torch.equal(res.centroids, want.centroids),
+          f"{what}: the centroids differ")
+    check(f_full == f_want, f"{what}: full objective {f_full} != {f_want}")
+
+
+def phase_autotuned(X, seed: int, seq, batched) -> dict:
+    """Phase 4e.  (a) ``fit(autotune=True)`` under each policy, sequential
+    and ``batch=8, sync_every=2``, tuning into a cache file under build/:
+    every candidate's time and the winners printed, each result bitwise
+    the untuned fit's (under f32 those of phases 4 and 5, ``seq`` and
+    ``batched``: (result, full-data objective); under the other policies
+    the same fits rerun untuned, with no cache).  (b) With tuning off, a
+    cache file pinning ``{"pipeline": "dma"}`` for the fit's fused key:
+    the sequential fit under each policy launches the policy's dma kernel
+    once per Lloyd iteration (and its blocks twin never), bitwise the
+    untuned fit.  Returns (b)'s paths: {name: (launches, wall)}."""
+    m, n = X.shape
+    base = BigMeansConfig(k=25, s=64_000, n_chunks=32, seed=seed)
+    runs = {(prec, name): base.replace(precision=prec, **extra)
+            for prec in POLICIES
+            for name, extra in (("sequential", {}),
+                                ("batched", dict(batch=BATCH,
+                                                 sync_every=SYNC_EVERY)))}
+    untuned = {("f32", "sequential"): seq, ("f32", "batched"): batched}
+    autotune.clear()
+    autotune.set_cache_path(None)
+    for run, cfg in runs.items():
+        if run not in untuned:
+            want = fit(X, cfg)
+            untuned[run] = (want, evaluate(want, X)[1])
+
+    cache = ROOT / "build" / "autotune_smoke.json"
+    cache.unlink(missing_ok=True)
+    autotune.set_cache_path(cache)
+    for (prec, name), cfg in runs.items():
+        n_timed = len(autotune.timings())
+        t0 = time.monotonic()
+        res = fit(X, cfg, autotune=True)
+        torch.cuda.synchronize()
+        call_s = time.monotonic() - t0
+        _, f_full = evaluate(res, X)
+        check(not autotune.enabled(), "fit left tuning enabled")
+        check(res.extras["fit"]["autotune"], "fit did not report autotune")
+        same_fit(res, f_full, *untuned[prec, name],
+                 f"autotuned {prec} {name} fit")
+        timed = autotune.timings()[n_timed:]
+        if name == "sequential":
+            check({cand["pipeline"] for key, cand, _ in timed
+                   if key.startswith("fused|")} == {"blocks", "dma"},
+                  f"the tuner did not time both pipelines at {prec}")
+        emit({"phase": "autotuned", "precision": prec, "run": name,
+              "n_iterations": res.n_iterations,
+              "fit_wall_s": res.wall_time_s,
+              "fit_call_with_pretune_s": call_s, "f_full": f_full,
+              "bitwise_equal_to_untuned": True,
+              "candidates": [{"key": key, "candidate": cand,
+                              "us": 1e6 * sec} for key, cand, sec in timed]})
+    winners = json.loads(cache.read_text())
+    check(winners["version"] == 1, "cache schema")
+    emit({"phase": "autotuned", "cache": str(cache.relative_to(ROOT)),
+          "winners": winners["entries"]})
+
+    pin = ROOT / "build" / "autotune_pin.json"
+    backend = ops.tune_backend(X.device)
+    pin.write_text(json.dumps({"version": 1, "entries": {
+        autotune.cache_key("fused", backend=backend, b=1, m=base.s, k=base.k,
+                           n=n, precision=prec): {"pipeline": "dma"}
+        for prec in POLICIES}}))
+    autotune.clear()
+    autotune.set_cache_path(pin)
+    paths = {}
+    for prec in POLICIES:
+        cfg = runs[prec, "sequential"]
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        res = fit(X, cfg)
+        ids, f_full = evaluate(res, X)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = ops.launch_counts()
+        dma = COUNTS[f"fused_step_dma_{prec}"]
+        blocks = COUNTS[f"fused_step_{prec}"]
+        check(launches[dma] == res.n_iterations,
+              f"{dma} launches {launches[dma]} != iterations "
+              f"{res.n_iterations}")
+        check(launches[blocks] == 0, f"{blocks} launched under the pin")
+        fit_checks(res, X, ids, f_full, cfg.k, prec)
+        same_fit(res, f_full, *untuned[prec, "sequential"],
+                 f"dma-pinned {prec} fit")
+        emit({"phase": "autotuned_pinned_dma", "precision": prec,
+              "cache": str(pin.relative_to(ROOT)), "n_iterations":
+              res.n_iterations, "launches": launches, "wall_s": wall,
+              "fit_wall_s": res.wall_time_s, "f_full": f_full,
+              "bitwise_equal_to_untuned": True})
+        paths[f"dma_{prec}_sequential"] = (launches, wall)
+    autotune.clear()
+    autotune.set_cache_path(None)
+    return paths
+
+
+# --------------------------------------------------------------------------
 # phase 6: times
 # --------------------------------------------------------------------------
 
@@ -1593,10 +1891,82 @@ def phase_times(X, res, seed: int) -> dict:
     for name in ("fused_step_f32", "fused_step_int8", "fused_step_bf16",
                  "fused_step_bf16x3"):
         out[name]["at_envelope_edge"].update(m=me, k=ke, n=ne)
+    out.update(times_dma(x, c, xe, ce))
     del xe, ce, qe, cqe
+
+    # kernel P at the seeding shape: the chunk, three candidates drawn
+    # from it, the distances to a first seed
+    cands, d = seeding_probe(x, seed)
+    L = cands.shape[0]
+    out["kpp_probe"] = timing(
+        lambda: kpp.kpp_probe_cuda(x, cands, d),
+        lambda: kpp.kpp_probe_plain(x, cands, d), None,
+        4 * (s * n + s + L * n + s * L + L), 2 * s * L * n + 2 * s * n, 200)
+    out["kpp_probe"].update(L=L, library="none (no single call computes it)")
     for name, row in out.items():
         emit({"phase": "times", "kernel": name, "m": s, "k": k, "n": n,
               **row})
+    return out
+
+
+def fused_cost(prec: str, m: int, k: int, n: int) -> tuple:
+    """(bytes, operations, peak) of one fused step at ``prec``, as phase
+    6's rows of kernels A, A8, A16 and A3 count them."""
+    if prec == "f32":
+        return (4 * (m * n + 2 * k * n + k + 1), 2 * m * k * n + m * n,
+                F32_FLOP_PER_S)
+    if prec == "int8":
+        return (m * n + 5 * k * n + 4 * k + 4 * n + 4 * (k * n + k + 1),
+                2 * m * k * n + m * n, INT8_OP_PER_S)
+    eb, mult = (2, 1) if prec == "bf16" else (4, 3)
+    adds = (1 if prec == "bf16" else 2) * m * n
+    return (eb * m * n + 4 * (2 * k * n + k + 1),
+            mult * 2 * m * k * n + adds, BF16_FLOP_PER_S)
+
+
+def times_dma(x, c, xe, ce) -> dict:
+    """Phase 6's rows of the four dma entry points: at the main path's
+    shape (x [s,n], c [k,n]) and at the fused envelope's edge (xe, ce:
+    k = n = 1,024), each timed with its blocks twin in turns (twin, dma,
+    dma, twin) by graph replay.  int8: ``ms`` is the kernel's launch on
+    prepared operands, ``wrapper_ms`` the whole wrapper, as for A8."""
+    out = {}
+    for prec in POLICIES:
+        row = {}
+        for where, xx, cc, launches in (("main", x, c, 200),
+                                        ("edge", xe, ce, 3)):
+            m, n = xx.shape
+            k = cc.shape[0]
+            if prec == "int8":
+                qx = px.quantize_chunk(xx)
+                cq, t = px.quantize_centroids(cc, qx.scale)
+                run = {pipe: (lambda pipe=pipe: fused_step.
+                              launch_fused_step_int8(qx.q, qx.scale, cq, t,
+                                                     cc, pipe))
+                       for pipe in fused_step.PIPELINES}
+                plain = lambda: fused_step.fused_step_int8_plain(qx, cc)
+                wrapper = lambda: fused_step.fused_step_int8(qx, cc, "dma")
+            else:
+                xs = px.cast_storage(xx, prec)
+                fn = fused_entry(prec)
+                run = {pipe: (lambda pipe=pipe: fn(xs, cc, pipe))
+                       for pipe in fused_step.PIPELINES}
+                plain = lambda: fused_step.fused_step_plain(xs, cc, prec)
+                wrapper = None
+            nbytes, flops, peak = fused_cost(prec, m, k, n)
+            r = timing(run["dma"], plain, None, nbytes, flops, launches,
+                       peak, wrapper=wrapper)
+            turns = {"blocks": [], "dma": []}
+            for pipe in ("blocks", "dma", "dma", "blocks"):
+                turns[pipe].append(device_ms(run[pipe], launches))
+            r.update(m=m, k=k, n=n, ms_in_turns=turns,
+                     dma_over_blocks=sum(turns["dma"]) / sum(turns["blocks"]),
+                     library="none (no single call computes it)")
+            if where == "main":
+                row.update(r)
+            else:
+                row["at_envelope_edge"] = r
+        out[f"fused_step_dma_{prec}"] = row
     return out
 
 
@@ -1671,7 +2041,9 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 1
 
-    # phase 1: device
+    # phase 1: device (and no tuning, unless phase 4e asks for it)
+    autotune.enable(False)
+    autotune.set_cache_path(None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
@@ -1689,19 +2061,24 @@ def main() -> int:
     check(info.built, "the kernels were not built from source")
     emit({"phase": "build", "arch": build.ARCH, "seconds": info.seconds,
           "library": str(info.path.relative_to(ROOT)),
-          "ptxas": info.resources})
+          "ptxas": info.resources,
+          "dma_dynamic_smem_bytes": info.dma_smem_bytes})
 
-    # phase 3: kernels vs plain (3b: the int8 kernels; 3c: bf16, bf16x3)
+    # phase 3: kernels vs plain (3b: the int8 kernels; 3c: bf16, bf16x3;
+    # 3d: the dma kernels; 3e: kernel P, and its entry point's run)
     errs = phase_kernels(args.seed)
     errs.update(phase_kernels_int8(args.seed))
     errs.update(phase_kernels_16(args.seed))
+    errs.update(phase_kernels_dma(args.seed))
+    errs["kpp_probe"], kpp_path = phase_kpp(args.seed)
 
     # phase 4: the sequential main path (4b: at int8)
     X, res, launches, wall, seq_walls, f_full = phase_main(args.seed)
     paths = {"sequential": (launches, wall)}
 
     # phase 5: the batched main path (5b: at int8)
-    _, launches_b, wall_b = phase_batched(X, args.seed, seq_walls)
+    res_b, f_full_b, launches_b, wall_b = phase_batched(X, args.seed,
+                                                        seq_walls)
     paths["batched"] = (launches_b, wall_b)
     paths["int8_sequential"] = phase_main_int8(X, args.seed, f_full)
     paths["int8_batched"] = phase_batched_int8(X, args.seed, f_full)
@@ -1712,12 +2089,17 @@ def main() -> int:
     for prec in POLICIES16:
         paths[f"{prec}_batched"] = phase_batched_16(X, args.seed, prec,
                                                     f_full)
+    # phase 4e: the autotuned fits, and the fits with the dma pipeline
+    # pinned
+    paths.update(phase_autotuned(X, args.seed, (res, f_full),
+                                 (res_b, f_full_b)))
 
     # phase 6: times
     times = phase_times(X, res, args.seed)
     n_eval = math.ceil(X.shape[0] / EVAL_BATCH)
     for path, (counts, path_wall) in paths.items():
         device_share(path, times, counts, n_eval, path_wall)
+    paths["kpp_probe_entry"] = kpp_path
     del X
     torch.cuda.empty_cache()
 

@@ -12,11 +12,19 @@
     result = fit(X, cfg, precision="bf16")              # bf16 storage
     result = fit(X, cfg, precision="bf16x3")            # 3 bf16 products
     result = fit(X.bfloat16(), cfg)                     # 'auto': bf16
+    result = fit(X, cfg, autotune=True)                 # tuned launches
 
 ``fit`` runs on the CUDA device unless ``device="cpu"`` is passed, and
 raises ``RuntimeError`` when no CUDA device is present and the CPU was not
 asked for.  Strategies, sources and knobs that this slice does not port
 raise ``NotImplementedError`` naming their ROADMAP item.
+
+``autotune=True`` times the launch choices of the fit's kernels at its
+shapes before it runs (:func:`_pretune`) and caches the winners
+(:mod:`repro_torch.kernels.autotune`; ``REPRO_AUTOTUNE_CACHE`` keeps them
+on disk).  A winner in the cache is used with or without ``autotune``:
+that is how a profile is pinned.  Every choice gives bitwise the same
+results.
 """
 from __future__ import annotations
 
@@ -35,7 +43,7 @@ from repro_torch.api.strategies import (
     get_strategy, list_strategies, register_strategy, resolve_auto,
 )
 from repro_torch.data import synthetic as synthetic
-from repro_torch.kernels import ops
+from repro_torch.kernels import autotune, ops
 from repro_torch.kernels import precision as px
 
 __all__ = [
@@ -55,6 +63,39 @@ def _resolve_method(method: str):
         raise NotImplementedError(
             f"baseline {method!r} is not ported yet (ROADMAP queue 1 item 9)")
     return get_strategy(method)
+
+
+def _pretune(cfg: BigMeansConfig, source, device: torch.device) -> None:
+    """Fill the autotune cache for the launches this fit will make.
+
+    The counterpart of the reference's ``repro.api._pretune``: concrete
+    tensors at the hot path's shapes — the fused step at ``[s, n]`` in the
+    policy's storage, the assignment there and (under bf16 and int8, whose
+    epilogue assigns at f32 on the full-width view) at f32, and the
+    batched step at ``[batch, s, n]`` when ``batch > 1`` — from a
+    ``torch.Generator`` seeded 0 on the card.  Only on the card, with the
+    kernels: there is nothing to tune on the CPU or under a ``ref`` impl.
+    """
+    impl = ops.resolve_impl(cfg.impl, device)
+    if impl != "cuda":
+        return
+    prec = px.resolve(cfg.precision, source.data_dtype)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    shape = (cfg.s, source.n_features)
+    x = torch.randn(shape, generator=gen, device=device)
+    c = torch.randn((cfg.k, shape[1]), generator=gen, device=device)
+    xs = px.cast_storage(x, prec)
+    ops.fused_step(xs, c, impl=impl, precision=prec)
+    ops.assign(xs, c, impl=impl, precision=prec)
+    if prec in ("bf16", "int8"):
+        ops.assign(x, c, impl=impl, precision="f32")
+    if cfg.batch > 1:
+        cb = c.expand(cfg.batch, *c.shape).contiguous()
+        xb = x.expand(cfg.batch, *shape).contiguous()
+        xb = px.quantize_chunk(xb) if prec == "int8" \
+            else px.cast_storage(xb, prec)
+        ops.fused_step_batched(xb, cb, impl=impl, precision=prec)
 
 
 def fit(
@@ -80,7 +121,9 @@ def fit(
       plain PyTorch path on the CPU.
 
     ``wall_time_s`` covers the run, the kernels' build at first use
-    included.
+    included, and not the pre-tuning of ``autotune=True``.  Autotune cache
+    files that were ignored (corrupt, stale schema, a malformed entry) are
+    appended to ``result.trace`` as their events.
     """
     if config is None:
         missing = {"k", "s"} - set(overrides)
@@ -97,11 +140,25 @@ def fit(
     rng = rnd.TORCH if rng is None else rng
     if key is None:
         key = rng.key(cfg.seed)
-    t0 = time.monotonic()
-    result = fn(cfg, source, key, rng=rng, device=dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    result.wall_time_s = time.monotonic() - t0
+    n_tune_events = len(autotune.events())
+    prev_tuning = None
+    try:
+        autotune.load_disk()
+        if cfg.autotune:
+            # scoped to this call, exceptions included: a later fit with
+            # autotune=False never times anything
+            prev_tuning = autotune.enabled()
+            autotune.enable(True)
+            _pretune(cfg, source, dev)
+        t0 = time.monotonic()
+        result = fn(cfg, source, key, rng=rng, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        result.wall_time_s = time.monotonic() - t0
+    finally:
+        if prev_tuning is not None:
+            autotune.enable(prev_tuning)
+    result.trace.extend(autotune.events()[n_tune_events:])
     result.extras["fit"] = {
         "method": method,
         "impl": ops.resolve_impl(cfg.impl, dev),

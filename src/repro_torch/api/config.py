@@ -8,8 +8,13 @@ so that no knob is silently ignored:
 * ``ckpt_dir`` / ``time_budget_s`` / ``vns_ladder`` /
   ``scheduler != 'uniform'`` (queue 1 item 6), ``topology`` other than
   ``'auto'``/``'single'`` and ``mesh`` — ``'stream_mesh'`` included, so a
-  batched fit runs its streams on one device — (queue 1 item 8),
-  ``autotune=True`` (queue 1 item 10).
+  batched fit runs its streams on one device — (queue 1 item 8).
+
+``autotune=True`` tunes the launch choices of the fit's kernels on the
+card before it runs (:mod:`repro_torch.kernels.autotune`: kernel A's
+pipeline, kernel B's CTAs per SM) and caches the winners; every choice
+gives bitwise the same results, so the fit does too.  On the CPU there is
+nothing to tune.
 
 ``precision`` takes the reference's four policies, ``'f32'``, ``'bf16'``
 (bf16 storage and bf16 products), ``'bf16x3'`` (f32 storage, three bf16
@@ -164,8 +169,6 @@ class BigMeansConfig:
         if kind not in ("auto", "single") or self.mesh is not None:
             raise _not_ported(
                 f"topology={kind!r} / mesh (multi-device runs)", "8")
-        if self.autotune:
-            raise _not_ported("autotune=True (the kernel autotuner)", "10")
 
     def replace(self, **overrides) -> "BigMeansConfig":
         """A copy with ``overrides`` applied (re-validated)."""

@@ -30,7 +30,7 @@ SOURCES = ("assign.cu", "update.cu", "fused_step.cu",
            "fused_step_batched.cu", "assign_int8.cu", "update_int8.cu",
            "fused_step_int8.cu", "fused_step_batched_int8.cu",
            "assign_bf16.cu", "update_bf16.cu", "fused_step_bf16.cu",
-           "fused_step_batched_bf16.cu")
+           "fused_step_batched_bf16.cu", "fused_step_dma.cu", "kpp_probe.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = "sm_90a"
@@ -54,6 +54,7 @@ SIGNATURES = {
                               _I, _I, _I, _P),
     "repro_fused_step_batched_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _I, _I64, _I, _I, _I, _P),
+    "repro_kpp_probe": (_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P),
 }
 # The bf16 and bf16x3 entry points of each kernel share one signature.
 SIGNATURES.update({
@@ -64,6 +65,13 @@ SIGNATURES.update({
         ("fused_step", (_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P)),
         ("fused_step_batched", (_P, _P, _P, _P, _P, _I, _I64, _I, _I, _I,
                                 _P)))})
+# The dma pipeline of each fused entry point takes its blocks twin's operands.
+SIGNATURES.update({f"repro_fused_step_{prec}_dma":
+                   SIGNATURES[f"repro_fused_step_{prec}"]
+                   for prec in ("f32", "int8", "bf16", "bf16x3")})
+# Policies of the dma kernels, in the order of
+# repro_fused_step_dma_smem_bytes (csrc/fused_step_dma.cu).
+DMA_POLICIES = ("f32", "bf16", "bf16x3", "int8")
 
 
 @dataclasses.dataclass
@@ -72,6 +80,8 @@ class BuildInfo:
     seconds: float          # wall time of this build (0 when cached)
     built: bool             # False when a cached library was reused
     resources: dict         # kernel -> {"registers", "smem_bytes", "spill"}
+    # dynamic shared memory of the dma kernels, by policy (after load)
+    dma_smem_bytes: dict = dataclasses.field(default_factory=dict)
 
 
 _LIB: ctypes.CDLL | None = None
@@ -186,6 +196,10 @@ def load(rebuild: bool = False) -> ctypes.CDLL:
         getattr(lib, fn).restype = ctypes.c_int
     lib.repro_error_string.argtypes = [ctypes.c_int]
     lib.repro_error_string.restype = ctypes.c_char_p
+    lib.repro_fused_step_dma_smem_bytes.argtypes = [ctypes.c_int]
+    lib.repro_fused_step_dma_smem_bytes.restype = ctypes.c_int
+    info.dma_smem_bytes = {prec: lib.repro_fused_step_dma_smem_bytes(i)
+                           for i, prec in enumerate(DMA_POLICIES)}
     _LIB, _INFO = lib, info
     return lib
 
@@ -250,14 +264,17 @@ TILE_ROWS = 256                # rows per point tile (common.cuh:TM)
 SCRATCH_BYTES = 256 << 20      # cap on the per-CTA partials of one launch
 
 
-def grid(device: torch.device, m: int, partial_floats: int = 0) -> int:
-    """CTAs of a launch over ``m`` rows: at most one per point tile, two
-    per SM, and (with per-CTA partials of ``partial_floats`` floats) as
+def grid(device: torch.device, m: int, partial_floats: int = 0,
+         per_sm: int = 2) -> int:
+    """CTAs of a launch over ``m`` rows: at most one per point tile,
+    ``per_sm`` per SM (two, unless an assignment's tuned launch says
+    otherwise: its rows are independent, so its result does not depend on
+    the grid), and (with per-CTA partials of ``partial_floats`` floats) as
     many as fit ``SCRATCH_BYTES``.  The grid depends only on the shape and
     the card, so the summation order (and the result) is fixed for both."""
     tiles = max(1, -(-m // TILE_ROWS))
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    g = min(tiles, 2 * sms)
+    g = min(tiles, per_sm * sms)
     if partial_floats:
         g = min(g, max(1, SCRATCH_BYTES // (4 * partial_floats)))
     return g

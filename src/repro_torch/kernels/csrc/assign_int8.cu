@@ -28,11 +28,13 @@ assign_int8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ c,
                    float* __restrict__ d, int64_t m, int k, int n,
                    int64_t num_tiles) {
   __shared__ TileSmemQ s;
+  SyncLoad xin;
   for (int64_t tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
     const int64_t r0 = tile * TM;
     int bidx;
     float best, xsq;
-    tile_argmin_q(s, x, c, csq, tq, scale, m, k, n, r0, bidx, best, xsq);
+    tile_argmin_q(s, x, c, csq, tq, scale, m, k, n, r0, bidx, best, xsq,
+                  xin);
     const int64_t r = r0 + threadIdx.x;
     if (r < m) {
       ids[r] = bidx;

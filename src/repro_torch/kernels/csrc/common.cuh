@@ -17,6 +17,13 @@
 // in a fixed order, and cross-CTA sums go through per-CTA partials that a
 // second launch reduces in CTA order, so two launches on the same inputs
 // (on the same card) give bitwise equal results.
+//
+// How a point slab reaches s.xs is the body's `Load` parameter: SyncLoad
+// (kernels A-D and their twins) reads it from global memory when the body
+// asks for it; AsyncLoad (the dma kernels, fused_step_dma.cu) has copied it
+// ahead into a staging slot with cp.async while the body computed on the
+// slab before.  Either way s.xs holds the same values, so the arithmetic,
+// and the result, is the same.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -176,17 +183,176 @@ struct TileSmemT {
 
 using TileSmem = TileSmemT<F32Ops>;
 
-// Stage x[r0 : r0+TM, f0 : f0+fw] into s.xs; rows past m read as 0.
-template <class Ops>
-__device__ __forceinline__ void load_x_tile(
-    TileSmemT<Ops>& s, const typename Ops::X* __restrict__ x, int64_t m,
-    int n, int64_t r0, int f0, int fw) {
+// Stage x[r0 : r0+TM, f0 : f0+fw] into s.xs; rows past m read as 0.  `S` is
+// a TileSmemT or TileSmemQ, `X` its element type.
+template <class S, class X>
+__device__ __forceinline__ void load_x_tile(S& s, const X* __restrict__ x,
+                                            int64_t m, int n, int64_t r0,
+                                            int f0, int fw) {
   for (int q = threadIdx.x; q < TM * fw; q += TM) {
     const int row = q / fw;
     const int col = q - row * fw;
     const int64_t r = r0 + row;
-    s.xs[row][col] = r < m ? x[r * n + f0 + col] : typename Ops::X();
+    s.xs[row][col] = r < m ? x[r * n + f0 + col] : X();
   }
+}
+
+// The slab loader of kernels A-D and their twins: the slab is read from
+// global memory when the body asks for it.
+struct SyncLoad {
+  template <class S, class X>
+  __device__ __forceinline__ void load(S& s, const X* __restrict__ x,
+                                       int64_t m, int n, int64_t r0, int f0,
+                                       int fw) {
+    load_x_tile(s, x, m, n, r0, f0, fw);
+  }
+  __device__ __forceinline__ void finish() {}
+};
+
+// The copy primitives of AsyncLoad: an asynchronous 4-byte copy global ->
+// shared (cp.async), the commit of the copies issued so far as one group,
+// and the wait until at most N of this thread's groups are in flight; and
+// the launch's dynamic shared memory.  (The host stand-in of the kernel
+// tests defines REPRO_HOST_ASYNC_COPY and its own.)
+#ifndef REPRO_HOST_ASYNC_COPY
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ unsigned char* dynamic_smem() {
+  extern __shared__ __align__(16) unsigned char repro_dynamic_smem[];
+  return repro_dynamic_smem;
+}
+#endif
+
+// The slab loader of the dma kernels (A-dma under each policy): the
+// reference's pipeline="dma" (fused_step.py:_fused_dma_kernel) on Hopper.
+// The CTA body asks for its slabs in kernel A's order; AsyncLoad knows that
+// order, so each load() issues the copy of the NEXT slab into the other
+// staging slot before it waits for this one, and the copy runs while the
+// body computes.  The order, per point tile (tiles blockIdx.x,
+// blockIdx.x + gridDim.x, ...):
+//   n <= FT: one slab, the whole tile (rows r0..r0+TM, all n features); it
+//            stays in s.xs across the k loop and the one-hot contraction,
+//            so later loads of the same tile return at once;
+//   n >  FT: tile_argmin's (k tile, feature tile) slabs, then
+//            tile_accumulate's feature tiles: nf * (k tiles + 1) slabs, the
+//            slab of step j holding feature tile j % nf.
+// A staging row is the 4-byte words that cover one row's segment
+// x[r, f0 : f0+fw] (rows are n*sizeof(X) bytes, so a bf16 or int8 segment
+// need not start on a word; cp.async copies 4, 8 or 16 aligned bytes): at
+// most W words, copied densely, then unpacked into the padded s.xs at the
+// segment's byte offset.  The words of the first and last row may reach up
+// to 3 bytes before or after x; an aligned word that holds a byte of x lies
+// in its page, so the read cannot fault, and those bytes are never used.
+// Rows past m are not copied and unpack as 0, as load_x_tile makes them.
+template <class X>
+struct AsyncLoad {
+  static constexpr int W = FT * (int)sizeof(X) / 4 + 1;  // words per row
+  uint32_t* buf;        // staging, [2 slots][TM rows][W words]
+  const X* x;
+  int64_t m;
+  int n;
+  int nf;               // feature tiles
+  int steps;            // slabs per point tile
+  int64_t num_tiles;
+  int64_t tile;         // point tile of the slab in `slot`
+  int step;             // its step within the tile
+  int slot;
+  int64_t staged_r0;    // first row of the slab in s.xs, or -1
+
+  // Issues the CTA's first slab.  kt: centroids per k tile of the body.
+  __device__ __forceinline__ AsyncLoad(uint32_t* buf_, const X* x_,
+                                       int64_t m_, int n_, int k, int kt,
+                                       int64_t num_tiles_)
+      : buf(buf_), x(x_), m(m_), n(n_), nf((n_ + FT - 1) / FT),
+        steps(n_ <= FT ? 1 : nf * ((k + kt - 1) / kt + 1)),
+        num_tiles(num_tiles_), tile(blockIdx.x), step(0), slot(0),
+        staged_r0(-1) {
+    if (tile < num_tiles) issue(0, tile, 0);
+    cp_async_commit();
+  }
+
+  // cp.async the words covering x[t*TM + row, f0 : f0+fw], rows < m, into
+  // staging slot `sl` (one thread per word, as load_x_tile's elements).
+  __device__ __forceinline__ void issue(int sl, int64_t t, int f0) {
+    const int64_t r0 = t * TM;
+    const int bytes = min(FT, n - f0) * (int)sizeof(X);
+    uint32_t* dst = buf + (int64_t)sl * TM * W;
+    for (int q = threadIdx.x; q < TM * W; q += TM) {
+      const int row = q / W;
+      const int w = q - row * W;
+      const int64_t r = r0 + row;
+      if (r >= m) continue;
+      const uintptr_t a = reinterpret_cast<uintptr_t>(x + r * n + f0);
+      const uintptr_t a0 = a & ~(uintptr_t)3;
+      const int nw = (int)(((a + bytes + 3) & ~(uintptr_t)3) - a0) / 4;
+      if (w < nw)
+        cp_async4(dst + row * W + w,
+                  reinterpret_cast<const void*>(a0 + 4 * (uintptr_t)w));
+    }
+  }
+
+  // s.xs = x[r0 : r0+TM, f0 : f0+fw], the slab in `slot` (the body's next
+  // slab in kernel A's order), with the copy of the slab after it issued
+  // first.  Every thread of the CTA calls it; it synchronises.
+  template <class S>
+  __device__ __forceinline__ void load(S& s, const X* __restrict__, int64_t,
+                                       int, int64_t r0, int f0, int fw) {
+    if (steps == 1 && r0 == staged_r0) return;  // the tile is resident
+    int64_t next_tile = tile;
+    int next_step = step + 1;
+    if (next_step == steps) {
+      next_tile += gridDim.x;
+      next_step = 0;
+    }
+    if (next_tile < num_tiles)
+      issue(slot ^ 1, next_tile, (next_step % nf) * FT);
+    cp_async_commit();
+    cp_async_wait<1>();  // this thread's copies of the slab in `slot` ...
+    __syncthreads();     // ... and every thread's have landed
+    const uint32_t* src = buf + (int64_t)slot * TM * W;
+    for (int q = threadIdx.x; q < TM * fw; q += TM) {
+      const int row = q / fw;
+      const int col = q - row * fw;
+      const int64_t r = r0 + row;
+      X v = X();
+      if (r < m) {
+        const int off =
+            (int)(reinterpret_cast<uintptr_t>(x + r * n + f0) & 3);
+        v = *reinterpret_cast<const X*>(
+            reinterpret_cast<const unsigned char*>(src + row * W) + off +
+            col * (int)sizeof(X));
+      }
+      s.xs[row][col] = v;
+    }
+    tile = next_tile;
+    step = next_step;
+    slot ^= 1;
+    staged_r0 = r0;
+  }
+
+  __device__ __forceinline__ void finish() { cp_async_wait<0>(); }
+};
+
+// Dynamic shared memory of a dma kernel whose tiles are an `S` over
+// elements `X`: S, rounded up to 16 bytes, then AsyncLoad's two slots.
+template <class S>
+__host__ __device__ constexpr int dma_slots_offset() {
+  return ((int)sizeof(S) + 15) / 16 * 16;
+}
+template <class S, class X>
+__host__ __device__ constexpr int dma_smem_bytes() {
+  return dma_slots_offset<S>() + 2 * TM * AsyncLoad<X>::W * 4;
 }
 
 // Stage c[k0 : k0+kt, f0 : f0+fw] (f32) into s.ct; rows past k and columns
@@ -214,11 +380,11 @@ __device__ __forceinline__ void load_c_tile(TileSmemT<Ops>& s,
 // or read from csq.  Every thread of the
 // CTA must call this (it synchronises).  On return, when n <= FT, s.xs
 // still holds the whole point tile.
-template <class Ops>
+template <class Ops, class Load>
 __device__ __forceinline__ void tile_argmin(
     TileSmemT<Ops>& s, const typename Ops::X* __restrict__ x,
     const float* __restrict__ c, int64_t m, int k, int n, int64_t r0,
-    int& bidx, float& best, float& xsq,
+    int& bidx, float& best, float& xsq, Load& xin,
     const float* __restrict__ csq = nullptr) {
   const int t = threadIdx.x;
   best = BIG;
@@ -231,7 +397,7 @@ __device__ __forceinline__ void tile_argmin(
     for (int f0 = 0; f0 < n; f0 += FT) {
       const int fw = min(FT, n - f0);
       __syncthreads();  // earlier readers of s.xs / s.ct / s.c2 are done
-      load_x_tile(s, x, m, n, r0, f0, fw);
+      xin.load(s, x, m, n, r0, f0, fw);
       load_c_tile(s, c, k, n, k0, f0, fw);
       if constexpr (Ops::csq_given) {
         if (f0 == 0 && t < Ops::kt) s.c2[t] = k0 + t < k ? csq[k0 + t] : 0.f;
@@ -323,17 +489,17 @@ __device__ __forceinline__ float onehot_sum(const TileSmemT<Ops>& s, int j,
 // tile's rows in order, so every element has one writer and a fixed order.
 // `first` stores instead of accumulating (the CTA's first tile).
 // `x_resident`: s.xs already holds the whole tile (n <= FT).
-template <class Ops>
+template <class Ops, class Load>
 __device__ __forceinline__ void tile_accumulate(
     TileSmemT<Ops>& s, const typename Ops::X* __restrict__ x, int64_t m,
     int k, int n, int64_t r0, float* P, float* Cnt, bool first,
-    bool x_resident) {
+    bool x_resident, Load& xin) {
   const int t = threadIdx.x;
   for (int f0 = 0; f0 < n; f0 += FT) {
     const int fw = min(FT, n - f0);
     if (!x_resident) {
       __syncthreads();
-      load_x_tile(s, x, m, n, r0, f0, fw);
+      xin.load(s, x, m, n, r0, f0, fw);
       __syncthreads();
     }
     const int ne = k * fw;
@@ -364,11 +530,13 @@ __device__ __forceinline__ void zero_partials(T* P, int64_t stride) {
 // against c [k,n], written to P [k*n + k + 1].  Kernel D calls this with
 // per-stream base pointers and the per-stream grid of kernel A, so each of
 // its streams runs exactly kernel A's arithmetic in kernel A's order.
-template <class Ops>
+// `xin`: the slab loader (AsyncLoad for the dma kernels).
+template <class Ops, class Load = SyncLoad>
 __device__ __forceinline__ void fused_cta(
     TileSmemT<Ops>& s, const typename Ops::X* __restrict__ x,
     const float* __restrict__ c, float* __restrict__ P, int64_t m, int k,
-    int n, int64_t num_tiles, const float* __restrict__ csq = nullptr) {
+    int n, int64_t num_tiles, const float* __restrict__ csq = nullptr,
+    Load xin = Load()) {
   float* Cnt = P + (int64_t)k * n;
   float* Obj = Cnt + k;
   if (blockIdx.x >= num_tiles) {
@@ -380,13 +548,15 @@ __device__ __forceinline__ void fused_cta(
     const int64_t r0 = tile * TM;
     int bidx;
     float best, xsq;
-    tile_argmin(s, x, c, m, k, n, r0, bidx, best, xsq, csq);
+    tile_argmin(s, x, c, m, k, n, r0, bidx, best, xsq, xin, csq);
     const bool valid = r0 + threadIdx.x < m;
     s.ids[threadIdx.x] = valid ? bidx : -1;
     obj += block_sum(s, valid ? fmaxf(best + xsq, 0.f) : 0.f);
-    tile_accumulate(s, x, m, k, n, r0, P, Cnt, tile == blockIdx.x, n <= FT);
+    tile_accumulate(s, x, m, k, n, r0, P, Cnt, tile == blockIdx.x, n <= FT,
+                    xin);
     __syncthreads();  // s.ids / s.xs are rewritten by the next tile
   }
+  xin.finish();
   if (threadIdx.x == 0) *Obj = obj;
 }
 
@@ -398,11 +568,12 @@ __device__ __forceinline__ void assign_cta(
     const float* __restrict__ c, int32_t* __restrict__ ids,
     float* __restrict__ d, int64_t m, int k, int n, int64_t num_tiles,
     const float* __restrict__ csq = nullptr) {
+  SyncLoad xin;
   for (int64_t tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
     const int64_t r0 = tile * TM;
     int bidx;
     float best, xsq;
-    tile_argmin(s, x, c, m, k, n, r0, bidx, best, xsq, csq);
+    tile_argmin(s, x, c, m, k, n, r0, bidx, best, xsq, xin, csq);
     const int64_t r = r0 + threadIdx.x;
     if (r < m) {
       ids[r] = bidx;
@@ -424,13 +595,15 @@ __device__ __forceinline__ void update_cta(
     zero_partials(P, (int64_t)k * n + k);
     return;
   }
+  SyncLoad xin;
   for (int64_t tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
     const int64_t r0 = tile * TM;
     const int64_t r = r0 + threadIdx.x;
     int id = r < m ? ids[r] : -1;
     s.ids[threadIdx.x] = (id >= 0 && id < k) ? id : -1;
     __syncthreads();
-    tile_accumulate(s, x, m, k, n, r0, P, Cnt, tile == blockIdx.x, false);
+    tile_accumulate(s, x, m, k, n, r0, P, Cnt, tile == blockIdx.x, false,
+                    xin);
     __syncthreads();  // s.ids / s.xs are rewritten by the next tile
   }
 }
@@ -472,6 +645,7 @@ inline int reduce_grid(int64_t stride) {
 // --------------------------------------------------------------------------
 
 constexpr int FTQ = 32;       // features per int8 feature tile
+static_assert(FTQ == FT, "AsyncLoad tiles the int8 slabs by FT");
 
 // csq[r] = ||c_r||^2 for `rows` full-width f32 rows of n features: the
 // features added in index order, one rounding per multiply and per add, as
@@ -504,19 +678,6 @@ struct TileSmemQ {
   float red[TM];           // block-reduction scratch (block_sum)
 };
 
-// Stage xq[r0 : r0+TM, f0 : f0+fw] into s.xs; rows past m read as 0.
-__device__ __forceinline__ void load_xq_tile(TileSmemQ& s,
-                                             const int8_t* __restrict__ x,
-                                             int64_t m, int n, int64_t r0,
-                                             int f0, int fw) {
-  for (int q = threadIdx.x; q < TM * fw; q += TM) {
-    const int row = q / fw;
-    const int col = q - row * fw;
-    const int64_t r = r0 + row;
-    s.xs[row][col] = r < m ? x[r * n + f0 + col] : (int8_t)0;
-  }
-}
-
 // Stage cq[k0 : k0+KT, f0 : f0+fw] into s.cs and the feature tile's scales
 // into s.sc; entries past k or fw read as 0.
 __device__ __forceinline__ void load_cq_tile(TileSmemQ& s,
@@ -539,12 +700,14 @@ __device__ __forceinline__ void load_cq_tile(TileSmemQ& s,
 // running (min, argmin) of score_j over all k with a strict '<' (ties go to
 // the lowest index, fused_step.py:_tile_argmin), from (BIG, 0), and the
 // dequantized ||x||^2.  Every thread of the CTA must call this.  On return,
-// when n <= FTQ, s.xs still holds the whole point tile.
+// when n <= FTQ, s.xs still holds the whole point tile.  `xin` loads the
+// code slabs (load_x_tile on the TileSmemQ).
+template <class Load>
 __device__ __forceinline__ void tile_argmin_q(
     TileSmemQ& s, const int8_t* __restrict__ x, const int8_t* __restrict__ c,
     const float* __restrict__ csq, const float* __restrict__ tq,
     const float* __restrict__ scale, int64_t m, int k, int n, int64_t r0,
-    int& bidx, float& best, float& xsq) {
+    int& bidx, float& best, float& xsq, Load& xin) {
   const int t = threadIdx.x;
   best = BIG;
   bidx = 0;
@@ -556,7 +719,7 @@ __device__ __forceinline__ void tile_argmin_q(
     for (int f0 = 0; f0 < n; f0 += FTQ) {
       const int fw = min(FTQ, n - f0);
       __syncthreads();  // earlier readers of s.xs / s.cs / s.c2 / s.t done
-      load_xq_tile(s, x, m, n, r0, f0, fw);
+      xin.load(s, x, m, n, r0, f0, fw);
       load_cq_tile(s, c, scale, k, n, k0, f0, fw);
       if (f0 == 0 && t < KT) {
         s.c2[t] = k0 + t < k ? csq[k0 + t] : 0.f;
@@ -593,15 +756,17 @@ __device__ __forceinline__ void tile_argmin_q(
 //   Cnt[j]  (+)= sum_i [ids_i == j]            (f32)
 // with the ownership and order of tile_accumulate.  `x_resident`: s.xs
 // already holds the whole tile (n <= FTQ).
+template <class Load>
 __device__ __forceinline__ void tile_accumulate_q(
     TileSmemQ& s, const int8_t* __restrict__ x, int64_t m, int k, int n,
-    int64_t r0, int32_t* P, float* Cnt, bool first, bool x_resident) {
+    int64_t r0, int32_t* P, float* Cnt, bool first, bool x_resident,
+    Load& xin) {
   const int t = threadIdx.x;
   for (int f0 = 0; f0 < n; f0 += FTQ) {
     const int fw = min(FTQ, n - f0);
     if (!x_resident) {
       __syncthreads();
-      load_xq_tile(s, x, m, n, r0, f0, fw);
+      xin.load(s, x, m, n, r0, f0, fw);
       __syncthreads();
     }
     const int ne = k * fw;
@@ -626,11 +791,14 @@ __device__ __forceinline__ void tile_accumulate_q(
 // the point tiles blockIdx.x, blockIdx.x + gridDim.x, ...  Kernel D8 calls
 // this with per-stream base pointers and kernel A8's per-stream grid, so
 // each of its streams runs kernel A8's arithmetic in kernel A8's order.
+// `xin`: the slab loader (AsyncLoad for A8-dma).
+template <class Load = SyncLoad>
 __device__ __forceinline__ void fused_cta_q(
     TileSmemQ& s, const int8_t* __restrict__ x, const int8_t* __restrict__ c,
     const float* __restrict__ csq, const float* __restrict__ tq,
     const float* __restrict__ scale, int32_t* __restrict__ P,
-    float* __restrict__ F, int64_t m, int k, int n, int64_t num_tiles) {
+    float* __restrict__ F, int64_t m, int k, int n, int64_t num_tiles,
+    Load xin = Load()) {
   float* Cnt = F;
   float* Obj = F + k;
   if (blockIdx.x >= num_tiles) {
@@ -643,14 +811,16 @@ __device__ __forceinline__ void fused_cta_q(
     const int64_t r0 = tile * TM;
     int bidx;
     float best, xsq;
-    tile_argmin_q(s, x, c, csq, tq, scale, m, k, n, r0, bidx, best, xsq);
+    tile_argmin_q(s, x, c, csq, tq, scale, m, k, n, r0, bidx, best, xsq,
+                  xin);
     const bool valid = r0 + threadIdx.x < m;
     s.ids[threadIdx.x] = valid ? bidx : -1;
     obj += block_sum(s, valid ? fmaxf(best + xsq, 0.f) : 0.f);
     tile_accumulate_q(s, x, m, k, n, r0, P, Cnt, tile == blockIdx.x,
-                      n <= FTQ);
+                      n <= FTQ, xin);
     __syncthreads();  // s.ids / s.xs are rewritten by the next tile
   }
+  xin.finish();
   if (threadIdx.x == 0) *Obj = obj;
 }
 

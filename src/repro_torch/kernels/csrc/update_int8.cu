@@ -34,13 +34,15 @@ update_int8_kernel(const int8_t* __restrict__ x,
     zero_partials(Cnt, (int64_t)k);
     return;
   }
+  SyncLoad xin;
   for (int64_t tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
     const int64_t r0 = tile * TM;
     const int64_t r = r0 + threadIdx.x;
     int id = r < m ? ids[r] : -1;
     s.ids[threadIdx.x] = (id >= 0 && id < k) ? id : -1;
     __syncthreads();
-    tile_accumulate_q(s, x, m, k, n, r0, P, Cnt, tile == blockIdx.x, false);
+    tile_accumulate_q(s, x, m, k, n, r0, P, Cnt, tile == blockIdx.x, false,
+                      xin);
     __syncthreads();  // s.ids / s.xs are rewritten by the next tile
   }
 }

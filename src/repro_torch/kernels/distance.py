@@ -10,6 +10,10 @@ norm and its dot.  The wrappers launch their kernel on CUDA tensors and
 raise ``ValueError`` on any other; :func:`assign_plain` and
 :func:`assign_int8_plain` are the plain versions that ``ops`` runs for
 tensors on the CPU.
+
+Each wrapper takes ``ctas_per_sm`` (default 2), the launch's CTAs per SM:
+rows are assigned independently, so ids and d do not depend on it, and
+the autotuner (``kernels/autotune.py``, kind ``"assign"``) times it.
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ def assign_plain(x: torch.Tensor, c: torch.Tensor, precision: str = "f32"
                           precision=precision)
 
 
-def assign_f32(x: torch.Tensor, c: torch.Tensor
+def assign_f32(x: torch.Tensor, c: torch.Tensor, ctas_per_sm: int = 2
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """x [m,n] f32, c [k,n] f32 -> (ids int32 [m], d f32 [m]).
 
@@ -51,13 +55,13 @@ def assign_f32(x: torch.Tensor, c: torch.Tensor
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.repro_assign_f32(
         x.data_ptr(), c.data_ptr(), ids.data_ptr(), d.data_ptr(), m, k, n,
-        build.grid(x.device, m), stream)
+        build.grid(x.device, m, per_sm=ctas_per_sm), stream)
     build.check(err, "assign_f32")
     return ids, d
 
 
-def assign_16(x: torch.Tensor, c: torch.Tensor, precision: str
-              ) -> tuple[torch.Tensor, torch.Tensor]:
+def assign_16(x: torch.Tensor, c: torch.Tensor, precision: str,
+              ctas_per_sm: int = 2) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel B16 (``precision="bf16"``) or B3 (``"bf16x3"``).
 
     ``ids`` minimises ``||c||^2 - 2 x.c`` with the policy's dot (ties:
@@ -77,7 +81,8 @@ def assign_16(x: torch.Tensor, c: torch.Tensor, precision: str
     launch = getattr(build.load(), f"repro_assign_{precision}")
     launches16[precision] += 1
     err = launch(x.data_ptr(), c.data_ptr(), csq.data_ptr(), ids.data_ptr(),
-                 d.data_ptr(), m, k, n, build.grid(x.device, m),
+                 d.data_ptr(), m, k, n,
+                 build.grid(x.device, m, per_sm=ctas_per_sm),
                  torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, f"assign_{precision}")
     return ids, d
@@ -89,7 +94,7 @@ def assign_int8_plain(x, c: torch.Tensor
     return ref.assign_ref(px.as_quantized(x), c, precision="int8")
 
 
-def assign_int8(x, c: torch.Tensor
+def assign_int8(x, c: torch.Tensor, ctas_per_sm: int = 2
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: a :class:`~.precision.QuantizedChunk` (codes int8 [m,n], scales
     f32 [n]; a plain tensor is quantized first), c [k,n] f32 -> (ids int32
@@ -101,11 +106,12 @@ def assign_int8(x, c: torch.Tensor
     ||dequantize(x)||^2, 0)``.
     """
     q, scale, c, cq, t = build.int8_operands(x, c, 2)
-    return launch_assign_int8(q, scale, cq, t, c)
+    return launch_assign_int8(q, scale, cq, t, c, ctas_per_sm)
 
 
 def launch_assign_int8(q: torch.Tensor, scale: torch.Tensor,
-                       cq: torch.Tensor, t: torch.Tensor, c: torch.Tensor
+                       cq: torch.Tensor, t: torch.Tensor, c: torch.Tensor,
+                       ctas_per_sm: int = 2
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel B8 on validated operands (see :func:`assign_int8`; ``c`` the
     full-width f32 centroids, whose norms it takes first)."""
@@ -120,7 +126,7 @@ def launch_assign_int8(q: torch.Tensor, scale: torch.Tensor,
     err = lib.repro_assign_int8(
         q.data_ptr(), cq.data_ptr(), c.data_ptr(), csq.data_ptr(),
         t.data_ptr(), scale.data_ptr(), ids.data_ptr(), d.data_ptr(), m, k,
-        n, build.grid(q.device, m),
+        n, build.grid(q.device, m, per_sm=ctas_per_sm),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "assign_int8")
     return ids, d

@@ -22,6 +22,13 @@ centroids.  The wrappers launch their kernel on CUDA tensors and raise
 (``*_plain``) for tensors on the CPU.  :func:`fits` is the reference's
 envelope (``fits_batched`` is the same); outside it ``ops`` takes the
 two-pass route (kernels B and C, or their int8 / bf16 / bf16x3 bodies).
+
+The single-chunk wrappers take the reference's ``pipeline`` knob
+(``fused_step.py:297``, :data:`PIPELINES`): ``"blocks"`` launches kernel A
+(A8, A16, A3), ``"dma"`` its twin A-dma (``csrc/fused_step_dma.cu``), the
+same CTA body on the same grid with the point slabs copied ahead into two
+staging slots (``cp.async``), bitwise the same results.  The plain versions
+take the knob and ignore it: both pipelines compute one function.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ MAX_N = 4096
 _MAX_KN_ELEMS = 1 << 20
 _BLOCK_K = 128
 _BLOCK_N = 512
+PIPELINES = ("blocks", "dma")
 
 launches = 0          # kernel launches by fused_step_f32 (ops.launch_counts)
 batched_launches = 0  # kernel launches by fused_step_batched_f32
@@ -46,6 +54,34 @@ batched_int8_launches = 0  # kernel launches by fused_step_batched_int8
 # kernel launches by fused_step_16 / fused_step_batched_16, per policy
 launches16 = dict.fromkeys(("bf16", "bf16x3"), 0)
 batched_launches16 = dict.fromkeys(("bf16", "bf16x3"), 0)
+# kernel launches of the pipeline="dma" entry points, per policy
+dma_launches = dict.fromkeys(("f32", "int8", "bf16", "bf16x3"), 0)
+
+
+def check_pipeline(pipeline: str) -> str:
+    """``pipeline`` if it is one of :data:`PIPELINES`, else ValueError (the
+    reference's ``fused_step.py:314-315``)."""
+    if pipeline not in PIPELINES:
+        raise ValueError(f"unknown pipeline {pipeline!r}; known: {PIPELINES}")
+    return pipeline
+
+
+def _launch(precision: str, pipeline: str):
+    """The C entry point of the single-chunk fused step at ``precision``
+    under ``pipeline``, its launch counted."""
+    global launches, int8_launches
+    lib = build.load()
+    entry = f"repro_fused_step_{precision}"
+    if check_pipeline(pipeline) == "dma":
+        dma_launches[precision] += 1
+        return getattr(lib, f"{entry}_dma")
+    if precision == "f32":
+        launches += 1
+    elif precision == "int8":
+        int8_launches += 1
+    else:
+        launches16[precision] += 1
+    return getattr(lib, entry)
 
 
 def _padded(k: int, n: int) -> tuple[int, int]:
@@ -64,24 +100,29 @@ def fits(k: int, n: int) -> bool:
 fits_batched = fits
 
 
-def fused_step_plain(x: torch.Tensor, c: torch.Tensor, precision: str = "f32"
+def fused_step_plain(x: torch.Tensor, c: torch.Tensor, precision: str = "f32",
+                     pipeline: str = "blocks"
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of kernel A (A16, A3 under ``'bf16'``,
-    ``'bf16x3'``): x cast to the policy's storage, as the kernel's wrapper
-    casts it, then two passes through the oracles."""
+    ``'bf16x3'``; either pipeline): x cast to the policy's storage, as the
+    kernel's wrapper casts it, then two passes through the oracles."""
+    check_pipeline(pipeline)
     x = px.cast_storage(x, precision)
     ids, d = ref.assign_ref(x, c, precision=precision)
     sums, counts = ref.update_ref(x, ids, c.shape[0], precision=precision)
     return sums, counts, torch.sum(d)
 
 
-def fused_step_f32(x: torch.Tensor, c: torch.Tensor
+def fused_step_f32(x: torch.Tensor, c: torch.Tensor, pipeline: str = "blocks"
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x [m,n] f32, c [k,n] f32 -> (sums f32 [k,n], counts f32 [k], obj f32).
+    """x [m,n] f32, c [k,n] f32 -> (sums f32 [k,n], counts f32 [k], obj f32):
+    kernel A, or A-dma under ``pipeline="dma"``.
 
     Runs any (k, n); the dispatch in ``ops`` restricts it to :func:`fits`.
-    Raises ``ValueError`` unless x and c are CUDA tensors.
+    Raises ``ValueError`` unless x and c are CUDA tensors, or for an unknown
+    pipeline.
     """
+    check_pipeline(pipeline)
     build.require("x", x, torch.float32, 2)
     build.require("c", c, torch.float32, 2)
     m, k, n = build.xc_shapes(x, c)
@@ -89,13 +130,11 @@ def fused_step_f32(x: torch.Tensor, c: torch.Tensor
     grid = build.grid(x.device, m, stride)
     part = torch.empty(grid * stride, dtype=torch.float32, device=x.device)
     out = torch.empty(stride, dtype=torch.float32, device=x.device)
-    lib = build.load()
-    global launches
-    launches += 1
-    err = lib.repro_fused_step_f32(
+    launch = _launch("f32", pipeline)
+    err = launch(
         x.data_ptr(), c.data_ptr(), part.data_ptr(), out.data_ptr(), m, k, n,
         grid, torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, "fused_step_f32")
+    build.check(err, f"fused_step_f32 ({pipeline})")
     return out[:k * n].view(k, n), out[k * n:k * n + k], out[k * n + k]
 
 
@@ -152,9 +191,11 @@ def fused_step_batched_f32(x: torch.Tensor, c: torch.Tensor
 # --------------------------------------------------------------------------
 
 
-def fused_step_16(x: torch.Tensor, c: torch.Tensor, precision: str
+def fused_step_16(x: torch.Tensor, c: torch.Tensor, precision: str,
+                  pipeline: str = "blocks"
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Kernel A16 (``precision="bf16"``) or A3 (``"bf16x3"``).
+    """Kernel A16 (``precision="bf16"``) or A3 (``"bf16x3"``), or its dma
+    twin under ``pipeline="dma"``.
 
     x is cast to the policy's storage first, so ``||x||^2`` comes from the
     stored values; the kernel's first launch takes ``||c||^2`` from the f32
@@ -163,6 +204,7 @@ def fused_step_16(x: torch.Tensor, c: torch.Tensor, precision: str
     """
     if precision not in launches16:
         raise ValueError(f"not a bf16 / bf16x3 body: {precision!r}")
+    check_pipeline(pipeline)
     x = px.cast_storage(x, precision)
     build.require("x", x, px.storage_dtype(precision), 2)
     build.require("c", c, torch.float32, 2)
@@ -172,12 +214,11 @@ def fused_step_16(x: torch.Tensor, c: torch.Tensor, precision: str
     csq = torch.empty(k, dtype=torch.float32, device=x.device)
     part = torch.empty(grid * stride, dtype=torch.float32, device=x.device)
     out = torch.empty(stride, dtype=torch.float32, device=x.device)
-    launch = getattr(build.load(), f"repro_fused_step_{precision}")
-    launches16[precision] += 1
+    launch = _launch(precision, pipeline)
     err = launch(x.data_ptr(), c.data_ptr(), csq.data_ptr(), part.data_ptr(),
                  out.data_ptr(), m, k, n, grid,
                  torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, f"fused_step_{precision}")
+    build.check(err, f"fused_step_{precision} ({pipeline})")
     return out[:k * n].view(k, n), out[k * n:k * n + k], out[k * n + k]
 
 
@@ -223,12 +264,14 @@ def fused_step_batched_16(x: torch.Tensor, c: torch.Tensor, precision: str
 # --------------------------------------------------------------------------
 
 
-def fused_step_int8_plain(x, c: torch.Tensor
+def fused_step_int8_plain(x, c: torch.Tensor, pipeline: str = "blocks"
                           ) -> tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
-    """The plain PyTorch version of :func:`fused_step_int8`: two passes
-    through the int8 oracles on one quantized chunk (the reference's
-    ``ops.fused_step(..., impl="ref", precision="int8")``)."""
+    """The plain PyTorch version of :func:`fused_step_int8` (either
+    pipeline): two passes through the int8 oracles on one quantized chunk
+    (the reference's ``ops.fused_step(..., impl="ref",
+    precision="int8")``)."""
+    check_pipeline(pipeline)
     qx = px.as_quantized(x)
     ids, d = ref.assign_ref(qx, c, precision="int8")
     sums, counts = ref.update_ref(qx, ids, c.shape[0], precision="int8")
@@ -248,32 +291,35 @@ def fused_step_batched_int8_plain(x, c: torch.Tensor
     return torch.stack(sums), torch.stack(counts), torch.stack(obj)
 
 
-def fused_step_int8(x, c: torch.Tensor
+def fused_step_int8(x, c: torch.Tensor, pipeline: str = "blocks"
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: a :class:`~.precision.QuantizedChunk` (codes int8 [m,n], scales
     f32 [n]; a plain tensor is quantized first), c [k,n] f32 -> (sums f32
     [k,n], counts f32 [k], obj f32).
 
     Quantizes the centroids into the chunk's scaled space, launches kernel
-    A8 (:func:`launch_fused_step_int8`) and turns its exact int32 sums into
-    f32 data space (``isums.float() * scale``) after the full reduce, as
-    the reference's wrapper does (``fused_step.py:400-403``).  Runs any
-    (k, n); the dispatch in ``ops`` restricts it to :func:`fits`.  Raises
-    ``ValueError`` unless the operands are CUDA tensors.
+    A8 (A8-dma under ``pipeline="dma"``; :func:`launch_fused_step_int8`)
+    and turns its exact int32 sums into f32 data space (``isums.float() *
+    scale``) after the full reduce, as the reference's wrapper does
+    (``fused_step.py:400-403``).  Runs any (k, n); the dispatch in ``ops``
+    restricts it to :func:`fits`.  Raises ``ValueError`` unless the
+    operands are CUDA tensors.
     """
+    check_pipeline(pipeline)
     q, scale, c, cq, t = build.int8_operands(x, c, 2)
-    isums, counts, obj = launch_fused_step_int8(q, scale, cq, t, c)
+    isums, counts, obj = launch_fused_step_int8(q, scale, cq, t, c, pipeline)
     return isums.float() * scale[None, :], counts, obj
 
 
 def launch_fused_step_int8(q: torch.Tensor, scale: torch.Tensor,
                            cq: torch.Tensor, t: torch.Tensor,
-                           c: torch.Tensor
+                           c: torch.Tensor, pipeline: str = "blocks"
                            ) -> tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
-    """Kernel A8 on validated operands (see :func:`fused_step_int8`;
-    ``c`` the full-width f32 centroids, whose norms it takes first):
-    (isums int32 [k,n], counts f32 [k], obj f32)."""
+    """Kernel A8 (or A8-dma) on validated operands (see
+    :func:`fused_step_int8`; ``c`` the full-width f32 centroids, whose
+    norms it takes first): (isums int32 [k,n], counts f32 [k], obj f32)."""
+    check_pipeline(pipeline)
     m, n = q.shape
     k = cq.shape[0]
     kn = k * n
@@ -283,15 +329,13 @@ def launch_fused_step_int8(q: torch.Tensor, scale: torch.Tensor,
     pf = torch.empty(grid * (k + 1), dtype=torch.float32, device=q.device)
     isums = torch.empty((k, n), dtype=torch.int32, device=q.device)
     out = torch.empty(k + 1, dtype=torch.float32, device=q.device)
-    lib = build.load()
-    global int8_launches
-    int8_launches += 1
-    err = lib.repro_fused_step_int8(
+    launch = _launch("int8", pipeline)
+    err = launch(
         q.data_ptr(), cq.data_ptr(), c.data_ptr(), csq.data_ptr(),
         t.data_ptr(), scale.data_ptr(), psum.data_ptr(), pf.data_ptr(),
         isums.data_ptr(), out.data_ptr(), m, k, n, grid,
         torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "fused_step_int8")
+    build.check(err, f"fused_step_int8 ({pipeline})")
     return isums, out[:k], out[k]
 
 

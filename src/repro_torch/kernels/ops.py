@@ -29,15 +29,25 @@ departs from the reference, whose int8 envelope miss falls back to its jnp
 oracle (``repro/kernels/ops.py:327-336``); the results are the same
 computation, held to the oracle in ``chip_smoke.py`` and the ``cuda``
 tests.
+
+On the card every launch asks the autotuner (:mod:`.autotune`) for its
+launch choice — ``fused_step`` its pipeline (kernel A or A-dma),
+``assign`` its CTAs per SM, ``fused_step_batched`` kernel D's default —
+with a bench that launches the kernel and synchronises the device, as the
+reference's ``_bench`` does (``repro/kernels/ops.py:149-159``).  Every
+choice gives bitwise the same outputs.  Tensors on the CPU never consult
+it.
 """
 from __future__ import annotations
 
+import functools
 from functools import partial
 
 import torch
 
-from repro_torch.kernels import distance, ref
+from repro_torch.kernels import autotune, distance, ref
 from repro_torch.kernels import fused_step as fused
+from repro_torch.kernels import kpp_probe as kpp
 from repro_torch.kernels import precision as px
 from repro_torch.kernels import update as upd
 
@@ -77,9 +87,12 @@ def launch_counts() -> dict[str, int]:
               "fused_step_int8": fused.int8_launches,
               "fused_step_batched_int8": fused.batched_int8_launches,
               "assign_int8": distance.int8_launches,
-              "update_int8": upd.int8_launches}
+              "update_int8": upd.int8_launches,
+              "kpp_probe": kpp.launches}
     for name, per_policy in _COUNTS16:
         counts.update({f"{name}_{p}": v for p, v in per_policy.items()})
+    counts.update({"fused_step_dma" + ("" if p == "f32" else f"_{p}"): v
+                   for p, v in fused.dma_launches.items()})
     return counts
 
 
@@ -92,6 +105,8 @@ def reset_launch_counts() -> None:
     distance.int8_launches = 0
     upd.launches = 0
     upd.int8_launches = 0
+    kpp.launches = 0
+    fused.dma_launches.update(dict.fromkeys(fused.dma_launches, 0))
     for _, per_policy in _COUNTS16:
         per_policy.update(dict.fromkeys(per_policy, 0))
 
@@ -103,6 +118,28 @@ def resolve_precision(precision: str | None, x) -> str:
     if isinstance(x, px.QuantizedChunk):
         return "int8"
     return px.resolve(precision, x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def tune_backend(device: torch.device) -> str:
+    """The autotune cache's backend for a card: ``cuda-sm_<major><minor>``."""
+    major, minor = torch.cuda.get_device_capability(device)
+    return f"cuda-sm_{major}{minor}"
+
+
+def _tuned(kind: str, launch, x, b: int, k: int, precision: str):
+    """``launch(**choice)`` with the tuner's choice for this launch; the
+    bench runs the launch and synchronises the device."""
+    def bench(blocks):
+        def run():
+            launch(**blocks)
+            torch.cuda.synchronize(x.device)
+        return run
+
+    m, n = x.shape[-2], x.shape[-1]
+    blocks = autotune.get_blocks(kind, bench, backend=tune_backend(x.device),
+                                 b=b, m=m, k=k, n=n, precision=precision)
+    return launch(**blocks)
 
 
 def resolve_impl(impl: str | None, device: torch.device) -> str:
@@ -131,7 +168,9 @@ def assign(x, c: torch.Tensor, *, impl: str = "auto",
         x = px.as_quantized(x)          # one scale row for the whole chunk
     if impl == "cuda":
         kernel = _KERNELS[precision]["assign"]
-        return kernel(px.cast_storage(x, precision), c)
+        xs = px.cast_storage(x, precision)
+        return _tuned("assign", partial(kernel, xs, c), xs, 1, c.shape[0],
+                      precision)
     if impl == "ref":
         return ref.assign_ref(x, c, precision=precision)
     starts = range(0, x.shape[0], chunk)
@@ -160,8 +199,9 @@ def fused_step(x, c: torch.Tensor, *,
                precision: str = "auto"
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One Lloyd iteration's (sums, counts, objective): kernel A at the
-    policy (A8, A16, A3) inside the fused envelope, two passes (assign +
-    update: kernels B and C at the policy) outside it."""
+    policy (A8, A16, A3; or its dma twin, as the tuner says) inside the
+    fused envelope, two passes (assign + update: kernels B and C at the
+    policy) outside it."""
     if weights is not None:
         raise NotImplementedError(_WEIGHTS)
     impl = resolve_impl(impl, x.device)
@@ -171,7 +211,8 @@ def fused_step(x, c: torch.Tensor, *,
     k = c.shape[0]
     if impl == "cuda" and fused.fits(k, c.shape[1]):
         kernel = _KERNELS[precision]["fused"]
-        return kernel(px.cast_storage(x, precision), c)
+        xs = px.cast_storage(x, precision)
+        return _tuned("fused", partial(kernel, xs, c), xs, 1, k, precision)
     ids, d = assign(x, c, impl=impl, precision=precision)
     sums, counts = update(x, ids, k, impl=impl, precision=precision)
     return sums, counts, torch.sum(d)
@@ -204,7 +245,9 @@ def fused_step_batched(x, c: torch.Tensor, *,
         return torch.stack(sums), torch.stack(counts), torch.stack(obj)
     if fused.fits_batched(c.shape[1], c.shape[2]):
         kernel = _KERNELS[precision]["batched"]
-        return kernel(px.cast_storage(x, precision), c)
+        xs = px.cast_storage(x, precision)
+        return _tuned("fused_batched", partial(kernel, xs, c), xs,
+                      x.shape[0], c.shape[1], precision)
     streams = ((px.QuantizedChunk(x.q[b], x.scale[b]) if int8 else x[b])
                for b in range(x.shape[0]))
     sums, counts, obj = zip(*(fused_step(xb, c[b], impl="cuda",

@@ -9,8 +9,13 @@ compiler against a small stand-in for the CUDA runtime: each CTA runs as
 ``__shared__`` a static shared by the CTA's threads, the rounding
 intrinsics (``__fmul_rn``, ``__fadd_rn``, ``__fsub_rn``) single float
 operations, and ``__nv_bfloat16`` its 16 bits with round-to-nearest-even
-conversions.  Results are held against the port's plain versions with the
-same tolerances as on the card; the int8 kernels' int32 sums bitwise.
+conversions.  The dma kernels' ``cp.async`` copies are deferred: a copy
+lands when the ``cp.async.wait_group`` that retires its group runs, as on
+the card, so a slab read before its wait, or a slot overwritten while it is
+read, shows as a wrong result; their dynamic shared memory is one static
+buffer (the CTAs run one after another).  Results are held against the
+port's plain versions with the same tolerances as on the card; the int8
+kernels' int32 sums bitwise; each dma kernel bitwise its blocks twin.
 """
 import re
 import shutil
@@ -23,7 +28,8 @@ import torch
 
 from repro_torch.kernels import build, distance, fused_step, ref, update
 from repro_torch.kernels import precision as px
-from test_torch_cuda import int8_exact_blobs
+from repro_torch.kernels.kpp_probe import kpp_probe_plain
+from test_torch_cuda import d_bound, int8_exact_blobs
 
 RTOL = 1e-5
 
@@ -33,6 +39,7 @@ STUB = r"""
 #include <barrier>
 #include <cmath>
 #include <cstdint>
+#include <cstring>
 #include <functional>
 #include <thread>
 #include <vector>
@@ -82,6 +89,35 @@ inline void launch2(unsigned gx, unsigned gy, unsigned block,
 }
 inline void launch(unsigned grid, unsigned block, std::function<void()> fn) {
   launch2(grid, 1, block, fn);
+}
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <class F>
+inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+  return 0;
+}
+// cp.async: each copy is held until the wait_group that retires its group
+#define REPRO_HOST_ASYNC_COPY
+struct PendingCopy { void* dst; const void* src; };
+inline thread_local std::vector<PendingCopy> cp_open;
+inline thread_local std::vector<std::vector<PendingCopy>> cp_groups;
+inline void cp_async4(void* dst, const void* src) {
+  cp_open.push_back({dst, src});
+}
+inline void cp_async_commit() {
+  cp_groups.push_back(cp_open);
+  cp_open.clear();
+}
+template <int N>
+inline void cp_async_wait() {
+  while (cp_groups.size() > (size_t)N) {
+    for (const PendingCopy& c : cp_groups.front()) std::memcpy(c.dst, c.src, 4);
+    cp_groups.erase(cp_groups.begin());
+  }
+}
+// dynamic shared memory: the CTAs of a launch run one after another
+inline unsigned char* dynamic_smem() {
+  alignas(16) static unsigned char smem[1 << 18];
+  return smem;
 }
 """
 
@@ -389,6 +425,150 @@ int main(int argc, char** argv) {
 """
 
 
+HARNESS_DMA = r"""
+#include "cuda_runtime.h"
+#include "fused_step.inc"
+#include "fused_step_bf16.inc"
+#include "fused_step_int8.inc"
+#include "fused_step_dma.inc"
+#include <cstdio>
+#include <cstdlib>
+// harness_dma m k n grid shift in out:
+// in = x[m,n] f32, xb[m,n] bf16, xq[m,n] i8, c[k,n] f32, cq[k,n] i8,
+// scale[n] f32, t[k] f32; x, xb and xq are read into their buffers
+// `shift` elements in, so that (for bf16 and int8) rows need not start on
+// a 4-byte word.
+// out = for f32 (A on x), bf16 (A16 on xb), bf16x3 (A3 on x): the blocks
+// kernel's [k*n + k + 1], then its dma twin's; for int8 (A8 on xq): the
+// blocks kernel's isums [k*n] i32 ++ counts ++ obj, then its dma twin's
+template <typename T>
+static bool get(FILE* f, T* p, size_t n) {
+  return fread(p, sizeof(T), n, f) == n;
+}
+template <typename T>
+static void put(FILE* f, const std::vector<T>& v) {
+  fwrite(v.data(), sizeof(T), v.size(), f);
+}
+int main(int argc, char** argv) {
+  const int64_t m = atoll(argv[1]);
+  const int k = atoi(argv[2]), n = atoi(argv[3]), grid = atoi(argv[4]);
+  const int shift = atoi(argv[5]);
+  const int64_t mn = m * n, kn = (int64_t)k * n, sf = kn + k + 1;
+  std::vector<float> xbuf(mn + 4), c(kn), scale(n), t(k), csq(k);
+  std::vector<__nv_bfloat16> xbbuf(mn + 4);
+  std::vector<int8_t> xqbuf(mn + 4), cq(kn);
+  float* x = xbuf.data() + shift;
+  __nv_bfloat16* xb = xbbuf.data() + shift;
+  int8_t* xq = xqbuf.data() + shift;
+  FILE* f = fopen(argv[6], "rb");
+  if (!get(f, x, mn) || !get(f, xb, mn) || !get(f, xq, mn) ||
+      !get(f, c.data(), kn) || !get(f, cq.data(), kn) ||
+      !get(f, scale.data(), n) || !get(f, t.data(), k)) return 1;
+  fclose(f);
+  const int64_t tiles = (m + TM - 1) / TM;
+  FILE* o = fopen(argv[7], "wb");
+  launch(sqnorm_grid(k), 256, [&] { sqnorm_rows(c.data(), csq.data(), k, n); });
+  std::vector<float> pf(grid * sf), of(sf);
+  auto reduce16 = [&] {
+    launch(3, 256, [&] { fused_step_16_reduce(pf.data(), of.data(), sf, grid); });
+    put(o, of);
+  };
+  launch(grid, TM, [&] {
+    fused_step_f32_kernel(x, c.data(), pf.data(), m, k, n, tiles);
+  });
+  launch(3, 256, [&] { fused_step_f32_reduce(pf.data(), of.data(), sf, grid); });
+  put(o, of);
+  launch(grid, TM, [&] {
+    fused_step_f32_dma_kernel(x, c.data(), pf.data(), m, k, n, tiles);
+  });
+  launch(3, 256, [&] { fused_step_dma_reduce(pf.data(), of.data(), sf, grid); });
+  put(o, of);
+  launch(grid, TM, [&] {
+    fused_step_bf16_kernel(xb, c.data(), csq.data(), pf.data(), m, k, n, tiles);
+  });
+  reduce16();
+  launch(grid, TM, [&] {
+    fused_step_bf16_dma_kernel(xb, c.data(), csq.data(), pf.data(), m, k, n,
+                               tiles);
+  });
+  reduce16();
+  launch(grid, TM, [&] {
+    fused_step_bf16x3_kernel(x, c.data(), csq.data(), pf.data(), m, k, n,
+                             tiles);
+  });
+  reduce16();
+  launch(grid, TM, [&] {
+    fused_step_bf16x3_dma_kernel(x, c.data(), csq.data(), pf.data(), m, k, n,
+                                 tiles);
+  });
+  reduce16();
+  std::vector<int32_t> ps(grid * kn), os(kn);
+  std::vector<float> pq(grid * (k + 1)), oq(k + 1);
+  launch(grid, TM, [&] {
+    fused_step_int8_kernel(xq, cq.data(), csq.data(), t.data(), scale.data(),
+                           ps.data(), pq.data(), m, k, n, tiles);
+  });
+  launch(3, 256, [&] {
+    fused_step_int8_reduce(ps.data(), pq.data(), os.data(), oq.data(), kn,
+                           k + 1, grid);
+  });
+  put(o, os);
+  put(o, oq);
+  launch(grid, TM, [&] {
+    fused_step_int8_dma_kernel(xq, cq.data(), csq.data(), t.data(),
+                               scale.data(), ps.data(), pq.data(), m, k, n,
+                               tiles);
+  });
+  launch(3, 256, [&] {
+    fused_step_int8_dma_reduce(ps.data(), pq.data(), os.data(), oq.data(), kn,
+                               k + 1, grid);
+  });
+  put(o, os);
+  put(o, oq);
+  fclose(o);
+  return 0;
+}
+"""
+
+
+HARNESS_KPP = r"""
+#include "cuda_runtime.h"
+#include "kpp_probe.inc"
+#include <cstdio>
+#include <cstdlib>
+// harness_kpp m L n grid in out: in = x[m,n], cands[L,n], d[m] (f32);
+// out = newd [m,L] ++ pot [L], twice (two launches)
+int main(int argc, char** argv) {
+  const int64_t m = atoll(argv[1]);
+  const int L = atoi(argv[2]), n = atoi(argv[3]), grid = atoi(argv[4]);
+  std::vector<float> x(m * n), c((size_t)L * n), d(m), newd(m * L),
+      part(grid * L), pot(L);
+  FILE* f = fopen(argv[5], "rb");
+  if (fread(x.data(), 4, x.size(), f) != x.size() ||
+      fread(c.data(), 4, c.size(), f) != c.size() ||
+      fread(d.data(), 4, d.size(), f) != d.size()) return 1;
+  fclose(f);
+  const int64_t tiles = (m + TM - 1) / TM;
+  FILE* o = fopen(argv[6], "wb");
+  for (int rep = 0; rep < 2; ++rep) {
+    launch(grid, TM, [&] {
+      kpp_probe_kernel(x.data(), c.data(), d.data(), newd.data(), part.data(),
+                       m, L, n, tiles);
+    });
+    launch(2, 256, [&] { kpp_probe_reduce(part.data(), pot.data(), L, grid); });
+    fwrite(newd.data(), 4, newd.size(), o);
+    fwrite(pot.data(), 4, pot.size(), o);
+  }
+  fclose(o);
+  return 0;
+}
+"""
+
+
+HARNESSES = ("harness", "harness_batched", "harness_int8", "harness_16",
+             "harness_dma", "harness_kpp")
+
+
 @pytest.fixture(scope="module")
 def harness(tmp_path_factory):
     cxx = shutil.which("g++")
@@ -406,12 +586,13 @@ def harness(tmp_path_factory):
     (d / "harness_batched.cpp").write_text(HARNESS_BATCHED)
     (d / "harness_int8.cpp").write_text(HARNESS_INT8)
     (d / "harness_16.cpp").write_text(HARNESS_16)
+    (d / "harness_dma.cpp").write_text(HARNESS_DMA)
+    (d / "harness_kpp.cpp").write_text(HARNESS_KPP)
     procs = [subprocess.Popen(
         [cxx, "-std=c++20", "-O1", "-pthread", f"-I{d}", f"-I{build.CSRC}",
          str(d / f"{name}.cpp"), "-o", str(d / name)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for name in ("harness", "harness_batched", "harness_int8",
-                     "harness_16")]
+        for name in HARNESSES]
     for proc in procs:
         _, err = proc.communicate()
         assert proc.returncode == 0, err
@@ -768,3 +949,98 @@ def test_bf16_kernel_sources_match_plain(harness, tmp_path, shape):
             np.testing.assert_array_equal(
                 got["batched"][b * (kn + k + 1):(b + 1) * (kn + k + 1)]
                 .view(np.uint32), a_out.view(np.uint32))
+
+
+# --------------------------------------------------------------------------
+# the dma kernels A-dma, A16-dma, A3-dma, A8-dma against their blocks twins
+# --------------------------------------------------------------------------
+
+DMA_SHAPES = [  # (m, k, n, grid, shift): a CTA with two tiles (the next
+    (600, 25, 28, 2, 0),   # tile's slab copied ahead), a ragged last tile,
+    (600, 25, 28, 2, 1),   # n = 3 (rows of 6 and 3 bytes: bf16 and int8
+    (300, 40, 3, 1, 3),    # segments off the word), n > 32 with several k
+    (513, 70, 68, 2, 1),   # and feature tiles (slabs per step, in kernel
+    (257, 33, 37, 3, 1),   # A's order), odd n > 32, k = 1, a CTA without
+    (100, 1, 5, 1, 2),     # a tile, x's base `shift` elements off its
+]                          # buffer's
+
+
+@pytest.mark.parametrize("shape", DMA_SHAPES, ids=[
+    f"m{m}-k{k}-n{n}-g{g}-s{sh}" for m, k, n, g, sh in DMA_SHAPES])
+def test_dma_kernel_sources_bitwise_blocks(harness, tmp_path, shape):
+    """Each dma kernel's slot logic gives bitwise its blocks twin's
+    outputs under every policy (the deferred-copy stand-in shows a slab
+    read before its wait or a slot overwritten while read), and the blocks
+    twins' counts equal the plain versions' (both ran)."""
+    m, k, n, grid, shift = shape
+    rng = np.random.default_rng(m + k + n)
+    c = (rng.normal(size=(k, n)) * 5).astype(np.float32)
+    x = (c[rng.integers(0, k, m)] + rng.normal(size=(m, n))).astype(
+        np.float32)
+    X, C = torch.from_numpy(x), torch.from_numpy(c)
+    xb = X.bfloat16().view(torch.int16).numpy()
+    qx = px.quantize_chunk(X)
+    cq, t = px.quantize_centroids(C, qx.scale)
+    (tmp_path / "in.bin").write_bytes(b"".join(
+        a.tobytes() for a in (x, xb, qx.q.numpy(), c, cq.numpy(),
+                              qx.scale.numpy(), t.numpy())))
+    subprocess.run([str(harness.parent / "harness_dma"), str(m), str(k),
+                    str(n), str(grid), str(shift), str(tmp_path / "in.bin"),
+                    str(tmp_path / "out.bin")], check=True, timeout=300)
+    raw = np.fromfile(tmp_path / "out.bin", dtype=np.uint32)
+    kn, sf = k * n, k * n + k + 1
+    assert raw.size == 6 * sf + 2 * (kn + k + 1)
+    for i, prec in enumerate(("f32", "bf16", "bf16x3")):
+        blocks = raw[2 * i * sf:(2 * i + 1) * sf]
+        dma = raw[(2 * i + 1) * sf:(2 * i + 2) * sf]
+        np.testing.assert_array_equal(dma, blocks, err_msg=prec)
+        counts = blocks[kn:kn + k].view(np.float32)
+        _, want, _ = fused_step.fused_step_plain(X, C, prec)
+        np.testing.assert_array_equal(counts, want.numpy(), err_msg=prec)
+    q8 = raw[6 * sf:]
+    np.testing.assert_array_equal(q8[sf:], q8[:sf], err_msg="int8")
+    _, want, _ = fused_step.fused_step_int8_plain(qx, C)
+    np.testing.assert_array_equal(q8[kn:kn + k].view(np.float32),
+                                  want.numpy())
+
+
+# --------------------------------------------------------------------------
+# kernel P (kpp_probe)
+# --------------------------------------------------------------------------
+
+KPP_SHAPES = [  # (m, L, n, grid): the reference test's small shapes, n > 32
+    (100, 3, 7, 1),        # (feature tiles), L > 32 (candidate tiles), CTAs
+    (513, 3, 28, 2),       # with two tiles and a ragged last one
+    (300, 8, 70, 1),
+    (600, 40, 68, 2),
+]
+
+
+@pytest.mark.parametrize("shape", KPP_SHAPES, ids=[
+    f"m{m}-L{L}-n{n}-g{g}" for m, L, n, g in KPP_SHAPES])
+def test_kpp_probe_source_matches_plain(harness, tmp_path, shape):
+    """Kernel P against ``kpp_probe_plain``.  Tolerances: newd within
+    ``RTOL`` of the magnitude of its terms, (||x|| + ||c||)^2 (norms and
+    dots summed in another order); pot within ``RTOL``; two launches
+    bitwise equal."""
+    m, L, n, grid = shape
+    rng = np.random.default_rng(m + L)
+    x = rng.normal(size=(m, n)).astype(np.float32)
+    c = rng.normal(size=(L, n)).astype(np.float32)
+    d = (rng.uniform(size=m) * 5.0).astype(np.float32)
+    (tmp_path / "in.bin").write_bytes(x.tobytes() + c.tobytes() + d.tobytes())
+    subprocess.run([str(harness.parent / "harness_kpp"), str(m), str(L),
+                    str(n), str(grid), str(tmp_path / "in.bin"),
+                    str(tmp_path / "out.bin")], check=True, timeout=300)
+    out = np.fromfile(tmp_path / "out.bin", dtype=np.float32)
+    one = m * L + L
+    assert out.size == 2 * one
+    np.testing.assert_array_equal(out[:one].view(np.uint32),
+                                  out[one:].view(np.uint32))
+    newd, pot = out[:m * L].reshape(m, L), out[m * L:one]
+    want_newd, want_pot = kpp_probe_plain(torch.from_numpy(x),
+                                          torch.from_numpy(c),
+                                          torch.from_numpy(d))
+    bound = np.stack([d_bound(x, c, np.full(m, j)) for j in range(L)], 1)
+    assert np.all(np.abs(newd - want_newd.numpy()) <= bound)
+    np.testing.assert_allclose(pot, want_pot.numpy(), rtol=RTOL)

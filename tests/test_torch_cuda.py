@@ -10,6 +10,7 @@ only PyTorch (with ``--noconftest``: the suite's conftest configures JAX):
 The shared helpers (``blobs``, ``int8_exact_blobs`` and the error bounds)
 are used by the CPU parity tests too.
 """
+import json
 import math
 
 import numpy as np
@@ -542,3 +543,172 @@ def test_bf16_fit_on_card_goes_through_the_policy_kernels(batch, precision):
     assert abs(f - f_ref) <= 1e-3 * f_ref
     _, f32 = api.evaluate(api.fit(X, cfg.replace(precision="f32")), X)
     assert abs(f - f32) <= 1e-2 * f32
+
+
+# --------------------------------------------------------------------------
+# the dma pipeline (A-dma, A8-dma, A16-dma, A3-dma), kernel P, the tuner
+# --------------------------------------------------------------------------
+
+DMA_CARD_SHAPES = [(64_000, 25, 28), (64_001, 25, 3), (64_001, 129, 68),
+                   (3_001, 1024, 1024), (20_001, 40, 37)]
+
+
+def _fused_entry(precision):
+    from repro_torch.kernels import fused_step
+
+    if precision == "f32":
+        return fused_step.fused_step_f32
+    if precision == "int8":
+        return fused_step.fused_step_int8
+    return lambda x, c, pipeline: fused_step.fused_step_16(x, c, precision,
+                                                           pipeline)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data", ["blobs", "exact"])
+@pytest.mark.parametrize("precision", ["f32", "int8", "bf16", "bf16x3"])
+@pytest.mark.parametrize("shape", DMA_CARD_SHAPES, ids=[
+    f"m{m}-k{k}-n{n}" for m, k, n in DMA_CARD_SHAPES])
+def test_dma_kernels_bitwise_blocks_on_card(shape, precision, data):
+    """Each dma kernel is bitwise its blocks twin (same CTA body, grid and
+    reduction order), two launches bitwise equal, on Gaussian blobs and on
+    integer data; its launches are counted apart from the twin's."""
+    _card()
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import precision as px
+
+    m, k, n = shape
+    xn, cn = (blobs(m, k, n, seed=11) if data == "blobs"
+              else int8_exact_blobs(m, n, k, seed=11))
+    x, c = torch.from_numpy(xn).cuda(), torch.from_numpy(cn).cuda()
+    xs = px.cast_storage(x, precision)
+    fn = _fused_entry(precision)
+    blocks = fn(xs, c, "blocks")
+    ops.reset_launch_counts()
+    dma = fn(xs, c, "dma")
+    again = fn(xs, c, "dma")
+    counts = ops.launch_counts()
+    suffix = "" if precision == "f32" else f"_{precision}"
+    assert counts["fused_step_dma" + suffix] == 2
+    assert counts["fused_step" + suffix] == 0
+    for a, b, d in zip(blocks, dma, again):
+        assert torch.equal(a, b) and torch.equal(b, d)
+
+
+KPP_CARD_SHAPES = [(100, 7, 3), (513, 28, 3), (300, 768, 8), (1000, 68, 128),
+                   (64_000, 28, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", KPP_CARD_SHAPES, ids=[
+    f"m{m}-n{n}-L{L}" for m, n, L in KPP_CARD_SHAPES])
+def test_kpp_probe_matches_plain_on_card(shape):
+    """Kernel P against ``kpp_probe_plain``: newd within RTOL of its
+    terms' magnitude (||x|| + ||c||)^2, pot within RTOL, two launches
+    bitwise equal; ``kpp_probe`` on the card is the kernel, counted."""
+    _card()
+    from repro_torch.kernels import kpp_probe as kpp
+    from repro_torch.kernels import ops
+
+    m, n, L = shape
+    rng = np.random.default_rng(m + n + L)
+    x = torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32)).cuda()
+    cands = torch.from_numpy(rng.normal(size=(L, n)).astype(np.float32)).cuda()
+    d = torch.from_numpy((rng.uniform(size=m) * 5).astype(np.float32)).cuda()
+    ops.reset_launch_counts()
+    newd, pot = kpp.kpp_probe(x, cands, d)
+    newd2, pot2 = kpp.kpp_probe_cuda(x, cands, d)
+    assert ops.launch_counts()["kpp_probe"] == 2
+    assert torch.equal(newd, newd2) and torch.equal(pot, pot2)
+    want_newd, want_pot = kpp.kpp_probe_plain(x, cands, d)
+    terms = (x.norm(dim=1)[:, None] + cands.norm(dim=1)[None, :]) ** 2
+    assert bool(((newd - want_newd).abs() <= RTOL * terms).all())
+    assert bool(((pot - want_pot).abs() <= RTOL * want_pot.abs()).all())
+
+
+@pytest.fixture
+def _tuner(tmp_path):
+    from repro_torch.kernels import autotune
+
+    was = autotune.enabled(), autotune.cache_path()
+    autotune.clear()
+    autotune.set_cache_path(tmp_path / "tune.json")
+    yield autotune
+    autotune.clear()
+    autotune.enable(was[0])
+    autotune.set_cache_path(was[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "int8", "bf16", "bf16x3"])
+def test_tuned_fused_step_bitwise_untuned_on_card(_tuner, tmp_path,
+                                                  precision):
+    """A tuned ``ops.fused_step`` (both pipelines timed, the winner cached
+    under a ``cuda-sm_*`` key) is bitwise the untuned one, and so is a
+    launch under a pinned ``{"pipeline": "dma"}``."""
+    _card()
+    from repro_torch.kernels import ops
+
+    xn, cn = blobs(64_000, 25, 28, seed=12)
+    x, c = torch.from_numpy(xn).cuda(), torch.from_numpy(cn).cuda()
+    untuned = ops.fused_step(x, c, precision=precision)
+    _tuner.enable(True)
+    n_timed = len(_tuner.timings())
+    tuned = ops.fused_step(x, c, precision=precision)
+    timed = _tuner.timings()[n_timed:]
+    assert [cand for _, cand, _ in timed] == [{"pipeline": "blocks"},
+                                              {"pipeline": "dma"}]
+    assert timed[0][0].split("|")[1] == ops.tune_backend(x.device)
+    assert all(torch.equal(a, b) for a, b in zip(untuned, tuned))
+    _tuner.enable(False)
+    _tuner.clear()
+    pin = tmp_path / "pin.json"
+    pin.write_text(json.dumps({"version": 1, "entries": {
+        timed[0][0]: {"pipeline": "dma"}}}))
+    _tuner.set_cache_path(pin)
+    ops.reset_launch_counts()
+    pinned = ops.fused_step(x, c, precision=precision)
+    suffix = "" if precision == "f32" else f"_{precision}"
+    assert ops.launch_counts()["fused_step_dma" + suffix] == 1
+    assert all(torch.equal(a, b) for a, b in zip(untuned, pinned))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "int8", "bf16", "bf16x3"])
+def test_assign_candidates_bitwise_each_other_on_card(precision):
+    """Kernel B's launches at 1, 2 and 4 CTAs per SM (the tuner's assign
+    candidates) give bitwise the same ids and distances."""
+    _card()
+    from repro_torch.kernels import autotune, distance
+    from repro_torch.kernels import precision as px
+
+    xn, cn = blobs(64_001, 25, 28, seed=13)
+    x, c = torch.from_numpy(xn).cuda(), torch.from_numpy(cn).cuda()
+    xs = px.cast_storage(x, precision)
+    kernel = {"f32": distance.assign_f32, "int8": distance.assign_int8}.get(
+        precision, lambda a, b, **kw: distance.assign_16(a, b, precision,
+                                                         **kw))
+    outs = [kernel(xs, c, **cand) for cand in autotune.candidates(
+        "assign", b=1, m=64_001, k=25, n=28, precision=precision)]
+    for ids, d in outs[1:]:
+        assert torch.equal(ids, outs[0][0]) and torch.equal(d, outs[0][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "int8", "bf16", "bf16x3"])
+@pytest.mark.parametrize("batch", [1, 4], ids=["sequential", "batched"])
+def test_autotuned_fit_bitwise_untuned_on_card(_tuner, batch, precision):
+    """fit(autotune=True) on the card is bitwise fit(autotune=False) under
+    each policy, and leaves tuning off."""
+    _card()
+    from repro_torch import api
+    from repro_torch.data.synthetic import GMMSpec, gmm_dataset
+
+    X = gmm_dataset(GMMSpec(m=300_000, n=28, components=25, seed=1))
+    cfg = api.BigMeansConfig(k=25, s=8192, n_chunks=8, batch=batch,
+                             sync_every=2, precision=precision)
+    plain = api.fit(X, cfg)
+    tuned = api.fit(X, cfg, autotune=True)
+    assert not _tuner.enabled()
+    assert torch.equal(tuned.centroids, plain.centroids)
+    assert tuned.trace == plain.trace

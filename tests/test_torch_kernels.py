@@ -19,7 +19,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.distance import assign_pallas
 from repro.kernels.update import update_pallas
-from repro_torch.kernels import distance, fused_step, ops, ref, update
+from repro_torch.kernels import distance, fused_step, kpp_probe, ops, ref, update
 from repro_torch.kernels import precision as px
 from test_torch_cuda import RTOL, blobs, d_bound, sums_bound
 
@@ -144,12 +144,21 @@ def test_cpu_wrappers_take_the_plain_version():
                      lambda p=p: update.update_16(xt, ids, 25, p),
                      lambda p=p: fused_step.fused_step_16(xt, ct, p),
                      lambda p=p: fused_step.fused_step_batched_16(
-                         xt[None], ct[None], p)))):
+                         xt[None], ct[None], p))),
+                 lambda: fused_step.fused_step_f32(xt, ct, pipeline="dma"),
+                 lambda: fused_step.fused_step_int8(qx, ct, pipeline="dma"),
+                 *(lambda p=p: fused_step.fused_step_16(xt, ct, p,
+                                                        pipeline="dma")
+                   for p in ("bf16", "bf16x3")),
+                 lambda: kpp_probe.kpp_probe_cuda(xt, ct[:3],
+                                                  torch.ones(300))):
         with pytest.raises(ValueError, match="must be a CUDA tensor"):
             call()
-    entry = ("fused_step", "assign", "update", "fused_step_batched")
+    entry = ("fused_step", "assign", "update", "fused_step_batched",
+             "fused_step_dma")
     assert ops.launch_counts() == dict.fromkeys(
-        [e + p for p in ("", "_int8", "_bf16", "_bf16x3") for e in entry], 0)
+        [e + p for p in ("", "_int8", "_bf16", "_bf16x3") for e in entry]
+        + ["kpp_probe"], 0)
     sums, counts = ops.update(xt, ids, 25)
     assert all(torch.equal(a, b) for a, b in
                zip((sums, counts), update.update_plain(xt, ids, 25)))

@@ -36,6 +36,26 @@ def test_port_imports_neither_jax_nor_repro():
     assert len(modules) >= 20
 
 
+def test_scripts_import_neither_jax_nor_repro():
+    """``chip_smoke.py`` and ``tools/*.py`` run on the card's machine,
+    which has no JAX: no import of ``jax`` or ``repro`` anywhere in them."""
+    import ast
+
+    scripts = [ROOT / "chip_smoke.py", *sorted((ROOT / "tools").glob("*.py"))]
+    for path in scripts:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in ("jax", "repro"), \
+                    (path.name, name)
+    assert len(scripts) >= 2
+
+
 def test_no_card_means_no_run(monkeypatch):
     """Without a CUDA device and without device='cpu' the entry points
     raise; they never move to the CPU on their own."""
@@ -80,11 +100,22 @@ def test_cuda_impl_refuses_cpu_tensors():
     (dict(scheduler="worker"), "queue 1 item 6"),
     (dict(topology="worker_mesh"), "queue 1 item 8"),
     (dict(mesh=object()), "queue 1 item 8"),
-    (dict(autotune=True), "queue 1 item 10"),
 ], ids=lambda v: next(iter(v)) if isinstance(v, dict) else v)
 def test_unported_knobs_raise(knob, item):
     with pytest.raises(NotImplementedError, match=item):
         api.BigMeansConfig(k=3, s=100, n_chunks=2, **knob)
+
+
+def test_autotune_is_ported():
+    """autotune=True validates as a config field and as a fit override, and
+    the fit runs and reports it (on the CPU there is nothing to tune)."""
+    cfg = api.BigMeansConfig(k=3, s=100, n_chunks=2, autotune=True)
+    assert cfg.autotune is True
+    res = api.fit(X, cfg, device="cpu")
+    assert res.extras["fit"]["autotune"] is True
+    base = api.BigMeansConfig(k=3, s=100, n_chunks=2)
+    assert api.fit(X, base, device="cpu", autotune=True
+                   ).extras["fit"]["autotune"] is True
 
 
 def test_int8_precision_is_ported():

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Hold the f32 and int8 kernels of this checkout bitwise to another tree's.
+"""Hold the kernels of this checkout bitwise to another tree's.
 
     python3 tools/compare_kernels.py --against DIR
 
 ``DIR`` is another checkout of the repository (for example the parent
 commit unpacked with ``git archive`` into ``build/parent``).  Each tree
-builds its own kernel library and runs kernels A, B, C, D (f32) and A8,
-B8, C8, D8 (int8) through ``repro_torch.kernels.ops`` on the same inputs
-(five shapes, generated on the card from fixed seeds), in a process of
-its own; the outputs are compared bit for bit.  Prints one JSON line —
+builds its own kernel library and runs kernels A, B, C, D (f32), A8, B8,
+C8, D8 (int8), A16, B16, C16, D16 (bf16) and A3, B3, C3, D3 (bf16x3),
+through ``repro_torch.kernels.ops`` where it dispatches them (untuned:
+kernel A's ``pipeline="blocks"``), on the same inputs (five shapes,
+generated on the card from fixed seeds), in a process of its own; the
+outputs are compared bit for bit.  Prints one JSON line —
 how many outputs were compared and which differ — and exits 1 if any
 differs.  Needs a CUDA card (sm_90).  ``--dump SRC OUT`` is the per-tree
 step: run the kernels of the package under ``SRC`` and save the outputs.
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -27,8 +30,8 @@ SHAPES = [(64_000, 25, 28), (64_001, 25, 3), (64_001, 130, 68),
 
 
 def dump(src: str, out: str) -> None:
-    """Run the f32 and int8 entry points of the package under ``src`` and
-    save every output to ``out``."""
+    """Run the f32, int8, bf16 and bf16x3 entry points of the package under
+    ``src`` and save every output to ``out``."""
     sys.path.insert(0, src)
     import torch
 
@@ -60,6 +63,15 @@ def dump(src: str, out: str) -> None:
             f"D8 {shape}": ops.fused_step_batched(px.quantize_chunk(xb), cb,
                                                   impl="cuda"),
         })
+        for prec, tag in (("bf16", "16"), ("bf16x3", "3")):
+            results.update({
+                f"B{tag} {shape}": distance.assign_16(x, c, prec),
+                f"C{tag} {shape}": update.update_16(x, ids, k, prec),
+                f"A{tag} {shape}": ops.fused_step(x, c, impl="cuda",
+                                                  precision=prec),
+                f"D{tag} {shape}": ops.fused_step_batched(
+                    xb, cb, impl="cuda", precision=prec),
+            })
     torch.cuda.synchronize()
     torch.save({key: tuple(t.cpu() for t in val)
                 for key, val in results.items()}, out)
@@ -79,12 +91,15 @@ def main() -> int:
 
     outdir = ROOT / "build" / "compare_kernels"
     outdir.mkdir(parents=True, exist_ok=True)
+    # untuned launches in both trees: no tuning, no cache file
+    env = {key: val for key, val in os.environ.items()
+           if not key.startswith("REPRO_AUTOTUNE")}
     saved = []
     for name, root in (("other", Path(args.against).resolve()),
                        ("this", ROOT)):
         out = outdir / f"{name}.pt"
         subprocess.run([sys.executable, __file__, "--dump",
-                        str(root / "src"), str(out)], check=True)
+                        str(root / "src"), str(out)], check=True, env=env)
         saved.append(torch.load(out))
     other, this = saved
     differ = sorted(key for key in other if key not in this or not all(
