@@ -12,7 +12,11 @@ Phases, each printing JSON lines:
 3. kernels — each f32 kernel against its plain PyTorch version on the same
    CUDA tensors, at the main paths' shapes and at edge shapes, and two
    launches of each compared bitwise; every stream of the batched kernel D
-   bitwise equal to kernel A on that stream.
+   bitwise equal to kernel A on that stream.  The update kernels (C here,
+   C8, C16 and C3 in 3b and 3c, a sorted scatter) are held bitwise to the
+   one-hot kernels they replaced (``parent_order_update``, that
+   association replayed on the card), and where kernel A's grid equals
+   their order, bitwise to A's sums on A's own ids.
 3b. int8 kernels — A8, B8, C8 and D8 the same way on quantized chunks: ids
    equal off counted near ties, int32 sums bitwise given the same ids,
    every stream of D8 bitwise equal to A8.
@@ -62,7 +66,8 @@ Phases, each printing JSON lines:
    final line reports for B8 and C8.
 5f. the two-pass route at bf16 — 5c's fit at ``precision="bf16"``: B16 and
    C16 carry every Lloyd iteration, held against their plain versions at
-   that shape (the final line reports B16's error there).
+   that shape (the final line reports B16's error there); C3 held there
+   too.
 4e. the autotuned path — ``fit(autotune=True)`` under each policy,
    sequential and ``batch=8, sync_every=2`` (every candidate's time and
    the winners printed), and with tuning off a cache file under build/
@@ -78,7 +83,9 @@ Phases, each printing JSON lines:
    walls in turns, f32 against int8, bf16 and bf16x3 fit walls in turns;
    each dma kernel beside its blocks twin in turns, at the main shape and
    at the envelope's edge; kernel P at the seeding shape.
-   Phases 5c and 5f time B8, C8, C, B16 and C16 at their own shape.
+   Phases 5c and 5f time B8, C8, C, B16, C16 and C3 at their own shape
+   (the update kernels beside ``index_add_``; their rows in the final line
+   carry these times as ``at_two_pass_shape``).
 
 Then the one ``{"kernels": [...]}`` line, the card's name and power limit,
 and the final ``{"ok": true, "device": {...}}`` line.  Any failed check raises.
@@ -234,6 +241,78 @@ def twice(fn, *args):
     return a
 
 
+def parent_order_update(xs, ids, k: int, G: int, split: bool = False):
+    """The sums and counts of the one-hot update kernels that C, C16, C3
+    and C8 were before their sorted-scatter redesign, in their association,
+    on the card: each 256-row tile's [k, n] sums in row order from +0 (rows
+    with an id in [0, k) only; under ``split`` the bf16 hi and lo parts
+    summed apart and added at the tile's end), CTA g's partial the tiles
+    g, g + G, ... in order, then ((+0 + P_0) + P_1) + ... .  ``xs``: the
+    values as stored, widened to f32 (int64 for int8 codes: exact)."""
+    m, n = xs.shape
+    tm = build.TILE_ROWS
+    tiles = -(-m // tm)
+    dt = torch.int64 if not xs.dtype.is_floating_point else torch.float32
+    ok = (ids >= 0) & (ids < k)
+    if split:
+        hi = xs.bfloat16().float()
+        parts = (hi, (xs - hi).bfloat16().float())
+    else:
+        parts = (xs.to(dt),)
+    tsum, tcnt = None, None
+    for part in parts:
+        acc = torch.zeros((tiles, k, n), dtype=dt, device=xs.device)
+        cnt = torch.zeros((tiles, k), dtype=torch.float32, device=xs.device)
+        for i in range(min(tm, m)):              # row i of every tile
+            r = torch.arange(i, m, tm, device=xs.device)
+            r = r[ok[r]]
+            t, j = r // tm, ids[r].long()
+            acc[t, j] = acc[t, j] + part[r]      # one add per element
+            cnt[t, j] = cnt[t, j] + 1.0
+        tsum, tcnt = (acc, cnt) if tsum is None else (tsum + acc, cnt)
+    sums = torch.zeros((k, n), dtype=dt, device=xs.device)
+    counts = torch.zeros(k, dtype=torch.float32, device=xs.device)
+    for g in range(min(G, tiles)):
+        P, C = tsum[g].clone(), tcnt[g].clone()
+        for t in range(g + G, tiles, G):
+            P, C = P + tsum[t], C + tcnt[t]
+        sums, counts = sums + P, counts + C
+    return sums, counts
+
+
+def check_parent_order(sums, counts, xs, ids, k: int, what: str,
+                       split: bool = False) -> None:
+    """The kernel's sums (int32 for C8) and counts bitwise the one-hot
+    kernels' (``parent_order_update`` at the wrapper's order G)."""
+    G = upd.order(xs.device, xs.shape[0], k, xs.shape[1])
+    want_s, want_c = parent_order_update(xs, ids, k, G, split)
+    check(torch.equal(sums.view(torch.int32),
+                      want_s.to(sums.dtype).view(torch.int32)),
+          f"{what} sums differ from the one-hot kernels' (G = {G})")
+    check(torch.equal(counts.view(torch.int32), want_c.view(torch.int32)),
+          f"{what} counts differ from the one-hot kernels' (G = {G})")
+
+
+def check_update_on_fused_ids(x, c, prec: str) -> bool:
+    """Where the update's order G equals kernel A's grid (A8, A16, A3 under
+    their policy), kernel C on kernel B's ids (A's argmin code) must give
+    bitwise A's sums and counts.  Returns whether the grids agree (and so
+    whether it was checked)."""
+    m, n = x.shape[-2], x.shape[-1]
+    k = c.shape[0]
+    if build.grid(x.device, m, k * n + k) != build.grid(x.device, m,
+                                                        k * n + k + 1):
+        return False
+    sums, counts, _ = ops.fused_step(x, c, impl="cuda", precision=prec)
+    ids, _ = ops.assign(x, c, impl="cuda", precision=prec)
+    usums, ucounts = ops.update(x, ids, k, impl="cuda", precision=prec)
+    check(torch.equal(usums.view(torch.int32), sums.view(torch.int32))
+          and torch.equal(ucounts.view(torch.int32),
+                          counts.view(torch.int32)),
+          f"update ({prec}) on kernel B's ids differs from kernel A's sums")
+    return True
+
+
 def check_assign(x, c, ties) -> float:
     ids, d = twice(distance.assign_f32, x, c)
     ids_p, d_p = distance.assign_plain(x, c)
@@ -250,10 +329,16 @@ def check_assign(x, c, ties) -> float:
 
 
 def check_update(x, ids, k) -> float:
+    """Kernel C twice (bitwise), bitwise the one-hot kernel's association,
+    counts equal to the plain version's and sums within its bound."""
     ids = ids.clone()
     ids[::97] = -1                                  # padding never hits
     ids[1::89] = k + 3                              # out of range adds nothing
+    ids[2::101] = 0                                 # -0.0 rows in a cluster
+    x = x.clone()
+    x[2::101] = -0.0
     sums, counts = twice(upd.update_f32, x, ids, k)
+    check_parent_order(sums, counts, x, ids, k, "update")
     sums_p, counts_p = upd.update_plain(x, ids, k)
     check(torch.equal(counts, counts_p), "update counts differ")
     err = (sums - sums_p).abs()
@@ -342,6 +427,8 @@ def phase_kernels(seed: int) -> dict:
         row["update_max_abs_err"] = check_update(x, ids_p, k)
         row["fused_max_abs_err"] = check_fused(x, c, n_ties, direct=fits)
         row["fused_route"] = "kernel A" if fits else "kernels B + C"
+        row["update_bitwise_kernel_a_on_its_ids"] = (
+            fits and check_update_on_fused_ids(x, c, "f32"))
         check(fits == (n <= 1024), "fits() envelope mismatch")
         emit(row)
         if why == "main path chunk":
@@ -419,12 +506,15 @@ def check_assign_int8(qx, c, ties):
 
 
 def check_update_int8(qx, ids, k) -> float:
-    """Kernel C8 twice (bitwise); int32 sums (so the scaled sums) and
-    counts bitwise equal to the plain version on the same ids."""
+    """Kernel C8 twice (bitwise); int32 sums bitwise the one-hot kernel's
+    association; int32 sums (so the scaled sums) and counts bitwise equal
+    to the plain version on the same ids."""
     ids = ids.clone()
     ids[::97] = -1                                  # padding never hits
     ids[1::89] = k + 3                              # out of range adds nothing
     sums, counts = twice(upd.update_int8, qx, ids, k)
+    isums, icounts = upd.launch_update_int8(qx.q, ids, k)
+    check_parent_order(isums, icounts, qx.q, ids, k, "update_int8")
     sums_p, counts_p = upd.update_int8_plain(qx, ids, k)
     check(torch.equal(counts, counts_p), "update_int8 counts differ")
     check(torch.equal(sums, sums_p), "update_int8 sums differ")
@@ -513,6 +603,8 @@ def phase_kernels_int8(seed: int) -> dict:
         row["fused_int8_max_abs_err"] = check_fused_int8(qx, c, ids, n_ties,
                                                          direct=fits)
         row["fused_route"] = "kernel A8" if fits else "kernels B8 + C8"
+        row["update_bitwise_kernel_a_on_its_ids"] = (
+            fits and check_update_on_fused_ids(x, c, "int8"))
         emit(row)
         if why == "main path chunk":
             main_err = {"fused_step_int8": row["fused_int8_max_abs_err"],
@@ -590,13 +682,15 @@ def check_assign_16(x, c, ties, prec: str):
 
 
 def check_update_16(x, ids, k, prec: str) -> float:
-    """Kernel C16 / C3 twice (bitwise); counts equal to the plain
-    version's on the same ids, sums within RTOL of each cluster's sum of
-    |x| (x in its storage)."""
+    """Kernel C16 / C3 twice (bitwise), bitwise the one-hot kernels'
+    association; counts equal to the plain version's on the same ids, sums
+    within RTOL of each cluster's sum of |x| (x in its storage)."""
     ids = ids.clone()
     ids[::97] = -1                                  # padding never hits
     ids[1::89] = k + 3                              # out of range adds nothing
     sums, counts = twice(lambda a, b: upd.update_16(a, b, k, prec), x, ids)
+    check_parent_order(sums, counts, px.cast_storage(x, prec).float(), ids,
+                       k, f"update_{prec}", split=prec == "bf16x3")
     sums_p, counts_p = upd.update_plain(x, ids, k, prec)
     check(torch.equal(counts, counts_p), f"update_{prec} counts differ")
     err = (sums - sums_p).abs()
@@ -696,6 +790,8 @@ def phase_kernels_16(seed: int) -> dict:
                                                       direct=fits)
             row["fused_route"] = (f"fused_step_{prec}" if fits
                                   else f"assign_{prec} + update_{prec}")
+            row["update_bitwise_kernel_a_on_its_ids"] = (
+                fits and check_update_on_fused_ids(x, c, prec))
             emit(row)
             if why == "main path chunk":
                 main_err.update({
@@ -1327,13 +1423,23 @@ def phase_two_pass_int8(spec, X, gen_s: float, seed: int):
                 lambda: distance.assign_int8_plain(qx, c), None,
                 s * n + 5 * k * n + 4 * k + 4 * n + 8 * s, 2 * s * k * n, 3,
                 INT8_OP_PER_S)
+    ids8l, q32 = ids8.long(), qx.q.int()
     c8 = timing(lambda: upd.launch_update_int8(qx.q, ids8, k),
-                lambda: upd.update_int8_plain(qx, ids8, k), None,
-                s * n + 4 * s + 4 * (k * n + k), s * n, 3, INT8_OP_PER_S)
+                lambda: upd.update_int8_plain(qx, ids8, k),
+                lambda: torch.zeros((k, n), dtype=torch.int32,
+                                    device="cuda").index_add_(0, ids8l, q32),
+                s * n + 4 * s + 4 * (k * n + k), s * n, 20, INT8_OP_PER_S)
+    c8["library"] = ("index_add_ on the int32 codes (sums only; counts "
+                     "excluded)")
     xs = X[:s].contiguous()
     c32 = timing(lambda: upd.update_f32(xs, ids8, k),
-                 lambda: upd.update_plain(xs, ids8, k), None,
-                 4 * (s * n + s + k * n + k), s * n, 3)
+                 lambda: upd.update_plain(xs, ids8, k),
+                 lambda: torch.zeros((k, n), device="cuda").index_add_(
+                     0, ids8l, xs),
+                 4 * (s * n + s + k * n + k), s * n, 20)
+    c32["library"] = "index_add_ (sums only; counts excluded)"
+    for row in (c8, c32):
+        row.update(m=s, k=k, n=n)
     emit({"phase": "two_pass_int8", "m": spec.m, "n": spec.n, "k": cfg.k,
           "s": cfg.s, "n_chunks": cfg.n_chunks, "data_gen_s": gen_s,
           "fits_envelope": False, "f_best": res.objective, "f_full": f_full,
@@ -1355,7 +1461,7 @@ def phase_two_pass_int8(spec, X, gen_s: float, seed: int):
           "int8_kernels_s_estimate": res.n_iterations
           * (b8["ms"] + c8["ms"]) / 1e3})
     check(rel <= 1e-3, f"two-pass int8 full objectives differ by {rel:.3e}")
-    return launches, wall, errs
+    return launches, wall, errs, {"update_int8": c8, "update_f32": c32}
 
 
 # --------------------------------------------------------------------------
@@ -1550,11 +1656,28 @@ def phase_two_pass_16(X, seed: int):
                  lambda: distance.assign_plain(xb, c, "bf16"), None,
                  2 * s * n + 4 * (k * n + k) + 8 * s, 2 * s * k * n, 3,
                  BF16_FLOP_PER_S)
+    ids16l, xbf = ids16.long(), xb.float()
     c16 = timing(lambda: upd.update_16(xb, ids16, k, "bf16"),
-                 lambda: upd.update_plain(xb, ids16, k, "bf16"), None,
-                 2 * s * n + 4 * s + 4 * (k * n + k), s * n, 3,
+                 lambda: upd.update_plain(xb, ids16, k, "bf16"),
+                 lambda: torch.zeros((k, n), device="cuda").index_add_(
+                     0, ids16l, xbf),
+                 2 * s * n + 4 * s + 4 * (k * n + k), s * n, 20,
                  BF16_FLOP_PER_S)
+    c16["library"] = ("index_add_ on the bf16 values widened to f32 "
+                      "(sums only; counts excluded)")
     x32 = X[:s].contiguous()             # kernel B beside B16 there
+    # kernel C3 at this shape (no fit here drives it): its checks, then
+    # its time
+    errs["update_bf16x3"] = check_update_16(x32, ids_p, k, "bf16x3")
+    c3 = timing(lambda: upd.update_16(x32, ids16, k, "bf16x3"),
+                lambda: upd.update_plain(x32, ids16, k, "bf16x3"),
+                lambda: torch.zeros((k, n), device="cuda").index_add_(
+                    0, ids16l, x32),
+                4 * (s * n + s + k * n + k), 2 * s * n, 20, BF16_FLOP_PER_S)
+    c3["library"] = ("index_add_ on x (f32 sums, not hi + lo; sums only, "
+                     "counts excluded)")
+    for row in (c16, c3):
+        row.update(m=s, k=k, n=n)
     b32 = timing(lambda: distance.assign_f32(x32, c),
                  lambda: distance.assign_plain(x32, c), None,
                  4 * (s * n + k * n) + 8 * s, 2 * s * k * n, 3)
@@ -1575,12 +1698,12 @@ def phase_two_pass_16(X, seed: int):
           "near_ties": n_ties, "max_abs_err_at_this_shape": {
               **errs, "fused_step_two_pass": two_pass_err},
           "times_at_this_shape": {"assign_bf16": b16, "update_bf16": c16,
-                                  "assign_f32": b32},
+                                  "update_bf16x3": c3, "assign_f32": b32},
           "bf16_kernels_s_estimate": (res.n_iterations * b16["ms"]
                                       + (res.n_iterations + cfg.n_chunks)
                                       * c16["ms"]) / 1e3})
     check(rel <= 1e-3, f"two-pass bf16 full objectives differ by {rel:.3e}")
-    return launches, wall, errs
+    return launches, wall, errs, {"update_bf16": c16, "update_bf16x3": c3}
 
 
 # --------------------------------------------------------------------------
@@ -1995,9 +2118,11 @@ def times_16(prec: str, x, c, xb, cb) -> dict:
         lambda: distance.assign_plain(xs, c, prec), None,
         eb * s * n + 4 * (k * n + k) + 8 * s, mult * 2 * s * k * n, 200,
         BF16_FLOP_PER_S)
+    ids64, xsf = ids.long(), xs.float()
     out[f"update_{prec}"] = timing(
         lambda: upd.update_16(xs, ids, k, prec),
-        lambda: upd.update_plain(xs, ids, k, prec), None,
+        lambda: upd.update_plain(xs, ids, k, prec),
+        lambda: torch.zeros((k, n), device="cuda").index_add_(0, ids64, xsf),
         eb * s * n + 4 * s + 4 * (k * n + k), adds, 200, BF16_FLOP_PER_S)
     name = f"fused_step_batched_{prec}"
     out[name] = timing(
@@ -2011,6 +2136,10 @@ def times_16(prec: str, x, c, xb, cb) -> dict:
                  for b in range(BATCH)], 25)
     for row in out.values():
         row["library"] = "none (no single call computes it)"
+    out[f"update_{prec}"]["library"] = (
+        "index_add_ on the bf16 values widened to f32 (sums only; counts "
+        "excluded)" if prec == "bf16" else
+        "index_add_ on x (f32 sums, not hi + lo; sums only, counts excluded)")
     return out
 
 
@@ -2106,12 +2235,16 @@ def main() -> int:
     # phases 5c, 5f: the two-pass route at int8 and at bf16 (their own
     # data set)
     spec2, X2, gen_s = two_pass_data(args.seed)
-    launches_2p, wall_2p, two_pass_errs = phase_two_pass_int8(
-        spec2, X2, gen_s, args.seed)
+    launches_2p, wall_2p, two_pass_errs, two_pass_times = (
+        phase_two_pass_int8(spec2, X2, gen_s, args.seed))
     paths["int8_two_pass"] = (launches_2p, wall_2p)
-    launches_2p, wall_2p, two_pass_errs_16 = phase_two_pass_16(X2,
-                                                               args.seed)
+    launches_2p, wall_2p, two_pass_errs_16, times_16 = phase_two_pass_16(
+        X2, args.seed)
     paths["bf16_two_pass"] = (launches_2p, wall_2p)
+    # the update kernels' rows carry their times at the two-pass shape
+    two_pass_times.update(times_16)
+    for name, row in two_pass_times.items():
+        times[name]["at_two_pass_shape"] = row
     del X2
     torch.cuda.empty_cache()
     # B8, C8 and B16 run on the main path only at the two-pass shape: their

@@ -31,7 +31,7 @@ SOURCES = ("assign.cu", "update.cu", "fused_step.cu",
            "fused_step_int8.cu", "fused_step_batched_int8.cu",
            "assign_bf16.cu", "update_bf16.cu", "fused_step_bf16.cu",
            "fused_step_batched_bf16.cu", "fused_step_dma.cu", "kpp_probe.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "update.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = "sm_90a"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -43,13 +43,14 @@ _I = ctypes.c_int
 # C entry points: (argtypes) -> int (a cudaError_t).
 SIGNATURES = {
     "repro_assign_f32": (_P, _P, _P, _P, _I64, _I, _I, _I, _P),
-    "repro_update_f32": (_P, _P, _P, _P, _I64, _I, _I, _I, _P),
+    "repro_update_f32": (_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P),
     "repro_fused_step_f32": (_P, _P, _P, _P, _I64, _I, _I, _I, _P),
     "repro_fused_step_batched_f32": (_P, _P, _P, _P, _I, _I64, _I, _I, _I,
                                      _P),
     "repro_assign_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
                           _P),
-    "repro_update_int8": (_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P),
+    "repro_update_int8": (_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
+                          _P),
     "repro_fused_step_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
                               _I, _I, _I, _P),
     "repro_fused_step_batched_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -61,7 +62,7 @@ SIGNATURES.update({
     f"repro_{entry}_{prec}": argtypes for prec in ("bf16", "bf16x3")
     for entry, argtypes in (
         ("assign", (_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P)),
-        ("update", (_P, _P, _P, _P, _I64, _I, _I, _I, _P)),
+        ("update", (_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P)),
         ("fused_step", (_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P)),
         ("fused_step_batched", (_P, _P, _P, _P, _P, _I, _I64, _I, _I, _I,
                                 _P)))})

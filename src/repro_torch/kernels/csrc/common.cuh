@@ -1,7 +1,8 @@
 // Shared device code of the kernels: the float CTA bodies (assign.cu,
-// update.cu, fused_step.cu, fused_step_batched.cu and their bf16 / bf16x3
-// twins *_bf16.cu) and the int8 bodies (assign_int8.cu, update_int8.cu,
-// fused_step_int8.cu, fused_step_batched_int8.cu).
+// fused_step.cu, fused_step_batched.cu and their bf16 / bf16x3 twins
+// *_bf16.cu) and the int8 bodies (assign_int8.cu, fused_step_int8.cu,
+// fused_step_batched_int8.cu).  The update kernels (update*.cu) have their
+// own, update.cuh.
 //
 // One CTA of TM threads walks point tiles of TM rows; thread t owns row t of
 // the tile.  Point and centroid tiles are staged in shared memory, k-tiled by
@@ -582,32 +583,6 @@ __device__ __forceinline__ void assign_cta(
   }
 }
 
-// One CTA's share of the update (kernel C and its twins): the partial sums
-// [k,n] and counts [k] of its point tiles, written to P [k*n + k]; an id
-// outside [0, k) adds nothing.
-template <class Ops>
-__device__ __forceinline__ void update_cta(
-    TileSmemT<Ops>& s, const typename Ops::X* __restrict__ x,
-    const int32_t* __restrict__ ids, float* __restrict__ P, int64_t m, int k,
-    int n, int64_t num_tiles) {
-  float* Cnt = P + (int64_t)k * n;
-  if (blockIdx.x >= num_tiles) {
-    zero_partials(P, (int64_t)k * n + k);
-    return;
-  }
-  SyncLoad xin;
-  for (int64_t tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
-    const int64_t r0 = tile * TM;
-    const int64_t r = r0 + threadIdx.x;
-    int id = r < m ? ids[r] : -1;
-    s.ids[threadIdx.x] = (id >= 0 && id < k) ? id : -1;
-    __syncthreads();
-    tile_accumulate(s, x, m, k, n, r0, P, Cnt, tile == blockIdx.x, false,
-                    xin);
-    __syncthreads();  // s.ids / s.xs are rewritten by the next tile
-  }
-}
-
 // out[e] = sum over g = 0..G-1, in order, of part[g * stride + e] (float
 // partials, or the exact int32 sums of the int8 kernels).
 template <typename T>
@@ -629,7 +604,7 @@ inline int reduce_grid(int64_t stride) {
 }
 
 // --------------------------------------------------------------------------
-// int8 bodies (assign_int8.cu, update_int8.cu, fused_step_int8.cu,
+// int8 bodies (assign_int8.cu, fused_step_int8.cu,
 // fused_step_batched_int8.cu): the scheme of repro/kernels/precision.py.
 // Inputs are the chunk's int8 codes xq [m,n] with per-feature scales
 // scale [n], and the centroids' codes cq [k,n] with per-row scales t [k]

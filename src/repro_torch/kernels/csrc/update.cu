@@ -6,43 +6,50 @@
 // where an id outside [0, k) adds nothing.
 //
 // Bound: bytes.  It reads x and ids once (4mn + 4m bytes) and writes
-// 4(kn + k); at the main path's shapes (m = 64,000, k = 25, n = 28) that is
-// about 7.4 MB.  Design: the one-hot contraction of the TPU kernel, kept
-// deterministic without atomics — each CTA walks a fixed set of point
-// tiles, and each thread owns a fixed set of (cluster, feature) elements of
-// the CTA's partial sums, which it adds up over the tile's rows in order
-// (common.cuh:update_cta, tile_accumulate).  A second launch reduces the
-// per-CTA partials in CTA order.
-#include "common.cuh"
+// 4(kn + k).  Design: the sorted scatter of update.cuh — a tile pass that
+// sorts each 256-row tile by cluster and sums each cluster's run of rows,
+// then a reduce that folds each cluster's tile sums in the association of
+// the one-hot kernel it replaced, so the result is bitwise that kernel's.
+// No atomics.
+#include "update.cuh"
 
 using namespace repro;
 
 extern "C" __global__ void __launch_bounds__(TM)
-update_f32_kernel(const float* __restrict__ x, const int32_t* __restrict__ ids,
-                  float* __restrict__ part, int64_t m, int k, int n,
-                  int64_t num_tiles) {
-  __shared__ TileSmem s;
-  const int64_t stride = (int64_t)k * n + k;
-  update_cta(s, x, ids, part + blockIdx.x * stride, m, k, n, num_tiles);
+update_f32_tiles(const float* __restrict__ x, const int32_t* __restrict__ ids,
+                 float* __restrict__ rec, float* __restrict__ rcnt,
+                 int32_t* __restrict__ idx, int64_t m, int k, int n, int G) {
+  __shared__ ScatterSmem<float> s;
+  scatter_tile<SumF32>(s, x, ids, rec, rcnt, idx, m, k, n, G);
 }
 
-extern "C" __global__ void update_f32_reduce(const float* __restrict__ part,
-                                             float* __restrict__ out,
-                                             int64_t stride, int G) {
-  reduce_partials(part, out, stride, G);
+extern "C" __global__ void update_f32_reduce(
+    int room, const float* __restrict__ rec, const float* __restrict__ rcnt,
+    const int32_t* __restrict__ idx, float* __restrict__ out, int k, int n,
+    int64_t tiles, int G) {
+  __shared__ ReduceSmem rs;
+  scatter_reduce(rs, reinterpret_cast<float*>(dynamic_smem()), room, rec,
+                 rcnt, idx, out, out + (int64_t)k * n, k, n, tiles, G);
 }
 
-// part: scratch [grid, k*n + k]; out: [k*n + k] = sums (row-major) ++ counts.
+// rec: scratch [tiles * min(256, k), record_stride(n)]; rcnt: [tiles * min(256, k)];
+// idx: [k, tiles]; out: [k*n + k] = sums (row-major) ++ counts.  G: the
+// reduce's association (update.cuh).
 extern "C" int repro_update_f32(const float* x, const int32_t* ids,
-                                float* part, float* out, int64_t m, int k,
-                                int n, int grid, void* stream) {
-  const int64_t num_tiles = (m + TM - 1) / TM;
-  const int64_t stride = (int64_t)k * n + k;
+                                float* rec, float* rcnt, int32_t* idx,
+                                float* out, int64_t m, int k, int n, int G,
+                                void* stream) {
+  const int64_t tiles = (m + TM - 1) / TM;
   cudaStream_t st = (cudaStream_t)stream;
-  update_f32_kernel<<<grid, TM, 0, st>>>(x, ids, part, m, k, n, num_tiles);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  update_f32_reduce<<<reduce_grid(stride), 256, 0, st>>>(part, out, stride,
-                                                         grid);
+  if (tiles > 0) {
+    const unsigned blocks = tile_blocks<float>(n);
+    update_f32_tiles<<<dim3((unsigned)tiles, blocks), TM, 0, st>>>(
+        x, ids, rec, rcnt, idx, m, k, n, G);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int room = reduce_buffer(tiles, n, m, k);
+  update_f32_reduce<<<dim3(k, reduce_blocks(n)), RT, 4 * room, st>>>(
+      room, rec, rcnt, idx, out, k, n, tiles, G);
   return (int)cudaGetLastError();
 }

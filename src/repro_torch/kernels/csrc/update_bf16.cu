@@ -13,64 +13,74 @@
 // where an id outside [0, k) adds nothing.
 //
 // Bound: bytes.  C16 reads x at 2 bytes an element and ids at 4 (2mn + 4m
-// bytes), C3 reads x at 4.  Design: kernel C's (common.cuh:update_cta,
-// tile_accumulate): each thread owns fixed (cluster, feature) elements of
-// its CTA's partials and adds the tile's rows in order; a second launch
-// reduces the per-CTA partials in CTA order.  No atomics.
-#include "common.cuh"
+// bytes), C3 reads x at 4.  Design: kernel C's sorted scatter (update.cuh)
+// with the policy's sum (SumBf16, SumBf16x3), bitwise the one-hot kernels
+// it replaced.  No atomics.
+#include "update.cuh"
 
 using namespace repro;
 
 extern "C" __global__ void __launch_bounds__(TM)
-update_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                   const int32_t* __restrict__ ids, float* __restrict__ part,
-                   int64_t m, int k, int n, int64_t num_tiles) {
-  __shared__ TileSmemT<Bf16Ops> s;
-  const int64_t stride = (int64_t)k * n + k;
-  update_cta(s, x, ids, part + blockIdx.x * stride, m, k, n, num_tiles);
+update_bf16_tiles(const __nv_bfloat16* __restrict__ x,
+                  const int32_t* __restrict__ ids, float* __restrict__ rec,
+                  float* __restrict__ rcnt, int32_t* __restrict__ idx,
+                  int64_t m, int k, int n, int G) {
+  __shared__ ScatterSmem<__nv_bfloat16> s;
+  scatter_tile<SumBf16>(s, x, ids, rec, rcnt, idx, m, k, n, G);
 }
 
 extern "C" __global__ void __launch_bounds__(TM)
-update_bf16x3_kernel(const float* __restrict__ x,
-                     const int32_t* __restrict__ ids, float* __restrict__ part,
-                     int64_t m, int k, int n, int64_t num_tiles) {
-  __shared__ TileSmemT<Bf16x3Ops> s;
-  const int64_t stride = (int64_t)k * n + k;
-  update_cta(s, x, ids, part + blockIdx.x * stride, m, k, n, num_tiles);
+update_bf16x3_tiles(const float* __restrict__ x,
+                    const int32_t* __restrict__ ids, float* __restrict__ rec,
+                    float* __restrict__ rcnt, int32_t* __restrict__ idx,
+                    int64_t m, int k, int n, int G) {
+  __shared__ ScatterSmem<float> s;
+  scatter_tile<SumBf16x3>(s, x, ids, rec, rcnt, idx, m, k, n, G);
 }
 
-extern "C" __global__ void update_16_reduce(const float* __restrict__ part,
-                                            float* __restrict__ out,
-                                            int64_t stride, int G) {
-  reduce_partials(part, out, stride, G);
+extern "C" __global__ void update_16_reduce(
+    int room, const float* __restrict__ rec, const float* __restrict__ rcnt,
+    const int32_t* __restrict__ idx, float* __restrict__ out, int k, int n,
+    int64_t tiles, int G) {
+  __shared__ ReduceSmem rs;
+  scatter_reduce(rs, reinterpret_cast<float*>(dynamic_smem()), room, rec,
+                 rcnt, idx, out, out + (int64_t)k * n, k, n, tiles, G);
 }
 
-// part: scratch [grid, k*n + k]; out: [k*n + k] = sums (row-major) ++ counts.
+// rec: scratch [tiles * min(256, k), record_stride(n)]; rcnt: [tiles * min(256, k)];
+// idx: [k, tiles]; out: [k*n + k] = sums (row-major) ++ counts.
 template <class X, class Kernel>
 static int launch_update_16(Kernel kernel, const X* x, const int32_t* ids,
-                            float* part, float* out, int64_t m, int k, int n,
-                            int grid, void* stream) {
-  const int64_t num_tiles = (m + TM - 1) / TM;
-  const int64_t stride = (int64_t)k * n + k;
+                            float* rec, float* rcnt, int32_t* idx,
+                            float* out, int64_t m, int k, int n, int G,
+                            void* stream) {
+  const int64_t tiles = (m + TM - 1) / TM;
   cudaStream_t st = (cudaStream_t)stream;
-  kernel<<<grid, TM, 0, st>>>(x, ids, part, m, k, n, num_tiles);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  update_16_reduce<<<reduce_grid(stride), 256, 0, st>>>(part, out, stride,
-                                                        grid);
+  if (tiles > 0) {
+    const unsigned blocks = tile_blocks<X>(n);
+    kernel<<<dim3((unsigned)tiles, blocks), TM, 0, st>>>(
+        x, ids, rec, rcnt, idx, m, k, n, G);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int room = reduce_buffer(tiles, n, m, k);
+  update_16_reduce<<<dim3(k, reduce_blocks(n)), RT, 4 * room, st>>>(
+      room, rec, rcnt, idx, out, k, n, tiles, G);
   return (int)cudaGetLastError();
 }
 
 extern "C" int repro_update_bf16(const __nv_bfloat16* x, const int32_t* ids,
-                                 float* part, float* out, int64_t m, int k,
-                                 int n, int grid, void* stream) {
-  return launch_update_16(update_bf16_kernel, x, ids, part, out, m, k, n,
-                          grid, stream);
+                                 float* rec, float* rcnt, int32_t* idx,
+                                 float* out, int64_t m, int k, int n, int G,
+                                 void* stream) {
+  return launch_update_16(update_bf16_tiles, x, ids, rec, rcnt, idx, out, m,
+                          k, n, G, stream);
 }
 
 extern "C" int repro_update_bf16x3(const float* x, const int32_t* ids,
-                                   float* part, float* out, int64_t m, int k,
-                                   int n, int grid, void* stream) {
-  return launch_update_16(update_bf16x3_kernel, x, ids, part, out, m, k, n,
-                          grid, stream);
+                                   float* rec, float* rcnt, int32_t* idx,
+                                   float* out, int64_t m, int k, int n, int G,
+                                   void* stream) {
+  return launch_update_16(update_bf16x3_tiles, x, ids, rec, rcnt, idx, out,
+                          m, k, n, G, stream);
 }

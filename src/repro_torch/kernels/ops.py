@@ -24,11 +24,17 @@ and the ``'cuda'`` route casts x to the policy's storage before the kernel,
 as the reference's Pallas wrappers do; the ``'ref'`` routes run the
 oracles on x as given, as the reference's do (for an f32 chunk at
 ``'bf16'`` the two differ: the oracle takes ``||x||^2`` from the f32
-values).  Under ``'int8'`` the two-pass route on the card (B8 + C8)
-departs from the reference, whose int8 envelope miss falls back to its jnp
-oracle (``repro/kernels/ops.py:327-336``); the results are the same
-computation, held to the oracle in ``chip_smoke.py`` and the ``cuda``
-tests.
+values).  Outside the fused envelope the two-pass route on the card
+(kernels B and C at the policy: B + C, B8 + C8, B16 + C16, B3 + C3)
+departs from the reference under every policy: the reference's Pallas
+impls fall back to their jnp oracle there, whatever the precision
+(``repro/kernels/ops.py:327-336``), and launch Pallas only in the
+epilogue's ``assign`` / ``update``.  The results are the same computation
+up to the order of the sums, held to the oracles in ``chip_smoke.py`` and
+the ``cuda`` tests.  The update kernels stay on the route because they
+beat their plain versions there (their sorted scatter); the assign
+kernels stay as a stated departure until their own redesign (ROADMAP
+queue 2).
 
 On the card every launch asks the autotuner (:mod:`.autotune`) for its
 launch choice — ``fused_step`` its pipeline (kernel A or A-dma),

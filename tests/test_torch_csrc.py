@@ -15,7 +15,10 @@ the card, so a slab read before its wait, or a slot overwritten while it is
 read, shows as a wrong result; their dynamic shared memory is one static
 buffer (the CTAs run one after another).  Results are held against the
 port's plain versions with the same tolerances as on the card; the int8
-kernels' int32 sums bitwise; each dma kernel bitwise its blocks twin.
+kernels' int32 sums bitwise; each dma kernel bitwise its blocks twin; the
+update kernels (a sorted scatter) bitwise ``parent_order_update``, the
+order of the one-hot kernels they replaced, and bitwise kernel A's sums on
+kernel A's ids.
 """
 import re
 import shutil
@@ -29,7 +32,9 @@ import torch
 from repro_torch.kernels import build, distance, fused_step, ref, update
 from repro_torch.kernels import precision as px
 from repro_torch.kernels.kpp_probe import kpp_probe_plain
-from test_torch_cuda import d_bound, int8_exact_blobs
+from test_torch_cuda import (
+    d_bound, int8_exact_blobs, parent_order_update, sums_bound,
+)
 
 RTOL = 1e-5
 
@@ -39,6 +44,7 @@ STUB = r"""
 #include <barrier>
 #include <cmath>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <functional>
 #include <thread>
@@ -60,6 +66,7 @@ using std::min;
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
+struct alignas(16) uint4 { unsigned x, y, z, w; };
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 const int cudaSuccess = 0;
@@ -102,6 +109,12 @@ inline thread_local std::vector<PendingCopy> cp_open;
 inline thread_local std::vector<std::vector<PendingCopy>> cp_groups;
 inline void cp_async4(void* dst, const void* src) {
   cp_open.push_back({dst, src});
+}
+inline void cp_async16(void* dst, const void* src) {
+  if ((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src))
+      & 15) std::abort();                  // the card needs 16-byte alignment
+  for (int w = 0; w < 4; ++w)
+    cp_async4((char*)dst + 4 * w, (const char*)src + 4 * w);
 }
 inline void cp_async_commit() {
   cp_groups.push_back(cp_open);
@@ -150,7 +163,25 @@ HARNESS = r"""
 #include <cstdio>
 #include <cstdlib>
 // harness m k n grid in out: in = x[m,n] c[k,n] ids[m];
-// out = assign ids, d; update sums ++ counts; fused sums ++ counts ++ obj
+// out = assign ids, d; update sums ++ counts; fused sums ++ counts ++ obj;
+// update on the assignment's ids, sums ++ counts (`grid` is kernel A's
+// grid and kernel C's order G)
+// Kernel C's two launches (update.cuh) on ids, into out [k*n + k].
+static void update_f32(const std::vector<float>& x, const int32_t* ids,
+                       int64_t m, int k, int n, int G,
+                       std::vector<float>& out) {
+  const int64_t tiles = (m + TM - 1) / TM, slots = tiles * std::min(TM, k);
+  std::vector<float> rec(slots * record_stride(n)), rc(slots);
+  std::vector<int32_t> ix(tiles * k);
+  launch2(tiles, tile_blocks<float>(n), TM, [&] {
+    update_f32_tiles(x.data(), ids, rec.data(), rc.data(), ix.data(), m, k,
+                     n, G);
+  });
+  launch2(k, reduce_blocks(n), RT, [&] {
+    update_f32_reduce(reduce_buffer(tiles, n, m, k), rec.data(), rc.data(),
+                      ix.data(), out.data(), k, n, tiles, G);
+  });
+}
 int main(int argc, char** argv) {
   const int64_t m = atoll(argv[1]);
   const int k = atoi(argv[2]), n = atoi(argv[3]), grid = atoi(argv[4]);
@@ -164,21 +195,21 @@ int main(int argc, char** argv) {
   const int64_t tiles = (m + TM - 1) / TM;
   const int64_t su = (int64_t)k * n + k, sf = su + 1;
   std::vector<int32_t> aids(m);
-  std::vector<float> ad(m), pu(grid * su), ou(su), pf(grid * sf), of(sf);
+  std::vector<float> ad(m), ou(su), pf(grid * sf), of(sf), oa(su);
   launch(grid, TM, [&] { assign_f32_kernel(x.data(), c.data(), aids.data(),
                                            ad.data(), m, k, n, tiles); });
-  launch(grid, TM, [&] { update_f32_kernel(x.data(), ids.data(), pu.data(),
-                                           m, k, n, tiles); });
-  launch(2, 256, [&] { update_f32_reduce(pu.data(), ou.data(), su, grid); });
+  update_f32(x, ids.data(), m, k, n, grid, ou);
   launch(grid, TM, [&] { fused_step_f32_kernel(x.data(), c.data(), pf.data(),
                                                m, k, n, tiles); });
   launch(3, 256,
          [&] { fused_step_f32_reduce(pf.data(), of.data(), sf, grid); });
+  update_f32(x, aids.data(), m, k, n, grid, oa);
   FILE* o = fopen(argv[6], "wb");
   fwrite(aids.data(), 4, m, o);
   fwrite(ad.data(), 4, m, o);
   fwrite(ou.data(), 4, su, o);
   fwrite(of.data(), 4, sf, o);
+  fwrite(oa.data(), 4, su, o);
   fclose(o);
   return 0;
 }
@@ -280,15 +311,20 @@ int main(int argc, char** argv) {
   put(o, aids);
   put(o, ad);
   std::vector<int32_t> ps(grid * kn), os(kn);
-  std::vector<float> pc(grid * k), oc(k);
-  launch(grid, TM, [&] {
-    update_int8_kernel(x.data(), ids.data(), ps.data(), pc.data(), m, k, n,
-                       tiles);
-  });
-  launch(2, 256, [&] {
-    update_int8_reduce(ps.data(), pc.data(), os.data(), oc.data(), kn, k,
-                       grid);
-  });
+  std::vector<float> oc(k);
+  {
+    const int64_t slots = tiles * std::min(TM, k);
+    std::vector<int32_t> rec(slots * record_stride(n)), ix(tiles * k);
+    std::vector<float> rc(slots);
+    launch2(tiles, tile_blocks<int8_t>(n), TM, [&] {
+      update_int8_tiles(x.data(), ids.data(), rec.data(), rc.data(),
+                        ix.data(), m, k, n, grid);
+    });
+    launch2(k, reduce_blocks(n), RT, [&] {
+      update_int8_reduce(reduce_buffer(tiles, n, m, k), rec.data(), rc.data(),
+                         ix.data(), os.data(), oc.data(), k, n, tiles, grid);
+    });
+  }
   put(o, os);
   put(o, oc);
   std::vector<float> pf(grid * (k + 1)), of(k + 1);
@@ -367,11 +403,20 @@ static void run(FILE* o, const In& in, const std::vector<X>& x, A assign_k,
   });
   put(o, aids);
   put(o, ad);
-  std::vector<float> pu(grid * su), ou(su);
-  launch(grid, TM, [&] {
-    update_k(x.data(), in.ids.data(), pu.data(), m, k, n, tiles);
-  });
-  launch(2, 256, [&] { update_16_reduce(pu.data(), ou.data(), su, grid); });
+  std::vector<float> ou(su);
+  {
+    const int64_t slots = tiles * std::min(TM, k);
+    std::vector<float> rec(slots * record_stride(n)), rc(slots);
+    std::vector<int32_t> ix(tiles * k);
+    launch2(tiles, tile_blocks<X>(n), TM, [&] {
+      update_k(x.data(), in.ids.data(), rec.data(), rc.data(), ix.data(), m,
+               k, n, grid);
+    });
+    launch2(k, reduce_blocks(n), RT, [&] {
+      update_16_reduce(reduce_buffer(tiles, n, m, k), rec.data(), rc.data(),
+                       ix.data(), ou.data(), k, n, tiles, grid);
+    });
+  }
   put(o, ou);
   std::vector<float> pf(grid * sf), of(sf);
   for (int b = 0; b < B; ++b) {
@@ -415,9 +460,9 @@ int main(int argc, char** argv) {
   launch(sqnorm_grid(rows), 256,
          [&] { sqnorm_rows(in.c.data(), in.csq.data(), rows, in.n); });
   put(o, in.csq);
-  run(o, in, xb, assign_bf16_kernel, update_bf16_kernel,
+  run(o, in, xb, assign_bf16_kernel, update_bf16_tiles,
       fused_step_bf16_kernel, fused_step_batched_bf16_kernel);
-  run(o, in, x, assign_bf16x3_kernel, update_bf16x3_kernel,
+  run(o, in, x, assign_bf16x3_kernel, update_bf16x3_tiles,
       fused_step_bf16x3_kernel, fused_step_batched_bf16x3_kernel);
   fclose(o);
   return 0;
@@ -565,8 +610,92 @@ int main(int argc, char** argv) {
 """
 
 
+HARNESS_UPDATE = r"""
+#include "cuda_runtime.h"
+#include "update.inc"
+#include "update_bf16.inc"
+#include "update_int8.inc"
+#include <cstdio>
+#include <cstdlib>
+#include <type_traits>
+// harness_update m k n G shift in out [entries]:
+// in = x[m,n] f32, xb[m,n] bf16, xq[m,n] i8, ids[m] i32; x, xb and xq are
+// read into their buffers `shift` elements in (rows off 16 bytes, bf16 and
+// int8 rows off the word).
+// out = C (on x), C16 (on xb), C3 (on x): sums ++ counts [k*n + k] f32;
+// C8 (on xq): isums [k*n] i32 ++ counts [k] f32.  G: the reduce's order;
+// entries (if given and > 0): the reduce's buffer holds that many entries
+// (else the launchers' reduce_buffer), so that a cluster's list takes
+// several batches.
+static int room_entries = 0;
+template <typename T>
+static bool get(FILE* f, T* p, size_t n) {
+  return fread(p, sizeof(T), n, f) == n;
+}
+// The tile pass and the reduce of one kernel; S the sums' type.  Kernels
+// C, C16 and C3 reduce into one buffer, sums ++ counts; C8 into two.
+template <typename S, typename X, typename Tiles, typename Reduce>
+static void run(FILE* o, Tiles tiles_k, Reduce reduce_k, const X* x,
+                const int32_t* ids, int64_t m, int k, int n, int G) {
+  const int64_t tiles = (m + TM - 1) / TM, kn = (int64_t)k * n;
+  const int64_t slots = tiles * std::min(TM, k);
+  std::vector<S> rec(slots * record_stride(n)), os(kn + k);
+  std::vector<float> rc(slots), oc(k);
+  std::vector<int32_t> ix(tiles * k);
+  launch2(tiles, tile_blocks<X>(n), TM, [&] {
+    tiles_k(x, ids, rec.data(), rc.data(), ix.data(), m, k, n, G);
+  });
+  const int room = room_entries > 0
+                       ? room_entries * record_stride(std::min(n, RT))
+                       : reduce_buffer(tiles, n, m, k);
+  launch2(k, reduce_blocks(n), RT, [&] {
+    if constexpr (std::is_same_v<S, int32_t>)
+      reduce_k(room, rec.data(), rc.data(), ix.data(), os.data(), oc.data(),
+               k, n, tiles, G);
+    else
+      reduce_k(room, rec.data(), rc.data(), ix.data(), os.data(), k, n,
+               tiles, G);
+  });
+  fwrite(os.data(), sizeof(S), kn, o);
+  if constexpr (std::is_same_v<S, int32_t>)
+    fwrite(oc.data(), 4, k, o);
+  else
+    fwrite(os.data() + kn, 4, k, o);
+}
+int main(int argc, char** argv) {
+  const int64_t m = atoll(argv[1]);
+  const int k = atoi(argv[2]), n = atoi(argv[3]), G = atoi(argv[4]);
+  const int shift = atoi(argv[5]);
+  if (argc > 8) room_entries = atoi(argv[8]);
+  const int64_t mn = m * n;
+  std::vector<float> xbuf(mn + 4);
+  std::vector<__nv_bfloat16> xbbuf(mn + 4);
+  std::vector<int8_t> xqbuf(mn + 4);
+  std::vector<int32_t> ids(m);
+  float* x = xbuf.data() + shift;
+  __nv_bfloat16* xb = xbbuf.data() + shift;
+  int8_t* xq = xqbuf.data() + shift;
+  FILE* f = fopen(argv[6], "rb");
+  if (!get(f, x, mn) || !get(f, xb, mn) || !get(f, xq, mn) ||
+      !get(f, ids.data(), m)) return 1;
+  fclose(f);
+  FILE* o = fopen(argv[7], "wb");
+  run<float>(o, update_f32_tiles, update_f32_reduce, x, ids.data(), m, k, n,
+             G);
+  run<float>(o, update_bf16_tiles, update_16_reduce, xb, ids.data(), m, k, n,
+             G);
+  run<float>(o, update_bf16x3_tiles, update_16_reduce, x, ids.data(), m, k,
+             n, G);
+  run<int32_t>(o, update_int8_tiles, update_int8_reduce, xq, ids.data(), m,
+               k, n, G);
+  fclose(o);
+  return 0;
+}
+"""
+
+
 HARNESSES = ("harness", "harness_batched", "harness_int8", "harness_16",
-             "harness_dma", "harness_kpp")
+             "harness_dma", "harness_kpp", "harness_update")
 
 
 @pytest.fixture(scope="module")
@@ -588,6 +717,7 @@ def harness(tmp_path_factory):
     (d / "harness_16.cpp").write_text(HARNESS_16)
     (d / "harness_dma.cpp").write_text(HARNESS_DMA)
     (d / "harness_kpp.cpp").write_text(HARNESS_KPP)
+    (d / "harness_update.cpp").write_text(HARNESS_UPDATE)
     procs = [subprocess.Popen(
         [cxx, "-std=c++20", "-O1", "-pthread", f"-I{d}", f"-I{build.CSRC}",
          str(d / f"{name}.cpp"), "-o", str(d / name)],
@@ -608,9 +738,11 @@ SHAPES = [  # (m, k, n, grid): ragged tiles, CTAs with several tiles,
 ]
 
 
-@pytest.mark.parametrize("shape", SHAPES,
-                         ids=[f"m{m}-k{k}-n{n}-g{g}" for m, k, n, g in SHAPES])
-def test_kernel_sources_match_plain(harness, tmp_path, shape):
+def run_f32(harness, tmp_path, shape):
+    """Blobs at ``shape`` through the f32 harness (see HARNESS): returns
+    (x, c, pids, pd, ids, outputs) with ids the plain assignment with
+    padding and out-of-range ids put in, outputs (B's ids, B's d, C on
+    ids, A, C on B's ids)."""
     m, k, n, grid = shape
     rng = np.random.default_rng(m + k)
     c = (rng.normal(size=(k, n)) * 5).astype(np.float32)
@@ -631,11 +763,23 @@ def test_kernel_sources_match_plain(harness, tmp_path, shape):
                    check=True, timeout=120)
     out = np.fromfile(tmp_path / "out.bin", dtype=np.uint8)
     kn = k * n
-    sizes = [4 * m, 4 * m, 4 * (kn + k), 4 * (kn + k + 1)]
-    aids, ad, ou, of = (out[a:b] for a, b in
-                        zip(np.cumsum([0] + sizes[:-1]), np.cumsum(sizes)))
-    aids, ad = aids.view(np.int32), ad.view(np.float32)
-    ou, of = ou.view(np.float32), of.view(np.float32)
+    sizes = [4 * m, 4 * m, 4 * (kn + k), 4 * (kn + k + 1), 4 * (kn + k)]
+    aids, ad, ou, of, oa = (out[a:b] for a, b in
+                            zip(np.cumsum([0] + sizes[:-1]),
+                                np.cumsum(sizes)))
+    outs = (aids.view(np.int32), ad.view(np.float32), ou.view(np.float32),
+            of.view(np.float32), oa.view(np.float32))
+    return x, c, pids, pd, ids, outs
+
+
+@pytest.mark.parametrize("shape", SHAPES,
+                         ids=[f"m{m}-k{k}-n{n}-g{g}" for m, k, n, g in SHAPES])
+def test_kernel_sources_match_plain(harness, tmp_path, shape):
+    m, k, n, grid = shape
+    x, c, pids, pd, ids, (aids, ad, ou, of, _) = run_f32(harness, tmp_path,
+                                                          shape)
+    X = torch.from_numpy(x)
+    kn = k * n
 
     np.testing.assert_array_equal(aids, pids.numpy())
     if k > 1:
@@ -652,6 +796,106 @@ def test_kernel_sources_match_plain(harness, tmp_path, shape):
         assert np.all(np.abs(sums - want_s.numpy().ravel())
                       <= RTOL * abs_s.numpy().ravel() + 1e-6)
     np.testing.assert_allclose(of[-1], float(pd.sum()), rtol=RTOL)
+
+
+@pytest.mark.parametrize("shape", SHAPES,
+                         ids=[f"m{m}-k{k}-n{n}-g{g}" for m, k, n, g in SHAPES])
+def test_update_source_bitwise_kernel_a_on_its_ids(harness, tmp_path, shape):
+    """Kernel C on kernel A's own assignment (kernel B's ids: the same
+    argmin code) gives bitwise A's sums and counts when C's order G is A's
+    grid: both add each tile's rows in row order, then the tiles of CTA
+    g, then the CTAs in order."""
+    m, k, n, _ = shape
+    _, _, _, _, _, (aids, _, _, of, oa) = run_f32(harness, tmp_path, shape)
+    kn = k * n
+    np.testing.assert_array_equal(oa.view(np.uint32),
+                                  of[:kn + k].view(np.uint32))
+    assert np.all((aids >= 0) & (aids < k))
+
+
+UPDATE_CASES = [  # (m, k, n, shift, ids, G[, batch]): each order G on several
+    (600, 25, 28, 0, "padded", 1),     # cases; a ragged last tile, ids -1
+    (600, 25, 28, 0, "padded", 2),     # and >= k, rows of -0.0; one
+    (600, 25, 28, 0, "padded", 3),     # cluster in every tile, CTAs of
+    (1100, 4, 5, 1, "one", 2),         # several tiles; a tile of 256
+    (1100, 4, 5, 1, "one", 3),         # distinct ids, k > 256; n = 3, 37
+    (600, 300, 7, 0, "distinct", 1),   # and 1,100 (feature blocks under
+    (600, 300, 7, 0, "distinct", 2),   # every policy), rows off the word
+    (300, 40, 3, 3, "padded", 1),      # and off 16 bytes; G > tiles; m
+    (300, 40, 3, 3, "padded", 3),      # smaller than one tile
+    (513, 33, 37, 1, "padded", 2),
+    (513, 33, 37, 1, "padded", 3),
+    (300, 20, 1100, 0, "padded", 2),
+    (100, 10, 9, 2, "padded", 1),
+    (100, 10, 9, 2, "padded", 3),
+    (1100, 4, 5, 1, "one", 2, 1),      # the reduce's lists in batches of
+    (600, 25, 28, 0, "padded", 3, 2),  # 1 and 2 entries
+]
+
+
+def update_inputs(m, k, n, kind, seed):
+    """x [m,n] f32 with rows of -0.0 (one cluster has nothing else), and
+    ids of the pattern ``kind``: 'padded' (ids -1, k and k + 40 among
+    them), 'one' (cluster 0 in every tile) or 'distinct' (tile 0 holds 256
+    distinct ids)."""
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(m, n)) * 3).astype(np.float32)
+    ids = rng.integers(0, k, m).astype(np.int32)
+    if kind == "padded":
+        ids[::7] = -1
+        ids[3::11] = k
+        ids[5::13] = k + 40
+    elif kind == "one":
+        ids[rng.uniform(size=m) < 0.8] = 0
+    else:
+        ids[:min(m, 256)] = rng.permutation(k)[:min(m, 256)]
+    x[ids == 1] = -0.0                   # a cluster of -0.0 rows only
+    x[2::17] = -0.0
+    return x, ids
+
+
+@pytest.mark.parametrize("case", UPDATE_CASES, ids=[
+    f"m{m}-k{k}-n{n}-s{sh}-{kind}-G{G}" + "".join(f"-b{b}" for b in rest)
+    for m, k, n, sh, kind, G, *rest in UPDATE_CASES])
+def test_update_sources_bitwise_parent_order(harness, tmp_path, case):
+    """Kernels C, C16, C3 and C8 (the sorted scatter) bitwise the one-hot
+    kernels they replaced, whose association ``parent_order_update``
+    replays in numpy: sums, counts and int32 sums, for orders G = 1, 2,
+    3, and with the reduce's lists cut into batches of 1 and 2 entries."""
+    m, k, n, shift, kind, G, *batch = case
+    x, ids = update_inputs(m, k, n, kind, seed=m + k + n + G)
+    X = torch.from_numpy(x)
+    xb = X.bfloat16()
+    qx = px.quantize_chunk(X)
+    (tmp_path / "in.bin").write_bytes(
+        x.tobytes() + xb.view(torch.int16).numpy().tobytes()
+        + qx.q.numpy().tobytes() + ids.tobytes())
+    subprocess.run([str(harness.parent / "harness_update"), str(m), str(k),
+                    str(n), str(G), str(shift), str(tmp_path / "in.bin"),
+                    str(tmp_path / "out.bin"), *map(str, batch)],
+                   check=True, timeout=300)
+    raw = np.fromfile(tmp_path / "out.bin", dtype=np.uint32)
+    kn = k * n
+    assert raw.size == 4 * (kn + k)
+    wants = (parent_order_update(x, ids, k, G),
+             parent_order_update(xb.float().numpy(), ids, k, G),
+             parent_order_update(x, ids, k, G, split=True),
+             parent_order_update(qx.q.numpy(), ids, k, G))
+    for i, (name, (sums, counts)) in enumerate(zip(("C", "C16", "C3", "C8"),
+                                                   wants)):
+        got = raw[i * (kn + k):(i + 1) * (kn + k)]
+        want = sums.astype(np.int32 if name == "C8" else np.float32)
+        np.testing.assert_array_equal(got[:kn], want.ravel().view(np.uint32),
+                                      err_msg=name)
+        np.testing.assert_array_equal(got[kn:], counts.view(np.uint32),
+                                      err_msg=name)
+    # the oracle is the plain update up to the order of the float sums
+    ok = (ids >= 0) & (ids < k)
+    np.testing.assert_array_equal(wants[3][0], int_sums(qx.q.numpy(), ids, k))
+    np.testing.assert_array_equal(wants[0][1], np.bincount(
+        ids[ok], minlength=k).astype(np.float32))
+    assert np.all(np.abs(wants[0][0] - ref.update_ref(
+        X, torch.from_numpy(ids), k)[0].numpy()) <= sums_bound(x, ids, k))
 
 
 BATCHED_SHAPES = [  # (B, m, k, n, grid): kernel D, stream by stream

@@ -62,6 +62,51 @@ def sums_bound(x, ids, k):
     return RTOL * abs_sums + 1e-6
 
 
+TM = 256      # rows per point tile (csrc/common.cuh:TM)
+
+
+def split_bf16(x):
+    """(hi, lo) = (bf16(x), bf16(x - hi)) as float32 arrays."""
+    xt = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
+    hi = xt.bfloat16().float()
+    return hi.numpy(), (xt - hi).bfloat16().float().numpy()
+
+
+def parent_order_update(x, ids, k, G, split=False):
+    """The sums and counts of the one-hot update kernels that kernels C,
+    C16, C3 and C8 were before their sorted-scatter redesign, in their
+    association: each 256-row tile's sums in row order from +0 (rows with
+    an id in [0, k) only; under ``split`` the bf16 hi and lo parts summed
+    apart and added at the tile's end), CTA g's partial P_g the tiles g,
+    g + G, g + 2G, ... in order (+0 for a CTA with no tile), and the
+    result ((+0 + P_0) + P_1) + ... .  Every tile's [k, n] sums take part,
+    zeros for absent clusters, as in those kernels.  ``x``: float32 values
+    as stored (bf16 widened), or integer codes (exact int64 sums)."""
+    m, n = x.shape
+    T = -(-m // TM)
+    dt = np.int64 if x.dtype.kind in "iu" else np.float32
+    ok = (ids >= 0) & (ids < k)
+    tsum, tcnt = None, np.zeros((T, k), np.float32)
+    for part in (split_bf16(x) if split else (x,)):
+        acc = np.zeros((T, k, n), dt)
+        cnt = np.zeros((T, k), np.float32)
+        for i in range(TM):                     # row i of every tile
+            r = np.arange(i, m, TM)
+            r = r[ok[r]]
+            acc[r // TM, ids[r]] += part[r].astype(dt)
+            cnt[r // TM, ids[r]] += np.float32(1)
+        tsum, tcnt = (acc, cnt) if tsum is None else (tsum + acc, cnt)
+    sums, counts = np.zeros((k, n), dt), np.zeros(k, np.float32)
+    for g in range(G):
+        tiles = range(g, T, G)
+        P = np.zeros((k, n), dt) if not tiles else tsum[g].copy()
+        C = np.zeros(k, np.float32) if not tiles else tcnt[g].copy()
+        for t in tiles[1:]:
+            P, C = P + tsum[t], C + tcnt[t]
+        sums, counts = sums + P, counts + C
+    return sums, counts
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (sm_90): the kernels run only there")
@@ -160,6 +205,86 @@ def test_fit_on_card_goes_through_the_kernels():
     assert ops.launch_counts() == counts          # the plain path: no kernel
     _, f_ref = api.evaluate(ref, X)
     assert abs(f - f_ref) <= 1e-3 * f_ref
+
+
+# the card shapes, and the two-pass route's (s = 16,384, k = 2,048, n = 1,024)
+UPDATE_CARD_SHAPES = CARD_SHAPES + [(16_384, 2048, 1024)]
+
+
+def _update_on_card(x, ids, k, precision):
+    """Kernel C at ``precision`` (C8 under int8: its int32 sums) on the
+    card: (sums, counts) as numpy."""
+    from repro_torch.kernels import update
+    from repro_torch.kernels import precision as px
+
+    if precision == "int8":
+        q, _ = px.quantize_chunk(x)
+        out = update.launch_update_int8(q, ids, k)
+    elif precision == "f32":
+        out = update.update_f32(x, ids, k)
+    else:
+        out = update.update_16(x, ids, k, precision)
+    return tuple(t.cpu().numpy() for t in out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16", "bf16x3", "int8"])
+@pytest.mark.parametrize("shape", UPDATE_CARD_SHAPES, ids=[
+    f"m{m}-k{k}-n{n}" for m, k, n in UPDATE_CARD_SHAPES])
+def test_update_kernels_bitwise_parent_order_on_card(shape, precision):
+    """Kernels C, C16, C3 and C8 (the sorted scatter) bitwise the one-hot
+    kernels they replaced: ``parent_order_update`` with G the order the
+    wrapper passes (``update.order``, those kernels' grid), on ids with
+    padding and out-of-range ids and a cluster of -0.0 rows; two launches
+    bitwise equal."""
+    _card()
+    from repro_torch.kernels import distance, update
+    from repro_torch.kernels import precision as px
+
+    m, k, n = shape
+    xn, cn = blobs(m, k, n, seed=8)
+    x, c = torch.from_numpy(xn).cuda(), torch.from_numpy(cn).cuda()
+    ids, _ = distance.assign_plain(x, c)
+    ids[::7] = -1                  # padding: never hits
+    ids[3::11] = k                 # out of range: adds nothing
+    x[ids == 1] = -0.0             # a cluster of -0.0 rows only
+    got = _update_on_card(x, ids, k, precision)
+    again = _update_on_card(x, ids, k, precision)
+    assert all(np.array_equal(a.view(np.uint32), b.view(np.uint32))
+               for a, b in zip(got, again))
+    if precision == "int8":
+        vals = px.quantize_chunk(x).q.cpu().numpy()
+    else:
+        vals = px.cast_storage(x, precision).float().cpu().numpy()
+    sums, counts = parent_order_update(
+        vals, ids.cpu().numpy(), k, update.order(x.device, m, k, n),
+        split=precision == "bf16x3")
+    want = sums.astype(np.int32 if precision == "int8" else np.float32)
+    np.testing.assert_array_equal(got[0].view(np.uint32),
+                                  want.view(np.uint32))
+    np.testing.assert_array_equal(got[1].view(np.uint32),
+                                  counts.view(np.uint32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16", "bf16x3", "int8"])
+def test_update_kernel_bitwise_fused_kernel_on_its_ids_on_card(precision):
+    """At the main shape, where the update's order G equals kernel A's
+    grid, kernel C (C16, C3, C8) on kernel B's ids (A's argmin code) gives
+    bitwise kernel A's (A16, A3, A8) sums and counts."""
+    _card()
+    from repro_torch.kernels import build, ops
+
+    m, k, n = 64_000, 25, 28
+    xn, cn = blobs(m, k, n, seed=9)
+    x, c = torch.from_numpy(xn).cuda(), torch.from_numpy(cn).cuda()
+    assert build.grid(x.device, m, k * n + k) == build.grid(
+        x.device, m, k * n + k + 1)
+    sums, counts, _ = ops.fused_step(x, c, impl="cuda", precision=precision)
+    ids, _ = ops.assign(x, c, impl="cuda", precision=precision)
+    usums, ucounts = ops.update(x, ids, k, impl="cuda", precision=precision)
+    assert torch.equal(usums.view(torch.int32), sums.view(torch.int32))
+    assert torch.equal(ucounts.view(torch.int32), counts.view(torch.int32))
 
 
 BATCHED_CARD_SHAPES = [(8, 64_000, 25, 28), (3, 64_001, 25, 3),
