@@ -8,7 +8,10 @@ Phases, each printing JSON lines:
 1. device — card, torch/CUDA versions, power limit; TF32 switched off.
 2. build — compile the CUDA sources (kernels/csrc: the twenty-one entry
    points of kernels A-D and their int8, bf16 and bf16x3 bodies, the dma
-   pipeline of kernel A under each policy, and kernel P) for sm_90a.
+   pipeline of kernel A under each policy, and kernel P) for sm_90a;
+   print ptxas's registers, shared memory and spills, and check in the
+   SASS (``cuobjdump -sass``) that B8's and B16's tensor-core pass issues
+   GMMA instructions (IGMMA, HGMMA).
 3. kernels — each f32 kernel against its plain PyTorch version on the same
    CUDA tensors, at the main paths' shapes and at edge shapes, and two
    launches of each compared bitwise; every stream of the batched kernel D
@@ -19,7 +22,9 @@ Phases, each printing JSON lines:
    their order, bitwise to A's sums on A's own ids.
 3b. int8 kernels — A8, B8, C8 and D8 the same way on quantized chunks: ids
    equal off counted near ties, int32 sums bitwise given the same ids,
-   every stream of D8 bitwise equal to A8.
+   every stream of D8 bitwise equal to A8; B8 (a wgmma product, exact
+   int32 dots) bitwise its plain version: d everywhere, ids the first
+   minimum of the plain scores.
 3c. bf16 and bf16x3 kernels — A16, B16, C16, D16 and A3, B3, C3, D3 the
    same way at phase 3's cases, against the plain versions at the policy
    (x cast to its storage first): ids equal off near ties, d, sums and obj
@@ -63,11 +68,13 @@ Phases, each printing JSON lines:
    m = 1,048,576, s = 16,384, 4 chunks): B8 and C8 carry every Lloyd
    iteration; the plain path within 1e-3; B8, C8 and the two-pass step
    held against their plain versions at that shape, whose errors the
-   final line reports for B8 and C8.
+   final line reports for B8 and C8; B8 timed there beside
+   ``torch._int_mm`` on the codes (its dots only).
 5f. the two-pass route at bf16 — 5c's fit at ``precision="bf16"``: B16 and
    C16 carry every Lloyd iteration, held against their plain versions at
    that shape (the final line reports B16's error there); C3 held there
-   too.
+   too; B16 and B timed there beside ``torch.mm`` on the bf16 operands and
+   in f32 (TF32 off), their dots only.
 4e. the autotuned path — ``fit(autotune=True)`` under each policy,
    sequential and ``batch=8, sync_every=2`` (every candidate's time and
    the winners printed), and with tuning off a cache file under build/
@@ -83,9 +90,11 @@ Phases, each printing JSON lines:
    walls in turns, f32 against int8, bf16 and bf16x3 fit walls in turns;
    each dma kernel beside its blocks twin in turns, at the main shape and
    at the envelope's edge; kernel P at the seeding shape.
-   Phases 5c and 5f time B8, C8, C, B16, C16 and C3 at their own shape
-   (the update kernels beside ``index_add_``; their rows in the final line
-   carry these times as ``at_two_pass_shape``).
+   The assign kernels beside the dots-only library product (``torch.mm``
+   f32 for B, bf16 for B16; ``torch._int_mm`` for B8 where the widths are
+   multiples of 8).  Phases 5c and 5f time B8, C8, C, B16, C16, C3 and B
+   at their own shape (the update kernels beside ``index_add_``; their
+   rows in the final line carry these times as ``at_two_pass_shape``).
 
 Then the one ``{"kernels": [...]}`` line, the card's name and power limit,
 and the final ``{"ok": true, "device": {...}}`` line.  Any failed check raises.
@@ -201,6 +210,25 @@ def nvidia_smi() -> str:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def sass_gmma(lib: Path) -> dict:
+    """GMMA instructions by kernel in the SASS of the built library
+    (``cuobjdump -sass``): {mangled name: {opcode: count}}."""
+    tool = Path(build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    out: dict = {}
+    fn = None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+        elif fn and "GMMA" in line:
+            op = next(w for w in line.replace(";", " ").split()
+                      if "GMMA" in w)
+            out.setdefault(fn, {})
+            out[fn][op] = out[fn].get(op, 0) + 1
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -480,21 +508,32 @@ def near_ties_int8(qx, c) -> torch.Tensor:
     kernels' argmin) are within TIE_RTOL."""
     if c.shape[0] < 2:
         return torch.zeros(qx.q.shape[0], dtype=torch.bool, device="cuda")
-    cq, t = px.quantize_centroids(c, qx.scale)
-    dots = px.intdot(qx.q, cq, ([1], [1])).float() * t[None, :]
-    scores = px.sqnorm_in_order(c)[None, :] - 2.0 * dots
-    two = torch.topk(scores, 2, dim=1, largest=False).values
+    two = torch.topk(int8_scores(qx, c), 2, dim=1, largest=False).values
     return (two[:, 1] - two[:, 0]) <= TIE_RTOL * two[:, 0].abs()
 
 
+def int8_scores(qx, c) -> torch.Tensor:
+    """The plain version's int8 scores csq - 2 float(xq.cq) t [m, k], the
+    arithmetic of B8's argmin."""
+    cq, t = px.quantize_centroids(c, qx.scale)
+    dots = px.intdot(qx.q, cq, ([1], [1])).float() * t[None, :]
+    return px.sqnorm_in_order(c)[None, :] - 2.0 * dots
+
+
 def check_assign_int8(qx, c, ties):
-    """Kernel B8 twice (bitwise), against the plain version off near ties;
-    returns (max abs err of d, B8's ids)."""
+    """Kernel B8 twice (bitwise), against the plain version: d bitwise,
+    ids the first minimum of the plain scores (bitwise) and the plain ids
+    off near ties (where ``(c2 - 2 dots) + x2`` rounds two scores equal,
+    the plain argmin can take the other); returns (max abs err of d, B8's
+    ids)."""
     ids, d = twice(distance.assign_int8, qx, c)
     ids_p, d_p = distance.assign_int8_plain(qx, c)
     ok = ~ties
     check(torch.equal(ids[ok], ids_p[ok]),
           "assign_int8 ids differ off near ties")
+    check(torch.equal(d, d_p), "assign_int8 d not bitwise the plain d")
+    check(torch.equal(ids, torch.argmin(int8_scores(qx, c), 1).int()),
+          "assign_int8 ids not the first minimum of the plain scores")
     deq = px.dequantize(qx)
     x2 = (deq * deq).sum(1)
     c2 = (c * c).sum(1)[ids_p.long()]
@@ -1420,9 +1459,10 @@ def phase_two_pass_int8(spec, X, gen_s: float, seed: int):
     cq, t = px.quantize_centroids(c, qx.scale)
     b8 = timing(lambda: distance.launch_assign_int8(qx.q, qx.scale, cq, t,
                                                     c),
-                lambda: distance.assign_int8_plain(qx, c), None,
-                s * n + 5 * k * n + 4 * k + 4 * n + 8 * s, 2 * s * k * n, 3,
-                INT8_OP_PER_S)
+                lambda: distance.assign_int8_plain(qx, c), int_mm(qx.q, cq),
+                s * n + 5 * k * n + 4 * k + 4 * n + 8 * s, 2 * s * k * n, 20,
+                INT8_OP_PER_S, wrapper=lambda: distance.assign_int8(qx, c))
+    b8["library"] = int_mm_note(qx.q, cq)
     ids8l, q32 = ids8.long(), qx.q.int()
     c8 = timing(lambda: upd.launch_update_int8(qx.q, ids8, k),
                 lambda: upd.update_int8_plain(qx, ids8, k),
@@ -1438,7 +1478,7 @@ def phase_two_pass_int8(spec, X, gen_s: float, seed: int):
                      0, ids8l, xs),
                  4 * (s * n + s + k * n + k), s * n, 20)
     c32["library"] = "index_add_ (sums only; counts excluded)"
-    for row in (c8, c32):
+    for row in (b8, c8, c32):
         row.update(m=s, k=k, n=n)
     emit({"phase": "two_pass_int8", "m": spec.m, "n": spec.n, "k": cfg.k,
           "s": cfg.s, "n_chunks": cfg.n_chunks, "data_gen_s": gen_s,
@@ -1461,7 +1501,8 @@ def phase_two_pass_int8(spec, X, gen_s: float, seed: int):
           "int8_kernels_s_estimate": res.n_iterations
           * (b8["ms"] + c8["ms"]) / 1e3})
     check(rel <= 1e-3, f"two-pass int8 full objectives differ by {rel:.3e}")
-    return launches, wall, errs, {"update_int8": c8, "update_f32": c32}
+    return launches, wall, errs, {"assign_int8": b8, "update_int8": c8,
+                                  "update_f32": c32}
 
 
 # --------------------------------------------------------------------------
@@ -1652,10 +1693,13 @@ def phase_two_pass_16(X, seed: int):
     ids_p, _ = distance.assign_plain(xb, c, "bf16")
     errs["update_bf16"] = check_update_16(xb, ids_p, k, "bf16")
     two_pass_err = check_fused_16(xb, c, n_ties, "bf16", direct=False)
+    cb16 = c.bfloat16()
     b16 = timing(lambda: distance.assign_16(xb, c, "bf16"),
-                 lambda: distance.assign_plain(xb, c, "bf16"), None,
-                 2 * s * n + 4 * (k * n + k) + 8 * s, 2 * s * k * n, 3,
+                 lambda: distance.assign_plain(xb, c, "bf16"),
+                 lambda: torch.mm(xb, cb16.t()),
+                 2 * s * n + 4 * (k * n + k) + 8 * s, 2 * s * k * n, 20,
                  BF16_FLOP_PER_S)
+    b16["library"] = MM_BF16
     ids16l, xbf = ids16.long(), xb.float()
     c16 = timing(lambda: upd.update_16(xb, ids16, k, "bf16"),
                  lambda: upd.update_plain(xb, ids16, k, "bf16"),
@@ -1679,8 +1723,12 @@ def phase_two_pass_16(X, seed: int):
     for row in (c16, c3):
         row.update(m=s, k=k, n=n)
     b32 = timing(lambda: distance.assign_f32(x32, c),
-                 lambda: distance.assign_plain(x32, c), None,
+                 lambda: distance.assign_plain(x32, c),
+                 lambda: torch.mm(x32, c.t()),
                  4 * (s * n + k * n) + 8 * s, 2 * s * k * n, 3)
+    b32["library"] = MM_F32
+    for row in (b16, b32):
+        row.update(m=s, k=k, n=n)
     emit({"phase": "two_pass_bf16", "m": m, "n": n, "k": cfg.k, "s": cfg.s,
           "n_chunks": cfg.n_chunks, "fits_envelope": False,
           "f_best": res.objective, "f_full": f_full,
@@ -1703,7 +1751,8 @@ def phase_two_pass_16(X, seed: int):
                                       + (res.n_iterations + cfg.n_chunks)
                                       * c16["ms"]) / 1e3})
     check(rel <= 1e-3, f"two-pass bf16 full objectives differ by {rel:.3e}")
-    return launches, wall, errs, {"update_bf16": c16, "update_bf16x3": c3}
+    return launches, wall, errs, {"assign_bf16": b16, "assign_f32": b32,
+                                  "update_bf16": c16, "update_bf16x3": c3}
 
 
 # --------------------------------------------------------------------------
@@ -1892,6 +1941,25 @@ def timing(fn, plain, library, nbytes, flops, launches,
     return row
 
 
+MM_F32 = "torch.mm f32, TF32 off (the dots only)"
+MM_BF16 = "torch.mm on the bf16 operands (the dots only)"
+
+
+def int_mm(q, cq):
+    """The dots-only library call of B8, ``torch._int_mm`` on the codes,
+    where it takes the shapes (widths multiples of 8), else None."""
+    if q.shape[1] % 8 or cq.shape[0] % 8:
+        return None
+    return lambda: torch._int_mm(q, cq.t())
+
+
+def int_mm_note(q, cq) -> str:
+    return ("torch._int_mm on the codes (the int32 dots only)"
+            if int_mm(q, cq) is not None else
+            "none: torch._int_mm takes widths in multiples of 8 only "
+            f"(n = {q.shape[1]}, k = {cq.shape[0]})")
+
+
 def phase_times(X, res, seed: int) -> dict:
     s, k, n = 64_000, res.centroids.shape[0], X.shape[1]
     gen = torch.Generator(device="cuda")
@@ -1908,7 +1976,7 @@ def phase_times(X, res, seed: int) -> dict:
         4 * (s * n + k * n + k * n + k + 1), 2 * s * k * n + s * n, 200)
     out["assign_f32"] = timing(
         lambda: distance.assign_f32(x, c),
-        lambda: distance.assign_plain(x, c), None,
+        lambda: distance.assign_plain(x, c), lambda: torch.mm(x, c.t()),
         4 * (s * n + k * n + 2 * s), 2 * s * k * n, 200)
     out["update_f32"] = timing(
         lambda: upd.update_f32(x, ids, k),
@@ -1918,9 +1986,10 @@ def phase_times(X, res, seed: int) -> dict:
     m = X.shape[0]
     out["assign_f32"]["at_evaluate"] = timing(
         lambda: distance.assign_f32(X, c),
-        lambda: distance.assign_plain(X, c), None,
+        lambda: distance.assign_plain(X, c), lambda: torch.mm(X, c.t()),
         4 * (m * n + k * n + 2 * m), 2 * m * k * n, 3)
     out["assign_f32"]["at_evaluate"]["m"] = m
+    out["assign_f32"]["library"] = MM_F32
     out["update_f32"]["library"] = "index_add_ (sums only; counts excluded)"
     # kernel D on BATCH chunks against the shared incumbent (every stream
     # starts a round from it after a sync), beside BATCH launches of A
@@ -1953,9 +2022,10 @@ def phase_times(X, res, seed: int) -> dict:
         wrapper=lambda: fused_step.fused_step_int8(qx, c))
     out["assign_int8"] = timing(
         lambda: distance.launch_assign_int8(q, scale, cq, t, c),
-        lambda: distance.assign_int8_plain(qx, c), None,
+        lambda: distance.assign_int8_plain(qx, c), int_mm(q, cq),
         s * n + 5 * k * n + 4 * k + 4 * n + 8 * s, ops8, 200, INT8_OP_PER_S,
         wrapper=lambda: distance.assign_int8(qx, c))
+    out["assign_int8"]["library"] = int_mm_note(q, cq)
     out["update_int8"] = timing(
         lambda: upd.launch_update_int8(q, ids8, k),
         lambda: upd.update_int8_plain(qx, ids8, k),
@@ -2113,9 +2183,11 @@ def times_16(prec: str, x, c, xb, cb) -> dict:
         lambda: fused_step.fused_step_plain(xs, c, prec), None,
         eb * s * n + 4 * (2 * k * n + k + 1), mult * 2 * s * k * n + adds,
         200, BF16_FLOP_PER_S)
+    cb16 = c.bfloat16()
     out[f"assign_{prec}"] = timing(
         lambda: distance.assign_16(xs, c, prec),
-        lambda: distance.assign_plain(xs, c, prec), None,
+        lambda: distance.assign_plain(xs, c, prec),
+        (lambda: torch.mm(xs, cb16.t())) if prec == "bf16" else None,
         eb * s * n + 4 * (k * n + k) + 8 * s, mult * 2 * s * k * n, 200,
         BF16_FLOP_PER_S)
     ids64, xsf = ids.long(), xs.float()
@@ -2136,6 +2208,8 @@ def times_16(prec: str, x, c, xb, cb) -> dict:
                  for b in range(BATCH)], 25)
     for row in out.values():
         row["library"] = "none (no single call computes it)"
+    if prec == "bf16":
+        out["assign_bf16"]["library"] = MM_BF16
     out[f"update_{prec}"]["library"] = (
         "index_add_ on the bf16 values widened to f32 (sums only; counts "
         "excluded)" if prec == "bf16" else
@@ -2188,10 +2262,21 @@ def main() -> int:
     build.load(rebuild=True)
     info = build.info()
     check(info.built, "the kernels were not built from source")
+    gmma = sass_gmma(info.path)
+    mma = {name: row for name, row in info.resources.items()
+           if "assign_mma_kernel" in name}
+    check(any("IGMMA" in op for name, ops_ in gmma.items()
+              if "assign_mma_kernelIa" in name for op in ops_),
+          "B8's tensor-core pass issues no IGMMA")
+    check(any("HGMMA" in op for name, ops_ in gmma.items()
+              if "assign_mma_kernelI13__nv_bfloat16" in name for op in ops_),
+          "B16's tensor-core pass issues no HGMMA")
     emit({"phase": "build", "arch": build.ARCH, "seconds": info.seconds,
           "library": str(info.path.relative_to(ROOT)),
           "ptxas": info.resources,
           "dma_dynamic_smem_bytes": info.dma_smem_bytes})
+    emit({"phase": "build_tensor_core_kernels", "ptxas": mma,
+          "dynamic_smem_bytes": info.mma_smem_bytes, "sass_gmma": gmma})
 
     # phase 3: kernels vs plain (3b: the int8 kernels; 3c: bf16, bf16x3;
     # 3d: the dma kernels; 3e: kernel P, and its entry point's run)

@@ -31,7 +31,7 @@ SOURCES = ("assign.cu", "update.cu", "fused_step.cu",
            "fused_step_int8.cu", "fused_step_batched_int8.cu",
            "assign_bf16.cu", "update_bf16.cu", "fused_step_bf16.cu",
            "fused_step_batched_bf16.cu", "fused_step_dma.cu", "kpp_probe.cu")
-HEADERS = ("common.cuh", "update.cuh")
+HEADERS = ("common.cuh", "update.cuh", "assign_mma.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = "sm_90a"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -47,8 +47,11 @@ SIGNATURES = {
     "repro_fused_step_f32": (_P, _P, _P, _P, _I64, _I, _I, _I, _P),
     "repro_fused_step_batched_f32": (_P, _P, _P, _P, _I, _I64, _I, _I, _I,
                                      _P),
-    "repro_assign_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
-                          _P),
+    "repro_assign_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I,
+                          _I, _I, _I, _P),
+    "repro_assign_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
+                          _I, _P),
+    "repro_assign_bf16x3": (_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P),
     "repro_update_int8": (_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
                           _P),
     "repro_fused_step_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
@@ -57,11 +60,11 @@ SIGNATURES = {
                                       _I, _I64, _I, _I, _I, _P),
     "repro_kpp_probe": (_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P),
 }
-# The bf16 and bf16x3 entry points of each kernel share one signature.
+# The bf16 and bf16x3 entry points of the update and fused kernels share
+# one signature.
 SIGNATURES.update({
     f"repro_{entry}_{prec}": argtypes for prec in ("bf16", "bf16x3")
     for entry, argtypes in (
-        ("assign", (_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P)),
         ("update", (_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P)),
         ("fused_step", (_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P)),
         ("fused_step_batched", (_P, _P, _P, _P, _P, _I, _I64, _I, _I, _I,
@@ -83,6 +86,9 @@ class BuildInfo:
     resources: dict         # kernel -> {"registers", "smem_bytes", "spill"}
     # dynamic shared memory of the dma kernels, by policy (after load)
     dma_smem_bytes: dict = dataclasses.field(default_factory=dict)
+    # dynamic shared memory of B8's and B16's tensor-core pass, by kernel
+    # and centroids a tile (after load)
+    mma_smem_bytes: dict = dataclasses.field(default_factory=dict)
 
 
 _LIB: ctypes.CDLL | None = None
@@ -201,6 +207,12 @@ def load(rebuild: bool = False) -> ctypes.CDLL:
     lib.repro_fused_step_dma_smem_bytes.restype = ctypes.c_int
     info.dma_smem_bytes = {prec: lib.repro_fused_step_dma_smem_bytes(i)
                            for i, prec in enumerate(DMA_POLICIES)}
+    lib.repro_assign_mma_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.repro_assign_mma_smem_bytes.restype = ctypes.c_int
+    info.mma_smem_bytes = {f"{name} bn{bn}":
+                           lib.repro_assign_mma_smem_bytes(i, bn)
+                           for i, name in enumerate(("B8", "B16"))
+                           for bn in (64, 128)}
     _LIB, _INFO = lib, info
     return lib
 
@@ -279,6 +291,15 @@ def grid(device: torch.device, m: int, partial_floats: int = 0,
     if partial_floats:
         g = min(g, max(1, SCRATCH_BYTES // (4 * partial_floats)))
     return g
+
+
+def persistent_grid(device: torch.device, tiles: int, per_sm: int = 2
+                    ) -> int:
+    """CTAs of a launch whose CTAs walk ``tiles`` output tiles: at most one
+    per tile, ``per_sm`` per SM.  Each tile is one CTA's, so the result
+    does not depend on the grid."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(tiles, per_sm * sms))
 
 
 def stream_group(grid: int, partial_floats: int) -> int:

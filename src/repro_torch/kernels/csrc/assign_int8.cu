@@ -1,5 +1,5 @@
 // Kernel B8: assign_int8 — nearest-centroid assignment of an int8-quantized
-// chunk.
+// chunk, a wgmma product with a fused argmin (assign_mma.cuh).
 //
 // Replaces the Pallas kernel repro/kernels/distance.py:_assign_pallas_q
 // (_assign_kernel_q, distance.py:96-148).  For the codes xq [m,n] with
@@ -8,55 +8,38 @@
 // first launch, sqnorm_rows), it writes
 //   ids[i] = argmin_j (csq[j] - 2 float(xq_i . cq_j) t[j])   (ties: lowest j)
 //   d[i]   = max(min_j(...) + ||deq(x_i)||^2, 0)
-// with the integer dot exact in int32 (common.cuh:tile_argmin_q).
+// with the integer dot exact in int32 (s32 += s8 * s8 on the tensor
+// cores), so ids and d are bitwise those of the CUDA-core kernel it
+// replaced (common.cuh:tile_argmin_q).
 //
-// Bound: bytes.  It reads the codes once (mn bytes) and writes 8m bytes; at
-// the main path's shapes (m = 64,000, k = 25, n = 28) that is 2.3 MB.
-// Design: kernel B's, on the int8 tile (common.cuh:TileSmemQ): one thread
-// per point, codes staged through shared memory with coalesced byte loads,
-// centroid codes k-tiled in shared memory and the KT int32 dots of a k tile
-// in registers.  No dp4a, no tensor cores yet.
-#include "common.cuh"
+// Bound: operations at the two-pass shape (2 s k n int8 operations at
+// 1,979 TOP/s), bytes at the main path's (the codes once, 8m bytes out).
+#include "assign_mma.cuh"
 
 using namespace repro;
 
-extern "C" __global__ void __launch_bounds__(TM)
-assign_int8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ c,
-                   const float* __restrict__ csq,
-                   const float* __restrict__ tq,
-                   const float* __restrict__ scale, int32_t* __restrict__ ids,
-                   float* __restrict__ d, int64_t m, int k, int n,
-                   int64_t num_tiles) {
-  __shared__ TileSmemQ s;
-  SyncLoad xin;
-  for (int64_t tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
-    const int64_t r0 = tile * TM;
-    int bidx;
-    float best, xsq;
-    tile_argmin_q(s, x, c, csq, tq, scale, m, k, n, r0, bidx, best, xsq,
-                  xin);
-    const int64_t r = r0 + threadIdx.x;
-    if (r < m) {
-      ids[r] = bidx;
-      d[r] = fmaxf(best + xsq, 0.f);
-    }
-  }
-}
-
-// cf: [k, n] f32 centroids; csq: scratch [k].
+// cf: [k, n] f32 centroids; csq: scratch [k]; sbest, sidx: scratch
+// [ceil(k / bn), m]; bn: centroids per output tile (64 or 128); grid:
+// persistent CTAs.
 extern "C" int repro_assign_int8(const int8_t* x, const int8_t* c,
                                  const float* cf, float* csq, const float* t,
-                                 const float* scale, int32_t* ids, float* d,
-                                 int64_t m, int k, int n, int grid,
+                                 const float* scale, float* sbest,
+                                 int32_t* sidx, int32_t* ids, float* d,
+                                 int64_t m, int k, int n, int bn, int grid,
                                  void* stream) {
-  const int64_t num_tiles = (m + TM - 1) / TM;
   cudaStream_t st = (cudaStream_t)stream;
-  if (num_tiles > 0) {
-    sqnorm_rows<<<sqnorm_grid(k), 256, 0, st>>>(cf, csq, k, n);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    assign_int8_kernel<<<grid, TM, 0, st>>>(x, c, csq, t, scale, ids, d, m,
-                                            k, n, num_tiles);
-  }
-  return (int)cudaGetLastError();
+  REPRO_LAUNCH(sqnorm_rows, sqnorm_grid(k, n), 256, 0, st, cf, csq, k, n);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_assign_mma<int8_t, int, true>(x, c, csq, t, scale, sbest,
+                                              sidx, ids, d, m, k, n, bn,
+                                              grid, st);
+}
+
+// Dynamic shared memory of the tensor-core pass of B8 (bf16 = 0) or B16
+// (bf16 = 1) with bn centroids a tile.
+extern "C" int repro_assign_mma_smem_bytes(int bf16, int bn) {
+  if (bn == 64)
+    return bf16 ? mma_smem_bytes<float, 64>() : mma_smem_bytes<int, 64>();
+  return bf16 ? mma_smem_bytes<float, 128>() : mma_smem_bytes<int, 128>();
 }

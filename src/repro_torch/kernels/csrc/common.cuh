@@ -33,6 +33,13 @@
 
 namespace repro {
 
+// A launch of `kernel` on `stream`; the host stand-in of the kernel tests
+// defines REPRO_HOST_LAUNCH and runs the CTAs itself.
+#ifndef REPRO_HOST_LAUNCH
+#define REPRO_LAUNCH(kernel, grid, block, smem, stream, ...) \
+  kernel<<<(grid), (block), (smem), (stream)>>>(__VA_ARGS__)
+#endif
+
 constexpr int TM = 256;       // points per tile == threads per CTA
 constexpr int KT = 32;        // centroids per k tile (register accumulators)
 constexpr int FT = 32;        // features per feature tile
@@ -614,32 +621,168 @@ inline int reduce_grid(int64_t stride) {
 //   score_j = csq[j] - 2 * (float(sum_f xq cq_j) * t[j])
 // with the integer dot exact in int32, rounded as the reference's oracle
 // rounds (__fmul_rn / __fsub_rn: no FMA contraction), and
-// ||x||^2 = sum_f (xq * scale[f])^2 from the dequantized codes.  Sums are
-// the exact int32 one-hot x codes contraction; the wrapper scales them to
-// f32 data space after the full reduce.
+// ||x||^2 = sum_f (xq * scale[f])^2 from the dequantized codes, both norms
+// summed in XlaSum's order.  Sums are the exact int32 one-hot x codes
+// contraction; the wrapper scales them to f32 data space after the full
+// reduce.
 // --------------------------------------------------------------------------
 
 constexpr int FTQ = 32;       // features per int8 feature tile
 static_assert(FTQ == FT, "AsyncLoad tiles the int8 slabs by FT");
 
-// csq[r] = ||c_r||^2 for `rows` full-width f32 rows of n features: the
-// features added in index order, one rounding per multiply and per add, as
-// the plain version (precision.sqnorm_in_order) and the reference's XLA
-// reduction on the CPU add them.  One thread per row; the int8, bf16 and
-// bf16x3 entry points launch it ahead of their kernel on the same stream.
+// A sum of n values taken one by one in index order, associated as XLA
+// associates a reduction on the CPU (the plain version,
+// precision.sqnorm_in_order, and the reference's norms): a reduction of
+// more than 32 values becomes sums of windows of 32 over the values padded
+// with zeros to a multiple of 32 (half the padding, rounded down, before
+// them), each window summed in order from 0, and a reduction of the window
+// sums, recursively; 32 values or fewer are summed in order from 0.  Level
+// l < top holds the open window of level l; level top the final sum.  For
+// n <= 32 (top = 0) it is the plain running sum.  Supports n <= 32^4.
+struct XlaSum {
+  static constexpr int W = 32;    // window
+  static constexpr int L = 3;     // blocked levels at most
+  float acc[L + 1];
+  int pos[L];                     // values taken by each blocked level
+  int lo[L];                      // padding before the values of each
+  int top;                        // blocked levels of this n
+
+  __device__ __forceinline__ explicit XlaSum(int n) : top(0) {
+    int cnt = n;
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      acc[l] = 0.f;
+      pos[l] = 0;
+      lo[l] = 0;
+      if (cnt > W) {
+        lo[l] = (-cnt & (W - 1)) / 2;
+        cnt = (cnt + W - 1) / W;
+        top = l + 1;
+      }
+    }
+    acc[L] = 0.f;
+  }
+
+  // Takes v at level `from` (0: the next of the n values).
+  __device__ __forceinline__ void push(float v, int from = 0) {
+    bool carry = true;
+#pragma unroll
+    for (int l = 0; l <= L; ++l) {
+      if (!carry || l < from) continue;
+      if (l < top && pos[l] > 0 && (pos[l] + lo[l]) % W == 0) {
+        const float done = acc[l];       // v opens a window: close this one
+        acc[l] = __fadd_rn(0.f, v);
+        ++pos[l];
+        v = done;
+      } else {
+        acc[l] = __fadd_rn(acc[l], v);
+        if (l < top) ++pos[l];
+        carry = false;
+      }
+    }
+  }
+
+  // The sum, once all n values are in (the object is spent).  from: the
+  // lowest level taken (1 when the caller pushed whole windows).
+  __device__ __forceinline__ float finish(int from = 0) {
+    float r = acc[0];
+#pragma unroll
+    for (int l = 0; l < L; ++l)
+      if (l >= from && l < top) push(acc[l], l + 1);  // open windows, lowest
+                                                       // first
+#pragma unroll
+    for (int l = 1; l <= L; ++l)
+      if (l == top) r = acc[l];
+    return r;
+  }
+};
+
+// The sum of value(f), f = b .. e-1, in order from 0 (XlaSum's order for
+// 32 values or fewer).
+template <class Value>
+__device__ __forceinline__ float sum_in_order(int b, int e, Value value) {
+  float s = 0.f;
+  for (int f = b; f < e; ++f) s = __fadd_rn(s, value(f));
+  return s;
+}
+
+// XlaSum of n > 32 values by the 32 lanes of a warp: lane l sums window
+// base + l, lane 0 takes the window sums in order.  window(b, e) is the sum
+// of values b .. e-1 in order from 0 (b < e).  Every lane of the warp calls
+// it with the same n; lane 0's result is the sum.
+template <class Window>
+__device__ __forceinline__ float warp_xla_sum(int n, Window window) {
+  const int lane = threadIdx.x & 31;
+  XlaSum acc(n);
+  const int windows = (n + XlaSum::W - 1) / XlaSum::W;
+  for (int base = 0; base < windows; base += 32) {
+    const int w0 = XlaSum::W * (base + lane) - acc.lo[0];
+    const int b = w0 < 0 ? 0 : w0;
+    const int e = min(w0 + XlaSum::W, n);
+    const float s = b < e ? window(b, e) : 0.f;
+    if (acc.top == 1) {  // 32 windows at most: their sum in order
+      float total = 0.f;
+#pragma unroll
+      for (int src = 0; src < 32; ++src)
+        if (src < windows)
+          total = __fadd_rn(total, __shfl_sync(0xffffffffu, s, src));
+      return total;
+    }
+    for (int src = 0; src < 32 && base + src < windows; ++src) {
+      const float v = __shfl_sync(0xffffffffu, s, src);
+      if (lane == 0) acc.push(v, 1);
+    }
+  }
+  return acc.finish(1);
+}
+
+// The in-order sum from 0 of the squares of 32 f32 values that start on
+// 16 bytes, each square rounded.
+__device__ __forceinline__ float sq_window32(const float* v) {
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float4 q = reinterpret_cast<const float4*>(v)[j];
+    s = __fadd_rn(s, __fmul_rn(q.x, q.x));
+    s = __fadd_rn(s, __fmul_rn(q.y, q.y));
+    s = __fadd_rn(s, __fmul_rn(q.z, q.z));
+    s = __fadd_rn(s, __fmul_rn(q.w, q.w));
+  }
+  return s;
+}
+
+// Rows of one block (256 threads) of a row-sum kernel: a warp a row for
+// n > 32, else a thread a row.
+__host__ __device__ inline int rows_per_block(int n) {
+  return n > XlaSum::W ? 256 / 32 : 256;
+}
+inline unsigned sqnorm_grid(int64_t rows, int n) {
+  return (unsigned)((rows + rows_per_block(n) - 1) / rows_per_block(n));
+}
+
+// csq[r] = ||c_r||^2 for `rows` full-width f32 rows of n features, one
+// rounding per multiply and per add, in XlaSum's order.  Blocks of 256
+// threads (sqnorm_grid); the int8, bf16 and bf16x3 entry points launch it
+// ahead of their kernel on the same stream.
 static __global__ void sqnorm_rows(const float* __restrict__ c,
                                    float* __restrict__ csq, int64_t rows,
                                    int n) {
-  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  const float* row = c + r * n;
-  float acc = __fmul_rn(row[0], row[0]);
-  for (int f = 1; f < n; ++f) acc = __fadd_rn(acc, __fmul_rn(row[f], row[f]));
-  csq[r] = acc;
-}
-
-inline unsigned sqnorm_grid(int64_t rows) {
-  return (unsigned)((rows + 255) / 256);
+  const int per = rows_per_block(n);
+  const int64_t r = (int64_t)blockIdx.x * per + threadIdx.x * per / 256;
+  const bool live = r < rows;
+  const float* row = c + (live ? r : 0) * n;
+  auto sq = [&](int f) { return __fmul_rn(row[f], row[f]); };
+  if (per == 256) {
+    if (live) csq[r] = sum_in_order(0, n, sq);
+  } else {
+    const bool vec = reinterpret_cast<uintptr_t>(row) % 16 == 0;
+    const float s = warp_xla_sum(n, [&](int b, int e) {  // every warp
+      return vec && e - b == 32 && b % 4 == 0            // takes part
+                 ? sq_window32(row + b)
+                 : sum_in_order(b, e, sq);
+    });
+    if (live && (threadIdx.x & 31) == 0) csq[r] = s;
+  }
 }
 
 struct TileSmemQ {
@@ -674,9 +817,9 @@ __device__ __forceinline__ void load_cq_tile(TileSmemQ& s,
 // Nearest centroid of row r0 + threadIdx.x under the int8 scheme: the
 // running (min, argmin) of score_j over all k with a strict '<' (ties go to
 // the lowest index, fused_step.py:_tile_argmin), from (BIG, 0), and the
-// dequantized ||x||^2.  Every thread of the CTA must call this.  On return,
-// when n <= FTQ, s.xs still holds the whole point tile.  `xin` loads the
-// code slabs (load_x_tile on the TileSmemQ).
+// dequantized ||x||^2 (its squares in XlaSum's order).  Every thread of the
+// CTA must call this.  On return, when n <= FTQ, s.xs still holds the whole
+// point tile.  `xin` loads the code slabs (load_x_tile on the TileSmemQ).
 template <class Load>
 __device__ __forceinline__ void tile_argmin_q(
     TileSmemQ& s, const int8_t* __restrict__ x, const int8_t* __restrict__ c,
@@ -686,7 +829,7 @@ __device__ __forceinline__ void tile_argmin_q(
   const int t = threadIdx.x;
   best = BIG;
   bidx = 0;
-  xsq = 0.f;
+  XlaSum xsq_acc(n);
   for (int k0 = 0; k0 < k; k0 += KT) {
     int acc[KT];
 #pragma unroll
@@ -705,12 +848,13 @@ __device__ __forceinline__ void tile_argmin_q(
         const int xv = s.xs[t][f];
         if (k0 == 0) {
           const float dq = __fmul_rn((float)xv, s.sc[f]);
-          xsq = __fadd_rn(xsq, __fmul_rn(dq, dq));
+          xsq_acc.push(__fmul_rn(dq, dq));
         }
 #pragma unroll
         for (int j = 0; j < KT; ++j) acc[j] += xv * (int)s.cs[j][f];
       }
     }
+    if (k0 == 0) xsq = xsq_acc.finish();
     const int kw = min(KT, k - k0);
 #pragma unroll
     for (int j = 0; j < KT; ++j) {

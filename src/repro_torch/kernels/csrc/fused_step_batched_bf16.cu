@@ -73,7 +73,7 @@ static int launch_batched_16(Kernel kernel, const X* x, const float* c,
   const int64_t stride = (int64_t)k * n + k + 1;
   const int64_t rows = (int64_t)batch * k;
   cudaStream_t st = (cudaStream_t)stream;
-  sqnorm_rows<<<sqnorm_grid(rows), 256, 0, st>>>(c, csq, rows, n);
+  sqnorm_rows<<<sqnorm_grid(rows, n), 256, 0, st>>>(c, csq, rows, n);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3(grid, batch), TM, 0, st>>>(x, c, csq, part, m, k, n,

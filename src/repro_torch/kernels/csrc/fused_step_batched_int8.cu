@@ -64,7 +64,7 @@ extern "C" int repro_fused_step_batched_int8(
   const int64_t kn = (int64_t)k * n;
   const int64_t rows = (int64_t)batch * k;
   cudaStream_t st = (cudaStream_t)stream;
-  sqnorm_rows<<<sqnorm_grid(rows), 256, 0, st>>>(cf, csq, rows, n);
+  sqnorm_rows<<<sqnorm_grid(rows, n), 256, 0, st>>>(cf, csq, rows, n);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   fused_step_batched_int8_kernel<<<dim3(grid, batch), TM, 0, st>>>(

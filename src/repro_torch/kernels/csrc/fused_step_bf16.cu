@@ -65,7 +65,7 @@ static int launch_fused_16(Kernel kernel, const X* x, const float* c,
   const int64_t num_tiles = (m + TM - 1) / TM;
   const int64_t stride = (int64_t)k * n + k + 1;
   cudaStream_t st = (cudaStream_t)stream;
-  sqnorm_rows<<<sqnorm_grid(k), 256, 0, st>>>(c, csq, k, n);
+  sqnorm_rows<<<sqnorm_grid(k, n), 256, 0, st>>>(c, csq, k, n);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, TM, 0, st>>>(x, c, csq, part, m, k, n, num_tiles);

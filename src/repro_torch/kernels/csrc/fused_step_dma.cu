@@ -145,7 +145,7 @@ static int launch_fused_dma(Kernel kernel, const typename Ops::X* x,
   cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
   if constexpr (Ops::csq_given) {
-    sqnorm_rows<<<sqnorm_grid(k), 256, 0, st>>>(c, csq, k, n);
+    sqnorm_rows<<<sqnorm_grid(k, n), 256, 0, st>>>(c, csq, k, n);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     kernel<<<grid, TM, bytes, st>>>(x, c, csq, part, m, k, n, num_tiles);
@@ -200,7 +200,7 @@ extern "C" int repro_fused_step_int8_dma(const int8_t* x, const int8_t* c,
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = allow_smem(fused_step_int8_dma_kernel, bytes);
   if (err != cudaSuccess) return (int)err;
-  sqnorm_rows<<<sqnorm_grid(k), 256, 0, st>>>(cf, csq, k, n);
+  sqnorm_rows<<<sqnorm_grid(k, n), 256, 0, st>>>(cf, csq, k, n);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   fused_step_int8_dma_kernel<<<grid, TM, bytes, st>>>(

@@ -65,7 +65,7 @@ extern "C" int repro_fused_step_int8(const int8_t* x, const int8_t* c,
   const int64_t num_tiles = (m + TM - 1) / TM;
   const int64_t kn = (int64_t)k * n;
   cudaStream_t st = (cudaStream_t)stream;
-  sqnorm_rows<<<sqnorm_grid(k), 256, 0, st>>>(cf, csq, k, n);
+  sqnorm_rows<<<sqnorm_grid(k, n), 256, 0, st>>>(cf, csq, k, n);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   fused_step_int8_kernel<<<grid, TM, 0, st>>>(x, c, csq, t, scale, psum, pf,

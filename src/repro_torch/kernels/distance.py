@@ -6,14 +6,16 @@ Kernel B (``csrc/assign.cu``, :func:`assign_f32`) replaces
 ``_assign_pallas_q``; kernels B16 and B3 (``csrc/assign_bf16.cu``,
 :func:`assign_16`) its bf16 and bf16x3 bodies,
 whose wrapper casts x to the policy's storage before the kernel takes its
-norm and its dot.  The wrappers launch their kernel on CUDA tensors and
-raise ``ValueError`` on any other; :func:`assign_plain` and
-:func:`assign_int8_plain` are the plain versions that ``ops`` runs for
-tensors on the CPU.
+norm and its dot.  B8 and B16 run on the tensor cores, a wgmma product
+with a fused argmin (``csrc/assign_mma.cuh``); B and B3 on the CUDA cores.
+The wrappers launch their kernel on CUDA tensors and raise ``ValueError``
+on any other; :func:`assign_plain` and :func:`assign_int8_plain` are the
+plain versions that ``ops`` runs for tensors on the CPU.
 
-Each wrapper takes ``ctas_per_sm`` (default 2), the launch's CTAs per SM:
-rows are assigned independently, so ids and d do not depend on it, and
-the autotuner (``kernels/autotune.py``, kind ``"assign"``) times it.
+Each wrapper takes ``ctas_per_sm`` (default 2), the launch's CTAs per SM
+(for B8 and B16 persistent CTAs over the output tiles): rows are assigned
+independently, so ids and d do not depend on it, and the autotuner
+(``kernels/autotune.py``, kind ``"assign"``) times it.
 """
 from __future__ import annotations
 
@@ -22,10 +24,31 @@ import torch
 from repro_torch.kernels import build, ref
 from repro_torch.kernels import precision as px
 
+MMA_ROWS = 128          # rows per output tile of B8 and B16 (MMA_BM)
+
 launches = 0            # kernel launches by assign_f32 (see ops.launch_counts)
 int8_launches = 0       # kernel launches by assign_int8
 # kernel launches by assign_16, per policy
 launches16 = dict.fromkeys(("bf16", "bf16x3"), 0)
+
+
+def mma_n_tile(k: int) -> int:
+    """Centroids per output tile of kernels B8 and B16 (the wgmma's N)."""
+    return 64 if k <= 64 else 128
+
+
+def _mma_launch(x: torch.Tensor, m: int, k: int, ctas_per_sm: int):
+    """(ids, d, sbest, sidx, bn, grid) of a B8 / B16 launch: outputs, the
+    per-tile scratch [ceil(k / bn), m] and the persistent grid."""
+    bn = mma_n_tile(k)
+    tiles = -(-k // bn)
+    ids = torch.empty(m, dtype=torch.int32, device=x.device)
+    d = torch.empty(m, dtype=torch.float32, device=x.device)
+    sbest = torch.empty((tiles, m), dtype=torch.float32, device=x.device)
+    sidx = torch.empty((tiles, m), dtype=torch.int32, device=x.device)
+    grid = build.persistent_grid(x.device, -(-m // MMA_ROWS) * tiles,
+                                 per_sm=ctas_per_sm)
+    return ids, d, sbest, sidx, bn, grid
 
 
 def assign_plain(x: torch.Tensor, c: torch.Tensor, precision: str = "f32"
@@ -76,14 +99,23 @@ def assign_16(x: torch.Tensor, c: torch.Tensor, precision: str,
     build.require("c", c, torch.float32, 2)
     m, k, n = build.xc_shapes(x, c)
     csq = torch.empty(k, dtype=torch.float32, device=x.device)
-    ids = torch.empty(m, dtype=torch.int32, device=x.device)
-    d = torch.empty(m, dtype=torch.float32, device=x.device)
-    launch = getattr(build.load(), f"repro_assign_{precision}")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    lib = build.load()
     launches16[precision] += 1
-    err = launch(x.data_ptr(), c.data_ptr(), csq.data_ptr(), ids.data_ptr(),
-                 d.data_ptr(), m, k, n,
-                 build.grid(x.device, m, per_sm=ctas_per_sm),
-                 torch.cuda.current_stream(x.device).cuda_stream)
+    if precision == "bf16":
+        cb = torch.empty((k, n), dtype=torch.bfloat16, device=x.device)
+        ids, d, sbest, sidx, bn, grid = _mma_launch(x, m, k, ctas_per_sm)
+        err = lib.repro_assign_bf16(
+            x.data_ptr(), c.data_ptr(), csq.data_ptr(), cb.data_ptr(),
+            sbest.data_ptr(), sidx.data_ptr(), ids.data_ptr(), d.data_ptr(),
+            m, k, n, bn, grid, stream)
+    else:
+        ids = torch.empty(m, dtype=torch.int32, device=x.device)
+        d = torch.empty(m, dtype=torch.float32, device=x.device)
+        err = lib.repro_assign_bf16x3(
+            x.data_ptr(), c.data_ptr(), csq.data_ptr(), ids.data_ptr(),
+            d.data_ptr(), m, k, n,
+            build.grid(x.device, m, per_sm=ctas_per_sm), stream)
     build.check(err, f"assign_{precision}")
     return ids, d
 
@@ -118,15 +150,14 @@ def launch_assign_int8(q: torch.Tensor, scale: torch.Tensor,
     m, n = q.shape
     k = cq.shape[0]
     csq = torch.empty(k, dtype=torch.float32, device=q.device)
-    ids = torch.empty(m, dtype=torch.int32, device=q.device)
-    d = torch.empty(m, dtype=torch.float32, device=q.device)
+    ids, d, sbest, sidx, bn, grid = _mma_launch(q, m, k, ctas_per_sm)
     lib = build.load()
     global int8_launches
     int8_launches += 1
     err = lib.repro_assign_int8(
         q.data_ptr(), cq.data_ptr(), c.data_ptr(), csq.data_ptr(),
-        t.data_ptr(), scale.data_ptr(), ids.data_ptr(), d.data_ptr(), m, k,
-        n, build.grid(q.device, m, per_sm=ctas_per_sm),
+        t.data_ptr(), scale.data_ptr(), sbest.data_ptr(), sidx.data_ptr(),
+        ids.data_ptr(), d.data_ptr(), m, k, n, bn, grid,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "assign_int8")
     return ids, d

@@ -141,19 +141,38 @@ def sqnorm(a: torch.Tensor, dim=-1, keepdim: bool = False) -> torch.Tensor:
     return torch.sum(a * a, dim=dim, keepdim=keepdim)
 
 
+XLA_WINDOW = 32   # XLA's CPU reductions sum windows of this many values
+
+
 def sqnorm_in_order(a: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
-    """``sum(a*a)`` over the last axis in f32, the features added one by
-    one in index order: the order of the int8 kernels' ``||x||^2`` and of
-    the reference's norms as XLA reduces them on the CPU (bitwise there
-    for n <= 29, the paper's widths).  The int8 scores turn on these
-    norms: an ulp in ``||c||^2`` flips a near-tie point, and int8 Lloyd,
-    whose objective need not settle within the tolerance, then runs a
-    different number of iterations.  One op per feature."""
+    """``sum(a*a)`` over the last axis in f32, in the order in which XLA
+    sums it on the CPU: the order of the kernels' norms
+    (``common.cuh:XlaSum``) and of the reference's, bitwise.  The int8
+    scores turn on these norms: an ulp in ``||c||^2`` flips a near-tie
+    point, and int8 Lloyd, whose objective need not settle within the
+    tolerance, then runs a different number of iterations.
+
+    XLA rewrites a reduction of more than 32 values into sums of windows
+    of 32 and a reduction of the window sums, recursively.  The row is
+    first padded with zeros to a multiple of 32, half the padding
+    (rounded down) before the values and the rest after; each window is
+    summed in index order from 0, and so is the last level (32 values or
+    fewer; for n <= 32 the features one by one)."""
     sq = a.float() * a.float()
-    acc = sq[..., 0]
-    for f in range(1, sq.shape[-1]):
-        acc = acc + sq[..., f]
+    while sq.shape[-1] > XLA_WINDOW:
+        pad = -sq.shape[-1] % XLA_WINDOW
+        sq = torch.nn.functional.pad(sq, (pad // 2, pad - pad // 2))
+        sq = _sum_in_order(sq.unflatten(-1, (-1, XLA_WINDOW)))
+    acc = _sum_in_order(sq)
     return acc[..., None] if keepdim else acc
+
+
+def _sum_in_order(v: torch.Tensor) -> torch.Tensor:
+    """The last axis of ``v`` added in index order from 0."""
+    acc = torch.zeros_like(v[..., 0])
+    for f in range(v.shape[-1]):
+        acc = acc + v[..., f]
+    return acc
 
 
 # ---------------------------------------------------------------------------

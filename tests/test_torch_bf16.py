@@ -27,6 +27,7 @@ from the f32 values (``ref.py:50-51``); objectives 757.798 and 747.380, a
 finding: the port reproduces both sides, each against its own reference.
 """
 import importlib
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -399,6 +400,56 @@ def test_lloyd_matches_reference(n, precision):
                                atol=RTOL * scale)
     assert torch.equal(gotb.centroids[0], got.centroids)
     assert torch.equal(gotb.objective[0], got.objective)
+
+
+SLOW_CHUNK = Path(__file__).parent / "data" / "bf16_slow_chunk.npz"
+
+
+def test_bf16_lloyd_matches_reference_on_a_slow_card_chunk():
+    """A chunk on which bf16 Lloyd runs long: stream 1 of round 0 of the
+    batched bf16 HEPMASS-size fit on the card (seed 0), captured with its
+    initial centroids by ``tools/int8_slow_chunk.py --precision bf16``
+    (the bf16 values' 16 bits as two byte planes).  On the card the port
+    took 16 iterations there, through the kernels and the plain path, where
+    f32 Lloyd from the same start stops after 4: the bf16 loop objective
+    wanders by 2e-4 to 2e-3 relative between iterations, above the 1e-4
+    tolerance (bf16 products of the centroids).  This is the bf16 scheme,
+    not the port: the reference's ``lloyd(precision="bf16")`` takes the
+    same 16 iterations on the chunk, jitted and op by op, single and
+    batched (B = 1).
+
+    Tolerances: the same iterations; assignments and counts equal to the
+    reference's; centroids and the objective within RTOL (f32 sums in
+    another order); the batched port bitwise the single one."""
+    z = np.load(SLOW_CHUNK)
+    bits = ((z["hi"].astype(np.uint16) << 8) | z["lo"]).view(np.int16)
+    xt = torch.from_numpy(bits).view(torch.bfloat16)
+    xj = jnp.asarray(bits).view(jnp.bfloat16)
+    init = z["init"]
+    got = kmeans.lloyd(xt, t(init), impl="ref", precision="bf16")
+    got_b = kmeans.lloyd_batched(xt[None], t(init)[None], impl="ref",
+                                 precision="bf16")
+    want = jkm.lloyd(xj, init, impl="ref", precision="bf16")
+    want_b = jkm.lloyd_batched(xj[None], init[None], impl="ref",
+                               precision="bf16")
+    with jax.disable_jit():
+        eager = jkm.lloyd(xj, init, impl="ref", precision="bf16")
+    assert got.iterations == int(want.iterations) == int(eager.iterations)
+    assert got.iterations == 16
+    assert int(got_b.iterations[0]) == int(want_b.iterations[0]) == 16
+    scale = float(np.abs(init).max())
+    for ref_run in (want, eager):
+        np.testing.assert_array_equal(got.assignments.numpy(),
+                                      np.asarray(ref_run.assignments))
+        np.testing.assert_array_equal(got.counts.numpy(),
+                                      np.asarray(ref_run.counts))
+        np.testing.assert_allclose(got.centroids.numpy(),
+                                   np.asarray(ref_run.centroids), rtol=RTOL,
+                                   atol=RTOL * scale)
+        np.testing.assert_allclose(float(got.objective),
+                                   float(ref_run.objective), rtol=RTOL)
+    assert torch.equal(got_b.centroids[0], got.centroids)
+    assert torch.equal(got_b.objective[0], got.objective)
 
 
 def test_seed_keeps_a_bf16_chunk():

@@ -13,12 +13,16 @@ conversions.  The dma kernels' ``cp.async`` copies are deferred: a copy
 lands when the ``cp.async.wait_group`` that retires its group runs, as on
 the card, so a slab read before its wait, or a slot overwritten while it is
 read, shows as a wrong result; their dynamic shared memory is one static
-buffer (the CTAs run one after another).  Results are held against the
-port's plain versions with the same tolerances as on the card; the int8
-kernels' int32 sums bitwise; each dma kernel bitwise its blocks twin; the
-update kernels (a sorted scatter) bitwise ``parent_order_update``, the
-order of the one-hot kernels they replaced, and bitwise kernel A's sums on
-kernel A's ids.
+buffer (the CTAs run one after another).  The tensor-core kernels B8 and
+B16 (``assign_mma.cuh``) run their entry points (``REPRO_LAUNCH`` runs the
+CTAs); each ``wgmma`` is emulated on the card's fragment layout, reading
+its operands through the 128-byte swizzle, and held like a copy until the
+``wgmma.wait_group`` that retires it; ``__shfl_sync`` goes through one
+slot a thread.  Results are held against the port's plain versions with
+the same tolerances as on the card; the int8 kernels' int32 sums and B8
+bitwise; each dma kernel bitwise its blocks twin; the update kernels (a
+sorted scatter) bitwise ``parent_order_update``, the order of the one-hot
+kernels they replaced, and bitwise kernel A's sums on kernel A's ids.
 """
 import re
 import shutil
@@ -33,7 +37,8 @@ from repro_torch.kernels import build, distance, fused_step, ref, update
 from repro_torch.kernels import precision as px
 from repro_torch.kernels.kpp_probe import kpp_probe_plain
 from test_torch_cuda import (
-    d_bound, int8_exact_blobs, parent_order_update, sums_bound,
+    d_bound, int8_exact_blobs, near_ties_int8, parent_order_update,
+    sums_bound,
 )
 
 RTOL = 1e-5
@@ -48,6 +53,7 @@ STUB = r"""
 #include <cstring>
 #include <functional>
 #include <thread>
+#include <type_traits>
 #include <vector>
 #define __global__
 #define __device__
@@ -55,7 +61,7 @@ STUB = r"""
 #define __forceinline__ inline
 #define __shared__ static
 #define __restrict__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 struct dim3s { unsigned x = 0, y = 0, z = 0; };
 inline thread_local dim3s threadIdx, blockIdx;
 inline dim3s blockDim, gridDim;
@@ -67,9 +73,11 @@ inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
 struct alignas(16) uint4 { unsigned x, y, z, w; };
+struct alignas(16) float4 { float x, y, z, w; };
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 const int cudaSuccess = 0;
+const int cudaErrorInvalidValue = 1;
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return ""; }
 // CTAs one after another (x fastest); the threads of a CTA concurrently.
@@ -97,12 +105,17 @@ inline void launch2(unsigned gx, unsigned gy, unsigned block,
 inline void launch(unsigned grid, unsigned block, std::function<void()> fn) {
   launch2(grid, 1, block, fn);
 }
+// a kernel launch inside an entry point runs its CTAs here
+#define REPRO_HOST_LAUNCH
+#define REPRO_LAUNCH(kernel, grid, block, smem, stream, ...) \
+  launch((grid), (block), [&] { kernel(__VA_ARGS__); })
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <class F>
 inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
   return 0;
 }
 // cp.async: each copy is held until the wait_group that retires its group
+// (a copy from nullptr zero-fills)
 #define REPRO_HOST_ASYNC_COPY
 struct PendingCopy { void* dst; const void* src; };
 inline thread_local std::vector<PendingCopy> cp_open;
@@ -123,7 +136,10 @@ inline void cp_async_commit() {
 template <int N>
 inline void cp_async_wait() {
   while (cp_groups.size() > (size_t)N) {
-    for (const PendingCopy& c : cp_groups.front()) std::memcpy(c.dst, c.src, 4);
+    for (const PendingCopy& c : cp_groups.front()) {
+      if (c.src) std::memcpy(c.dst, c.src, 4);
+      else std::memset(c.dst, 0, 4);
+    }
     cp_groups.erase(cp_groups.begin());
   }
 }
@@ -131,6 +147,105 @@ inline void cp_async_wait() {
 inline unsigned char* dynamic_smem() {
   alignas(16) static unsigned char smem[1 << 18];
   return smem;
+}
+// cp.async of 16 bytes, or of none (zero-fill)
+inline void cp_async16_zfill(void* dst, const void* src, int bytes) {
+  if (bytes == 16) {
+    cp_async16(dst, src);
+  } else {
+    for (int w = 0; w < 4; ++w)
+      cp_open.push_back({(char*)dst + 4 * w, nullptr});
+  }
+}
+// __shfl_sync, __shfl_xor_sync: every thread of the CTA takes part (the
+// kernels call them uniformly), through one slot a thread
+inline uint32_t shfl_slot[1024];
+template <class T>
+inline T __shfl_sync(unsigned, T v, int src) {
+  static_assert(sizeof(T) == 4);
+  uint32_t u;
+  std::memcpy(&u, &v, 4);
+  shfl_slot[threadIdx.x] = u;
+  __syncthreads();
+  const uint32_t o = shfl_slot[(threadIdx.x & ~31u) + src];
+  __syncthreads();
+  T r;
+  std::memcpy(&r, &o, 4);
+  return r;
+}
+template <class T>
+inline T __shfl_xor_sync(unsigned, T v, int mask) {
+  static_assert(sizeof(T) == 4);
+  uint32_t u;
+  std::memcpy(&u, &v, 4);
+  shfl_slot[threadIdx.x] = u;
+  __syncthreads();
+  const uint32_t o = shfl_slot[threadIdx.x ^ mask];
+  __syncthreads();
+  T r;
+  std::memcpy(&r, &o, 4);
+  return r;
+}
+// wgmma (assign_mma.cuh): each slab's products are held until the
+// wgmma.wait_group that retires their group, so a product that reads a
+// slab after it was overwritten, or accumulators read before their wait,
+// show as a wrong result.  Thread t of a warpgroup owns register i, the
+// element (row 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2),
+// col 8 (i / 4) + 2 (t % 4) + i % 2) of the 64-row product, as on the card;
+// operands are read through the 128-byte swizzle (row r's 16-byte chunk q
+// at r * 128 + (q ^ (r % 8)) * 16).
+#define REPRO_HOST_MMA
+inline void fence_proxy_async() {}
+inline void wgmma_fence() {}
+template <class Acc, int N>
+inline void fence_operands(Acc (&)[N]) {}
+inline thread_local std::vector<std::function<void()>> mma_open;
+inline thread_local std::vector<std::vector<std::function<void()>>> mma_groups;
+inline void wgmma_commit() {
+  mma_groups.push_back(mma_open);
+  mma_open.clear();
+}
+template <int N>
+inline void wgmma_wait() {
+  while (mma_groups.size() > (size_t)N) {
+    for (auto& product : mma_groups.front()) product();
+    mma_groups.erase(mma_groups.begin());
+  }
+}
+inline const unsigned char* swizzled(const unsigned char* tile, int r, int b) {
+  return tile + r * 128 + (((b >> 4) ^ (r & 7)) << 4) + (b & 15);
+}
+inline float bf16_bits_at(const unsigned char* p) {
+  const uint32_t u = (uint32_t)(p[0] | (p[1] << 8)) << 16;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+// STEPS wgmma of a 128-byte slab, each 32 bytes deep, from step k0
+template <int STEPS, class Acc, int N>
+inline void mma_steps(Acc (&d)[N], const unsigned char* a,
+                      const unsigned char* b, int k0, bool accumulate) {
+  const int t = threadIdx.x % 128;
+  Acc* acc = d;
+  mma_open.push_back([=] {
+    for (int kk = k0; kk < k0 + STEPS; ++kk) {
+      for (int i = 0; i < N; ++i) {
+        const int row = 16 * (t / 32) + (t % 32) / 4 + 8 * ((i / 2) % 2);
+        const int col = 8 * (i / 4) + 2 * (t % 4) + i % 2;
+        Acc s = 0;
+        const int step = std::is_same_v<Acc, int> ? 1 : 2;  // element bytes
+        for (int e = 32 * kk; e < 32 * kk + 32; e += step) {
+          if constexpr (std::is_same_v<Acc, int>)
+            s += (int)(int8_t)*swizzled(a, row, e) *
+                 (int)(int8_t)*swizzled(b, col, e);
+          else
+            s = std::fma(bf16_bits_at(swizzled(a, row, e)),
+                         bf16_bits_at(swizzled(b, col, e)), s);
+        }
+        acc[i] = (accumulate || kk > k0) ? acc[i] + s : s;
+      }
+    }
+  });
 }
 """
 
@@ -270,10 +385,11 @@ HARNESS_INT8 = r"""
 #include "fused_step_batched_int8.inc"
 #include <cstdio>
 #include <cstdlib>
-// harness_int8 B m k n grid in out:
+// harness_int8 B m k n grid in out bn:
 // in = xq[B,m,n] i8, cq[B,k,n] i8, scale[B,n], cf[B,k,n] f32, t[B,k],
 // ids[m] i32
-// out = csq[B,k] (sqnorm_rows on cf); B8 on stream 0 (ids, d); C8 on
+// out = csq[B,k] (sqnorm_rows on cf); B8 on stream 0 (ids, d; its entry
+// point, bn centroids a tile, `grid` CTAs); C8 on
 // stream 0 with ids (isums i32 ++ counts); A8 on each stream (isums i32 ++
 // counts ++ obj); D8 (all streams' isums, then all streams' counts ++ obj)
 template <typename T>
@@ -299,15 +415,20 @@ int main(int argc, char** argv) {
   fclose(f);
   const int64_t tiles = (m + TM - 1) / TM;
   FILE* o = fopen(argv[7], "wb");
-  launch(sqnorm_grid(B * k), 256,
+  launch(sqnorm_grid(B * k, n), 256,
          [&] { sqnorm_rows(cf.data(), csq.data(), B * k, n); });
   put(o, csq);
   std::vector<int32_t> aids(m);
   std::vector<float> ad(m);
-  launch(grid, TM, [&] {
-    assign_int8_kernel(x.data(), c.data(), csq.data(), t.data(), sc.data(),
-                       aids.data(), ad.data(), m, k, n, tiles);
-  });
+  {
+    const int bn = atoi(argv[8]), nt = (k + bn - 1) / bn;
+    std::vector<float> csq8(k), sbest((size_t)nt * m);
+    std::vector<int32_t> sidx((size_t)nt * m);
+    if (repro_assign_int8(x.data(), c.data(), cf.data(), csq8.data(),
+                          t.data(), sc.data(), sbest.data(), sidx.data(),
+                          aids.data(), ad.data(), m, k, n, bn, grid, nullptr))
+      return 2;
+  }
   put(o, aids);
   put(o, ad);
   std::vector<int32_t> ps(grid * kn), os(kn);
@@ -369,10 +490,11 @@ HARNESS_16 = r"""
 #include "fused_step_batched_bf16.inc"
 #include <cstdio>
 #include <cstdlib>
-// harness_16 B m k n grid in out:
+// harness_16 B m k n grid in out bn:
 // in = x[B,m,n] f32, xb[B,m,n] bf16, c[B,k,n] f32, ids[m] i32
 // out = csq[B,k] (sqnorm_rows on c); then for bf16 (on xb) and bf16x3 (on
-// x): B16/B3 on stream 0 (ids, d); C16/C3 on stream 0 with ids (sums ++
+// x): B16/B3 on stream 0 (ids, d; B16 through its entry point, bn
+// centroids a tile); C16/C3 on stream 0 with ids (sums ++
 // counts); A16/A3 on each stream (sums ++ counts ++ obj); D16/D3 (all
 // streams, each sums ++ counts ++ obj)
 template <typename T>
@@ -384,23 +506,20 @@ static void put(FILE* f, const std::vector<T>& v) {
   fwrite(v.data(), sizeof(T), v.size(), f);
 }
 struct In {
-  int B, k, n, grid;
+  int B, k, n, grid, bn;
   int64_t m, tiles;
   std::vector<float> c, csq;
   std::vector<int32_t> ids;
 };
 template <typename X, typename A, typename U, typename F, typename D>
-static void run(FILE* o, const In& in, const std::vector<X>& x, A assign_k,
+static void run(FILE* o, const In& in, const std::vector<X>& x, A assign,
                 U update_k, F fused_k, D batched_k) {
   const int B = in.B, k = in.k, n = in.n, grid = in.grid;
   const int64_t m = in.m, tiles = in.tiles, kn = (int64_t)k * n;
   const int64_t su = kn + k, sf = su + 1;
   std::vector<int32_t> aids(m);
   std::vector<float> ad(m);
-  launch(grid, TM, [&] {
-    assign_k(x.data(), in.c.data(), in.csq.data(), aids.data(), ad.data(),
-             m, k, n, tiles);
-  });
+  assign(aids.data(), ad.data());
   put(o, aids);
   put(o, ad);
   std::vector<float> ou(su);
@@ -445,6 +564,7 @@ int main(int argc, char** argv) {
   in.k = atoi(argv[3]);
   in.n = atoi(argv[4]);
   in.grid = atoi(argv[5]);
+  in.bn = atoi(argv[8]);
   in.tiles = (in.m + TM - 1) / TM;
   const int64_t size = in.B * in.m * in.n;
   std::vector<float> x(size);
@@ -457,13 +577,29 @@ int main(int argc, char** argv) {
   fclose(f);
   FILE* o = fopen(argv[7], "wb");
   const int64_t rows = (int64_t)in.B * in.k;
-  launch(sqnorm_grid(rows), 256,
+  launch(sqnorm_grid(rows, in.n), 256,
          [&] { sqnorm_rows(in.c.data(), in.csq.data(), rows, in.n); });
   put(o, in.csq);
-  run(o, in, xb, assign_bf16_kernel, update_bf16_tiles,
-      fused_step_bf16_kernel, fused_step_batched_bf16_kernel);
-  run(o, in, x, assign_bf16x3_kernel, update_bf16x3_tiles,
-      fused_step_bf16x3_kernel, fused_step_batched_bf16x3_kernel);
+  const int nt = (in.k + in.bn - 1) / in.bn;
+  std::vector<float> csq16(in.k), sbest((size_t)nt * in.m);
+  std::vector<int32_t> sidx((size_t)nt * in.m);
+  std::vector<__nv_bfloat16> cb((size_t)in.k * in.n);
+  auto b16 = [&](int32_t* ids, float* d) {
+    if (repro_assign_bf16(xb.data(), in.c.data(), csq16.data(), cb.data(),
+                          sbest.data(), sidx.data(), ids, d, in.m, in.k,
+                          in.n, in.bn, in.grid, nullptr))
+      std::abort();
+  };
+  auto b3 = [&](int32_t* ids, float* d) {
+    launch(in.grid, TM, [&] {
+      assign_bf16x3_kernel(x.data(), in.c.data(), in.csq.data(), ids, d,
+                           in.m, in.k, in.n, in.tiles);
+    });
+  };
+  run(o, in, xb, b16, update_bf16_tiles, fused_step_bf16_kernel,
+      fused_step_batched_bf16_kernel);
+  run(o, in, x, b3, update_bf16x3_tiles, fused_step_bf16x3_kernel,
+      fused_step_batched_bf16x3_kernel);
   fclose(o);
   return 0;
 }
@@ -512,7 +648,8 @@ int main(int argc, char** argv) {
   fclose(f);
   const int64_t tiles = (m + TM - 1) / TM;
   FILE* o = fopen(argv[7], "wb");
-  launch(sqnorm_grid(k), 256, [&] { sqnorm_rows(c.data(), csq.data(), k, n); });
+  launch(sqnorm_grid(k, n), 256,
+         [&] { sqnorm_rows(c.data(), csq.data(), k, n); });
   std::vector<float> pf(grid * sf), of(sf);
   auto reduce16 = [&] {
     launch(3, 256, [&] { fused_step_16_reduce(pf.data(), of.data(), sf, grid); });
@@ -694,8 +831,59 @@ int main(int argc, char** argv) {
 """
 
 
+HARNESS_MMA = r"""
+#include "cuda_runtime.h"
+#include "assign_int8.inc"
+#include "assign_bf16.inc"
+#include <cstdio>
+#include <cstdlib>
+// harness_mma m k n bn grid shift in out:
+// in = xq[m,n] i8, scale[n] f32, cq[k,n] i8, t[k] f32, c[k,n] f32,
+// xb[m,n] bf16; xq and xb are read into their buffers `shift` elements in
+// (a base off 16 bytes: the byte-load path).
+// out = B8's ids [m] i32 and d [m] f32, then B16's, through their entry
+// points with bn centroids a tile on `grid` persistent CTAs
+template <typename T>
+static bool get(FILE* f, T* p, size_t n) {
+  return fread(p, sizeof(T), n, f) == n;
+}
+int main(int argc, char** argv) {
+  const int64_t m = atoll(argv[1]);
+  const int k = atoi(argv[2]), n = atoi(argv[3]), bn = atoi(argv[4]);
+  const int grid = atoi(argv[5]), shift = atoi(argv[6]);
+  const int64_t mn = m * n, kn = (int64_t)k * n, nt = (k + bn - 1) / bn;
+  std::vector<int8_t> xqbuf(mn + 16), cq(kn);
+  std::vector<__nv_bfloat16> xbbuf(mn + 16), cb(kn);
+  std::vector<float> sc(n), t(k), c(kn), csq(k), sbest(nt * m), d(m);
+  std::vector<int32_t> sidx(nt * m), ids(m);
+  int8_t* xq = xqbuf.data() + shift;
+  __nv_bfloat16* xb = xbbuf.data() + shift;
+  FILE* f = fopen(argv[7], "rb");
+  if (!get(f, xq, mn) || !get(f, sc.data(), n) || !get(f, cq.data(), kn) ||
+      !get(f, t.data(), k) || !get(f, c.data(), kn) || !get(f, xb, mn))
+    return 1;
+  fclose(f);
+  FILE* o = fopen(argv[8], "wb");
+  if (repro_assign_int8(xq, cq.data(), c.data(), csq.data(), t.data(),
+                        sc.data(), sbest.data(), sidx.data(), ids.data(),
+                        d.data(), m, k, n, bn, grid, nullptr))
+    return 2;
+  fwrite(ids.data(), 4, m, o);
+  fwrite(d.data(), 4, m, o);
+  if (repro_assign_bf16(xb, c.data(), csq.data(), cb.data(), sbest.data(),
+                        sidx.data(), ids.data(), d.data(), m, k, n, bn, grid,
+                        nullptr))
+    return 3;
+  fwrite(ids.data(), 4, m, o);
+  fwrite(d.data(), 4, m, o);
+  fclose(o);
+  return 0;
+}
+"""
+
+
 HARNESSES = ("harness", "harness_batched", "harness_int8", "harness_16",
-             "harness_dma", "harness_kpp", "harness_update")
+             "harness_dma", "harness_kpp", "harness_update", "harness_mma")
 
 
 @pytest.fixture(scope="module")
@@ -718,6 +906,7 @@ def harness(tmp_path_factory):
     (d / "harness_dma.cpp").write_text(HARNESS_DMA)
     (d / "harness_kpp.cpp").write_text(HARNESS_KPP)
     (d / "harness_update.cpp").write_text(HARNESS_UPDATE)
+    (d / "harness_mma.cpp").write_text(HARNESS_MMA)
     procs = [subprocess.Popen(
         [cxx, "-std=c++20", "-O1", "-pthread", f"-I{d}", f"-I{build.CSRC}",
          str(d / f"{name}.cpp"), "-o", str(d / name)],
@@ -955,7 +1144,8 @@ def run_int8(harness, tmp_path, x, c, ids, grid):
         + ids.tobytes())
     subprocess.run([str(harness.parent / "harness_int8"), str(B), str(m),
                     str(k), str(n), str(grid), str(tmp_path / "in.bin"),
-                    str(tmp_path / "out.bin")], check=True, timeout=120)
+                    str(tmp_path / "out.bin"), str(distance.mma_n_tile(k))],
+                   check=True, timeout=120)
     raw = np.fromfile(tmp_path / "out.bin", dtype=np.uint8)
     kn = k * n
     layout = ([("csq", np.float32, B * k),
@@ -1085,7 +1275,8 @@ def run_16(harness, tmp_path, x, c, ids, grid):
                                       + c.tobytes() + ids.tobytes())
     subprocess.run([str(harness.parent / "harness_16"), str(B), str(m),
                     str(k), str(n), str(grid), str(tmp_path / "in.bin"),
-                    str(tmp_path / "out.bin")], check=True, timeout=300)
+                    str(tmp_path / "out.bin"), str(distance.mma_n_tile(k))],
+                   check=True, timeout=300)
     raw = np.fromfile(tmp_path / "out.bin", dtype=np.uint8)
     kn = k * n
     per = ([("ids", np.int32, m), ("d", np.float32, m),
@@ -1288,3 +1479,103 @@ def test_kpp_probe_source_matches_plain(harness, tmp_path, shape):
     bound = np.stack([d_bound(x, c, np.full(m, j)) for j in range(L)], 1)
     assert np.all(np.abs(newd - want_newd.numpy()) <= bound)
     np.testing.assert_allclose(pot, want_pot.numpy(), rtol=RTOL)
+
+
+# --------------------------------------------------------------------------
+# kernels B8 and B16 on the tensor cores (csrc/assign_mma.cuh)
+# --------------------------------------------------------------------------
+
+MMA_CASES = [  # (m, k, n, bn, grid, shift, data)
+    (300, 25, 28, 64, 2, 0, "blobs"),     # the main path's k and n: rows
+    (300, 25, 28, 128, 1, 1, "blobs"),    # off 16 bytes; bn 128, 103 padded
+    (257, 25, 3, 64, 3, 0, "blobs"),      # columns; n = 3; a CTA with no
+    (200, 130, 68, 128, 2, 1, "blobs"),   # tile; k = 130, 300 (two and
+    (200, 130, 68, 64, 3, 0, "ties"),     # three centroid tiles, the last
+    (130, 300, 1024, 128, 2, 0, "ties"),  # ragged); n = 1,024 by 16-byte
+    (130, 300, 1024, 128, 1, 3, "blobs"),  # copies and by bytes; exact
+    (200, 130, 28, 128, 2, 0, "far"),     # ties across a tile boundary;
+    (70, 40, 1100, 64, 1, 1, "blobs"),    # every real score above 0; n
+]                                         # past 1,024: two window levels
+
+
+def mma_inputs(m, k, n, bn, data, seed):
+    """(x, c): blobs; 'ties': twin centroids across centroid tiles (j and
+    j + bn for j = 0, 3, k - bn - 1) and within one (0 and 1, 2 and 8),
+    the first rows at each twin;
+    'far': points near 0 and centroids far away, so that every real score
+    ||c||^2 - 2 x.c is above 0, where a padded column (zero codes, no
+    norm) would score 0."""
+    rng = np.random.default_rng(seed)
+    c = (rng.normal(size=(k, n)) * 5).astype(np.float32)
+    if data == "ties":
+        for j in (0, 3, k - bn - 1):
+            c[j + bn] = c[j]
+        c[1] = c[0]                      # one lane's two columns
+        c[8] = c[2]                      # two lanes of a quad
+    comp = rng.integers(0, k, m)
+    if data == "ties":                   # the first rows at each twin
+        comp[:8] = [0, bn, 3, bn + 3, k - bn - 1, k - 1, 1, 8]
+    x = c[comp] + rng.normal(size=(m, n))
+    if data == "far":
+        c += 40.0
+        x = rng.normal(size=(m, n))
+    return x.astype(np.float32), c
+
+
+@pytest.mark.parametrize("case", MMA_CASES, ids=[
+    f"m{m}-k{k}-n{n}-bn{bn}-g{g}-s{sh}-{data}"
+    for m, k, n, bn, g, sh, data in MMA_CASES])
+def test_mma_assign_sources_match_plain(harness, tmp_path, case):
+    """Kernels B8 and B16 (wgmma products emulated on the card's fragment
+    layout through the 128-byte swizzle, held to their waits) against the
+    plain versions.
+
+    B8: ids bitwise the first minimum of its scores ``csq - 2 float(xq.cq)
+    t`` (the plain version's arithmetic; exact int32 dots), equal to the
+    plain ids off near ties, and d bitwise the plain d.  B16: ids equal to
+    the plain ids off near ties, d within RTOL of its terms' magnitude (f32
+    sums of exact bf16 products in another order).  Both: a twin never
+    chosen over the lower twin, across a centroid tile or within one; no
+    id past k (padded columns never win)."""
+    m, k, n, bn, grid, shift, data = case
+    x, c = mma_inputs(m, k, n, bn, data, seed=m + k + n)
+    X, C = torch.from_numpy(x), torch.from_numpy(c)
+    qx = px.quantize_chunk(X)
+    cq, t = px.quantize_centroids(C, qx.scale)
+    xb = X.bfloat16().view(torch.int16).numpy()
+    (tmp_path / "in.bin").write_bytes(b"".join(
+        a.tobytes() for a in (qx.q.numpy(), qx.scale.numpy(), cq.numpy(),
+                              t.numpy(), c, xb)))
+    subprocess.run([str(harness.parent / "harness_mma"), str(m), str(k),
+                    str(n), str(bn), str(grid), str(shift),
+                    str(tmp_path / "in.bin"), str(tmp_path / "out.bin")],
+                   check=True, timeout=300)
+    raw = np.fromfile(tmp_path / "out.bin", dtype=np.int32)
+    assert raw.size == 4 * m
+    ids8, d8, ids16, d16 = (raw[i * m:(i + 1) * m] for i in range(4))
+    d8, d16 = d8.view(np.float32), d16.view(np.float32)
+
+    scores = (px.sqnorm_in_order(C)[None, :]
+              - 2.0 * (px.intdot(qx.q, cq, ([1], [1])).float() * t[None, :]))
+    np.testing.assert_array_equal(ids8, torch.argmin(scores, 1).numpy())
+    pids, pd = distance.assign_int8_plain(qx, C)
+    ties8 = near_ties_int8(qx, C).numpy()
+    np.testing.assert_array_equal(ids8[~ties8], pids.numpy()[~ties8])
+    np.testing.assert_array_equal(d8.view(np.uint32),
+                                  pd.numpy().view(np.uint32))
+
+    pids16, pd16 = distance.assign_plain(X, C, "bf16")
+    ties16 = near_ties_16(X, C, "bf16").numpy()
+    if data == "blobs":
+        assert ties16.sum() <= 2 and ties8.sum() <= 2
+    np.testing.assert_array_equal(ids16[~ties16], pids16.numpy()[~ties16])
+    xs = X.bfloat16().float().numpy()
+    assert np.all(np.abs(d16 - pd16.numpy())
+                  <= d_bound(xs, c, pids16.numpy()) + 1e-6)
+
+    for ids in (ids8, ids16):
+        assert np.all((ids >= 0) & (ids < k))
+        if data == "ties":
+            assert not np.isin(ids, [1, 8, bn, bn + 3, k - 1]).any()
+            np.testing.assert_array_equal(
+                ids[:8], [0, 0, 3, 3, k - bn - 1, k - bn - 1, 0, 2])

@@ -798,6 +798,58 @@ def test_tuned_fused_step_bitwise_untuned_on_card(_tuner, tmp_path,
     assert all(torch.equal(a, b) for a, b in zip(untuned, pinned))
 
 
+MMA_CARD_SHAPES = [(64_000, 25, 28), (16_384, 2048, 1024),
+                   (64_001, 130, 68), (2_001, 300, 1100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", MMA_CARD_SHAPES, ids=[
+    f"m{m}-k{k}-n{n}" for m, k, n in MMA_CARD_SHAPES])
+def test_tensor_core_assign_kernels_on_card(shape):
+    """Kernels B8 and B16 (wgmma products with a fused argmin) at the main
+    path's shape, the two-pass route's, and two shapes whose rows are off
+    16 bytes: B8 bitwise its plain version (d everywhere; ids the first
+    minimum of the plain scores, and the plain ids off near ties), B16's
+    ids equal to the plain ids off near ties with d within the f32 norm
+    bound; both bitwise on a repeat and with 1 or 4 persistent CTAs per SM
+    instead of 2."""
+    _card()
+    from repro_torch.kernels import distance
+    from repro_torch.kernels import precision as px
+
+    m, k, n = shape
+    xn, cn = blobs(m, k, n, seed=17)
+    x, c = torch.from_numpy(xn).cuda(), torch.from_numpy(cn).cuda()
+    qx = px.quantize_chunk(x)
+    ids, d = distance.assign_int8(qx, c)
+    pids, pd = distance.assign_int8_plain(qx, c)
+    cq, t = px.quantize_centroids(c, qx.scale)
+    scores = px.sqnorm_in_order(c)[None, :] - 2.0 * (
+        px.intdot(qx.q, cq, ([1], [1])).float() * t[None, :])
+    assert torch.equal(ids, torch.argmin(scores, 1).int())
+    assert torch.equal(d, pd)
+    ties8 = near_ties_int8(qx, c)
+    assert torch.equal(ids[~ties8], pids[~ties8])
+
+    xb = x.bfloat16()
+    ids16, d16 = distance.assign_16(xb, c, "bf16")
+    pids16, pd16 = distance.assign_plain(xb, c, "bf16")
+    ties16 = near_ties_16(xb, c, "bf16")
+    assert torch.equal(ids16[~ties16], pids16[~ties16])
+    xs = xb.float().cpu().numpy()
+    assert np.all((d16 - pd16).abs().cpu().numpy()
+                  <= d_bound(xs, cn, pids16.cpu().numpy()) + 1e-6)
+
+    for per_sm in (2, 1, 4):
+        for got, want in ((distance.assign_int8(qx, c, ctas_per_sm=per_sm),
+                           (ids, d)),
+                          (distance.assign_16(xb, c, "bf16",
+                                              ctas_per_sm=per_sm),
+                           (ids16, d16))):
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["f32", "int8", "bf16", "bf16x3"])
 def test_assign_candidates_bitwise_each_other_on_card(precision):

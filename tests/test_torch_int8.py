@@ -470,3 +470,99 @@ def test_int8_fit_matches_reference(dataset, method):
         np.testing.assert_array_equal(getattr(infos, field).numpy(),
                                       np.asarray(getattr(jinfos, field)),
                                       err_msg=field)
+
+
+# --------------------------------------------------------------------------
+# the norms' order at widths above 32
+# --------------------------------------------------------------------------
+
+
+def fma_chain(a):
+    """sum(a*a) over the last axis as an f32 chain of fused multiply-adds
+    in feature order (each step rounded once, from the exact product)."""
+    acc = np.zeros(a.shape[0], np.float64)
+    for f in range(a.shape[1]):
+        acc = (acc + a[:, f].astype(np.float64) ** 2).astype(np.float32)
+    return acc
+
+
+@pytest.mark.parametrize("n", [28, 32, 64, 1024, 68, 1100])
+def test_sqnorm_in_order_bitwise_reference_sqnorm(n):
+    """``sqnorm_in_order`` bitwise the reference's ``precision.sqnorm`` on
+    4,096 random rows: op by op (``jax.disable_jit()``) at every width,
+    and jitted at n > 32.  XLA sums more than 32 values in windows of 32
+    (padding split around the row), at 64 and 1,024 as at the ragged 68
+    and 1,100.  Jitted at n <= 32 XLA fuses the squares into the sum, an
+    f32 chain of fused multiply-adds: pinned here, the departure that
+    ``test_int8_lloyd_batched_matches_reference`` meets in the jitted
+    int8 distances."""
+    a = np.random.default_rng(n).standard_normal((4096, n)).astype(
+        np.float32)
+    got = px.sqnorm_in_order(t(a)).numpy()
+    with jax.disable_jit():
+        eager = np.asarray(jpx.sqnorm(jnp.asarray(a)))
+    jitted = np.asarray(jax.jit(jpx.sqnorm)(jnp.asarray(a)))
+    np.testing.assert_array_equal(got.view(np.uint32), eager.view(np.uint32))
+    if n > 32:
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      jitted.view(np.uint32))
+    else:
+        np.testing.assert_array_equal(jitted.view(np.uint32),
+                                      fma_chain(a).view(np.uint32))
+    # the feature-by-feature order, which the port had before, parts from
+    # the reference's above 32
+    seq = a[:, 0] * a[:, 0]
+    for f in range(1, n):
+        seq = (seq + a[:, f] * a[:, f]).astype(np.float32)
+    assert (np.sum(seq != eager) > 1000) == (n > 32)
+
+
+WIDE = 64
+
+
+@pytest.fixture(scope="module")
+def wide_data():
+    return np.asarray(gmm_dataset(GMMSpec(m=20_000, n=WIDE, components=12,
+                                          seed=5)))
+
+
+@pytest.mark.parametrize("method", FITS)
+def test_int8_fit_matches_reference_above_32(wide_data, method):
+    """At a width above 32 (n = 64, where the norms are summed in windows
+    of 32), ``fit(..., precision="int8", device="cpu")`` takes the
+    decisions of ``repro.api.fit(impl="ref", precision="int8")`` one by
+    one through the jax-replay RNG: the same accept sequence, per-chunk
+    Lloyd iterations and ``n_accepted``; objectives and centroids within
+    RTOL, and the full-data objective of ``evaluate``."""
+    X = wide_data
+    cfg = dict(k=12, s=2000, n_chunks=8, **FITS[method])
+    want = japi.fit(X, japi.BigMeansConfig(**cfg), method=method,
+                    impl="ref", precision="int8")
+    got = api.fit(X, api.BigMeansConfig(**cfg), method=method, device="cpu",
+                  rng=REPLAY, precision="int8")
+    assert [a for *_, a in got.trace] == [a for *_, a in want.trace]
+    assert got.n_accepted == want.n_accepted
+    assert got.n_iterations == want.n_iterations
+    np.testing.assert_allclose([f for _, f, _ in got.trace],
+                               [f for _, f, _ in want.trace], rtol=RTOL)
+    ref_c = np.asarray(want.centroids)
+    np.testing.assert_allclose(got.centroids.numpy(), ref_c, rtol=RTOL,
+                               atol=RTOL * float(np.abs(ref_c).max()))
+    _, f = api.evaluate(got, X, device="cpu")
+    _, jf = japi.evaluate(want, X)
+    np.testing.assert_allclose(f, jf, rtol=RTOL)
+
+
+@pytest.mark.parametrize("n", [64, 68, 1024, 1100])
+def test_int8_distances_bitwise_reference_above_32(n):
+    """The int8 oracle's ids and distances bitwise the reference's, op by
+    op, at widths above 32: both norms, ``||c||^2`` of the f32 centroids
+    and ``||x||^2`` of the dequantized codes, enter d, so an order that
+    parts from XLA's shows here as an ulp (as in the port before the
+    norms took XLA's windows of 32)."""
+    x, c = blobs(777, 20, n, seed=n)
+    ids, d = ops.assign(t(x), t(c), impl="ref", precision="int8")
+    with jax.disable_jit():
+        jids, jd = jref.assign_ref(x, c, precision="int8")
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
+    np.testing.assert_array_equal(bits(d.numpy()), bits(jd))
