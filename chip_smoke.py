@@ -10,8 +10,10 @@ Phases, each printing JSON lines:
    points of kernels A-D and their int8, bf16 and bf16x3 bodies, the dma
    pipeline of kernel A under each policy, and kernel P) for sm_90a;
    print ptxas's registers, shared memory and spills, and check in the
-   SASS (``cuobjdump -sass``) that B8's and B16's tensor-core pass issues
-   GMMA instructions (IGMMA, HGMMA).
+   SASS (``cuobjdump -sass``) that B8's, B16's and B3's tensor-core pass
+   issues GMMA instructions (IGMMA; HGMMA on BF16), and that kernel B's
+   pass issues FFMA and no tensor-core instruction (no HMMA, no GMMA: no
+   TF32).
 3. kernels — each f32 kernel against its plain PyTorch version on the same
    CUDA tensors, at the main paths' shapes and at edge shapes, and two
    launches of each compared bitwise; every stream of the batched kernel D
@@ -72,9 +74,11 @@ Phases, each printing JSON lines:
    ``torch._int_mm`` on the codes (its dots only).
 5f. the two-pass route at bf16 — 5c's fit at ``precision="bf16"``: B16 and
    C16 carry every Lloyd iteration, held against their plain versions at
-   that shape (the final line reports B16's error there); C3 held there
-   too; B16 and B timed there beside ``torch.mm`` on the bf16 operands and
-   in f32 (TF32 off), their dots only.
+   that shape (the final line reports B16's error there); C3, B and B3
+   held there too, and B at one ``evaluate`` batch of that data (262,144
+   rows); B16 and B timed there beside ``torch.mm`` on the bf16 operands
+   and in f32 (TF32 off), their dots only; B3 timed there (no single
+   library call computes its three bf16 products).
 4e. the autotuned path — ``fit(autotune=True)`` under each policy,
    sequential and ``batch=8, sync_every=2`` (every candidate's time and
    the winners printed), and with tuning off a cache file under build/
@@ -92,9 +96,11 @@ Phases, each printing JSON lines:
    at the envelope's edge; kernel P at the seeding shape.
    The assign kernels beside the dots-only library product (``torch.mm``
    f32 for B, bf16 for B16; ``torch._int_mm`` for B8 where the widths are
-   multiples of 8).  Phases 5c and 5f time B8, C8, C, B16, C16, C3 and B
-   at their own shape (the update kernels beside ``index_add_``; their
-   rows in the final line carry these times as ``at_two_pass_shape``).
+   multiples of 8).  Phases 5c and 5f time B8, C8, C, B16, C16, C3, B
+   and B3 at their own shape (the update kernels beside ``index_add_``;
+   their rows in the final line carry these times as
+   ``at_two_pass_shape``, B's at an ``evaluate`` batch of that data as
+   ``at_two_pass_evaluate_batch``).
 
 Then the one ``{"kernels": [...]}`` line, the card's name and power limit,
 and the final ``{"ok": true, "device": {...}}`` line.  Any failed check raises.
@@ -107,6 +113,7 @@ import cProfile
 import json
 import math
 import pstats
+import re
 import subprocess
 import sys
 import time
@@ -212,9 +219,13 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def sass_gmma(lib: Path) -> dict:
-    """GMMA instructions by kernel in the SASS of the built library
-    (``cuobjdump -sass``): {mangled name: {opcode: count}}."""
+SASS_OPS = ("GMMA", "HMMA", "FFMA")   # tensor-core and fp32 FMA opcodes
+
+
+def sass_ops(lib: Path) -> dict:
+    """Tensor-core (GMMA, HMMA) and FFMA instructions by kernel in the SASS
+    of the built library (``cuobjdump -sass``): {mangled name: {opcode:
+    count}}."""
     tool = Path(build.nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
@@ -223,12 +234,51 @@ def sass_gmma(lib: Path) -> dict:
     for line in sass.splitlines():
         if "Function : " in line:
             fn = line.split("Function : ")[1].strip()
-        elif fn and "GMMA" in line:
-            op = next(w for w in line.replace(";", " ").split()
-                      if "GMMA" in w)
-            out.setdefault(fn, {})
-            out[fn][op] = out[fn].get(op, 0) + 1
+        elif fn and any(key in line for key in SASS_OPS):
+            op = next((w for w in line.replace(";", " ").split()
+                       if any(key in w for key in SASS_OPS)), None)
+            if op is not None:
+                out.setdefault(fn, {})
+                out[fn][op] = out[fn].get(op, 0) + 1
     return out
+
+
+# The assign kernels' passes by their mangled names: B8, B16 and B3 the
+# tensor-core pass (assign_mma.cuh: X, accumulator, tile, operand parts),
+# B the register-tiled CUDA-core pass (assign.cu).
+ASSIGN_PASSES = {
+    "B8": re.compile(r"assign_mma_kernelIaiLi\d+ELi1E"),
+    "B16": re.compile(r"assign_mma_kernelI13__nv_bfloat16fLi\d+ELi1E"),
+    "B3": re.compile(r"assign_mma_kernelI13__nv_bfloat16fLi\d+ELi2E"),
+    "B": re.compile(r"assign_f32_pass"),
+}
+
+
+def check_assign_sass(sass: dict) -> dict:
+    """Each assign pass's opcodes: the tensor-core passes issue GMMA
+    (IGMMA for B8; HGMMA on BF16 for B16 and B3), kernel B's FFMA and no
+    tensor-core instruction at all."""
+    found = {}
+    for name, pat in ASSIGN_PASSES.items():
+        fns = {fn: ops_ for fn, ops_ in sass.items() if pat.search(fn)}
+        check(bool(fns), f"{name}'s pass not found in the SASS")
+        found[name] = fns
+        opcodes = [op for ops_ in fns.values() for op in ops_]
+        if name == "B8":
+            check(all(any("IGMMA" in op for op in ops_)
+                      for ops_ in fns.values()),
+                  "B8's tensor-core pass issues no IGMMA")
+        elif name == "B":
+            check(all(any(op.startswith("FFMA") for op in ops_)
+                      for ops_ in fns.values()),
+                  "kernel B's pass issues no FFMA")
+            check(not any("MMA" in op for op in opcodes),
+                  "kernel B's pass issues a tensor-core instruction")
+        else:
+            check(all(any("HGMMA" in op and "BF16" in op for op in ops_)
+                      for ops_ in fns.values()),
+                  f"{name}'s tensor-core pass issues no HGMMA on BF16")
+    return found
 
 
 # --------------------------------------------------------------------------
@@ -1722,13 +1772,33 @@ def phase_two_pass_16(X, seed: int):
                      "counts excluded)")
     for row in (c16, c3):
         row.update(m=s, k=k, n=n)
+    # kernel B (f32) and B3 (bf16x3) at this shape, and B at one evaluate
+    # batch of this data: their checks, then their times
+    errs["assign_f32"] = check_assign(x32, c, near_ties(x32, c))
     b32 = timing(lambda: distance.assign_f32(x32, c),
                  lambda: distance.assign_plain(x32, c),
                  lambda: torch.mm(x32, c.t()),
-                 4 * (s * n + k * n) + 8 * s, 2 * s * k * n, 3)
+                 4 * (s * n + k * n) + 8 * s, 2 * s * k * n, 20)
     b32["library"] = MM_F32
-    for row in (b16, b32):
+    errs["assign_bf16x3"], _ = check_assign_16(
+        x32, c, near_ties_16(x32, c, "bf16x3"), "bf16x3")
+    b3 = timing(lambda: distance.assign_16(x32, c, "bf16x3"),
+                lambda: distance.assign_plain(x32, c, "bf16x3"), None,
+                4 * (s * n + k * n + k) + 8 * s, 3 * 2 * s * k * n, 20,
+                BF16_FLOP_PER_S)
+    b3["library"] = ("none: no single PyTorch call computes the three bf16 "
+                     "products")
+    for row in (b16, b32, b3):
         row.update(m=s, k=k, n=n)
+    xe = X[:EVAL_BATCH].contiguous()
+    me = xe.shape[0]
+    errs["assign_f32_evaluate_batch"] = check_assign(xe, c, near_ties(xe, c))
+    be = timing(lambda: distance.assign_f32(xe, c),
+                lambda: distance.assign_plain(xe, c),
+                lambda: torch.mm(xe, c.t()),
+                4 * (me * n + k * n) + 8 * me, 2 * me * k * n, 3)
+    be.update(m=me, k=k, n=n, library=MM_F32)
+    del xe
     emit({"phase": "two_pass_bf16", "m": m, "n": n, "k": cfg.k, "s": cfg.s,
           "n_chunks": cfg.n_chunks, "fits_envelope": False,
           "f_best": res.objective, "f_full": f_full,
@@ -1746,13 +1816,16 @@ def phase_two_pass_16(X, seed: int):
           "near_ties": n_ties, "max_abs_err_at_this_shape": {
               **errs, "fused_step_two_pass": two_pass_err},
           "times_at_this_shape": {"assign_bf16": b16, "update_bf16": c16,
-                                  "update_bf16x3": c3, "assign_f32": b32},
+                                  "update_bf16x3": c3, "assign_f32": b32,
+                                  "assign_bf16x3": b3,
+                                  "assign_f32_evaluate_batch": be},
           "bf16_kernels_s_estimate": (res.n_iterations * b16["ms"]
                                       + (res.n_iterations + cfg.n_chunks)
                                       * c16["ms"]) / 1e3})
     check(rel <= 1e-3, f"two-pass bf16 full objectives differ by {rel:.3e}")
     return launches, wall, errs, {"assign_bf16": b16, "assign_f32": b32,
-                                  "update_bf16": c16, "update_bf16x3": c3}
+                                  "update_bf16": c16, "update_bf16x3": c3,
+                                  "assign_bf16x3": b3}, be
 
 
 # --------------------------------------------------------------------------
@@ -2262,21 +2335,17 @@ def main() -> int:
     build.load(rebuild=True)
     info = build.info()
     check(info.built, "the kernels were not built from source")
-    gmma = sass_gmma(info.path)
+    passes = check_assign_sass(sass_ops(info.path))
     mma = {name: row for name, row in info.resources.items()
-           if "assign_mma_kernel" in name}
-    check(any("IGMMA" in op for name, ops_ in gmma.items()
-              if "assign_mma_kernelIa" in name for op in ops_),
-          "B8's tensor-core pass issues no IGMMA")
-    check(any("HGMMA" in op for name, ops_ in gmma.items()
-              if "assign_mma_kernelI13__nv_bfloat16" in name for op in ops_),
-          "B16's tensor-core pass issues no HGMMA")
+           if any(part in name for part in (
+               "assign_mma_kernel", "assign_f32_pass", "assign_fold",
+               "sqnorm_chain_rows", "split_bf16_rows"))}
     emit({"phase": "build", "arch": build.ARCH, "seconds": info.seconds,
           "library": str(info.path.relative_to(ROOT)),
           "ptxas": info.resources,
           "dma_dynamic_smem_bytes": info.dma_smem_bytes})
-    emit({"phase": "build_tensor_core_kernels", "ptxas": mma,
-          "dynamic_smem_bytes": info.mma_smem_bytes, "sass_gmma": gmma})
+    emit({"phase": "build_assign_kernels", "ptxas": mma,
+          "dynamic_smem_bytes": info.mma_smem_bytes, "sass": passes})
 
     # phase 3: kernels vs plain (3b: the int8 kernels; 3c: bf16, bf16x3;
     # 3d: the dma kernels; 3e: kernel P, and its entry point's run)
@@ -2323,13 +2392,14 @@ def main() -> int:
     launches_2p, wall_2p, two_pass_errs, two_pass_times = (
         phase_two_pass_int8(spec2, X2, gen_s, args.seed))
     paths["int8_two_pass"] = (launches_2p, wall_2p)
-    launches_2p, wall_2p, two_pass_errs_16, times_16 = phase_two_pass_16(
-        X2, args.seed)
+    launches_2p, wall_2p, two_pass_errs_16, times_16, b_eval = (
+        phase_two_pass_16(X2, args.seed))
     paths["bf16_two_pass"] = (launches_2p, wall_2p)
     # the update kernels' rows carry their times at the two-pass shape
     two_pass_times.update(times_16)
     for name, row in two_pass_times.items():
         times[name]["at_two_pass_shape"] = row
+    times["assign_f32"]["at_two_pass_evaluate_batch"] = b_eval
     del X2
     torch.cuda.empty_cache()
     # B8, C8 and B16 run on the main path only at the two-pass shape: their

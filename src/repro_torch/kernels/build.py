@@ -42,7 +42,8 @@ _I64 = ctypes.c_int64
 _I = ctypes.c_int
 # C entry points: (argtypes) -> int (a cudaError_t).
 SIGNATURES = {
-    "repro_assign_f32": (_P, _P, _P, _P, _I64, _I, _I, _I, _P),
+    "repro_assign_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
+                         _I, _P),
     "repro_update_f32": (_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P),
     "repro_fused_step_f32": (_P, _P, _P, _P, _I64, _I, _I, _I, _P),
     "repro_fused_step_batched_f32": (_P, _P, _P, _P, _I, _I64, _I, _I, _I,
@@ -51,7 +52,8 @@ SIGNATURES = {
                           _I, _I, _I, _P),
     "repro_assign_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
                           _I, _P),
-    "repro_assign_bf16x3": (_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P),
+    "repro_assign_bf16x3": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _P, _I64, _I, _I, _I, _I, _P),
     "repro_update_int8": (_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
                           _P),
     "repro_fused_step_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
@@ -86,8 +88,8 @@ class BuildInfo:
     resources: dict         # kernel -> {"registers", "smem_bytes", "spill"}
     # dynamic shared memory of the dma kernels, by policy (after load)
     dma_smem_bytes: dict = dataclasses.field(default_factory=dict)
-    # dynamic shared memory of B8's and B16's tensor-core pass, by kernel
-    # and centroids a tile (after load)
+    # dynamic shared memory of B8's, B16's and B3's tensor-core pass, by
+    # kernel and centroids a tile (after load)
     mma_smem_bytes: dict = dataclasses.field(default_factory=dict)
 
 
@@ -211,7 +213,7 @@ def load(rebuild: bool = False) -> ctypes.CDLL:
     lib.repro_assign_mma_smem_bytes.restype = ctypes.c_int
     info.mma_smem_bytes = {f"{name} bn{bn}":
                            lib.repro_assign_mma_smem_bytes(i, bn)
-                           for i, name in enumerate(("B8", "B16"))
+                           for i, name in enumerate(("B8", "B16", "B3"))
                            for bn in (64, 128)}
     _LIB, _INFO = lib, info
     return lib

@@ -36,10 +36,14 @@ extern "C" int repro_assign_int8(const int8_t* x, const int8_t* c,
                                               grid, st);
 }
 
-// Dynamic shared memory of the tensor-core pass of B8 (bf16 = 0) or B16
-// (bf16 = 1) with bn centroids a tile.
-extern "C" int repro_assign_mma_smem_bytes(int bf16, int bn) {
+// Dynamic shared memory of the tensor-core pass of B8 (which = 0), B16 (1)
+// or B3 (2) with bn centroids a tile.
+extern "C" int repro_assign_mma_smem_bytes(int which, int bn) {
   if (bn == 64)
-    return bf16 ? mma_smem_bytes<float, 64>() : mma_smem_bytes<int, 64>();
-  return bf16 ? mma_smem_bytes<float, 128>() : mma_smem_bytes<int, 128>();
+    return which == 0   ? mma_smem_bytes<int, 64>()
+           : which == 1 ? mma_smem_bytes<float, 64>()
+                        : mma_smem_bytes<float, 64, 2>();
+  return which == 0   ? mma_smem_bytes<int, 128>()
+         : which == 1 ? mma_smem_bytes<float, 128>()
+                      : mma_smem_bytes<float, 128, 2>();
 }

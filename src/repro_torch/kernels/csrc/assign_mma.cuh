@@ -1,10 +1,10 @@
-// Kernels B8 and B16 on the tensor cores: the assignment as a wgmma product
-// x . c^T with a fused argmin (assign_int8.cu, assign_bf16.cu).
+// Kernels B8, B16 and B3 on the tensor cores: the assignment as a wgmma
+// product x . c^T with a fused argmin (assign_int8.cu, assign_bf16.cu).
 //
 // Replace the Pallas kernels repro/kernels/distance.py:_assign_pallas_q
-// (int8) and the bf16 body of assign_pallas.  Both compute a TN product,
-// x [m,n] times c [k,n]^T with both operands K-major (rows of features),
-// followed by a row argmin: the shape Hopper's wgmma takes.
+// (int8) and the bf16 and bf16x3 bodies of assign_pallas.  All compute a TN
+// product, x [m,n] times c [k,n]^T with both operands K-major (rows of
+// features), followed by a row argmin: the shape Hopper's wgmma takes.
 //
 // Bound: operations.  At the two-pass shape (s = 16,384, k = 2,048,
 // n = 1,024) the product is 2 s k n = 68.7 G operations against 35 MB of
@@ -33,7 +33,12 @@
 //    tile in the wgmma accumulators, one slab's products in flight across
 //    the barrier, two CTAs an SM.  B16 adds each slab's products to the
 //    tile's sums on the CUDA cores (MmaPipe: the tensor cores' f32
-//    accumulation would bias d), one CTA an SM.
+//    accumulation would bias d), one CTA an SM.  B3 (PARTS = 2) stages the
+//    bf16 hi and lo parts of both operands (split by a launch before,
+//    common.cuh:split_bf16) and takes each slab's three products — x_hi
+//    c_lo, x_lo c_hi, then x_hi c_hi, the small ones first so that the
+//    tensor cores' truncation sees them against a small running sum — into
+//    one partial, added to the tile's sums as B16's.
 //  * Epilogue, fused: each thread scores its accumulator fragment in
 //    registers (columns j >= k masked by index, never by value), keeps
 //    the running (min, lowest index) of its two rows over its columns in
@@ -44,8 +49,9 @@
 //    row in tile order with a strict '<' from (BIG, 0) — the lowest index
 //    among equal minima, as kernel B's scan over k — takes ||x||^2 in the
 //    order of the kernels before (B8: XlaSum over the dequantized codes;
-//    B16: one fmaf partial per 32-feature tile, added in order) and writes
-//    ids and d = max(best + ||x||^2, 0).
+//    B16: one fmaf partial per 32-feature tile, added in order; B3: one
+//    fmaf chain over the f32 row in feature order, sqnorm_chain_rows, read
+//    by assign_fold_f32) and writes ids and d = max(best + ||x||^2, 0).
 //  * No atomics and no fallback: a launch that fails returns its error.
 //
 // The device primitives (copies, fences, wgmma, shuffles) sit behind the
@@ -78,29 +84,37 @@ constexpr int MMA_STEPS = MMA_SLAB / 32;  // wgmma of 32 bytes a slab
 //           objective lay 1.0e-4 above the plain version's at n = 1,100;
 //           tools/profile_assign.py measures it with the flush).  The
 //           partials take registers: one CTA an SM instead of two.
-template <class Acc>
+template <class Acc, int PARTS = 1>
 struct MmaPipe;
 template <>
-struct MmaPipe<int> {      // B8: exact int32 sums; two CTAs an SM
+struct MmaPipe<int, 1> {   // B8: exact int32 sums; two CTAs an SM
   static constexpr int stages = 3;
   static constexpr bool flush = false;
   static constexpr int ahead = stages - 2;
 };
 template <>
-struct MmaPipe<float> {    // B16
+struct MmaPipe<float, 1> {  // B16
   static constexpr int stages = 4;
   static constexpr bool flush = true;
   static constexpr int ahead = stages - 1;
 };
+template <>
+struct MmaPipe<float, 2> {  // B3: twice the bytes a slab, one stage fewer
+  static constexpr int stages = 3;
+  static constexpr bool flush = true;
+  static constexpr int ahead = stages - 1;
+};
 
-template <int BN>
+// A ring slot: the x tile(s) of MMA_BM rows, then the c tile(s) of BN rows,
+// PARTS of each (B3: hi, then lo).
+template <int BN, int PARTS = 1>
 __host__ __device__ constexpr int mma_stage_bytes() {
-  return (MMA_BM + BN) * MMA_SLAB;
+  return PARTS * (MMA_BM + BN) * MMA_SLAB;
 }
 // Dynamic shared memory of a launch: the ring, and room to align it.
-template <class Acc, int BN>
+template <class Acc, int BN, int PARTS = 1>
 __host__ __device__ constexpr int mma_smem_bytes() {
-  return MmaPipe<Acc>::stages * mma_stage_bytes<BN>() + 1024;
+  return MmaPipe<Acc, PARTS>::stages * mma_stage_bytes<BN, PARTS>() + 1024;
 }
 
 #ifndef REPRO_HOST_MMA
@@ -405,14 +419,20 @@ __device__ __forceinline__ void mma_epilogue(
 // The tensor-core pass: for each output tile of this CTA, the product over
 // all slabs of n, then the fused argmin.  X: int8_t (Acc int) or
 // __nv_bfloat16 (Acc float); c the centroids in X (codes, or bf16(c)).
-template <class X, class Acc, int BN>
+// PARTS = 2 (B3): x and c the bf16 hi parts, xlo and clo the lo parts (else
+// unused).
+template <class X, class Acc, int BN, int PARTS = 1>
 __global__ void __launch_bounds__(MMA_THREADS, 1)
-    assign_mma_kernel(const X* __restrict__ x, const X* __restrict__ c,
+    assign_mma_kernel(const X* __restrict__ x, const X* __restrict__ xlo,
+                      const X* __restrict__ c, const X* __restrict__ clo,
                       const float* __restrict__ csq,
                       const float* __restrict__ tq, float* __restrict__ sbest,
                       int32_t* __restrict__ sidx, int64_t m, int k, int n,
                       int ntiles) {
-  using Pipe = MmaPipe<Acc>;
+  using Pipe = MmaPipe<Acc, PARTS>;
+  constexpr int slot_bytes = mma_stage_bytes<BN, PARTS>();
+  constexpr int xtile = MMA_BM * MMA_SLAB;   // bytes of one x tile
+  constexpr int ctile = BN * MMA_SLAB;       // bytes of one c tile
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(dynamic_smem()) + 1023) &
       ~(uintptr_t)1023);
@@ -422,19 +442,30 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
   const int64_t mine =
       blockIdx.x < tiles ? (tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
   const int64_t slabs = mine * ks;
-  const bool xvec = rb % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const bool cvec = rb % 16 == 0 && reinterpret_cast<uintptr_t>(c) % 16 == 0;
+  auto aligned = [&](const X* p) {
+    return PARTS == 1 || reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const bool xvec = rb % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(x) % 16 == 0 && aligned(xlo);
+  const bool cvec = rb % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(c) % 16 == 0 && aligned(clo);
   auto tile_of = [&](int64_t s) { return blockIdx.x + (s / ks) * gridDim.x; };
   auto stage = [&](int64_t s) {  // copy slab s into its ring slot
     if (s < slabs) {
       const int64_t tile = tile_of(s);
       const int64_t kb = (s % ks) * MMA_SLAB;
-      unsigned char* a = smem + (s % Pipe::stages) * mma_stage_bytes<BN>();
-      stage_slab<MMA_BM>(a, reinterpret_cast<const unsigned char*>(x), m,
-                         rb, tile / ntiles * MMA_BM, kb, xvec);
-      stage_slab<BN>(a + MMA_BM * MMA_SLAB,
-                     reinterpret_cast<const unsigned char*>(c), k, rb,
-                     tile % ntiles * BN, kb, cvec);
+      unsigned char* a = smem + (s % Pipe::stages) * slot_bytes;
+      const X* xs[2] = {x, xlo};
+      const X* cs[2] = {c, clo};
+#pragma unroll
+      for (int p = 0; p < PARTS; ++p) {
+        stage_slab<MMA_BM>(a + p * xtile,
+                           reinterpret_cast<const unsigned char*>(xs[p]), m,
+                           rb, tile / ntiles * MMA_BM, kb, xvec);
+        stage_slab<BN>(a + PARTS * xtile + p * ctile,
+                       reinterpret_cast<const unsigned char*>(cs[p]), k, rb,
+                       tile % ntiles * BN, kb, cvec);
+      }
     }
     cp_async_commit();
   };
@@ -448,19 +479,24 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
     fence_proxy_async();
     __syncthreads();  // ... everyone's; the last products' slot is free
     stage(s + ahead);  // into slab s + ahead - stages's slot
-    const unsigned char* a =
-        smem + (s % Pipe::stages) * mma_stage_bytes<BN>();
+    const unsigned char* a = smem + (s % Pipe::stages) * slot_bytes;
+    const unsigned char* ax = a + wg * 64 * MMA_SLAB;  // this warpgroup's
+    const unsigned char* bc = a + PARTS * xtile;       // rows; the c tile
     const int kslab = (int)(s % ks);
     wgmma_fence();
     if constexpr (Pipe::flush) {
-      mma_steps<MMA_STEPS>(part, a + wg * 64 * MMA_SLAB,
-                           a + MMA_BM * MMA_SLAB, 0, false);
+      if constexpr (PARTS == 2) {  // x_hi c_lo, x_lo c_hi, then x_hi c_hi
+        mma_steps<MMA_STEPS>(part, ax, bc + ctile, 0, false);
+        mma_steps<MMA_STEPS>(part, ax + xtile, bc, 0, true);
+        mma_steps<MMA_STEPS>(part, ax, bc, 0, true);
+      } else {
+        mma_steps<MMA_STEPS>(part, ax, bc, 0, false);
+      }
       wgmma_commit();
       wgmma_wait<0>();
       add_partials(d, part, kslab);
     } else {
-      mma_steps<MMA_STEPS>(d, a + wg * 64 * MMA_SLAB, a + MMA_BM * MMA_SLAB,
-                           0, kslab > 0);
+      mma_steps<MMA_STEPS>(d, ax, bc, 0, kslab > 0);
       wgmma_commit();
     }
     if (kslab == ks - 1) {
@@ -597,27 +633,36 @@ __global__ void assign_fold_kernel(const X* __restrict__ x,
   d[r] = fmaxf(best + xsq, 0.f);
 }
 
-// The two launches after the norms: the tensor-core pass over ntiles =
-// ceil(k / bn) centroid tiles of bn = 64 or 128 on `grid` persistent CTAs,
-// then the fold.  Returns a CUDA error code.
+// The tensor-core pass over ntiles = ceil(k / BN) centroid tiles of BN = 64
+// or 128 on `grid` persistent CTAs.  Returns a CUDA error code.
+template <class X, class Acc, int BN, int PARTS = 1>
+static int launch_mma_pass(const X* x, const X* xlo, const X* c,
+                           const X* clo, const float* csq, const float* tq,
+                           float* sbest, int32_t* sidx, int64_t m, int k,
+                           int n, int grid, cudaStream_t st) {
+  const int ntiles = (k + BN - 1) / BN;
+  auto pass = assign_mma_kernel<X, Acc, BN, PARTS>;
+  constexpr int smem = mma_smem_bytes<Acc, BN, PARTS>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      pass, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  REPRO_LAUNCH(pass, grid, MMA_THREADS, smem, st, x, xlo, c, clo, csq, tq,
+               sbest, sidx, m, k, n, ntiles);
+  return (int)cudaGetLastError();
+}
+
+// B8 and B16 after the norms: the tensor-core pass, then the fold.
 template <class X, class Acc, bool Q, int BN>
 static int launch_mma_bn(const X* x, const X* c, const float* csq,
                          const float* tq, const float* scale, float* sbest,
                          int32_t* sidx, int32_t* ids, float* d, int64_t m,
                          int k, int n, int grid, cudaStream_t st) {
-  const int ntiles = (k + BN - 1) / BN;
-  auto pass = assign_mma_kernel<X, Acc, BN>;
-  cudaError_t err = cudaFuncSetAttribute(
-      pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      mma_smem_bytes<Acc, BN>());
-  if (err != cudaSuccess) return (int)err;
-  REPRO_LAUNCH(pass, grid, MMA_THREADS, (mma_smem_bytes<Acc, BN>()), st, x,
-               c, csq, tq, sbest, sidx, m, k, n, ntiles);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int err = launch_mma_pass<X, Acc, BN>(
+      x, nullptr, c, nullptr, csq, tq, sbest, sidx, m, k, n, grid, st);
+  if (err != (int)cudaSuccess) return err;
   auto fold = assign_fold_kernel<X, Q>;
   REPRO_LAUNCH(fold, sqnorm_grid(m, n), 256, 0, st, x, scale, sbest, sidx,
-               ids, d, m, n, ntiles);
+               ids, d, m, n, (k + BN - 1) / BN);
   return (int)cudaGetLastError();
 }
 
@@ -635,6 +680,88 @@ static int launch_assign_mma(const X* x, const X* c, const float* csq,
     return launch_mma_bn<X, Acc, Q, 128>(x, c, csq, tq, scale, sbest, sidx,
                                          ids, d, m, k, n, grid, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// csq[r] = ||c_r||^2 for `rows` f32 rows of n features as kernel B's
+// CUDA-core body took it for x and for c (common.cuh:tile_argmin under
+// F32Ops): one fmaf chain from 0 in feature order.  Blocks of 256 threads
+// (chain_grid).  For n <= 32 a thread a row; else a block takes CHAIN_ROWS
+// rows in chunks of CHAIN_F features: all its warps stage a chunk in shared
+// memory by coalesced loads, then lane i of warp 0 continues row i's chain
+// over it.
+constexpr int CHAIN_ROWS = 32;
+constexpr int CHAIN_F = 256;
+static __global__ void __launch_bounds__(256)
+    sqnorm_chain_rows(const float* __restrict__ c, float* __restrict__ csq,
+                      int64_t rows, int n) {
+  if (n <= 32) {
+    const int64_t r = (int64_t)blockIdx.x * 256 + threadIdx.x;
+    if (r < rows) {
+      const float* row = c + r * n;
+      float s = 0.f;
+      for (int f = 0; f < n; ++f) s = fmaf(row[f], row[f], s);
+      csq[r] = s;
+    }
+    return;
+  }
+  __shared__ float buf[CHAIN_ROWS][CHAIN_F + 1];  // odd stride: the chain's
+  const int warp = threadIdx.x / 32;              // reads on 32 banks
+  const int lane = threadIdx.x % 32;
+  const int64_t r0 = (int64_t)blockIdx.x * CHAIN_ROWS;
+  float s = 0.f;
+  for (int f0 = 0; f0 < n; f0 += CHAIN_F) {
+    __syncthreads();  // the chunk before was read
+#pragma unroll
+    for (int i = 0; i < CHAIN_ROWS / 8; ++i) {
+      const int row = warp + 8 * i;
+      const bool live = r0 + row < rows;
+      const float* src = c + (live ? r0 + row : 0) * n + f0;
+#pragma unroll
+      for (int j = 0; j < CHAIN_F / 32; ++j) {
+        const int f = lane + 32 * j;
+        buf[row][f] = live && f0 + f < n ? src[f] : 0.f;
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {
+      const int e = min(CHAIN_F, n - f0);
+      for (int f = 0; f < e; ++f) s = fmaf(buf[lane][f], buf[lane][f], s);
+    }
+  }
+  if (warp == 0 && r0 + lane < rows) csq[r0 + lane] = s;
+}
+inline unsigned chain_grid(int64_t rows, int n) {
+  const int per = n <= 32 ? 256 : CHAIN_ROWS;
+  return (unsigned)((rows + per - 1) / per);
+}
+
+// The fold of kernels B (more than one centroid tile) and B3: ids and d of
+// each row from its centroid tiles' (best, idx) [ntiles, m], in tile order
+// with a strict '<' from (BIG, 0), and ||x||^2 = xsq[r] (sqnorm_chain_rows'
+// order: B's pass takes it, B3 a launch before).  A thread a row, blocks of
+// 256 (fold_grid).
+static __global__ void assign_fold_f32(const float* __restrict__ xsq,
+                                       const float* __restrict__ sbest,
+                                       const int32_t* __restrict__ sidx,
+                                       int32_t* __restrict__ ids,
+                                       float* __restrict__ d, int64_t m,
+                                       int ntiles) {
+  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= m) return;
+  float best = BIG;
+  int bidx = 0;
+  for (int t = 0; t < ntiles; ++t) {
+    const float v = sbest[(int64_t)t * m + r];
+    if (v < best) {
+      best = v;
+      bidx = sidx[(int64_t)t * m + r];
+    }
+  }
+  ids[r] = bidx;
+  d[r] = fmaxf(best + xsq[r], 0.f);
+}
+inline unsigned fold_grid(int64_t rows) {
+  return (unsigned)((rows + 255) / 256);
 }
 
 }  // namespace repro

@@ -1,8 +1,8 @@
-// Shared device code of the kernels: the float CTA bodies (assign.cu,
-// fused_step.cu, fused_step_batched.cu and their bf16 / bf16x3 twins
-// *_bf16.cu) and the int8 bodies (assign_int8.cu, fused_step_int8.cu,
-// fused_step_batched_int8.cu).  The update kernels (update*.cu) have their
-// own, update.cuh.
+// Shared device code of the kernels: the float CTA bodies (fused_step.cu,
+// fused_step_batched.cu and their bf16 / bf16x3 twins *_bf16.cu) and the
+// int8 bodies (fused_step_int8.cu, fused_step_batched_int8.cu), and the
+// norms and copies the assign kernels share (assign*.cu, assign_mma.cuh).
+// The update kernels (update*.cu) have their own, update.cuh.
 //
 // One CTA of TM threads walks point tiles of TM rows; thread t owns row t of
 // the tile.  Point and centroid tiles are staged in shared memory, k-tiled by
@@ -568,8 +568,10 @@ __device__ __forceinline__ void fused_cta(
   if (threadIdx.x == 0) *Obj = obj;
 }
 
-// One CTA's share of the assignment (kernel B and its twins): ids and
-// d = max(best + ||x||^2, 0) of the rows of its point tiles.
+// One CTA's share of the assignment as kernels B and B3 computed it on the
+// CUDA cores before their redesign (assign.cu, assign_mma.cuh): ids and
+// d = max(best + ||x||^2, 0) of the rows of its point tiles.  Kernel B is
+// held bitwise to it under F32Ops (tests/test_torch_csrc.py).
 template <class Ops>
 __device__ __forceinline__ void assign_cta(
     TileSmemT<Ops>& s, const typename Ops::X* __restrict__ x,

@@ -6,16 +6,19 @@ Kernel B (``csrc/assign.cu``, :func:`assign_f32`) replaces
 ``_assign_pallas_q``; kernels B16 and B3 (``csrc/assign_bf16.cu``,
 :func:`assign_16`) its bf16 and bf16x3 bodies,
 whose wrapper casts x to the policy's storage before the kernel takes its
-norm and its dot.  B8 and B16 run on the tensor cores, a wgmma product
-with a fused argmin (``csrc/assign_mma.cuh``); B and B3 on the CUDA cores.
+norm and its dot.  B8, B16 and B3 run on the tensor cores, a wgmma product
+with a fused argmin (``csrc/assign_mma.cuh``; B3 on the bf16 hi and lo
+parts of both operands); B, true fp32, is a register-tiled product with a
+fused argmin on the CUDA cores (``csrc/assign.cu``), bitwise the CUDA-core
+body it replaced.
 The wrappers launch their kernel on CUDA tensors and raise ``ValueError``
 on any other; :func:`assign_plain` and :func:`assign_int8_plain` are the
 plain versions that ``ops`` runs for tensors on the CPU.
 
-Each wrapper takes ``ctas_per_sm`` (default 2), the launch's CTAs per SM
-(for B8 and B16 persistent CTAs over the output tiles): rows are assigned
-independently, so ids and d do not depend on it, and the autotuner
-(``kernels/autotune.py``, kind ``"assign"``) times it.
+Each wrapper takes ``ctas_per_sm`` (default 2), the launch's persistent
+CTAs per SM over the output tiles: each output tile is one CTA's, so ids
+and d do not depend on it, and the autotuner (``kernels/autotune.py``,
+kind ``"assign"``) times it.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import torch
 from repro_torch.kernels import build, ref
 from repro_torch.kernels import precision as px
 
-MMA_ROWS = 128          # rows per output tile of B8 and B16 (MMA_BM)
+TILE_ROWS = 128         # rows per output tile (MMA_BM, assign.cu:F32_BM)
 
 launches = 0            # kernel launches by assign_f32 (see ops.launch_counts)
 int8_launches = 0       # kernel launches by assign_int8
@@ -33,22 +36,28 @@ launches16 = dict.fromkeys(("bf16", "bf16x3"), 0)
 
 
 def mma_n_tile(k: int) -> int:
-    """Centroids per output tile of kernels B8 and B16 (the wgmma's N)."""
+    """Centroids per output tile of kernels B8, B16 and B3 (the wgmma's N)."""
     return 64 if k <= 64 else 128
 
 
-def _mma_launch(x: torch.Tensor, m: int, k: int, ctas_per_sm: int):
-    """(ids, d, sbest, sidx, bn, grid) of a B8 / B16 launch: outputs, the
-    per-tile scratch [ceil(k / bn), m] and the persistent grid."""
-    bn = mma_n_tile(k)
+def f32_n_tile(k: int) -> int:
+    """Centroids per output tile of kernel B."""
+    return 32 if k <= 32 else 128
+
+
+def _tile_launch(x: torch.Tensor, m: int, k: int, bn: int,
+                 ctas_per_sm: int):
+    """(ids, d, sbest, sidx, grid) of a launch over output tiles of
+    ``bn`` centroids: outputs, the per-tile scratch [ceil(k / bn), m] and
+    the persistent grid."""
     tiles = -(-k // bn)
     ids = torch.empty(m, dtype=torch.int32, device=x.device)
     d = torch.empty(m, dtype=torch.float32, device=x.device)
     sbest = torch.empty((tiles, m), dtype=torch.float32, device=x.device)
     sidx = torch.empty((tiles, m), dtype=torch.int32, device=x.device)
-    grid = build.persistent_grid(x.device, -(-m // MMA_ROWS) * tiles,
+    grid = build.persistent_grid(x.device, -(-m // TILE_ROWS) * tiles,
                                  per_sm=ctas_per_sm)
-    return ids, d, sbest, sidx, bn, grid
+    return ids, d, sbest, sidx, grid
 
 
 def assign_plain(x: torch.Tensor, c: torch.Tensor, precision: str = "f32"
@@ -70,15 +79,19 @@ def assign_f32(x: torch.Tensor, c: torch.Tensor, ctas_per_sm: int = 2
     build.require("x", x, torch.float32, 2)
     build.require("c", c, torch.float32, 2)
     m, k, n = build.xc_shapes(x, c)
-    ids = torch.empty(m, dtype=torch.int32, device=x.device)
-    d = torch.empty(m, dtype=torch.float32, device=x.device)
+    bn = f32_n_tile(k)
+    ids, d, sbest, sidx, grid = _tile_launch(x, m, k, bn, ctas_per_sm)
+    csq = torch.empty(k, dtype=torch.float32, device=x.device)
+    xsq = torch.empty(m if k > bn else 0, dtype=torch.float32,
+                      device=x.device)
     lib = build.load()
     global launches
     launches += 1
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.repro_assign_f32(
-        x.data_ptr(), c.data_ptr(), ids.data_ptr(), d.data_ptr(), m, k, n,
-        build.grid(x.device, m, per_sm=ctas_per_sm), stream)
+        x.data_ptr(), c.data_ptr(), csq.data_ptr(), sbest.data_ptr(),
+        sidx.data_ptr(), xsq.data_ptr(), ids.data_ptr(), d.data_ptr(), m, k,
+        n, bn, grid, stream)
     build.check(err, "assign_f32")
     return ids, d
 
@@ -102,20 +115,25 @@ def assign_16(x: torch.Tensor, c: torch.Tensor, precision: str,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = build.load()
     launches16[precision] += 1
+    bn = mma_n_tile(k)
+    ids, d, sbest, sidx, grid = _tile_launch(x, m, k, bn, ctas_per_sm)
     if precision == "bf16":
         cb = torch.empty((k, n), dtype=torch.bfloat16, device=x.device)
-        ids, d, sbest, sidx, bn, grid = _mma_launch(x, m, k, ctas_per_sm)
         err = lib.repro_assign_bf16(
             x.data_ptr(), c.data_ptr(), csq.data_ptr(), cb.data_ptr(),
             sbest.data_ptr(), sidx.data_ptr(), ids.data_ptr(), d.data_ptr(),
             m, k, n, bn, grid, stream)
-    else:
-        ids = torch.empty(m, dtype=torch.int32, device=x.device)
-        d = torch.empty(m, dtype=torch.float32, device=x.device)
+    else:       # ||x||^2; the bf16 hi and lo parts of x and c, rows
+        ld = -(-n // 8) * 8                       # padded to 16 bytes
+        xsq = torch.empty(m, dtype=torch.float32, device=x.device)
+        xh, xl, ch, cl = (torch.empty(shape, dtype=torch.bfloat16,
+                                      device=x.device)
+                          for shape in ((m, ld), (m, ld), (k, ld), (k, ld)))
         err = lib.repro_assign_bf16x3(
-            x.data_ptr(), c.data_ptr(), csq.data_ptr(), ids.data_ptr(),
-            d.data_ptr(), m, k, n,
-            build.grid(x.device, m, per_sm=ctas_per_sm), stream)
+            x.data_ptr(), c.data_ptr(), csq.data_ptr(), xsq.data_ptr(),
+            xh.data_ptr(), xl.data_ptr(), ch.data_ptr(), cl.data_ptr(),
+            sbest.data_ptr(), sidx.data_ptr(), ids.data_ptr(), d.data_ptr(),
+            m, k, n, bn, grid, stream)
     build.check(err, f"assign_{precision}")
     return ids, d
 
@@ -150,7 +168,8 @@ def launch_assign_int8(q: torch.Tensor, scale: torch.Tensor,
     m, n = q.shape
     k = cq.shape[0]
     csq = torch.empty(k, dtype=torch.float32, device=q.device)
-    ids, d, sbest, sidx, bn, grid = _mma_launch(q, m, k, ctas_per_sm)
+    bn = mma_n_tile(k)
+    ids, d, sbest, sidx, grid = _tile_launch(q, m, k, bn, ctas_per_sm)
     lib = build.load()
     global int8_launches
     int8_launches += 1

@@ -32,9 +32,11 @@ impls fall back to their jnp oracle there, whatever the precision
 epilogue's ``assign`` / ``update``.  The results are the same computation
 up to the order of the sums, held to the oracles in ``chip_smoke.py`` and
 the ``cuda`` tests.  The update kernels stay on the route because they
-beat their plain versions there (their sorted scatter); the assign
-kernels stay as a stated departure until their own redesign (ROADMAP
-queue 2).
+beat their plain versions there (their sorted scatter); so do the assign
+kernels B8, B16 and B3 (``wgmma`` products on the tensor cores), and
+kernel B, true fp32 on the CUDA cores (a register-tiled product, bitwise
+the body it replaced), runs about as fast as its plain version there
+(``PERF.md`` §6 row 4).
 
 On the card every launch asks the autotuner (:mod:`.autotune`) for its
 launch choice — ``fused_step`` its pipeline (kernel A or A-dma),

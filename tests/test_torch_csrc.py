@@ -311,8 +311,15 @@ int main(int argc, char** argv) {
   const int64_t su = (int64_t)k * n + k, sf = su + 1;
   std::vector<int32_t> aids(m);
   std::vector<float> ad(m), ou(su), pf(grid * sf), of(sf), oa(su);
-  launch(grid, TM, [&] { assign_f32_kernel(x.data(), c.data(), aids.data(),
-                                           ad.data(), m, k, n, tiles); });
+  {  // kernel B through its entry point
+    const int bn = k <= 32 ? 32 : 128, nt = (k + bn - 1) / bn;
+    std::vector<float> csq(k), sbest(nt * m), xsq(m);
+    std::vector<int32_t> sidx(nt * m);
+    if (repro_assign_f32(x.data(), c.data(), csq.data(), sbest.data(),
+                         sidx.data(), xsq.data(), aids.data(), ad.data(), m,
+                         k, n, bn, grid, nullptr))
+      return 2;
+  }
   update_f32(x, ids.data(), m, k, n, grid, ou);
   launch(grid, TM, [&] { fused_step_f32_kernel(x.data(), c.data(), pf.data(),
                                                m, k, n, tiles); });
@@ -590,11 +597,16 @@ int main(int argc, char** argv) {
                           in.n, in.bn, in.grid, nullptr))
       std::abort();
   };
+  const int ld = (in.n + 7) / 8 * 8;       // B3's padded rows
+  std::vector<__nv_bfloat16> xh(in.m * ld), xl(in.m * ld),
+      ch((size_t)in.k * ld), cl((size_t)in.k * ld);
+  std::vector<float> xsq(in.m);
   auto b3 = [&](int32_t* ids, float* d) {
-    launch(in.grid, TM, [&] {
-      assign_bf16x3_kernel(x.data(), in.c.data(), in.csq.data(), ids, d,
-                           in.m, in.k, in.n, in.tiles);
-    });
+    if (repro_assign_bf16x3(x.data(), in.c.data(), csq16.data(), xsq.data(),
+                            xh.data(), xl.data(), ch.data(), cl.data(),
+                            sbest.data(), sidx.data(), ids, d, in.m, in.k,
+                            in.n, in.bn, in.grid, nullptr))
+      std::abort();
   };
   run(o, in, xb, b16, update_bf16_tiles, fused_step_bf16_kernel,
       fused_step_batched_bf16_kernel);
@@ -882,8 +894,69 @@ int main(int argc, char** argv) {
 """
 
 
+HARNESS_B = r"""
+#include "cuda_runtime.h"
+#include "assign.inc"
+#include "assign_bf16.inc"
+#include <cstdio>
+#include <cstdlib>
+// harness_b m k n grid shift in out: in = x[m,n] f32, c[k,n] f32; x is
+// read into its buffer `shift` elements in (a base off 16 bytes).
+// out = kernel B's ids [m] i32 and d [m] f32 through its entry point (bn 32
+// or 128 centroids a tile on `grid` persistent CTAs), then the CUDA-core
+// body B had before (common.cuh:assign_cta under F32Ops, `grid` CTAs),
+// then B3's through its entry point (bn 64 or 128)
+template <typename T>
+static bool get(FILE* f, T* p, size_t n) {
+  return fread(p, sizeof(T), n, f) == n;
+}
+int main(int argc, char** argv) {
+  const int64_t m = atoll(argv[1]);
+  const int k = atoi(argv[2]), n = atoi(argv[3]), grid = atoi(argv[4]);
+  const int shift = atoi(argv[5]);
+  const int64_t mn = m * n, kn = (int64_t)k * n;
+  std::vector<float> xbuf(mn + 16), c(kn), csq(k), xsq(m), d(m);
+  std::vector<int32_t> ids(m);
+  float* x = xbuf.data() + shift;
+  FILE* f = fopen(argv[6], "rb");
+  if (!get(f, x, mn) || !get(f, c.data(), kn)) return 1;
+  fclose(f);
+  FILE* o = fopen(argv[7], "wb");
+  const int bn = k <= 32 ? 32 : 128, nt = (k + bn - 1) / bn;
+  std::vector<float> sbest(2 * nt * m);
+  std::vector<int32_t> sidx(2 * nt * m);
+  if (repro_assign_f32(x, c.data(), csq.data(), sbest.data(), sidx.data(),
+                       xsq.data(), ids.data(), d.data(), m, k, n, bn, grid,
+                       nullptr))
+    return 2;
+  fwrite(ids.data(), 4, m, o);
+  fwrite(d.data(), 4, m, o);
+  const int64_t tiles = (m + TM - 1) / TM;
+  launch(grid, TM, [&] {
+    __shared__ TileSmem s;
+    assign_cta(s, x, c.data(), ids.data(), d.data(), m, k, n, tiles);
+  });
+  fwrite(ids.data(), 4, m, o);
+  fwrite(d.data(), 4, m, o);
+  const int bn3 = k <= 64 ? 64 : 128, ld = (n + 7) / 8 * 8;
+  std::vector<__nv_bfloat16> xh(m * ld), xl(m * ld), ch((size_t)k * ld),
+      cl((size_t)k * ld);
+  if (repro_assign_bf16x3(x, c.data(), csq.data(), xsq.data(), xh.data(),
+                          xl.data(), ch.data(), cl.data(), sbest.data(),
+                          sidx.data(), ids.data(), d.data(), m, k, n, bn3,
+                          grid, nullptr))
+    return 3;
+  fwrite(ids.data(), 4, m, o);
+  fwrite(d.data(), 4, m, o);
+  fclose(o);
+  return 0;
+}
+"""
+
+
 HARNESSES = ("harness", "harness_batched", "harness_int8", "harness_16",
-             "harness_dma", "harness_kpp", "harness_update", "harness_mma")
+             "harness_dma", "harness_kpp", "harness_update", "harness_mma",
+             "harness_b")
 
 
 @pytest.fixture(scope="module")
@@ -907,6 +980,7 @@ def harness(tmp_path_factory):
     (d / "harness_kpp.cpp").write_text(HARNESS_KPP)
     (d / "harness_update.cpp").write_text(HARNESS_UPDATE)
     (d / "harness_mma.cpp").write_text(HARNESS_MMA)
+    (d / "harness_b.cpp").write_text(HARNESS_B)
     procs = [subprocess.Popen(
         [cxx, "-std=c++20", "-O1", "-pthread", f"-I{d}", f"-I{build.CSRC}",
          str(d / f"{name}.cpp"), "-o", str(d / name)],
@@ -1579,3 +1653,95 @@ def test_mma_assign_sources_match_plain(harness, tmp_path, case):
             assert not np.isin(ids, [1, 8, bn, bn + 3, k - 1]).any()
             np.testing.assert_array_equal(
                 ids[:8], [0, 0, 3, 3, k - bn - 1, k - bn - 1, 0, 2])
+
+
+# --------------------------------------------------------------------------
+# kernel B (a register-tiled CUDA-core product) against the body it
+# replaced, and B3 (a wgmma product on the bf16 hi and lo parts)
+# --------------------------------------------------------------------------
+
+B_CASES = [  # (m, k, n, grid, shift, data)
+    (300, 25, 28, 2, 0, "ties"),       # the main path's k and n: one tile
+    (300, 25, 28, 1, 1, "far"),        # of 32 centroids, 7 padded columns;
+    (257, 32, 3, 3, 0, "blobs"),       # rows off 16 bytes; k = 32 (a full
+    (200, 33, 37, 2, 1, "ties"),       # tile), 33 (a tile of 128, 95
+    (200, 130, 68, 2, 0, "ties"),      # padded); k = 130, 300: two and
+    (130, 300, 1024, 2, 0, "ties"),    # three tiles, the last ragged;
+    (70, 300, 1100, 1, 3, "far"),      # n = 3, 37, 68, 1,024, 1,100;
+    (129, 130, 1100, 3, 1, "extremes"),  # -0.0, rows whose every score
+]                                      # is >= 1e30 or NaN
+
+
+def b_inputs(m, k, n, data, seed):
+    """(x, c): blobs; 'ties': twin centroids within a thread's columns (0
+    and 1; 4 and 64, the lower in the higher lane), across lanes (2 and 8)
+    and across centroid tiles (j and j + 128), the first rows at each twin;
+    'far': every real score above 0, where a padded column would score 0;
+    'extremes': -0.0 in x and c, a row whose scores are all above 1e30 and
+    a row of NaN scores."""
+    rng = np.random.default_rng(seed)
+    c = (rng.normal(size=(k, n)) * 5).astype(np.float32)
+    twins = [(0, 1), (2, 8)] + ([(4, 64)] if k > 64 else []) + [
+        (j, j + 128) for j in (3, k - 129) if 0 <= j and j + 128 < k]
+    if data == "ties":
+        for lo, hi in twins:
+            c[hi] = c[lo]
+    comp = rng.integers(0, k, m)
+    if data == "ties":                   # the first rows at each twin
+        firsts = [j for pair in twins for j in pair]
+        comp[:len(firsts)] = firsts
+    x = c[comp] + rng.normal(size=(m, n))
+    if data == "far":
+        c += 40.0
+        x = rng.normal(size=(m, n))
+    if data == "extremes":
+        c = np.abs(c) + 1.0
+        x[::5, ::3] = -0.0
+        c[::4, ::2] = -0.0
+        x[7] = -3e28                     # x.c far below 0: every score
+        x[11, 5] = np.nan                # above 1e30; NaN scores
+    return x.astype(np.float32), c, twins
+
+
+@pytest.mark.parametrize("case", B_CASES, ids=[
+    f"m{m}-k{k}-n{n}-g{g}-s{sh}-{data}" for m, k, n, g, sh, data in B_CASES])
+def test_f32_assign_source_bitwise_parent_body(harness, tmp_path, case):
+    """Kernel B (tiles of 32 or 128 centroids, 8-row microtiles, slabs
+    staged by cp.async held to their waits) bitwise the CUDA-core body it
+    replaced (``common.cuh:assign_cta`` under F32Ops): ids and d, on
+    ragged m, rows off 16 bytes, exact ties within a thread's columns,
+    across lanes and across centroid tiles, padded columns that would win
+    if masked by value, -0.0, and rows whose every score is >= 1e30 or NaN
+    (id 0).  B3 (three bf16 products a slab on the wgmma emulation)
+    against its plain version: ids off near ties, d within the f32 norm
+    bound, twins resolved to the lower index."""
+    m, k, n, grid, shift, data = case
+    x, c, twins = b_inputs(m, k, n, data, seed=m + k + n)
+    (tmp_path / "in.bin").write_bytes(x.tobytes() + c.tobytes())
+    subprocess.run([str(harness.parent / "harness_b"), str(m), str(k),
+                    str(n), str(grid), str(shift), str(tmp_path / "in.bin"),
+                    str(tmp_path / "out.bin")], check=True, timeout=300)
+    raw = np.fromfile(tmp_path / "out.bin", dtype=np.int32)
+    assert raw.size == 6 * m
+    ids, d, pids, pd, ids3, d3 = (raw[i * m:(i + 1) * m] for i in range(6))
+    np.testing.assert_array_equal(ids, pids)
+    np.testing.assert_array_equal(d, pd)          # bitwise, as int32 words
+    assert np.all((ids >= 0) & (ids < k))
+    if data == "ties":
+        losers = [hi for _, hi in twins]
+        assert not np.isin(ids, losers).any()
+        assert not np.isin(ids3, losers).any()
+    if data == "extremes":
+        assert ids[7] == 0 and ids[11] == 0
+        return
+    X, C = torch.from_numpy(x), torch.from_numpy(c)
+    want, want_d = distance.assign_plain(X, C)
+    ties = near_ties_16(X, C, "f32").numpy()
+    np.testing.assert_array_equal(ids[~ties], want.numpy()[~ties])
+    pids3, pd3 = distance.assign_plain(X, C, "bf16x3")
+    ties3 = near_ties_16(X, C, "bf16x3").numpy()
+    if data == "blobs":
+        assert ties3.sum() <= 2
+    np.testing.assert_array_equal(ids3[~ties3], pids3.numpy()[~ties3])
+    assert np.all(np.abs(d3.view(np.float32) - pd3.numpy())
+                  <= d_bound(x, c, pids3.numpy()) + 1e-6)

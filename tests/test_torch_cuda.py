@@ -806,13 +806,13 @@ MMA_CARD_SHAPES = [(64_000, 25, 28), (16_384, 2048, 1024),
 @pytest.mark.parametrize("shape", MMA_CARD_SHAPES, ids=[
     f"m{m}-k{k}-n{n}" for m, k, n in MMA_CARD_SHAPES])
 def test_tensor_core_assign_kernels_on_card(shape):
-    """Kernels B8 and B16 (wgmma products with a fused argmin) at the main
-    path's shape, the two-pass route's, and two shapes whose rows are off
-    16 bytes: B8 bitwise its plain version (d everywhere; ids the first
+    """Kernels B8, B16 and B3 (wgmma products with a fused argmin) at the
+    main path's shape, the two-pass route's, and two shapes whose rows are
+    off 16 bytes: B8 bitwise its plain version (d everywhere; ids the first
     minimum of the plain scores, and the plain ids off near ties), B16's
-    ids equal to the plain ids off near ties with d within the f32 norm
-    bound; both bitwise on a repeat and with 1 or 4 persistent CTAs per SM
-    instead of 2."""
+    and B3's ids equal to the plain ids off near ties with d within the
+    f32 norm bound; all bitwise on a repeat and with 1 or 4 persistent
+    CTAs per SM instead of 2."""
     _card()
     from repro_torch.kernels import distance
     from repro_torch.kernels import precision as px
@@ -840,14 +840,53 @@ def test_tensor_core_assign_kernels_on_card(shape):
     assert np.all((d16 - pd16).abs().cpu().numpy()
                   <= d_bound(xs, cn, pids16.cpu().numpy()) + 1e-6)
 
+    ids3, d3 = distance.assign_16(x, c, "bf16x3")
+    pids3, pd3 = distance.assign_plain(x, c, "bf16x3")
+    ties3 = near_ties_16(x, c, "bf16x3")
+    assert torch.equal(ids3[~ties3], pids3[~ties3])
+    assert np.all((d3 - pd3).abs().cpu().numpy()
+                  <= d_bound(xn, cn, pids3.cpu().numpy()) + 1e-6)
+
     for per_sm in (2, 1, 4):
         for got, want in ((distance.assign_int8(qx, c, ctas_per_sm=per_sm),
                            (ids, d)),
                           (distance.assign_16(xb, c, "bf16",
                                               ctas_per_sm=per_sm),
-                           (ids16, d16))):
+                           (ids16, d16)),
+                          (distance.assign_16(x, c, "bf16x3",
+                                              ctas_per_sm=per_sm),
+                           (ids3, d3))):
             assert torch.equal(got[0], want[0])
             assert torch.equal(got[1], want[1])
+
+
+F32_CARD_SHAPES = MMA_CARD_SHAPES + [(262_144, 2048, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", F32_CARD_SHAPES, ids=[
+    f"m{m}-k{k}-n{n}" for m, k, n in F32_CARD_SHAPES])
+def test_register_tiled_assign_kernel_on_card(shape):
+    """Kernel B (a register-tiled fp32 product on the CUDA cores with a
+    fused argmin) at the tensor-core kernels' shapes and at one
+    ``evaluate`` batch of the two-pass data (262,144 rows): ids equal to
+    the plain ids off near ties, d within the f32 norm bound, and bitwise
+    on a repeat and with 1 or 4 persistent CTAs per SM instead of 2."""
+    _card()
+    from repro_torch.kernels import distance
+
+    m, k, n = shape
+    xn, cn = blobs(m, k, n, seed=19)
+    x, c = torch.from_numpy(xn).cuda(), torch.from_numpy(cn).cuda()
+    ids, d = distance.assign_f32(x, c)
+    pids, pd = distance.assign_plain(x, c)
+    ties = _near_ties(x, c)
+    assert torch.equal(ids[~ties], pids[~ties])
+    assert np.all((d - pd).abs().cpu().numpy()
+                  <= d_bound(xn, cn, pids.cpu().numpy()) + 1e-6)
+    for per_sm in (2, 1, 4):
+        got = distance.assign_f32(x, c, ctas_per_sm=per_sm)
+        assert torch.equal(got[0], ids) and torch.equal(got[1], d)
 
 
 @pytest.mark.cuda

@@ -8,12 +8,13 @@ tree's, in turns on one card.
 commit unpacked with ``git archive`` into ``build/parent``).  Each tree
 runs, in a process of its own and with its own kernel library:
 
-* kernels B8 (``distance.launch_assign_int8`` on prepared operands) and
-  B16 (``distance.assign_16`` on a bf16 chunk) at the main path's shape
-  (m = 64,000, k = 25, n = 28) and at the two-pass route's (s = 16,384,
-  k = 2,048, n = 1,024), on inputs generated on the card from fixed
-  seeds: their outputs and their device time per call (CUDA events over
-  CUDA-graph replays, ``compare_update.device_us``);
+* kernels B (``distance.assign_f32``), B3 (``distance.assign_16`` at
+  ``"bf16x3"``), B8 (``distance.launch_assign_int8`` on prepared
+  operands) and B16 (``distance.assign_16`` on a bf16 chunk) at the main
+  path's shape (m = 64,000, k = 25, n = 28) and at the two-pass route's
+  (s = 16,384, k = 2,048, n = 1,024), on inputs generated on the card from
+  fixed seeds: their outputs and their device time per call (CUDA events
+  over CUDA-graph replays, ``compare_update.device_us``);
 * ``chip_smoke.py``'s two-pass route under each policy — f32, int8, bf16
   and bf16x3 — a sequential ``fit`` (k = 2,048, s = 16,384, 4 chunks)
   and ``evaluate``, untuned, after one warm-up fit, twice: the trace,
@@ -48,7 +49,7 @@ from compare_update import POLICIES, SHAPES, device_us, same  # noqa: E402
 
 
 def dump(src: str, out: str) -> None:
-    """Run B8, B16 and the two-pass fits of the package under ``src``;
+    """Run B, B3, B8, B16 and the two-pass fits of the package under ``src``;
     save their outputs, times and walls to ``out``."""
     sys.path.insert(0, src)
     import torch
@@ -73,7 +74,9 @@ def dump(src: str, out: str) -> None:
         qx = px.quantize_chunk(x)
         cq, t = px.quantize_centroids(c, qx.scale)
         xb = x.bfloat16()
-        calls = {"B8": lambda: distance.launch_assign_int8(qx.q, qx.scale,
+        calls = {"B": lambda: distance.assign_f32(x, c),
+                 "B3": lambda: distance.assign_16(x, c, "bf16x3"),
+                 "B8": lambda: distance.launch_assign_int8(qx.q, qx.scale,
                                                            cq, t, c),
                  "B16": lambda: distance.assign_16(xb, c, "bf16")}
         for name, call in calls.items():

@@ -10,18 +10,19 @@ C8, D8 (int8), A16, B16, C16, D16 (bf16) and A3, B3, C3, D3 (bf16x3),
 through ``repro_torch.kernels.ops`` where it dispatches them (untuned:
 kernel A's ``pipeline="blocks"``), on the same inputs (five shapes,
 generated on the card from fixed seeds), in a process of its own; the
-outputs are compared bit for bit, except B16's: kernel B16 sums its f32
-dots on the tensor cores, in an order of their own, so against a tree
-whose B16 summed them otherwise its ids may differ at near ties (rows
-whose best two bf16 scores lie within 1e-4 relative) and its d by a few
-ulps; for B16 the line gives the count of differing ids, whether all of
-them are near ties, and the largest |delta d| instead.  So for A16 and
-D16 where k and n lie outside the fused envelope (there ``ops`` runs B16
-and C16): their sums and counts must be bitwise, their objective is
-reported.  Prints one JSON line — how many outputs were compared and which
-differ — and exits 1 if any other output differs or a B16 id differs off
-a near tie.  Needs a
-CUDA card (sm_90).  ``--dump SRC OUT`` is the per-tree step: run the
+outputs are compared bit for bit, except B16's and B3's: kernels B16 and
+B3 sum their f32 dots on the tensor cores, in an order of their own, so
+against a tree whose kernel summed them otherwise their ids may differ at
+near ties (rows whose best two scores at the policy lie within 1e-4
+relative) and their d by a few ulps; for them the line gives the count of
+differing ids, whether all of them are near ties, and the largest
+|delta d| instead.  So for A16, D16, A3 and D3 where k and n lie outside
+the fused envelope (there ``ops`` runs B16 and C16, B3 and C3): their sums
+and counts must be bitwise, their objective is reported.  Kernel B (f32)
+is held bitwise like every other output.  Prints one JSON line — how many
+outputs were compared and which differ — and exits 1 if any other output
+differs or a B16 or B3 id differs off a near tie.  Needs a CUDA card
+(sm_90).  ``--dump SRC OUT`` is the per-tree step: run the
 kernels of the package under ``SRC`` and save the outputs.
 """
 from __future__ import annotations
@@ -58,16 +59,17 @@ def dump(src: str, out: str) -> None:
              ).contiguous()
         qx = px.quantize_chunk(x)
         ids, d = distance.assign_f32(x, c)
-        xs = px.cast_storage(x, "bf16")
-        scores = px.sqnorm(c)[None, :] - 2.0 * px.dot(xs, c, ([1], [1]),
-                                                       "bf16")
-        two = torch.topk(scores, 2, dim=1, largest=False).values
         xb = torch.stack([x, x.flip(0), x * 0.5])
         cb = torch.stack([c, c + 0.1, c * 0.5])
         shape = f"{m},{k},{n}"
+        for prec, tag in (("bf16", "16"), ("bf16x3", "3")):
+            xs = px.cast_storage(x, prec)
+            scores = px.sqnorm(c)[None, :] - 2.0 * px.dot(
+                xs, c, ([1], [1]), prec)
+            two = torch.topk(scores, 2, dim=1, largest=False).values
+            results[f"B{tag} near ties {shape}"] = (
+                (two[:, 1] - two[:, 0]) <= 1e-4 * two[:, 0].abs(),)
         results.update({
-            f"B16 near ties {shape}": (
-                (two[:, 1] - two[:, 0]) <= 1e-4 * two[:, 0].abs(),),
             f"fits {shape}": (torch.tensor(fused_step.fits(k, n)),),
             f"B {shape}": (ids, d),
             f"C {shape}": update.update_f32(x, ids, k),
@@ -118,36 +120,40 @@ def main() -> int:
                         str(root / "src"), str(out)], check=True, env=env)
         saved.append(torch.load(out))
     other, this = saved
-    b16 = {}
-    for key in [key for key in this if key.startswith("B16 ")
-                and "near ties" not in key]:
-        if key not in other:
-            continue
-        (ids_o, d_o), (ids_t, d_t) = other[key], this[key]
-        ties = this["B16 near ties" + key[3:]][0]
-        apart = ids_o != ids_t
-        b16[key] = {"ids_differ": int(apart.sum()),
-                    "all_near_ties": bool(ties[apart].all()),
-                    "max_abs_d_diff": float((d_o - d_t).abs().max()),
-                    "d_bitwise": bool(torch.equal(d_o, d_t))}
-    for key in [key for key in this if key[:4] in ("A16 ", "D16 ")
-                and not bool(this["fits" + key[3:]][0])]:   # via B16
-        if key not in other:
-            continue
-        (s_o, c_o, f_o), (s_t, c_t, f_t) = other[key], this[key]
-        b16[key] = {"sums_counts_bitwise": bool(torch.equal(s_o, s_t)
-                                                and torch.equal(c_o, c_t)),
-                    "max_rel_obj_diff": float(((f_o - f_t).abs()
-                                               / f_o.abs()).max())}
-    differ = sorted(key for key in other if key not in b16 and (
+    tensor_cores = {}                  # B16 and B3, and what routes via them
+    for tag in ("16", "3"):
+        for key in [key for key in this if key.startswith(f"B{tag} ")
+                    and "near ties" not in key]:
+            if key not in other:
+                continue
+            (ids_o, d_o), (ids_t, d_t) = other[key], this[key]
+            ties = this[f"B{tag} near ties" + key[len(tag) + 1:]][0]
+            apart = ids_o != ids_t
+            tensor_cores[key] = {
+                "ids_differ": int(apart.sum()),
+                "all_near_ties": bool(ties[apart].all()),
+                "max_abs_d_diff": float((d_o - d_t).abs().max()),
+                "d_bitwise": bool(torch.equal(d_o, d_t))}
+        for key in [key for key in this
+                    if key.split(" ")[0] in (f"A{tag}", f"D{tag}")
+                    and not bool(this["fits " + key.split(" ")[1]][0])]:
+            if key not in other:
+                continue
+            (s_o, c_o, f_o), (s_t, c_t, f_t) = other[key], this[key]
+            tensor_cores[key] = {
+                "sums_counts_bitwise": bool(torch.equal(s_o, s_t)
+                                            and torch.equal(c_o, c_t)),
+                "max_rel_obj_diff": float(((f_o - f_t).abs()
+                                           / f_o.abs()).max())}
+    differ = sorted(key for key in other if key not in tensor_cores and (
         key not in this or not all(
             torch.equal(a, b) for a, b in zip(other[key], this[key]))))
     print(json.dumps({"compare_kernels": {
         "against": args.against, "outputs": len(other),
-        "differ": differ, "B16": b16}}), flush=True)
+        "differ": differ, "tensor_cores": tensor_cores}}), flush=True)
     return 1 if differ or not all(
         row.get("all_near_ties", True) and row.get("sums_counts_bitwise", True)
-        for row in b16.values()) else 0
+        for row in tensor_cores.values()) else 0
 
 
 if __name__ == "__main__":

@@ -1,21 +1,27 @@
 #!/usr/bin/env python3
-"""Device time of each launch of kernels B8 and B16, and B16's bias.
+"""Device time of each launch of the assign kernels B, B3, B8 and B16, and
+the tensor-core kernels' bias.
 
     python3 tools/profile_assign.py
 
-B8 is three launches (the centroid norms ``sqnorm_rows``, the tensor-core
-pass ``assign_mma_kernel``, the fold ``assign_fold_kernel``), B16 four
-(and the bf16 cast of the centroids), ``src/repro_torch/kernels/csrc/
-assign_mma.cuh``.  At the main path's shape (m = 64,000, k = 25, n = 28),
-the two-pass route's (s = 16,384, k = 2,048, n = 1,024) and k = 1,024,
-n = 1,100 (rows off 16 bytes), on points around well-separated centres
-generated on the card from fixed seeds (``chip_smoke.py``'s), this prints
-one JSON line per shape: each kernel's device µs per call by CUDA-graph
-replay, each of its launches' device µs per call from ``torch.profiler``
-(CUDA activity), and B16's objective (the sum of d) against its plain
-version's, relative: the tensor cores' f32 accumulation does not round to
-nearest, and the fold of each slab's partials on the CUDA cores keeps its
-bias small.  Needs a CUDA card (sm_90).
+Kernel B (f32, ``csrc/assign.cu``) is two launches, three with more than
+one centroid tile (the centroid norms ``sqnorm_chain_rows``, the
+register-tiled CUDA-core pass ``assign_f32_pass``, the fold
+``assign_fold_f32``); B8 three (the norms ``sqnorm_rows``, the tensor-core
+pass ``assign_mma_kernel``, the fold ``assign_fold_kernel``), B16 four (and
+the bf16 cast of the centroids), B3 six (the norms, the bf16 hi / lo split
+``split_bf16_rows`` of c and of x, the pass on the hi and lo parts, the
+fold ``assign_fold_f32``), ``src/repro_torch/kernels/csrc/assign_mma.cuh``.
+At the main path's shape (m = 64,000, k = 25, n = 28), the two-pass
+route's (s = 16,384, k = 2,048, n = 1,024) and k = 1,024, n = 1,100 (rows
+off 16 bytes), on points around well-separated centres generated on the
+card from fixed seeds (``chip_smoke.py``'s), this prints one JSON line per
+shape: each kernel's device µs per call by CUDA-graph replay, each of its
+launches' device µs per call from ``torch.profiler`` (CUDA activity), and
+B16's and B3's objective (the sum of d) against their plain versions',
+relative: the tensor cores' f32 accumulation does not round to nearest,
+and the fold of each slab's partials on the CUDA cores keeps its bias
+small.  Needs a CUDA card (sm_90).
 """
 from __future__ import annotations
 
@@ -65,17 +71,21 @@ def main() -> int:
         qx = px.quantize_chunk(x)
         cq, t = px.quantize_centroids(c, qx.scale)
         xb = x.bfloat16()
-        calls = {"B8": lambda: distance.launch_assign_int8(qx.q, qx.scale,
+        calls = {"B": lambda: distance.assign_f32(x, c),
+                 "B3": lambda: distance.assign_16(x, c, "bf16x3"),
+                 "B8": lambda: distance.launch_assign_int8(qx.q, qx.scale,
                                                            cq, t, c),
                  "B16": lambda: distance.assign_16(xb, c, "bf16")}
-        _, d = distance.assign_16(xb, c, "bf16")
-        _, pd = distance.assign_plain(xb, c, "bf16")
-        bias = float((d.double().sum() - pd.double().sum())
-                     / pd.double().sum())
+        bias = {}
+        for name, xs, prec in (("B16", xb, "bf16"), ("B3", x, "bf16x3")):
+            _, d = distance.assign_16(xs, c, prec)
+            _, pd = distance.assign_plain(xs, c, prec)
+            bias[name] = float((d.double().sum() - pd.double().sum())
+                               / pd.double().sum())
         print(json.dumps({"m": m, "k": k, "n": n, "kernels": {
             name: {"us": graph_us(fn), "launches_us": launch_us(fn)}
             for name, fn in calls.items()},
-            "b16_objective_rel_to_plain": bias}), flush=True)
+            "objective_rel_to_plain": bias}), flush=True)
     return 0
 
 
