@@ -12,7 +12,8 @@
 // The float bodies are templates over an operand policy (F32Ops, Bf16Ops,
 // Bf16x3Ops): how x is stored, how the centroid tile is staged and how a
 // product is accumulated.  Everything else — tiling, the tie rule, the
-// one-hot contraction, the ordered reductions — is one code path.
+// sorted scatter of a tile into the partials, the ordered reductions — is
+// one code path.
 //
 // Determinism: nothing here uses atomics.  Every sum is taken by one thread
 // in a fixed order, and cross-CTA sums go through per-CTA partials that a
@@ -44,6 +45,10 @@ constexpr int TM = 256;       // points per tile == threads per CTA
 constexpr int KT = 32;        // centroids per k tile (register accumulators)
 constexpr int FT = 32;        // features per feature tile
 constexpr float BIG = 1e30f;  // initial best score (fused_step.py:_BIG)
+// CTAs an SM that the f32 and bf16 fused kernels are compiled for
+// (__launch_bounds__: 64 registers a thread), so that kernel D's many CTAs
+// fill each SM four deep.
+constexpr int FUSED_MIN_CTAS = 4;
 
 // bf16(v) as a float: round to nearest, ties to even (XLA's and torch's
 // f32 -> bf16 conversion).
@@ -56,6 +61,219 @@ __device__ __forceinline__ float round_bf16(float v) {
 __device__ __forceinline__ void split_bf16(float v, float& hi, float& lo) {
   hi = round_bf16(v);
   lo = round_bf16(v - hi);
+}
+
+// --------------------------------------------------------------------------
+// Sum policies: the element type X of x, the type S of a sum, and one
+// thread's running sum of a run of rows' values, from +0 in row order.  The
+// fused bodies and the update kernels (update.cuh) sum with them.
+// --------------------------------------------------------------------------
+
+// f32 values, f32 sums.
+struct SumF32 {
+  using X = float;
+  using S = float;
+  float a = 0.f;
+  __device__ __forceinline__ void add(float v) { a += v; }
+  __device__ __forceinline__ float get() const { return a; }
+};
+
+// bf16 values, f32 sums.
+struct SumBf16 {
+  using X = __nv_bfloat16;
+  using S = float;
+  float a = 0.f;
+  __device__ __forceinline__ void add(__nv_bfloat16 v) {
+    a += __bfloat162float(v);
+  }
+  __device__ __forceinline__ float get() const { return a; }
+};
+
+// bf16x3: f32 values split into bf16 hi + lo, the two summed apart and
+// added at the end of the run (the reference's px.dot(onehot, x, 'bf16x3'):
+// the one-hot has no low part).
+struct SumBf16x3 {
+  using X = float;
+  using S = float;
+  float hi = 0.f, lo = 0.f;
+  __device__ __forceinline__ void add(float v) {
+    float h, l;
+    split_bf16(v, h, l);
+    hi += h;
+    lo += l;
+  }
+  __device__ __forceinline__ float get() const { return hi + lo; }
+};
+
+// int8 codes, exact int32 sums.
+struct SumInt8 {
+  using X = int8_t;
+  using S = int32_t;
+  int32_t a = 0;
+  __device__ __forceinline__ void add(int8_t v) { a += (int32_t)v; }
+  __device__ __forceinline__ int32_t get() const { return a; }
+};
+
+// --------------------------------------------------------------------------
+// A point tile's rows grouped by cluster.  Thread t writes the key of row t,
+// run_key(id): (id, row), with ABSENT for a row that joins no cluster (past
+// m, or an id outside [0, k)).  find_runs orders the rows as the sorted
+// keys do (by counting where k is small), so that each cluster present in
+// the tile is one run of rows in ascending row order and the absent rows
+// come last, and lists the runs in order of cluster.
+//
+// Summing a run's rows in row order from +0 is bitwise the one-hot sum the
+// kernels took before (ids_i == j ? x_i : +0 over all TM rows, from +0):
+// skipping a +0 term is exact.  A sum that starts at +0 under round to
+// nearest is never -0 (x + y is -0 only when both are -0), and s + (+0) == s
+// for every s that is not -0 (infinities included; a NaN stays a NaN).  For
+// the same reason a cluster absent from a tile may be skipped where the
+// one-hot added +0 to it.
+// --------------------------------------------------------------------------
+
+constexpr int WARPS = TM / 32;
+constexpr unsigned ABSENT = 0xFFFFFFFFu;  // the id half of an absent key
+
+constexpr int COUNT_K = 32;  // clusters up to which find_runs counts
+
+struct TileRuns {
+  unsigned long long key[TM];     // (id, row), sorted in place (k > COUNT_K)
+  int row[TM];                    // row of sorted position p
+  int wsum[WARPS];                // run starts per warp
+  int start[TM + 1];              // first position of run q; [runs] = end
+  int rid[TM];                    // cluster of run q (ascending)
+  int runs;
+  int cnt[WARPS][COUNT_K];        // k <= COUNT_K: rows of cluster j in
+                                  // warp w
+};
+
+// The key of this thread's row (row threadIdx.x of the tile) in cluster id.
+__device__ __forceinline__ unsigned long long run_key(unsigned id) {
+  return ((unsigned long long)id << 32) | (unsigned)threadIdx.x;
+}
+
+// v of lane (lane ^ mask) of the warp.
+__device__ __forceinline__ unsigned long long shfl_xor_u64(
+    unsigned long long v, int mask) {
+  const unsigned lo = __shfl_xor_sync(0xffffffffu, (unsigned)v, mask);
+  const unsigned hi = __shfl_xor_sync(0xffffffffu, (unsigned)(v >> 32), mask);
+  return ((unsigned long long)hi << 32) | lo;
+}
+
+// Bitonic sort of the TM keys, ascending.  The keys are distinct (the row
+// is in the low half), so the order is the stable one.  Thread t holds
+// position t: it swaps with t ^ stride through a shuffle within its warp
+// (stride < 32), else through `key`, keeping the smaller key where its
+// pair's order (ascending in blocks of `size` whose bit t & size is 0)
+// puts it first.  Every thread calls it; it synchronises before and after.
+__device__ __forceinline__ void sort_keys(unsigned long long* key) {
+  const int t = threadIdx.x;
+  __syncthreads();
+  unsigned long long v = key[t];
+  for (int size = 2; size <= TM; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      unsigned long long other;
+      if (stride >= 32) {
+        key[t] = v;
+        __syncthreads();
+        other = key[t ^ stride];
+        __syncthreads();
+      } else {
+        other = shfl_xor_u64(v, stride);
+      }
+      const bool first = ((t & stride) == 0) == ((t & size) == 0);
+      v = (first == (v < other)) ? v : other;
+    }
+  }
+  key[t] = v;
+  __syncthreads();
+}
+
+// The run table of a tile of k <= COUNT_K clusters, by counting: a row's
+// position is its cluster's first position, plus the cluster's rows in
+// earlier warps, plus its rank among the lanes of its warp in that cluster
+// (__match_any_sync), so each run holds its rows in row order, as the sort
+// puts them.  Lane j of each warp takes cluster j's count and, by a scan
+// over the lanes, its first position.
+__device__ __forceinline__ void count_runs(TileRuns& r) {
+  const int t = threadIdx.x;
+  const int lane = t & 31, w = t >> 5;
+  const unsigned id = (unsigned)(r.key[t] >> 32);
+  const bool present = id != ABSENT;
+  r.cnt[w][lane] = 0;
+  __syncthreads();
+  const unsigned peers = __match_any_sync(0xffffffffu, id);
+  const int rank = __popc(peers & ((1u << lane) - 1u));
+  if (present && rank == 0) r.cnt[w][id] = __popc(peers);
+  __syncthreads();
+  int rows = 0;  // of cluster `lane`
+  for (int v = 0; v < WARPS; ++v) rows += r.cnt[v][lane];
+  int upto = rows;  // of the clusters up to `lane`
+  for (int d = 1; d < 32; d <<= 1) {
+    const int below = __shfl_up_sync(0xffffffffu, upto, d);
+    if (lane >= d) upto += below;
+  }
+  const int first = upto - rows;
+  const unsigned runs = __ballot_sync(0xffffffffu, rows > 0);
+  const int mine = __shfl_sync(0xffffffffu, first, present ? (int)id : 0);
+  if (present) {
+    int pos = mine + rank;
+    for (int v = 0; v < w; ++v) pos += r.cnt[v][id];
+    r.row[pos] = t;
+  }
+  if (w == 0) {
+    if (rows > 0) {
+      const int q = __popc(runs & ((1u << lane) - 1u));
+      r.start[q] = first;
+      r.rid[q] = lane;
+    }
+    if (lane == 31) {
+      r.runs = __popc(runs);
+      r.start[__popc(runs)] = upto;
+    }
+  }
+  __syncthreads();
+}
+
+// Fills the run table of the tile's keys r.key: run q holds the sorted
+// positions start[q] .. start[q+1] - 1 (rows row[p]) of cluster rid[q],
+// q < runs, in ascending order of cluster.  Up to COUNT_K clusters by
+// counting (count_runs), else by sorting the keys: then the run starts up
+// to t (in the warp, then in earlier warps) give each run its index.  Every
+// thread calls it, after writing its key; it synchronises before and after.
+__device__ __forceinline__ void find_runs(TileRuns& r, int k) {
+  if (k <= COUNT_K) {
+    __syncthreads();
+    count_runs(r);
+    return;
+  }
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  sort_keys(r.key);
+  const unsigned long long key = r.key[t];
+  const unsigned kid = (unsigned)(key >> 32);
+  const bool present = kid != ABSENT;
+  const bool lead =
+      present && (t == 0 || (unsigned)(r.key[t - 1] >> 32) != kid);
+  const bool last =
+      present && (t == TM - 1 || (unsigned)(r.key[t + 1] >> 32) != kid);
+  r.row[t] = (int)(key & 0xFFFFFFFFu);
+  const unsigned leads = __ballot_sync(0xffffffffu, lead);
+  int v = __popc(leads & (0xffffffffu >> (31 - lane)));
+  if (lane == 31) r.wsum[t >> 5] = v;
+  __syncthreads();
+  for (int w = 0; w < (t >> 5); ++w) v += r.wsum[w];
+  if (lead) {
+    r.start[v - 1] = t;
+    r.rid[v - 1] = (int)kid;
+  }
+  // the last present row ends the last run; no present row, no run
+  if (last && (t == TM - 1 || (unsigned)(r.key[t + 1] >> 32) == ABSENT)) {
+    r.start[v] = t + 1;
+    r.runs = v;
+  }
+  if (t == 0 && !present) r.runs = 0;
+  __syncthreads();
 }
 
 // --------------------------------------------------------------------------
@@ -74,7 +292,8 @@ __device__ __forceinline__ void split_bf16(float v, float& hi, float& lo) {
 //   CTile       the staged centroid tile, stage() writes one element of it;
 //   Acc, madd   the k tile's dot accumulators and one feature's update;
 //   dot         the finished dot of centroid j;
-//   widen       a stored x element as f32.
+//   widen       a stored x element as f32;
+//   Sum         the sum of a run of stored x elements (the partial sums').
 // --------------------------------------------------------------------------
 
 // Kernels A-D: true fp32, sequential FMAs over the features.
@@ -85,6 +304,7 @@ struct F32Ops {
   static constexpr bool csq_given = false;
   static constexpr bool xsq_by_tile = false;
   static constexpr bool split = false;
+  using Sum = SumF32;  // a run's sum of stored values
   struct CTile {
     float cs[KT][FT];  // centroid tile (broadcast reads)
   };
@@ -118,6 +338,7 @@ struct Bf16Ops {
   static constexpr bool csq_given = true;
   static constexpr bool xsq_by_tile = true;
   static constexpr bool split = false;
+  using Sum = SumBf16;  // a run's sum of stored values
   struct CTile {
     float cs[KT][FT];  // bf16(c) as floats
   };
@@ -150,6 +371,7 @@ struct Bf16x3Ops {
   static constexpr bool csq_given = true;
   static constexpr bool xsq_by_tile = false;
   static constexpr bool split = true;
+  using Sum = SumBf16x3;  // a run's sum of stored values
   struct CTile {
     float hi[KT3][FT];  // bf16(c)
     float lo[KT3][FT];  // bf16(c - hi)
@@ -185,8 +407,9 @@ struct TileSmemT {
   typename Ops::X xs[TM][FT + Ops::xpad];  // point tile (row-per-thread)
   typename Ops::CTile ct;                  // centroid tile
   float c2[Ops::kt];                       // ||c||^2 of the current k tile
-  int ids[TM];    // tile assignment; -1 never matches a cluster
+  int ids[TM];    // tile assignment (the one-hot body, onehot.cuh)
   float red[TM];  // block-reduction scratch
+  TileRuns runs;  // the tile's rows grouped by cluster
 };
 
 using TileSmem = TileSmemT<F32Ops>;
@@ -250,10 +473,10 @@ __device__ __forceinline__ unsigned char* dynamic_smem() {
 // body computes.  The order, per point tile (tiles blockIdx.x,
 // blockIdx.x + gridDim.x, ...):
 //   n <= FT: one slab, the whole tile (rows r0..r0+TM, all n features); it
-//            stays in s.xs across the k loop and the one-hot contraction,
-//            so later loads of the same tile return at once;
+//            stays in s.xs across the k loop and the sorted scatter, so
+//            later loads of the same tile return at once;
 //   n >  FT: tile_argmin's (k tile, feature tile) slabs, then
-//            tile_accumulate's feature tiles: nf * (k tiles + 1) slabs, the
+//            tile_scatter's feature tiles: nf * (k tiles + 1) slabs, the
 //            slab of step j holding feature tile j % nf.
 // A staging row is the 4-byte words that cover one row's segment
 // x[r, f0 : f0+fw] (rows are n*sizeof(X) bytes, so a bf16 or int8 segment
@@ -465,44 +688,33 @@ __device__ __forceinline__ float block_sum(Smem& s, float v) {
   return r;
 }
 
-// sum_i [ids_i == j] x[i, f] over the tile's rows, in row order.  Under
-// bf16x3 the one-hot has no low part, so this is sum(x_hi) + sum(x_lo)
-// (the reference's px.dot(onehot, x, 'bf16x3')), not the f32 sum.
-template <class Ops>
-__device__ __forceinline__ float onehot_sum(const TileSmemT<Ops>& s, int j,
-                                            int f) {
-  if constexpr (Ops::split) {
-    float hi = 0.f, lo = 0.f;
-    for (int i = 0; i < TM; ++i) {
-      if (s.ids[i] == j) {
-        float h, l;
-        split_bf16(s.xs[i][f], h, l);
-        hi += h;
-        lo += l;
-      }
-    }
-    return hi + lo;
-  } else {
-    float acc = 0.f;
-    for (int i = 0; i < TM; ++i)
-      acc += (s.ids[i] == j) ? Ops::widen(s.xs[i][f]) : 0.f;
-    return acc;
-  }
+// Zero a CTA's partials (at its start; and when it was given no tile, only
+// when m == 0, its objective too).
+template <typename T>
+__device__ __forceinline__ void zero_partials(T* P, int64_t stride) {
+  for (int64_t e = threadIdx.x; e < stride; e += blockDim.x) P[e] = T(0);
 }
 
-// One-hot contraction of one point tile into this CTA's partials:
-//   P[j, f] (+)= sum_i [ids_i == j] x[i, f],   Cnt[j] (+)= sum_i [ids_i == j]
-// with s.ids already set (and synchronised) by the caller.  Thread t owns
-// the elements t, t + TM, ... of each (k x feature-tile) block, and sums the
-// tile's rows in order, so every element has one writer and a fixed order.
-// `first` stores instead of accumulating (the CTA's first tile).
-// `x_resident`: s.xs already holds the whole tile (n <= FT).
-template <class Ops, class Load>
-__device__ __forceinline__ void tile_accumulate(
-    TileSmemT<Ops>& s, const typename Ops::X* __restrict__ x, int64_t m,
-    int k, int n, int64_t r0, float* P, float* Cnt, bool first,
-    bool x_resident, Load& xin) {
+// The sorted scatter of one point tile into this CTA's partials:
+//   P[j, f] (+)= the run of cluster j's rows, summed in row order from +0,
+//   Cnt[j]  (+)= the run's length,
+// for each cluster j present in the tile (s.runs, set by find_runs);
+// `first` (the CTA's first tile) stores instead of adding, into partials
+// the caller zeroed, so that a cluster absent from the tile keeps its +0.
+// That is bitwise the one-hot contraction (see TileRuns).  Per feature
+// tile, a group of L threads (the least power of two >= fw) takes a run, a
+// thread a feature: each (run, feature) element has one writer and a fixed
+// order, and a run is never split.  `S` is a TileSmemT or TileSmemQ;
+// `x_resident`: s.xs already holds the whole tile (n <= FT), else each
+// feature tile is loaded in turn (xin, in kernel A's slab order).
+template <class Sum, class S, class Load>
+__device__ __forceinline__ void tile_scatter(
+    S& s, const typename Sum::X* __restrict__ x, int64_t m, int n,
+    int64_t r0, typename Sum::S* P, float* Cnt, bool first, bool x_resident,
+    Load& xin) {
   const int t = threadIdx.x;
+  const TileRuns& r = s.runs;
+  const int runs = r.runs;
   for (int f0 = 0; f0 < n; f0 += FT) {
     const int fw = min(FT, n - f0);
     if (!x_resident) {
@@ -510,34 +722,35 @@ __device__ __forceinline__ void tile_accumulate(
       xin.load(s, x, m, n, r0, f0, fw);
       __syncthreads();
     }
-    const int ne = k * fw;
-    for (int e = t; e < ne; e += TM) {
-      const int j = e / fw;
-      const int f = e - j * fw;
-      const float acc = onehot_sum(s, j, f);
-      float* dst = P + (int64_t)j * n + f0 + f;
-      *dst = first ? acc : *dst + acc;
+    int lanes = 1;
+    while (lanes < fw) lanes <<= 1;
+    const int f = t & (lanes - 1);
+    if (f < fw) {
+      for (int q = t / lanes; q < runs; q += TM / lanes) {
+        typename Sum::S* dst = P + (int64_t)r.rid[q] * n + f0 + f;
+        const typename Sum::S before = first ? 0 : *dst;
+        Sum acc;
+        for (int p = r.start[q]; p < r.start[q + 1]; ++p)
+          acc.add(s.xs[r.row[p]][f]);
+        *dst = first ? acc.get() : before + acc.get();
+      }
     }
   }
-  for (int j = t; j < k; j += TM) {
-    float cnt = 0.f;
-    for (int i = 0; i < TM; ++i) cnt += (s.ids[i] == j) ? 1.f : 0.f;
-    Cnt[j] = first ? cnt : Cnt[j] + cnt;
+  for (int q = t; q < runs; q += TM) {
+    const float len = (float)(r.start[q + 1] - r.start[q]);
+    Cnt[r.rid[q]] = first ? len : Cnt[r.rid[q]] + len;
   }
-}
-
-// Zero a CTA's partials when it was given no tile (only when m == 0).
-template <typename T>
-__device__ __forceinline__ void zero_partials(T* P, int64_t stride) {
-  for (int64_t e = threadIdx.x; e < stride; e += blockDim.x) P[e] = T(0);
 }
 
 // One CTA's share of the fused Lloyd step (kernels A and D, and their
 // bf16 / bf16x3 twins): the partial sums [k,n], counts [k] and objective of
 // the point tiles blockIdx.x, blockIdx.x + gridDim.x, ... of x [m,n]
-// against c [k,n], written to P [k*n + k + 1].  Kernel D calls this with
-// per-stream base pointers and the per-stream grid of kernel A, so each of
-// its streams runs exactly kernel A's arithmetic in kernel A's order.
+// against c [k,n], written to P [k*n + k + 1].  Per tile: the argmin of
+// each row (tile_argmin), the objective's block sum, the tile's rows sorted
+// into runs of one cluster (find_runs) and their sorted scatter into the
+// partials (tile_scatter).  Kernel D calls this with per-stream base
+// pointers and the per-stream grid of kernel A, so each of its streams runs
+// exactly kernel A's arithmetic in kernel A's order.
 // `xin`: the slab loader (AsyncLoad for the dma kernels).
 template <class Ops, class Load = SyncLoad>
 __device__ __forceinline__ void fused_cta(
@@ -551,6 +764,8 @@ __device__ __forceinline__ void fused_cta(
     zero_partials(P, (int64_t)k * n + k + 1);
     return;
   }
+  zero_partials(P, (int64_t)k * n + k);  // absent clusters' +0; ordered
+                                         // by tile_argmin's barriers
   float obj = 0.f;
   for (int64_t tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
     const int64_t r0 = tile * TM;
@@ -558,11 +773,12 @@ __device__ __forceinline__ void fused_cta(
     float best, xsq;
     tile_argmin(s, x, c, m, k, n, r0, bidx, best, xsq, xin, csq);
     const bool valid = r0 + threadIdx.x < m;
-    s.ids[threadIdx.x] = valid ? bidx : -1;
+    s.runs.key[threadIdx.x] = run_key(valid ? (unsigned)bidx : ABSENT);
     obj += block_sum(s, valid ? fmaxf(best + xsq, 0.f) : 0.f);
-    tile_accumulate(s, x, m, k, n, r0, P, Cnt, tile == blockIdx.x, n <= FT,
-                    xin);
-    __syncthreads();  // s.ids / s.xs are rewritten by the next tile
+    find_runs(s.runs, k);
+    tile_scatter<typename Ops::Sum>(s, x, m, n, r0, P, Cnt,
+                                    tile == blockIdx.x, n <= FT, xin);
+    __syncthreads();  // s.runs / s.xs are rewritten by the next tile
   }
   xin.finish();
   if (threadIdx.x == 0) *Obj = obj;
@@ -624,8 +840,8 @@ inline int reduce_grid(int64_t stride) {
 // with the integer dot exact in int32, rounded as the reference's oracle
 // rounds (__fmul_rn / __fsub_rn: no FMA contraction), and
 // ||x||^2 = sum_f (xq * scale[f])^2 from the dequantized codes, both norms
-// summed in XlaSum's order.  Sums are the exact int32 one-hot x codes
-// contraction; the wrapper scales them to f32 data space after the full
+// summed in XlaSum's order.  Sums are the exact int32 per-cluster sums of
+// the codes; the wrapper scales them to f32 data space after the full
 // reduce.
 // --------------------------------------------------------------------------
 
@@ -794,8 +1010,9 @@ struct TileSmemQ {
   float sc[FTQ];           // chunk scales of the feature tile
   float c2[KT];            // full-width ||c||^2 of the k tile
   float t[KT];             // centroid row scales of the k tile
-  int ids[TM];             // tile assignment; -1 never matches a cluster
+  int ids[TM];             // tile assignment (the one-hot body)
   float red[TM];           // block-reduction scratch (block_sum)
+  TileRuns runs;           // the tile's rows grouped by cluster
 };
 
 // Stage cq[k0 : k0+KT, f0 : f0+fw] into s.cs and the feature tile's scales
@@ -872,47 +1089,13 @@ __device__ __forceinline__ void tile_argmin_q(
   }
 }
 
-// int8 one-hot contraction of one point tile into this CTA's partials:
-//   P[j, f] (+)= sum_i [ids_i == j] xq[i, f]   (exact int32)
-//   Cnt[j]  (+)= sum_i [ids_i == j]            (f32)
-// with the ownership and order of tile_accumulate.  `x_resident`: s.xs
-// already holds the whole tile (n <= FTQ).
-template <class Load>
-__device__ __forceinline__ void tile_accumulate_q(
-    TileSmemQ& s, const int8_t* __restrict__ x, int64_t m, int k, int n,
-    int64_t r0, int32_t* P, float* Cnt, bool first, bool x_resident,
-    Load& xin) {
-  const int t = threadIdx.x;
-  for (int f0 = 0; f0 < n; f0 += FTQ) {
-    const int fw = min(FTQ, n - f0);
-    if (!x_resident) {
-      __syncthreads();
-      xin.load(s, x, m, n, r0, f0, fw);
-      __syncthreads();
-    }
-    const int ne = k * fw;
-    for (int e = t; e < ne; e += TM) {
-      const int j = e / fw;
-      const int f = e - j * fw;
-      int32_t acc = 0;
-      for (int i = 0; i < TM; ++i) acc += (s.ids[i] == j) ? (int)s.xs[i][f] : 0;
-      int32_t* dst = P + (int64_t)j * n + f0 + f;
-      *dst = first ? acc : *dst + acc;
-    }
-  }
-  for (int j = t; j < k; j += TM) {
-    float cnt = 0.f;
-    for (int i = 0; i < TM; ++i) cnt += (s.ids[i] == j) ? 1.f : 0.f;
-    Cnt[j] = first ? cnt : Cnt[j] + cnt;
-  }
-}
-
 // One CTA's share of the int8 fused Lloyd step (kernels A8 and D8): the
 // partial int32 sums P [k*n] and the f32 counts and objective F [k + 1] of
-// the point tiles blockIdx.x, blockIdx.x + gridDim.x, ...  Kernel D8 calls
-// this with per-stream base pointers and kernel A8's per-stream grid, so
-// each of its streams runs kernel A8's arithmetic in kernel A8's order.
-// `xin`: the slab loader (AsyncLoad for A8-dma).
+// the point tiles blockIdx.x, blockIdx.x + gridDim.x, ..., the float body's
+// phases on the codes (tile_argmin_q; the exact int32 sums of SumInt8).
+// Kernel D8 calls this with per-stream base pointers and kernel A8's
+// per-stream grid, so each of its streams runs kernel A8's arithmetic in
+// kernel A8's order.  `xin`: the slab loader (AsyncLoad for A8-dma).
 template <class Load = SyncLoad>
 __device__ __forceinline__ void fused_cta_q(
     TileSmemQ& s, const int8_t* __restrict__ x, const int8_t* __restrict__ c,
@@ -927,6 +1110,8 @@ __device__ __forceinline__ void fused_cta_q(
     zero_partials(F, (int64_t)k + 1);
     return;
   }
+  zero_partials(P, (int64_t)k * n);  // absent clusters' +0; ordered by
+  zero_partials(F, (int64_t)k);      // tile_argmin_q's barriers
   float obj = 0.f;
   for (int64_t tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
     const int64_t r0 = tile * TM;
@@ -935,11 +1120,12 @@ __device__ __forceinline__ void fused_cta_q(
     tile_argmin_q(s, x, c, csq, tq, scale, m, k, n, r0, bidx, best, xsq,
                   xin);
     const bool valid = r0 + threadIdx.x < m;
-    s.ids[threadIdx.x] = valid ? bidx : -1;
+    s.runs.key[threadIdx.x] = run_key(valid ? (unsigned)bidx : ABSENT);
     obj += block_sum(s, valid ? fmaxf(best + xsq, 0.f) : 0.f);
-    tile_accumulate_q(s, x, m, k, n, r0, P, Cnt, tile == blockIdx.x,
-                      n <= FTQ, xin);
-    __syncthreads();  // s.ids / s.xs are rewritten by the next tile
+    find_runs(s.runs, k);
+    tile_scatter<SumInt8>(s, x, m, n, r0, P, Cnt, tile == blockIdx.x,
+                          n <= FTQ, xin);
+    __syncthreads();  // s.runs / s.xs are rewritten by the next tile
   }
   xin.finish();
   if (threadIdx.x == 0) *Obj = obj;

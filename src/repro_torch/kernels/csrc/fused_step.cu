@@ -16,15 +16,19 @@
 // Design: each CTA walks a fixed set of point tiles; per tile it computes
 // the argmin of each row with the point tile and a centroid tile in shared
 // memory (common.cuh:tile_argmin), then folds the tile into its own partial
-// sums, counts and objective with the deterministic one-hot contraction
-// (common.cuh:tile_accumulate) while the tile is still resident when
-// n <= 32.  A second launch reduces the per-CTA partials in CTA order.  No
-// float atomics anywhere, so repeated launches are bitwise equal.
+// sums, counts and objective by a sorted scatter: the tile's rows sorted
+// into runs of one cluster in shared memory (common.cuh:find_runs), each
+// run's rows summed in row order by one thread a feature
+// (common.cuh:tile_scatter), while the tile is still resident when n <= 32.
+// That is O(TM n) work a tile where the one-hot contraction the kernel
+// took before was O(TM k n), and bitwise its result.  A second launch
+// reduces the per-CTA partials in CTA order.  No float atomics anywhere,
+// so repeated launches are bitwise equal.
 #include "common.cuh"
 
 using namespace repro;
 
-extern "C" __global__ void __launch_bounds__(TM)
+extern "C" __global__ void __launch_bounds__(TM, FUSED_MIN_CTAS)
 fused_step_f32_kernel(const float* __restrict__ x, const float* __restrict__ c,
                       float* __restrict__ part, int64_t m, int k, int n,
                       int64_t num_tiles) {

@@ -9,7 +9,7 @@
 //   sums [B,k,n], counts [B,k], obj [B]
 // with score_j = ||c_j||^2 - 2 x.c_j by sequential FMAs, a strict '<' over
 // centroids from a 1e30 best, obj += max(best + ||x||^2, 0), and the
-// deterministic one-hot contraction.
+// deterministic sorted scatter of each tile into per-CTA partials.
 //
 // Bound: bytes.  It reads x once (4Bmn bytes); at the batched main path's
 // shapes (B = 8, m = 64,000, k = 25, n = 28) that is 57.3 MB, 17.1 us at
@@ -29,7 +29,7 @@
 
 using namespace repro;
 
-extern "C" __global__ void __launch_bounds__(TM)
+extern "C" __global__ void __launch_bounds__(TM, FUSED_MIN_CTAS)
 fused_step_batched_f32_kernel(const float* __restrict__ x,
                               const float* __restrict__ c,
                               float* __restrict__ part, int64_t m, int k,

@@ -34,7 +34,7 @@ __device__ __forceinline__ void batched_cta(
             csq + b * k);
 }
 
-extern "C" __global__ void __launch_bounds__(TM)
+extern "C" __global__ void __launch_bounds__(TM, FUSED_MIN_CTAS)
 fused_step_batched_bf16_kernel(const __nv_bfloat16* __restrict__ x,
                                const float* __restrict__ c,
                                const float* __restrict__ csq,

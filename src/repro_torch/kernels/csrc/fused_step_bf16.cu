@@ -28,7 +28,7 @@
 
 using namespace repro;
 
-extern "C" __global__ void __launch_bounds__(TM)
+extern "C" __global__ void __launch_bounds__(TM, FUSED_MIN_CTAS)
 fused_step_bf16_kernel(const __nv_bfloat16* __restrict__ x,
                        const float* __restrict__ c,
                        const float* __restrict__ csq,

@@ -23,8 +23,8 @@
 // (common.cuh:TileSmemQ): each CTA walks a fixed set of point tiles,
 // scores them with int32 multiply-adds on the CUDA cores (no dp4a, no
 // tensor cores yet), folds each tile into its own int32 partial sums, f32
-// counts and objective, and a second launch reduces the partials in CTA
-// order.  The int32 sums are exact, so any order gives the same integers;
+// counts and objective by kernel A's sorted scatter (common.cuh:find_runs,
+// tile_scatter), and a second launch reduces the partials in CTA order.  The int32 sums are exact, so any order gives the same integers;
 // counts and objective are reduced in a fixed order, so repeated launches
 // are bitwise equal.
 #include "common.cuh"

@@ -16,7 +16,9 @@
 //    min(TM, k)), so the scratch is bounded by the rows, not by k n.  The
 //    feature block 0 CTA also writes the run lengths (the tile's counts)
 //    and the tile's column of the index idx [k, tiles]: the slot of
-//    cluster j in tile t, or -1 where j is absent.
+//    cluster j in tile t, or -1 where j is absent.  The sort, the run
+//    table and the sum policies are common.cuh's (find_runs, Sum*), which
+//    the fused bodies share.
 // 2. Reduce, one CTA per cluster j (and block of features), one thread per
 //    output element (j, f) (and per count j).  It keeps j's present tiles
 //    and folds their sums in the association of the one-hot kernels
@@ -45,72 +47,13 @@
 
 namespace repro {
 
-// --------------------------------------------------------------------------
-// Sum policies: the element type X of x, the type S of a sum, and one
-// thread's running sum of a run's values (the one-hot kernels' arithmetic,
-// common.cuh:onehot_sum and tile_accumulate_q).
-// --------------------------------------------------------------------------
-
-// Kernel C: f32 values, f32 sums.
-struct SumF32 {
-  using X = float;
-  using S = float;
-  float a = 0.f;
-  __device__ __forceinline__ void add(float v) { a += v; }
-  __device__ __forceinline__ float get() const { return a; }
-};
-
-// Kernel C16: bf16 values, f32 sums.
-struct SumBf16 {
-  using X = __nv_bfloat16;
-  using S = float;
-  float a = 0.f;
-  __device__ __forceinline__ void add(__nv_bfloat16 v) {
-    a += __bfloat162float(v);
-  }
-  __device__ __forceinline__ float get() const { return a; }
-};
-
-// Kernel C3: f32 values split into bf16 hi + lo, the two summed apart and
-// added at the end of the tile (the reference's px.dot(onehot, x,
-// 'bf16x3'): the one-hot has no low part).
-struct SumBf16x3 {
-  using X = float;
-  using S = float;
-  float hi = 0.f, lo = 0.f;
-  __device__ __forceinline__ void add(float v) {
-    float h, l;
-    split_bf16(v, h, l);
-    hi += h;
-    lo += l;
-  }
-  __device__ __forceinline__ float get() const { return hi + lo; }
-};
-
-// Kernel C8: int8 codes, exact int32 sums.
-struct SumInt8 {
-  using X = int8_t;
-  using S = int32_t;
-  int32_t a = 0;
-  __device__ __forceinline__ void add(int8_t v) { a += (int32_t)v; }
-  __device__ __forceinline__ int32_t get() const { return a; }
-};
-
 constexpr int ROW_BLOCK_BYTES = 128;    // bytes of a row per feature block
-constexpr int WARPS = TM / 32;
-constexpr unsigned ABSENT = 0xFFFFFFFFu;  // the id half of an absent key
 
 template <class X>
 struct ScatterSmem {
   static constexpr int fb = ROW_BLOCK_BYTES / (int)sizeof(X);
   alignas(16) X xs[TM][fb];       // the tile's feature block
-  unsigned long long key[TM];     // (id, row), sorted in place
-  int row[TM];                    // row of sorted position p
-  int lead[TM];                   // 1 where a run starts
-  int wsum[WARPS];                // run starts per warp
-  int start[TM + 1];              // first position of run q; [runs] = end
-  int rid[TM];                    // cluster of run q (ascending)
-  int runs;
+  TileRuns runs;                  // its rows grouped by cluster
 };
 
 // Values per record: n, rounded up to 4 so that every record starts on
@@ -157,27 +100,6 @@ __device__ __forceinline__ void load_block(ScatterSmem<X>& s,
   }
 }
 
-// Bitonic sort of the TM keys, ascending.  The keys are distinct (the row
-// is in the low half), so the order is the stable one.  Every thread
-// calls it; it synchronises before and after.
-__device__ __forceinline__ void sort_keys(unsigned long long* key) {
-  const int t = threadIdx.x;
-  __syncthreads();
-  for (int size = 2; size <= TM; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      const int other = t ^ stride;
-      if (other > t) {
-        const unsigned long long a = key[t], b = key[other];
-        if ((a > b) == ((t & size) == 0)) {
-          key[t] = b;
-          key[other] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
 // Position of tile t in the reduce's order: the tiles of class 0 (0, G,
 // 2G, ...), then those of class 1, ...; class g holds T/G tiles, one more
 // when g < T % G.
@@ -208,68 +130,39 @@ __device__ __forceinline__ void scatter_tile(
 
   const int64_t r = r0 + t;
   const int id = r < m ? ids[r] : -1;
-  const unsigned uid = (id >= 0 && id < k) ? (unsigned)id : ABSENT;
-  s.key[t] = ((unsigned long long)uid << 32) | (unsigned)t;
+  s.runs.key[t] = run_key((id >= 0 && id < k) ? (unsigned)id : ABSENT);
   load_block(s, x, m, n, r0, f0, fw);
-  sort_keys(s.key);
-
-  // runs: the run starts up to t (in the warp, then in earlier warps)
-  // give each run its index
-  const unsigned long long key = s.key[t];
-  const unsigned kid = (unsigned)(key >> 32);
-  const bool present = kid != ABSENT;
-  const bool lead =
-      present && (t == 0 || (unsigned)(s.key[t - 1] >> 32) != kid);
-  const bool last =
-      present && (t == TM - 1 || (unsigned)(s.key[t + 1] >> 32) != kid);
-  s.row[t] = (int)(key & 0xFFFFFFFFu);
-  s.lead[t] = lead ? 1 : 0;
-  __syncthreads();
-  int v = 0;
-  for (int i = t & ~31; i <= t; ++i) v += s.lead[i];
-  if ((t & 31) == 31) s.wsum[t >> 5] = v;
-  __syncthreads();
-  for (int w = 0; w < (t >> 5); ++w) v += s.wsum[w];
-  if (lead) {
-    s.start[v - 1] = t;
-    s.rid[v - 1] = (int)kid;
-  }
-  // the last present row ends the last run; no present row, no run
-  if (last && (t == TM - 1 || (unsigned)(s.key[t + 1] >> 32) == ABSENT)) {
-    s.start[v] = t + 1;
-    s.runs = v;
-  }
-  if (t == 0 && !present) s.runs = 0;
-  __syncthreads();
+  find_runs(s.runs, k);
 
   // one warp per run, one lane per feature: the run's rows in order
-  const int runs = s.runs;
+  const TileRuns& rs = s.runs;
+  const int runs = rs.runs;
   const int64_t base = tile * slots;
   const int warp = t / 32, lane = t % 32;
   for (int q = warp; q < runs; q += WARPS) {
-    const int p0 = s.start[q], p1 = s.start[q + 1];
+    const int p0 = rs.start[q], p1 = rs.start[q + 1];
     typename Sum::S* dst = rec + (base + q) * record_stride(n) + f0;
     for (int f = lane; f < fw; f += 32) {
       Sum acc;
-      for (int p = p0; p < p1; ++p) acc.add(s.xs[s.row[p]][f]);
+      for (int p = p0; p < p1; ++p) acc.add(s.xs[rs.row[p]][f]);
       dst[f] = acc.get();
     }
   }
   if (blockIdx.y != 0) return;
   for (int q = t; q < runs; q += TM)
-    rcnt[base + q] = (float)(s.start[q + 1] - s.start[q]);
+    rcnt[base + q] = (float)(rs.start[q + 1] - rs.start[q]);
   const int64_t pos = order_position(tile, tiles, G);
   for (int j = t; j < k; j += TM) {
     int lo = 0, hi = runs;  // the first run whose cluster is >= j
     while (lo < hi) {
       const int mid = (lo + hi) >> 1;
-      if (s.rid[mid] < j)
+      if (rs.rid[mid] < j)
         lo = mid + 1;
       else
         hi = mid;
     }
     idx[(int64_t)j * tiles + pos] =
-        (lo < runs && s.rid[lo] == j) ? (int32_t)(base + lo) : -1;
+        (lo < runs && rs.rid[lo] == j) ? (int32_t)(base + lo) : -1;
   }
 }
 

@@ -17,12 +17,17 @@ buffer (the CTAs run one after another).  The tensor-core kernels B8 and
 B16 (``assign_mma.cuh``) run their entry points (``REPRO_LAUNCH`` runs the
 CTAs); each ``wgmma`` is emulated on the card's fragment layout, reading
 its operands through the 128-byte swizzle, and held like a copy until the
-``wgmma.wait_group`` that retires it; ``__shfl_sync`` goes through one
-slot a thread.  Results are held against the port's plain versions with
-the same tolerances as on the card; the int8 kernels' int32 sums and B8
-bitwise; each dma kernel bitwise its blocks twin; the update kernels (a
-sorted scatter) bitwise ``parent_order_update``, the order of the one-hot
-kernels they replaced, and bitwise kernel A's sums on kernel A's ids.
+``wgmma.wait_group`` that retires it; the warp intrinsics
+(``__shfl_sync``, ``__shfl_xor_sync``, ``__shfl_up_sync``,
+``__ballot_sync``, ``__match_any_sync``) go through one slot a thread.
+Results are held against the port's plain versions with the same
+tolerances as on the card; the int8 kernels' int32 sums and B8 bitwise;
+each dma kernel bitwise its blocks twin; the update kernels (a sorted
+scatter) bitwise ``parent_order_update``, the order of the one-hot kernels
+they replaced, and bitwise kernel A's sums on kernel A's ids; the fused
+kernels A and D and their dma twins (whose CTA bodies scatter sorted runs
+too) bitwise the one-hot body they replaced (``onehot.cuh``) under every
+policy.
 """
 import re
 import shutil
@@ -181,6 +186,44 @@ inline T __shfl_xor_sync(unsigned, T v, int mask) {
   shfl_slot[threadIdx.x] = u;
   __syncthreads();
   const uint32_t o = shfl_slot[threadIdx.x ^ mask];
+  __syncthreads();
+  T r;
+  std::memcpy(&r, &o, 4);
+  return r;
+}
+// __ballot_sync: the warp's predicates as a bit mask, lane l at bit l
+// (every thread of the CTA calls it), through the same slots
+inline unsigned __ballot_sync(unsigned, int pred) {
+  shfl_slot[threadIdx.x] = pred ? 1u : 0u;
+  __syncthreads();
+  unsigned mask = 0;
+  for (unsigned l = 0; l < 32; ++l)
+    mask |= shfl_slot[(threadIdx.x & ~31u) + l] << l;
+  __syncthreads();
+  return mask;
+}
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
+// __match_any_sync: the lanes of the warp whose value equals this lane's
+inline unsigned __match_any_sync(unsigned, unsigned v) {
+  shfl_slot[threadIdx.x] = v;
+  __syncthreads();
+  unsigned mask = 0;
+  for (unsigned l = 0; l < 32; ++l)
+    mask |= (shfl_slot[(threadIdx.x & ~31u) + l] == v ? 1u : 0u) << l;
+  __syncthreads();
+  return mask;
+}
+// __shfl_up_sync: v of lane - delta (this lane's own below delta)
+template <class T>
+inline T __shfl_up_sync(unsigned, T v, unsigned delta) {
+  static_assert(sizeof(T) == 4);
+  uint32_t u;
+  std::memcpy(&u, &v, 4);
+  shfl_slot[threadIdx.x] = u;
+  __syncthreads();
+  const unsigned lane = threadIdx.x & 31u;
+  const uint32_t o = shfl_slot[lane >= delta ? threadIdx.x - delta
+                                             : threadIdx.x];
   __syncthreads();
   T r;
   std::memcpy(&r, &o, 4);
@@ -954,9 +997,169 @@ int main(int argc, char** argv) {
 """
 
 
+HARNESS_ONEHOT = r"""
+#include "cuda_runtime.h"
+#include "fused_step.inc"
+#include "fused_step_bf16.inc"
+#include "fused_step_int8.inc"
+#include "fused_step_batched.inc"
+#include "fused_step_batched_bf16.inc"
+#include "fused_step_batched_int8.inc"
+#include "fused_step_dma.inc"
+#include "onehot.cuh"
+#include <cstdio>
+#include <cstdlib>
+// harness_onehot B m k n grid shift in out:
+// in = x[B,m,n] f32, xb[B,m,n] bf16, xq[B,m,n] i8, c[B,k,n] f32,
+// cq[B,k,n] i8, scale[B,n] f32, t[B,k] f32; x, xb and xq are read into
+// their buffers `shift` elements in (every kernel reads them there).
+// out = for f32 (on x), bf16 (xb), bf16x3 (x), int8 (xq): per stream b the
+// parent's body (onehot.cuh, kernel A's grid and reduce), kernel A (A8,
+// A16, A3) and kernel D's stream b, then A's dma twin on stream 0; each
+// [k*n + k + 1] words (int8: isums i32 ++ counts ++ obj).  Every partial
+// buffer starts as 0x7F bytes, so a partial never written shows.
+template <typename T>
+static bool get(FILE* f, T* p, size_t n) {
+  return fread(p, sizeof(T), n, f) == n;
+}
+template <typename T>
+static void put(FILE* f, const std::vector<T>& v) {
+  fwrite(v.data(), sizeof(T), v.size(), f);
+}
+template <typename T>
+static void garbage(std::vector<T>& v) {
+  std::memset(v.data(), 0x7F, v.size() * sizeof(T));
+}
+template <class Ops>
+static void parent_float(const typename Ops::X* x, const float* c,
+                         const float* csq, float* part, int64_t m, int k,
+                         int n, int64_t tiles) {
+  __shared__ TileSmemT<Ops> s;
+  const int64_t stride = (int64_t)k * n + k + 1;
+  fused_cta_onehot(s, x, c, part + blockIdx.x * stride, m, k, n, tiles, csq);
+}
+static void parent_int8(const int8_t* x, const int8_t* c, const float* csq,
+                        const float* tq, const float* scale, int32_t* psum,
+                        float* pf, int64_t m, int k, int n, int64_t tiles) {
+  __shared__ TileSmemQ s;
+  const int64_t kn = (int64_t)k * n;
+  fused_cta_q_onehot(s, x, c, csq, tq, scale, psum + blockIdx.x * kn,
+                     pf + blockIdx.x * ((int64_t)k + 1), m, k, n, tiles);
+}
+int main(int argc, char** argv) {
+  const int B = atoi(argv[1]);
+  const int64_t m = atoll(argv[2]);
+  const int k = atoi(argv[3]), n = atoi(argv[4]), grid = atoi(argv[5]);
+  const int shift = atoi(argv[6]);
+  const int64_t mn = m * n, kn = (int64_t)k * n, sf = kn + k + 1;
+  std::vector<float> xbuf(B * mn + 4), c(B * kn), scale((size_t)B * n),
+      t((size_t)B * k), csq((size_t)B * k);
+  std::vector<__nv_bfloat16> xbbuf(B * mn + 4);
+  std::vector<int8_t> xqbuf(B * mn + 4), cq(B * kn);
+  float* x = xbuf.data() + shift;
+  __nv_bfloat16* xb = xbbuf.data() + shift;
+  int8_t* xq = xqbuf.data() + shift;
+  FILE* f = fopen(argv[7], "rb");
+  if (!get(f, x, B * mn) || !get(f, xb, B * mn) || !get(f, xq, B * mn) ||
+      !get(f, c.data(), B * kn) || !get(f, cq.data(), B * kn) ||
+      !get(f, scale.data(), B * n) || !get(f, t.data(), B * k)) return 1;
+  fclose(f);
+  const int64_t tiles = (m + TM - 1) / TM;
+  launch(sqnorm_grid(B * k, n), 256,
+         [&] { sqnorm_rows(c.data(), csq.data(), B * k, n); });
+  FILE* o = fopen(argv[8], "wb");
+  std::vector<float> pf(grid * sf), of(sf), pd(B * grid * sf), od(B * sf);
+  // one float policy: kernel(x_b, c_b, csq_b, part) runs a launch of A's
+  // body (the parent's or this one) on stream b
+  auto floats = [&](auto parent, auto a_kernel, auto d_kernel, auto dma,
+                    auto reduce, auto d_reduce, auto x_of) {
+    auto run = [&](auto body, int b) {
+      garbage(pf);
+      launch(grid, TM, [&] { body(x_of(b), c.data() + b * kn,
+                                  csq.data() + b * k, pf.data(), m, k, n,
+                                  tiles); });
+      launch(3, 256, [&] { reduce(pf.data(), of.data(), sf, grid); });
+      put(o, of);
+    };
+    garbage(pd);
+    launch2(grid, B, TM, [&] { d_kernel(x_of(0), c.data(), csq.data(),
+                                        pd.data(), m, k, n, tiles); });
+    launch2(2, B, 256, [&] { d_reduce(pd.data(), od.data(), sf, grid); });
+    for (int b = 0; b < B; ++b) {
+      run(parent, b);
+      run(a_kernel, b);
+      fwrite(od.data() + b * sf, 4, sf, o);
+    }
+    run(dma, 0);
+  };
+  auto xf = [&](int b) { return x + b * mn; };
+  auto xbf = [&](int b) { return xb + b * mn; };
+  floats(parent_float<F32Ops>,
+         [](const float* x, const float* c, const float*, float* part,
+            int64_t m, int k, int n, int64_t tiles) {
+           fused_step_f32_kernel(x, c, part, m, k, n, tiles);
+         },
+         [](const float* x, const float* c, const float*, float* part,
+            int64_t m, int k, int n, int64_t tiles) {
+           fused_step_batched_f32_kernel(x, c, part, m, k, n, tiles);
+         },
+         [](const float* x, const float* c, const float*, float* part,
+            int64_t m, int k, int n, int64_t tiles) {
+           fused_step_f32_dma_kernel(x, c, part, m, k, n, tiles);
+         },
+         fused_step_f32_reduce, fused_step_batched_f32_reduce, xf);
+  floats(parent_float<Bf16Ops>, fused_step_bf16_kernel,
+         fused_step_batched_bf16_kernel, fused_step_bf16_dma_kernel,
+         fused_step_16_reduce, fused_step_batched_16_reduce, xbf);
+  floats(parent_float<Bf16x3Ops>, fused_step_bf16x3_kernel,
+         fused_step_batched_bf16x3_kernel, fused_step_bf16x3_dma_kernel,
+         fused_step_16_reduce, fused_step_batched_16_reduce, xf);
+  // int8: isums and counts ++ obj, each launch's partials garbage first
+  std::vector<int32_t> ps(grid * kn), os(kn), pds(B * grid * kn), ods(B * kn);
+  std::vector<float> pq(grid * (k + 1)), oq(k + 1), pdq(B * grid * (k + 1)),
+      odq(B * (k + 1));
+  garbage(pds);
+  garbage(pdq);
+  launch2(grid, B, TM, [&] {
+    fused_step_batched_int8_kernel(xq, cq.data(), csq.data(), t.data(),
+                                   scale.data(), pds.data(), pdq.data(), m,
+                                   k, n, tiles);
+  });
+  launch2(2, B, 256, [&] {
+    fused_step_batched_int8_reduce(pds.data(), pdq.data(), ods.data(),
+                                   odq.data(), kn, k + 1, grid);
+  });
+  auto int8_run = [&](auto body, int b) {
+    garbage(ps);
+    garbage(pq);
+    launch(grid, TM, [&] {
+      body(xq + b * mn, cq.data() + b * kn, csq.data() + b * k,
+           t.data() + b * k, scale.data() + b * n, ps.data(), pq.data(), m,
+           k, n, tiles);
+    });
+    launch(3, 256, [&] {
+      fused_step_int8_reduce(ps.data(), pq.data(), os.data(), oq.data(), kn,
+                             k + 1, grid);
+    });
+    put(o, os);
+    put(o, oq);
+  };
+  for (int b = 0; b < B; ++b) {
+    int8_run(parent_int8, b);
+    int8_run(fused_step_int8_kernel, b);
+    fwrite(ods.data() + b * kn, 4, kn, o);
+    fwrite(odq.data() + b * (k + 1), 4, k + 1, o);
+  }
+  int8_run(fused_step_int8_dma_kernel, 0);
+  fclose(o);
+  return 0;
+}
+"""
+
+
 HARNESSES = ("harness", "harness_batched", "harness_int8", "harness_16",
              "harness_dma", "harness_kpp", "harness_update", "harness_mma",
-             "harness_b")
+             "harness_b", "harness_onehot")
 
 
 @pytest.fixture(scope="module")
@@ -981,6 +1184,7 @@ def harness(tmp_path_factory):
     (d / "harness_update.cpp").write_text(HARNESS_UPDATE)
     (d / "harness_mma.cpp").write_text(HARNESS_MMA)
     (d / "harness_b.cpp").write_text(HARNESS_B)
+    (d / "harness_onehot.cpp").write_text(HARNESS_ONEHOT)
     procs = [subprocess.Popen(
         [cxx, "-std=c++20", "-O1", "-pthread", f"-I{d}", f"-I{build.CSRC}",
          str(d / f"{name}.cpp"), "-o", str(d / name)],
@@ -1745,3 +1949,92 @@ def test_f32_assign_source_bitwise_parent_body(harness, tmp_path, case):
     np.testing.assert_array_equal(ids3[~ties3], pids3.numpy()[~ties3])
     assert np.all(np.abs(d3.view(np.float32) - pd3.numpy())
                   <= d_bound(x, c, pids3.numpy()) + 1e-6)
+
+
+# --------------------------------------------------------------------------
+# the fused bodies' sorted scatter against the one-hot body it replaced
+# --------------------------------------------------------------------------
+
+ONEHOT_CASES = [  # (m, k, n, grid, shift, data), B = 3 streams
+    (600, 25, 28, 2, 1, "blobs"),     # the main path's k and n: a ragged
+    (100, 25, 28, 1, 0, "blobs"),     # last tile, a CTA with two tiles; m
+    (513, 33, 37, 2, 1, "blobs"),     # below one tile; n = 37 and 68
+    (300, 70, 68, 2, 3, "blobs"),     # (feature slabs, the last ragged);
+    (600, 300, 7, 2, 1, "blobs"),     # k = 300 > 256 rows a tile; cluster
+    (1000, 25, 28, 2, 0, "layout"),   # 5 absent from CTA 0's first tile,
+    (600, 25, 37, 2, 1, "extremes"),  # present in its second, a tile of
+    (257, 1, 5, 3, 2, "blobs"),       # one cluster; -0.0, +-inf, huge
+]                                     # values; k = 1, a CTA with no tile
+B_ONEHOT = 3
+
+
+def onehot_inputs(m, k, n, data, seed):
+    """(x [B,m,n], c [B,k,n]) f32 around well-separated centres.  'layout':
+    tile 0 (CTA 0's first) holds no row of cluster 5, tile 2 (its second)
+    does, tile 1 is all cluster 3.  'extremes': rows and entries of -0.0,
+    +inf and -inf entries, and rows of +-3e38 whose sums overflow."""
+    rng = np.random.default_rng(seed)
+    c = (rng.normal(size=(B_ONEHOT, k, n)) * 10).astype(np.float32)
+    comp = rng.integers(0, k, (B_ONEHOT, m))
+    if data == "layout":
+        comp[:, :256] = rng.choice([j for j in range(k) if j != 5],
+                                   (B_ONEHOT, 256))
+        comp[:, 256:512] = 3
+        comp[:, 512:520] = 5
+    x = np.stack([c[b][comp[b]] for b in range(B_ONEHOT)])
+    x = x + rng.normal(size=x.shape)
+    if data == "extremes":
+        x[:, 10:20] = -0.0
+        x[:, ::5, ::3] = -0.0
+        x[:, 3, 2] = np.inf
+        x[:, 7, 4] = -np.inf
+        x[:, 40:44] = 3e38
+        x[:, 44:46, ::2] = -3e38
+    return x.astype(np.float32), c
+
+
+@pytest.mark.parametrize("case", ONEHOT_CASES, ids=[
+    f"m{m}-k{k}-n{n}-g{g}-s{sh}-{data}"
+    for m, k, n, g, sh, data in ONEHOT_CASES])
+def test_fused_sources_bitwise_onehot_body(harness, tmp_path, case):
+    """Kernels A, A16, A3, A8, each stream of D, D16, D3, D8 (B = 3) and the
+    four dma twins (base `shift` elements off) — whose CTA bodies sort each
+    tile into runs of one cluster and sum each run in row order — bitwise
+    the one-hot body they replaced (``onehot.cuh``, on A's grid): sums (int8:
+    the int32 sums), counts and objective.  Every partial buffer starts as
+    garbage, so a cluster absent from a CTA's first tile must still get its
+    +0."""
+    m, k, n, grid, shift, data = case
+    x, c = onehot_inputs(m, k, n, data, seed=m + k + n)
+    X, C = torch.from_numpy(x), torch.from_numpy(c)
+    xb = X.bfloat16().view(torch.int16).numpy()
+    qx = px.quantize_chunk(torch.from_numpy(np.nan_to_num(
+        x, posinf=0.0, neginf=0.0)))
+    cq, t = px.quantize_centroids(C, qx.scale)
+    (tmp_path / "in.bin").write_bytes(b"".join(
+        a.tobytes() for a in (x, xb, qx.q.numpy(), c, cq.numpy(),
+                              qx.scale.numpy(), t.numpy())))
+    subprocess.run([str(harness.parent / "harness_onehot"), str(B_ONEHOT),
+                    str(m), str(k), str(n), str(grid), str(shift),
+                    str(tmp_path / "in.bin"), str(tmp_path / "out.bin")],
+                   check=True, timeout=300)
+    raw = np.fromfile(tmp_path / "out.bin", dtype=np.uint32)
+    kn, sf, runs = k * n, k * n + k + 1, 3 * B_ONEHOT + 1
+    assert raw.size == 4 * runs * sf
+    for i, prec in enumerate(("f32", "bf16", "bf16x3", "int8")):
+        got = raw[i * runs * sf:(i + 1) * runs * sf].reshape(runs, sf)
+        for b in range(B_ONEHOT):
+            parent = got[3 * b]
+            np.testing.assert_array_equal(got[3 * b + 1], parent,
+                                          err_msg=f"{prec} A, stream {b}")
+            np.testing.assert_array_equal(got[3 * b + 2], parent,
+                                          err_msg=f"{prec} D, stream {b}")
+            assert got[3 * b, kn:kn + k].view(np.float32).sum() == m, prec
+        np.testing.assert_array_equal(got[-1], got[0], err_msg=f"{prec} dma")
+    if data == "layout":                 # cluster 5 only from tile 2 on
+        ids, _ = ref.assign_ref(X[0], C[0])
+        ids = ids.numpy()
+        assert 5 not in ids[:256] and 5 in ids[512:768]
+        assert np.all(ids[256:512] == 3)
+        np.testing.assert_array_equal(raw[kn:kn + k].view(np.float32),
+                                      np.bincount(ids, minlength=k))

@@ -8,7 +8,9 @@ commit unpacked with ``git archive`` into ``build/parent``).  Each tree
 builds its own kernel library and runs kernels A, B, C, D (f32), A8, B8,
 C8, D8 (int8), A16, B16, C16, D16 (bf16) and A3, B3, C3, D3 (bf16x3),
 through ``repro_torch.kernels.ops`` where it dispatches them (untuned:
-kernel A's ``pipeline="blocks"``), on the same inputs (five shapes,
+kernel A's ``pipeline="blocks"``), and the dma kernels A-dma, A8-dma,
+A16-dma and A3-dma pinned (their wrappers called at every shape, inside
+the fused envelope or not), on the same inputs (five shapes,
 generated on the card from fixed seeds), in a process of its own; the
 outputs are compared bit for bit, except B16's and B3's: kernels B16 and
 B3 sum their f32 dots on the tensor cores, in an order of their own, so
@@ -89,7 +91,14 @@ def dump(src: str, out: str) -> None:
                                                   precision=prec),
                 f"D{tag} {shape}": ops.fused_step_batched(
                     xb, cb, impl="cuda", precision=prec),
+                f"A{tag}-dma {shape}": fused_step.fused_step_16(
+                    x, c, prec, pipeline="dma"),
             })
+        results.update({   # the dma kernels pinned, at every shape
+            f"A-dma {shape}": fused_step.fused_step_f32(x, c, pipeline="dma"),
+            f"A8-dma {shape}": fused_step.fused_step_int8(qx, c,
+                                                          pipeline="dma"),
+        })
     torch.cuda.synchronize()
     torch.save({key: tuple(t.cpu() for t in val)
                 for key, val in results.items()}, out)
