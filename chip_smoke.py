@@ -102,6 +102,24 @@ Phases, each printing JSON lines:
    ``at_two_pass_shape``, B's at an ``evaluate`` batch of that data as
    ``at_two_pass_evaluate_batch``).
 
+7. streaming — ``fit("data.npy", cfg)`` out of core: phase 4's mixture
+   written to an ``.npy`` in a temporary directory by ``gmm_memmap`` (its
+   rows checked equal to phase 4's ``X``), streamed at k = 25,
+   s = 64,000, 32 chunks, at ``batch=1`` and ``batch=8, sync_every=2``
+   under each policy: A· / D· launches equal the Lloyd iterations (per
+   window, from a replay through ``run_stream``), the plain twin takes the
+   same accepts up to a near tie and reaches the full-data objective
+   within 1e-3, each policy within 1 % of f32; ``prefetch=0`` and a
+   slowed consumer (host and card held back on each chunk) bitwise the
+   prefetched fit; a ``ProviderSource`` and an ``IteratorSource`` over the
+   same chunks and ``autotune=True`` bitwise the path fit;
+   ``evaluate(res, path)`` equal to ``evaluate(res, X)``.  Then the
+   breakdown: the pipeline's fetch, staging, copy (CUDA events on the copy
+   stream) and wait ms per chunk, the fetch alone and the compute alone
+   beside both, prefetch 2 and 0 in turns, the in-core and the streaming
+   fit + evaluate in turns, the card's idle share over a
+   warm fit (``torch.profiler``) and the host syncs of a fit by line.
+
 Then the one ``{"kernels": [...]}`` line, the card's name and power limit,
 and the final ``{"ok": true, "device": {...}}`` line.  Any failed check raises.
 It needs a CUDA card and the repository's ``src`` beside it.
@@ -114,23 +132,31 @@ import json
 import math
 import pstats
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import random as rnd  # noqa: E402
-from repro_torch.api import BigMeansConfig, evaluate, fit  # noqa: E402
+from repro_torch.api import (  # noqa: E402
+    BigMeansConfig, MemmapSource, ProviderSource, evaluate, fit,
+)
 from repro_torch.core import big_means_batched  # noqa: E402
 from repro_torch.core.objective import EVAL_BATCH  # noqa: E402
 from repro_torch.data.synthetic import (  # noqa: E402
-    PAPER_DATASETS, GMMSpec, gmm_dataset,
+    PAPER_DATASETS, GMMSpec, gmm_dataset, gmm_memmap,
 )
+from repro_torch.engine import middleware as mw  # noqa: E402
+from repro_torch.engine import stream  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     autotune, build, distance, fused_step, ops, ref,
 )
@@ -2308,6 +2334,310 @@ def device_share(path: str, times: dict, launches: dict, n_eval: int,
           "kernel_share_estimate": s / wall})
 
 
+# --------------------------------------------------------------------------
+# phase 7: the streaming strategy at HEPMASS scale, out of core
+# --------------------------------------------------------------------------
+
+STREAM_MODES = {"sequential": {},
+                "batched": dict(batch=BATCH, sync_every=SYNC_EVERY)}
+GPU_SLEEP_CYCLES = 20_000_000   # ~10 ms of one SM's clock a chunk
+
+
+class Windows(mw.Middleware):
+    """Records each window's per-stream f_new, accepts and iterations."""
+
+    def __init__(self):
+        self.rows = []
+
+    def after_window(self, ctx):
+        info = ctx.info
+        self.rows.append([t.reshape(-1).tolist() for t in (
+            info.f_new, info.accepted, info.lloyd_iters)])
+
+    def trace(self):
+        """Round-major ``(i, f_new, accepted)`` as a fit's trace."""
+        flat = [(f, a) for fs, acc, _ in self.rows for f, a in zip(fs, acc)]
+        return [(i, f, bool(a)) for i, (f, a) in enumerate(flat)]
+
+    def fused_launches(self) -> int:
+        """Launches of A· (B = 1) or D·: one per iteration of the slowest
+        stream of each window."""
+        return sum(max(its) for _, _, its in self.rows)
+
+
+class SlowConsumer(mw.Middleware):
+    """Holds the consumer back on each chunk, on the host and on the
+    card's compute stream, so the prefetch worker runs ahead."""
+
+    def transform_chunk(self, ctx, cid, chunk):
+        time.sleep(0.02)
+        torch.cuda._sleep(GPU_SLEEP_CYCLES)
+        return chunk
+
+
+def run_path(path: str, cfg, *extra_middlewares):
+    """``fit(path, cfg)``'s run through ``run_stream`` directly, with
+    ``extra_middlewares`` after the default stack."""
+    fetch = MemmapSource(path).provider(
+        cfg.s, seed=cfg.seed, with_replacement=cfg.with_replacement)
+    stack = [*mw.default_stack(cfg), *extra_middlewares]
+    return stream.run_stream(fetch, cfg, n_features=PAPER_DATASETS[
+        "hepmass"][1], middlewares=stack)
+
+
+def same_state(state, res, what: str) -> None:
+    check(torch.equal(state.centroids, res.centroids)
+          and float(state.f_best) == res.objective, f"{what} differs")
+
+
+def same_stream_fit(res, want, what: str) -> None:
+    check(torch.equal(res.centroids, want.centroids)
+          and res.objective == want.objective and res.trace == want.trace
+          and res.n_iterations == want.n_iterations
+          and res.n_accepted == want.n_accepted, f"{what} differs")
+
+
+def stream_launches(prec: str, name: str, fused: int, n_chunks: int,
+                    n_eval: int) -> dict:
+    """A streaming fit + ``evaluate``'s launches: ``fused`` of the policy's
+    A· (sequential) or D· (batched), one epilogue a chunk, ``n_eval``
+    evaluate batches."""
+    kind = "fused_step" if name == "sequential" else "fused_step_batched"
+    want = {COUNTS[f"{kind}_{prec}"]: fused}
+    if prec in POLICIES16:
+        want.update(epilogue_launches(prec, n_chunks, n_eval))
+    else:
+        want.update(update=n_chunks, assign=n_chunks + n_eval)
+    return want
+
+
+def mean(xs) -> float | None:
+    return sum(xs) / len(xs) if xs else None
+
+
+def pipeline_row(res) -> dict:
+    """Per-chunk means of the prefetch pipeline's times (ms)."""
+    p = res.extras["pipeline"]
+    return {f"{key}_mean": mean(p[key]) for key in p} | {
+        "chunks_staged": len(p["fetch_ms"]),
+        "wait_ms_total": sum(p["wait_ms"])}
+
+
+def device_busy(run) -> dict:
+    """Wall, and the union of the card's activity (kernels and copies) by
+    ``torch.profiler`` over one ``run()``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    for lo, hi in spans:
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "device_events": len(spans),
+            "device_idle_share": (1.0 - busy / wall_us) if spans else None}
+
+
+def host_syncs(run) -> dict:
+    """Synchronizing CUDA calls of one ``run()`` by the line that made them
+    (``torch.cuda.set_sync_debug_mode("warn")``)."""
+    import collections
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = collections.Counter(
+        f"{Path(w.filename).name}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    return {"total": sum(sites.values()), "by_line": dict(sites)}
+
+
+def phase_streaming(X, seed: int, in_core: dict) -> dict:
+    """Phase 7.  The HEPMASS mixture written to an ``.npy`` by the port's
+    ``gmm_memmap`` (rows checked equal to phase 4's ``X``), then
+    ``fit(path, cfg)`` at ``batch=1`` and ``batch=8, sync_every=2`` under
+    each policy: launches, the plain twin, the policy's drift from f32;
+    prefetch=2 bitwise prefetch=0 and a slowed consumer; the provider and
+    iterator adapters and ``autotune=True`` bitwise the path fit; the
+    pipeline's breakdown.  ``in_core``: {mode: (fit wall s, fit + evaluate
+    wall s)} of phases 4 and 5.  Returns {path: (launches, wall)}."""
+    m, n = X.shape
+    spec = GMMSpec(m=m, n=n, components=25, seed=seed)
+    n_eval = math.ceil(m / EVAL_BATCH)
+    card = nvidia_smi()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_stream_"))
+    paths = {}
+    try:
+        path = str(tmp / "hepmass.npy")
+        t0 = time.monotonic()
+        gmm_memmap(spec, path, device="cuda")
+        write_s = time.monotonic() - t0
+        mm = np.load(path, mmap_mode="r")
+        for lo in range(0, m, 1 << 20):
+            hi = min(lo + (1 << 20), m)
+            rows = torch.from_numpy(np.array(mm[lo:hi])).cuda()
+            check(torch.equal(rows, X[lo:hi]),
+                  f"file rows {lo}:{hi} differ from phase 4's X")
+        del mm, rows
+        emit({"phase": "streaming_data", "path_bytes": Path(path).stat()
+              .st_size, "write_s": write_s, "rows_equal_in_core_X": True,
+              "page_cache": True, "card": card})
+
+        base = BigMeansConfig(k=25, s=64_000, n_chunks=32, seed=seed)
+        fit(path, base.replace(n_chunks=2, seed=seed + 1))     # warm
+        results, f_f32 = {}, {}
+        for prec in POLICIES:
+            for name, extra in STREAM_MODES.items():
+                cfg = base.replace(precision=prec, **extra)
+                ops.reset_launch_counts()
+                t0 = time.monotonic()
+                res = fit(path, cfg)
+                ids, f_full = evaluate(res, X)
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t0
+                launches = ops.launch_counts()
+                check(res.strategy == "streaming" and res.extras["auto"],
+                      f"fit(path) ran {res.strategy}")
+                fit_checks(res, X, ids, f_full, cfg.k, prec)
+                h = res.extras["health"]
+                check(h["chunks_done"] == h["chunks_fetched"]
+                      == cfg.n_chunks == res.n_chunks, f"stream health {h}")
+
+                windows = Windows()
+                state, _ = run_path(path, cfg, windows)
+                same_state(state, res, f"{prec} {name}: run_stream replay")
+                want = dict.fromkeys(launches, 0)
+                want.update(stream_launches(prec, name,
+                                            windows.fused_launches(),
+                                            cfg.n_chunks, n_eval))
+                check(launches == want,
+                      f"{prec} {name} streaming launches {launches} != "
+                      f"{want}")
+                check(sum(i for _, _, its in windows.rows for i in its)
+                      == res.n_iterations, "iterations")
+
+                ref_windows = Windows()
+                state_ref, _ = run_path(path, cfg.replace(impl="ref"),
+                                        ref_windows)
+                _, f_full_ref = evaluate(state_ref.centroids, X, impl="ref")
+                rel = abs(f_full - f_full_ref) / f_full_ref
+                b, t = extra.get("batch", 1), extra.get("sync_every", 1)
+                parting = check_accepts(
+                    types.SimpleNamespace(trace=windows.trace()),
+                    types.SimpleNamespace(trace=ref_windows.trace()), b, t)
+                if prec == "f32":
+                    f_f32[name] = f_full
+                drift = (f_full - f_f32[name]) / f_f32[name]
+                results[prec, name] = res
+                paths[f"streaming_{prec}_{name}"] = (launches, wall)
+                emit({"phase": "streaming", "precision": prec, "run": name,
+                      "m": m, "n": n, "k": cfg.k, "s": cfg.s,
+                      "n_chunks": cfg.n_chunks, "f_best": res.objective,
+                      "f_full": f_full, "n_accepted": res.n_accepted,
+                      "n_iterations": res.n_iterations, "wall_s": wall,
+                      "fit_wall_s": res.wall_time_s,
+                      "in_core_fit_wall_s": in_core[name][0] if prec ==
+                      "f32" else None,
+                      "in_core_wall_s": in_core[name][1] if prec == "f32"
+                      else None,
+                      "launches": launches, "pipeline": pipeline_row(res),
+                      "ref": {"f_full": f_full_ref},
+                      "f_full_rel_diff": rel, "first_parting": parting,
+                      f"{prec}_vs_f32_f_full_drift": drift,
+                      "page_cache": True, "card": card})
+                check(rel <= 1e-3, f"{prec} {name} streaming full "
+                      f"objectives differ by {rel:.3e} (> 1e-3)")
+                check(abs(drift) <= 1e-2, f"{prec} {name} streaming full "
+                      f"objective drifts {drift:.3e} from f32's (> 1 %)")
+
+        # bitwise: prefetch=0, and a slowed consumer, against prefetch=2
+        for prec in POLICIES:
+            for name, extra in STREAM_MODES.items():
+                if name == "batched" and prec != "f32":
+                    continue
+                cfg = base.replace(precision=prec, **extra)
+                res = results[prec, name]
+                same_stream_fit(fit(path, cfg, prefetch=0), res,
+                                f"{prec} {name} prefetch=0")
+                state, _ = run_path(path, cfg, SlowConsumer())
+                same_state(state, res, f"{prec} {name} slowed consumer")
+        # the adapters over the same chunks, and the tuned fit
+        for name, extra in STREAM_MODES.items():
+            cfg = base.replace(**extra)
+            res = results["f32", name]
+            fetch = MemmapSource(path).provider(cfg.s, seed=cfg.seed)
+            same_stream_fit(fit(ProviderSource(fetch, n_features=n), cfg),
+                            res, f"{name} ProviderSource")
+            same_stream_fit(fit((fetch(c) for c in range(cfg.n_chunks)), cfg,
+                                n_features=n), res, f"{name} IteratorSource")
+            autotune.clear()
+            same_stream_fit(fit(path, cfg, autotune=True), res,
+                            f"{name} autotune=True")
+            autotune.clear()
+        # evaluate() on the path loads the file: the same objective
+        res = results["f32", "sequential"]
+        _, f_path = evaluate(res, path)
+        _, f_x = evaluate(res, X)
+        check(f_path == f_x, f"evaluate(path) {f_path} != evaluate(X) {f_x}")
+        emit({"phase": "streaming_checks", "prefetch0_bitwise": True,
+              "slowed_consumer_bitwise": True, "adapters_bitwise": True,
+              "autotune_bitwise": True, "evaluate_path_equal": True})
+
+        # the breakdown at f32: fetch alone, compute alone, both
+        cfg = base
+        fetch = MemmapSource(path).provider(cfg.s, seed=cfg.seed)
+        t0 = time.perf_counter()
+        chunks = [fetch(c) for c in range(cfg.n_chunks)]
+        fetch_alone_s = time.perf_counter() - t0
+        compute = [fit(ProviderSource(lambda c: chunks[c], n_features=n),
+                       cfg).wall_time_s for _ in range(2)]
+        del chunks
+        turns = {"prefetch2": [], "prefetch0": []}
+        for p in ("prefetch2", "prefetch0", "prefetch0", "prefetch2"):
+            r = fit(path, cfg, prefetch=int(p[-1]))
+            turns[p].append({"fit_wall_s": r.wall_time_s,
+                             **pipeline_row(r)})
+        in_turns = {"in_core": [], "streaming": []}    # fit + evaluate
+        for kind in ("in_core", "streaming", "streaming", "in_core"):
+            t0 = time.monotonic()
+            r = fit(X if kind == "in_core" else path, cfg)
+            evaluate(r, X)
+            torch.cuda.synchronize()
+            in_turns[kind].append({"fit_wall_s": r.wall_time_s,
+                                   "wall_s": time.monotonic() - t0})
+        for name, extra in STREAM_MODES.items():
+            c = cfg.replace(**extra)
+            emit({"phase": "streaming_profile", "run": name, "card": card,
+                  **device_busy(lambda: fit(path, c))})
+        emit({"phase": "streaming_host_syncs", "run": "sequential",
+              "chunks": cfg.n_chunks, **host_syncs(lambda: fit(path, cfg))})
+        emit({"phase": "streaming_breakdown", "run": "sequential",
+              "fetch_alone_s": fetch_alone_s,
+              "fetch_alone_ms_per_chunk": 1e3 * fetch_alone_s
+              / cfg.n_chunks, "compute_alone_fit_wall_s": compute,
+              "turns": turns, "in_turns_with_in_core": in_turns,
+              "in_core_fit_wall_s": in_core["sequential"][0],
+              "page_cache": True, "card": card})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return paths
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2379,6 +2709,10 @@ def main() -> int:
 
     # phase 6: times
     times = phase_times(X, res, args.seed)
+    # phase 7: the streaming strategy, fit("data.npy") out of core
+    paths.update(phase_streaming(X, args.seed, {
+        "sequential": (res.wall_time_s, wall),
+        "batched": (res_b.wall_time_s, wall_b)}))
     n_eval = math.ceil(X.shape[0] / EVAL_BATCH)
     for path, (counts, path_wall) in paths.items():
         device_share(path, times, counts, n_eval, path_wall)

@@ -13,11 +13,18 @@
     result = fit(X, cfg, precision="bf16x3")            # 3 bf16 products
     result = fit(X.bfloat16(), cfg)                     # 'auto': bf16
     result = fit(X, cfg, autotune=True)                 # tuned launches
+    result = fit("data.npy", cfg)                       # streamed from disk
+    result = fit(provider, cfg, n_features=28)          # chunk_id -> [s, n]
+    ids, f = evaluate(result, "data.npy")               # loads the file
 
 ``fit`` runs on the CUDA device unless ``device="cpu"`` is passed, and
 raises ``RuntimeError`` when no CUDA device is present and the CPU was not
-asked for.  Strategies, sources and knobs that this slice does not port
-raise ``NotImplementedError`` naming their ROADMAP item.
+asked for.  An ``.npy`` path, a provider callable or a chunk iterator runs
+the ``streaming`` strategy (:mod:`repro_torch.engine.stream`): chunks are
+fetched on a worker thread and staged onto the card through pinned
+buffers on a copy stream, so the data never has to fit on the device.
+Strategies and knobs that the port does not run yet raise
+``NotImplementedError`` naming their ROADMAP item.
 
 ``autotune=True`` times the launch choices of the fit's kernels at its
 shapes before it runs (:func:`_pretune`) and caches the winners
@@ -37,8 +44,10 @@ from repro_torch import random as rnd
 from repro_torch.api import strategies as strategies
 from repro_torch.api.config import BigMeansConfig
 from repro_torch.api.result import FitResult
-from repro_torch.api.sources import ArraySource, DataSource, MemmapSource, \
-    as_source
+from repro_torch.api.sources import (
+    ArraySource, DataSource, IteratorSource, MemmapSource, ProviderSource,
+    as_source,
+)
 from repro_torch.api.strategies import (
     get_strategy, list_strategies, register_strategy, resolve_auto,
 )
@@ -48,7 +57,8 @@ from repro_torch.kernels import precision as px
 
 __all__ = [
     "ArraySource", "BigMeansConfig", "DataSource", "FitResult",
-    "MemmapSource", "as_source", "evaluate", "fit", "get_strategy",
+    "IteratorSource", "MemmapSource", "ProviderSource", "as_source",
+    "evaluate", "fit", "get_strategy",
     "list_strategies", "register_strategy", "resolve_auto",
     "strategies", "synthetic",
 ]
@@ -106,19 +116,26 @@ def fit(
     key=None,
     rng=None,
     device=None,
+    n_features: int | None = None,
     **overrides,
 ) -> FitResult:
     """Cluster ``data`` and return a :class:`FitResult`.
 
-    * ``data`` — a 2-D numpy array or torch tensor, or an ``.npy`` path.
+    * ``data`` — anything :func:`as_source` accepts: a 2-D numpy array or
+      torch tensor, an ``.npy`` path, a ``provider(chunk_id)`` callable, a
+      chunk iterator, or a source.
     * ``config`` — a :class:`BigMeansConfig`; ``overrides`` are applied on
       top (or, with no config, must include at least ``k`` and ``s``).
-    * ``method`` — ``'auto'``, ``'sequential'`` or ``'batched'`` (``'auto'``
-      picks ``'batched'`` when ``batch > 1``).
+    * ``method`` — ``'auto'``, ``'sequential'``, ``'batched'`` or
+      ``'streaming'`` (``'auto'`` picks ``'streaming'`` for an ``.npy``
+      path, a provider or an iterator, else ``'batched'`` when
+      ``batch > 1``, else ``'sequential'``).
     * ``rng`` — the key-tree backend (:class:`repro_torch.random.TorchRNG`
       by default); ``key`` defaults to ``rng.key(config.seed)``.
     * ``device`` — ``None`` runs on the CUDA device; ``'cpu'`` runs the
       plain PyTorch path on the CPU.
+    * ``n_features`` — feature count, only needed for provider / iterator
+      data whose first chunk should not be probed eagerly.
 
     ``wall_time_s`` covers the run, the kernels' build at first use
     included, and not the pre-tuning of ``autotune=True``.  Autotune cache
@@ -135,7 +152,7 @@ def fit(
     else:
         cfg = config.replace(**overrides) if overrides else config
     dev = devices.resolve(device)
-    source = as_source(data)
+    source = as_source(data, n_features=n_features)
     fn = _resolve_method(method)
     rng = rnd.TORCH if rng is None else rng
     if key is None:
@@ -176,8 +193,10 @@ def evaluate(result_or_centroids, data, *, device=None, impl: str = "auto"
              ) -> tuple[torch.Tensor, float]:
     """Full-data evaluation: ``(assignments [m], objective f(C, X))``.
 
-    Streams the data through ``full_assignment`` in 262,144-row batches
-    (kernel B on the card).  Runs on the CUDA device unless ``device="cpu"``.
+    Loads the data onto the device (an ``.npy`` path whole, as the
+    reference does) and streams it through ``full_assignment`` in
+    262,144-row batches (kernel B on the card).  Runs on the CUDA device
+    unless ``device="cpu"``.
     """
     from repro_torch.core.objective import full_assignment
 

@@ -5,10 +5,15 @@ The same fields, defaults and validation as the reference's
 raises ``NotImplementedError`` here, naming the ROADMAP item that brings it,
 so that no knob is silently ignored:
 
-* ``ckpt_dir`` / ``time_budget_s`` / ``vns_ladder`` /
-  ``scheduler != 'uniform'`` (queue 1 item 6), ``topology`` other than
+* ``time_budget_s`` / ``vns_ladder`` / ``scheduler != 'uniform'``
+  (queue 1 item 6b, faults and middleware), ``ckpt_dir`` (item 6c,
+  checkpoints), ``topology`` other than
   ``'auto'``/``'single'`` and ``mesh`` — ``'stream_mesh'`` included, so a
-  batched fit runs its streams on one device — (queue 1 item 8).
+  batched fit runs its streams on one device — (item 8).
+
+The streaming runner's own knobs (``prefetch``, ``log_every``,
+``retries``, ``retry_backoff_s``, ``fetch_timeout_s``,
+``validate_chunks``) are ported with the streaming strategy.
 
 ``autotune=True`` tunes the launch choices of the fit's kernels on the
 card before it runs (:mod:`repro_torch.kernels.autotune`: kernel A's
@@ -159,13 +164,14 @@ class BigMeansConfig:
 
     def _check_ported(self, kind: str) -> None:
         if self.ckpt_dir is not None:
-            raise _not_ported("ckpt_dir (checkpointing)", "6")
+            raise _not_ported("ckpt_dir (checkpoints)", "6c")
         if self.time_budget_s is not None:
-            raise _not_ported("time_budget_s (the streaming runner)", "6")
+            raise _not_ported("time_budget_s (the TimeBudget middleware)",
+                              "6b")
         if self.vns_ladder:
-            raise _not_ported("vns_ladder (the streaming runner)", "6")
+            raise _not_ported("vns_ladder (the VNSLadder middleware)", "6b")
         if self.scheduler != "uniform":
-            raise _not_ported(f"scheduler={self.scheduler!r}", "6")
+            raise _not_ported(f"scheduler={self.scheduler!r}", "6b")
         if kind not in ("auto", "single") or self.mesh is not None:
             raise _not_ported(
                 f"topology={kind!r} / mesh (multi-device runs)", "8")

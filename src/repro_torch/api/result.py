@@ -17,15 +17,24 @@ class FitResult:
     * ``centroids`` — [k, n] float32 cluster centers (torch tensor).
     * ``objective`` — f(C, P) on the winning chunk (a sum over ``s`` points);
       :func:`repro_torch.api.evaluate` gives the full-data f(C, X).
-    * ``strategy`` — the strategy that ran ("sequential" or "batched").
+    * ``strategy`` — the strategy that ran ("sequential", "batched" or
+      "streaming").
     * ``n_chunks`` / ``n_accepted`` / ``n_iterations`` — chunks processed,
       incumbent improvements, total Lloyd iterations.
     * ``n_dist_evals`` — the paper's analytic n_d counter.
     * ``trace`` — ``(chunk_idx, f_new, accepted)`` triples (round-major
-      under ``batched``).
+      under ``batched``).  Under ``streaming``: ``(chunk_id, f_best,
+      f_new)`` progress entries every ``log_every`` chunks, and the
+      runner's events — ``("fetch_error", chunk_id, "ExcType: message")``,
+      ``("quarantine", chunk_id, reason)``, ``("short_chunk", chunk_id,
+      rows, need)``.
     * ``extras`` — ``extras["fit"]`` records how the fit was dispatched,
       the impl and device actually used included; ``batched`` adds
-      ``batch`` and ``rounds``.
+      ``batch`` and ``rounds``; ``streaming`` adds ``chunks_failed``,
+      ``chunks_dropped``, ``chunks_quarantined``, ``health`` (``done +
+      failed + dropped + quarantined == fetched``) and ``pipeline`` (the
+      prefetch pipeline's per-chunk times,
+      :class:`repro_torch.engine.stream.RunnerMetrics`).
     """
 
     centroids: Any

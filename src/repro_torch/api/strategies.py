@@ -4,9 +4,12 @@ The reference registers ``sequential``, ``batched``, ``sharded`` and
 ``streaming`` behind ``fit(config, source, key) -> FitResult`` and resolves
 ``auto`` from the config, the source and the devices.  The port runs
 ``sequential`` — the paper's Algorithm 3 — ``batched`` — B incumbent
-streams on one device — and ``auto``; the other strategies raise
-``NotImplementedError`` naming their ROADMAP item.  ``auto`` resolves over
-the one device the caller gave: an in-core source goes to ``batched`` when
+streams on one device — ``streaming`` — the out-of-core loop over chunks
+fetched from the source (:mod:`repro_torch.engine.stream`) — and ``auto``;
+``sharded`` raises ``NotImplementedError`` naming its ROADMAP item.
+``auto`` resolves over the one device the caller gave: an out-of-core or
+stream-preferring source (an ``.npy`` path, a provider callable, a chunk
+iterator) goes to ``streaming``, an in-core one to ``batched`` when
 ``batch > 1`` and to ``sequential`` otherwise.
 """
 from __future__ import annotations
@@ -24,7 +27,6 @@ StrategyFn = Callable[..., FitResult]
 _STRATEGIES: dict[str, StrategyFn] = {}
 
 NOT_PORTED = {
-    "streaming": "ROADMAP queue 1 item 6",
     "sharded": "ROADMAP queue 1 item 8",
 }
 
@@ -90,7 +92,8 @@ def _fit_sequential(cfg: BigMeansConfig, source: DataSource, key, *, rng,
     if not source.in_core:
         raise TypeError(
             f"strategy 'sequential' needs in-core data, got "
-            f"{type(source).__name__}")
+            f"{type(source).__name__}; use the 'streaming' strategy (or "
+            "'auto', which picks it)")
     state, infos = bigmeans.big_means(
         source.as_array(), key, k=cfg.k, s=cfg.s, n_chunks=cfg.n_chunks,
         max_iters=cfg.max_iters, tol=cfg.tol, candidates=cfg.candidates,
@@ -117,7 +120,8 @@ def _fit_batched(cfg: BigMeansConfig, source: DataSource, key, *, rng,
     if not source.in_core:
         raise TypeError(
             f"strategy 'batched' needs in-core data, got "
-            f"{type(source).__name__}")
+            f"{type(source).__name__}; use the 'streaming' strategy (or "
+            "'auto', which picks it)")
     state, infos = bigmeans.big_means_batched(
         source.as_array(), key, k=cfg.k, s=cfg.s, batch=cfg.batch,
         rounds=rounds, sync_every=sync_every, max_iters=cfg.max_iters,
@@ -128,13 +132,63 @@ def _fit_batched(cfg: BigMeansConfig, source: DataSource, key, *, rng,
                               batch=cfg.batch, rounds=rounds)
 
 
+@register_strategy("streaming")
+def _fit_streaming(cfg: BigMeansConfig, source: DataSource, key, *, rng,
+                   device) -> FitResult:
+    from repro_torch.engine import scheduler as sched_lib
+    from repro_torch.engine import stream
+    from repro_torch.kernels import precision as px
+
+    scheduler = sched_lib.get_scheduler(cfg.scheduler, cfg)
+    provider = source.provider(cfg.s, seed=cfg.seed,
+                               with_replacement=cfg.with_replacement)
+    # 'auto' follows the source's dtype (bf16 for a bf16 tensor); the
+    # loop stages its chunks in that policy's storage
+    prec = px.resolve(cfg.precision, source.data_dtype)
+    run_cfg = cfg if cfg.precision == prec else cfg.replace(precision=prec)
+    state, metrics = stream.run_stream(
+        provider, run_cfg, n_features=source.n_features, key=key,
+        scheduler=scheduler, rng=rng, device=device)
+    extras = {"chunks_failed": metrics.chunks_failed,
+              "chunks_dropped": metrics.chunks_dropped,
+              "chunks_quarantined": metrics.chunks_quarantined}
+    # Run-health summary: the reconciliation contract in one record —
+    # done + failed + dropped + quarantined == chunks fetched.
+    extras["health"] = {
+        "chunks_done": metrics.chunks_done,
+        "chunks_failed": metrics.chunks_failed,
+        "chunks_dropped": metrics.chunks_dropped,
+        "chunks_quarantined": metrics.chunks_quarantined,
+        "chunks_fetched": (metrics.chunks_done + metrics.chunks_failed
+                           + metrics.chunks_dropped
+                           + metrics.chunks_quarantined),
+        "quarantine_reasons": [
+            (t[1], t[2]) for t in metrics.trace if t[0] == "quarantine"],
+    }
+    extras["pipeline"] = metrics.pipeline
+    return FitResult(
+        centroids=state.centroids,
+        objective=float(state.f_best),
+        algorithm="big_means",
+        strategy="streaming",
+        n_chunks=metrics.chunks_done,
+        n_accepted=metrics.accepted,
+        n_iterations=metrics.lloyd_iters,
+        n_dist_evals=float(state.n_dist_evals),
+        wall_time_s=metrics.wall_time_s,
+        trace=list(metrics.trace),
+        config=cfg,
+        extras=extras,
+    )
+
+
 def resolve_auto(cfg: BigMeansConfig, source: DataSource) -> str:
     """Pick a strategy as the reference does, over one device.
 
-    Out-of-core or stream-preferring sources go to ``streaming`` (not
-    ported: ``fit`` then raises); ``batch > 1`` goes to ``batched``;
-    everything else to ``sequential`` (multi-device topologies and the
-    runner-only knobs already raise in the config).
+    Out-of-core or stream-preferring sources go to ``streaming``;
+    ``batch > 1`` goes to ``batched``; everything else to ``sequential``
+    (multi-device topologies and the runner-only knobs of queue 1 items
+    6b, 6c and 8 still raise in the config).
     """
     if not source.in_core or source.prefers_streaming:
         return "streaming"

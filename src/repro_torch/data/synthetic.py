@@ -2,7 +2,9 @@
 
 Gaussian-mixture surrogates with the paper datasets' (m, n), as in the
 reference.  Generation is chunk-streamable: :func:`gmm_chunk` produces the
-same rows for a ``(spec, chunk_id)`` however many chunks are made at once.
+same rows for a ``(spec, chunk_id)`` however many chunks are made at once,
+so :func:`gmm_dataset` (in core) and :func:`gmm_memmap` (an ``.npy`` file
+for the streaming strategy) hold the same rows.
 The rows are the port's own (``torch.Generator`` on the target device), not
 the reference's ``jax.random`` rows: tests that compare the two packages
 hand both the same numpy data instead.
@@ -11,6 +13,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch import device as devices
@@ -66,6 +69,25 @@ def gmm_dataset(spec: GMMSpec, *, device=None) -> torch.Tensor:
         out[lo:hi] = gmm_chunk(spec, i, _GEN_CHUNK, device=dev,
                                params=params)[: hi - lo]
     return out
+
+
+def gmm_memmap(spec: GMMSpec, path: str, *, device=None) -> str:
+    """Write the dataset to an on-disk ``.npy`` file, one generation chunk
+    at a time (bounded host memory), through
+    ``np.lib.format.open_memmap``.  The rows are generated on ``device``
+    exactly as :func:`gmm_dataset` generates them there, so the file holds
+    byte for byte the rows of the in-core dataset.  Returns ``path``."""
+    dev = devices.resolve(device)
+    params = _component_params(spec, dev)
+    out = np.lib.format.open_memmap(
+        path, mode="w+", dtype=np.float32, shape=(spec.m, spec.n))
+    for i, lo in enumerate(range(0, spec.m, _GEN_CHUNK)):
+        hi = min(lo + _GEN_CHUNK, spec.m)
+        out[lo:hi] = gmm_chunk(spec, i, _GEN_CHUNK, device=dev,
+                               params=params)[: hi - lo].cpu().numpy()
+    out.flush()
+    del out
+    return path
 
 
 # (m, n) signatures of the paper's datasets (Table 1), used as surrogate

@@ -40,6 +40,17 @@ def to_dtype(X, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     return torch.as_tensor(X).to(device=device, dtype=dtype).contiguous()
 
 
+def host_array(x, dtype) -> np.ndarray:
+    """An array, or a tensor on any device, as a numpy array of ``dtype``
+    (bf16 tensors through f32, which holds them exactly)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            x = x.float()
+        x = x.numpy()
+    return np.asarray(x, dtype=dtype)
+
+
 def data_dtype(X) -> torch.dtype:
     """The dtype the in-core loops read ``X`` as: a tensor's own, f32 for
     anything else (numpy has no bf16, so a bf16 dataset is a tensor)."""

@@ -1,2 +1,3 @@
 """Execution engine of the port: the in-core sequential and batched loops
-(``incore``) and the sync policies (``sync``)."""
+(``incore``), the out-of-core stream loop (``stream``) with its middleware,
+fault vocabulary and scheduler, and the sync policies (``sync``)."""

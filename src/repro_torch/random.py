@@ -7,6 +7,8 @@ backend object with this interface:
 
 * ``key(seed)`` — the root key of a run;
 * ``split(key, n=2)`` — ``n`` child keys;
+* ``fold_in(key, data)`` — the child key for the integer ``data`` (the
+  streaming loop's per-chunk keys: ``fold_in(key, chunk_id)``);
 * ``randint(key, shape, lo, hi, device)`` — int64 in ``[lo, hi)``;
 * ``gumbel(key, shape, device)`` — float32 standard Gumbel noise;
 * ``choice(key, n, size, device)`` — ``size`` distinct ints of ``[0, n)``.
@@ -40,8 +42,9 @@ class TorchRNG:
         return _mix(int(seed) & _MASK)
 
     def fold_in(self, key: int, data: int) -> int:
-        """The child key number ``data`` (``split(key, n)[i] ==
-        fold_in(key, i)``)."""
+        """The child key number ``data``; here ``split(key, n)[i] ==
+        fold_in(key, i)``.  A backend that replays ``jax.random`` calls
+        its ``fold_in`` and its ``split``, whatever their relation."""
         return _mix(key ^ _mix(int(data) + 1))
 
     def split(self, key: int, n: int = 2) -> list[int]:

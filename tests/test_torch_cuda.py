@@ -928,3 +928,61 @@ def test_autotuned_fit_bitwise_untuned_on_card(_tuner, batch, precision):
     assert not _tuner.enabled()
     assert torch.equal(tuned.centroids, plain.centroids)
     assert tuned.trace == plain.trace
+
+
+def _slow_consumer():
+    """A middleware that holds the stream loop's consumer back on each
+    chunk, on the host and on the card's compute stream, so the prefetch
+    worker runs ahead."""
+    import time
+
+    from repro_torch.engine import middleware as mw
+
+    class SlowConsumer(mw.Middleware):
+        def transform_chunk(self, ctx, cid, chunk):
+            time.sleep(0.005)
+            torch.cuda._sleep(5_000_000)
+            return chunk
+
+    return SlowConsumer()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "int8", "bf16", "bf16x3"])
+@pytest.mark.parametrize("batch", [1, 4], ids=["fold", "persistent"])
+def test_streaming_prefetch_bitwise_sync_on_card(tmp_path, batch, precision):
+    """The pinned-buffer pipeline on the copy stream changes nothing:
+    fit(path) with prefetch=2 is bitwise prefetch=0, also with a consumer
+    held back on every chunk, and the chunks it stages are the provider's
+    (bf16: its bits; int8: the dequantized codes)."""
+    _card()
+    from repro_torch import api
+    from repro_torch.data.synthetic import GMMSpec, gmm_memmap
+    from repro_torch.engine import middleware as mw
+    from repro_torch.engine import stream
+
+    path = str(tmp_path / "x.npy")
+    gmm_memmap(GMMSpec(m=200_000, n=28, components=25, seed=2), path)
+    cfg = api.BigMeansConfig(k=25, s=8192, n_chunks=12, batch=batch,
+                             sync_every=2, precision=precision, log_every=1)
+    fetched = api.fit(path, cfg)
+    assert fetched.strategy == "streaming"
+    assert len(fetched.extras["pipeline"]["copy_ms"]) == 12
+    serial = api.fit(path, cfg, prefetch=0)
+    fetch = api.MemmapSource(path).provider(cfg.s, seed=cfg.seed)
+    slow, _ = stream.run_stream(
+        fetch, cfg, n_features=28,
+        middlewares=[*mw.default_stack(cfg), _slow_consumer()])
+    for other in (serial.centroids, slow.centroids):
+        assert torch.equal(other, fetched.centroids)
+    assert serial.trace == fetched.trace
+    assert float(slow.f_best) == fetched.objective
+
+    arr = fetch(3)
+    stats = stream.RunnerMetrics().pipeline
+    st = stream._Stager(torch.device("cuda"), precision, stats)
+    got = st.ship(st.prepare(arr)).take()
+    plain = stream._Stager(torch.device("cpu"), precision, stats)
+    want = plain.ship(plain.prepare(arr)).take()
+    assert got.is_cuda and got.dtype == want.dtype
+    assert torch.equal(got.cpu(), want)

@@ -85,8 +85,8 @@ def test_per_chunk_lloyd_iterations_match_reference(case):
 
 
 def test_fit_from_npy_path(tmp_path):
-    """An .npy path runs in core under method='sequential' (auto asks for
-    the streaming strategy, as the reference's resolve_auto does)."""
+    """An .npy path runs in core under method='sequential'; under 'auto' it
+    runs the streaming strategy, as the reference's resolve_auto does."""
     spec = get_dataset("road3d-24k")
     X = np.asarray(gmm_dataset(spec.gmm))[:4096]
     path = tmp_path / "x.npy"
@@ -95,8 +95,11 @@ def test_fit_from_npy_path(tmp_path):
     a = api.fit(str(path), cfg, method="sequential", device="cpu")
     b = api.fit(X, cfg, method="sequential", device="cpu")
     assert torch.equal(a.centroids, b.centroids)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        api.fit(str(path), cfg, device="cpu")
+    streamed = api.fit(str(path), cfg, device="cpu")
+    assert streamed.strategy == "streaming" and streamed.extras["auto"]
+    assert streamed.n_chunks == cfg.n_chunks
+    assert np.isfinite(streamed.objective)
+    assert streamed.extras["health"]["chunks_fetched"] == cfg.n_chunks
 
 
 def test_torch_backend_fit_is_deterministic():

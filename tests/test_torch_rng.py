@@ -22,6 +22,9 @@ class JaxReplay:
     def split(self, key, n=2):
         return list(jax.random.split(key, n))
 
+    def fold_in(self, key, data):
+        return jax.random.fold_in(key, data)
+
     def randint(self, key, shape, lo, hi, device):
         idx = jax.random.randint(key, tuple(shape), lo, hi)
         return torch.from_numpy(np.array(idx)).to(device)
@@ -57,6 +60,15 @@ def test_replay_split_matches_jax():
     ja, jb = jax.random.split(jax.random.PRNGKey(7))
     np.testing.assert_array_equal(np.asarray(a), np.asarray(ja))
     np.testing.assert_array_equal(np.asarray(b), np.asarray(jb))
+
+
+def test_replay_fold_in_matches_jax():
+    """The streaming loop's per-chunk keys: ``fold_in(key, chunk_id)``."""
+    k = REPLAY.key(5)
+    for cid in (0, 1, 7, 31, 2**20):
+        np.testing.assert_array_equal(
+            np.asarray(REPLAY.fold_in(k, cid)),
+            np.asarray(jax.random.fold_in(jax.random.PRNGKey(5), cid)))
 
 
 def test_torch_rng_deterministic_and_distinct_children():

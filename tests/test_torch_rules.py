@@ -162,7 +162,7 @@ def test_bf16_precisions_are_ported(precision):
 
 
 @pytest.mark.parametrize("method,item", [
-    ("forgy", "queue 1 item 9"), ("streaming", "queue 1 item 6"),
+    ("forgy", "queue 1 item 9"),
     ("sharded", "queue 1 item 8"), ("kmeanspp", "queue 1 item 9"),
     ("coreset", "queue 1 item 9"),
 ])
@@ -174,8 +174,6 @@ def test_unported_methods_raise(method, item):
 
 def test_unported_inputs_raise():
     cfg = api.BigMeansConfig(k=3, s=100, n_chunks=2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        api.fit(lambda cid: X, cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         ops.update(torch.from_numpy(X), torch.zeros(600, dtype=torch.int32),
                    3, weights=torch.ones(600))
