@@ -119,6 +119,28 @@ Phases, each printing JSON lines:
    beside both, prefetch 2 and 0 in turns, the in-core and the streaming
    fit + evaluate in turns, the card's idle share over a
    warm fit (``torch.profiler``) and the host syncs of a fit by line.
+8. faults and middleware — on phase 7's file, each run against its plain
+   twin (``impl="ref"`` on the card).  8a: ``vns_ladder=(32000, 16000),
+   vns_patience=4``, sequential f32: every window's rung and chunk size
+   the twin's and the accepts the same up to a near tie, the full-data
+   objective within 1e-3, A / B / C launches counted.  8b:
+   ``scheduler="competitive_s"``, ``batch=8, sync_every=2``, the default
+   ladder (fetched at 128,000 rows), 64 chunks, under each policy: the
+   scheduler's history, final sizes and winner the twin's up to a near tie
+   of two streams' scores, the full-data objective within 1e-3 and each
+   policy within 1 % of f32, the eval chunk's score launches (B, or B16
+   under bf16) counted exactly; B and B16 timed at the eval chunk.  8c:
+   ``time_budget_s`` at half of the warm unbudgeted wall (prefetch 0): fewer
+   chunks, exact reconciliation against the provider's calls, every
+   ``budget_drop`` id counted, the wall within the budget plus the longest
+   step, the run a prefix of the unbudgeted one.  8d: the chaos plan
+   ``FaultPlan(seed=13, transient_rate=0.25, permanent_ids=(12,),
+   nan_ids=(14,), inf_ids=(20,), shape_ids=(22,))`` with ``retries=2``:
+   exact reconciliation, one failed and three quarantined chunks with the
+   reference's reasons, every transient recovered, the objective within
+   5 % of the clean fit, the health record the twin's.  8e: inside
+   ``kernel_failure("fused")`` the fit raises (the plain fit runs); after
+   it the fit is bitwise the fit before.
 
 Then the one ``{"kernels": [...]}`` line, the card's name and power limit,
 and the final ``{"ok": true, "device": {...}}`` line.  Any failed check raises.
@@ -155,7 +177,9 @@ from repro_torch.core.objective import EVAL_BATCH  # noqa: E402
 from repro_torch.data.synthetic import (  # noqa: E402
     PAPER_DATASETS, GMMSpec, gmm_dataset, gmm_memmap,
 )
+from repro_torch.engine import faults  # noqa: E402
 from repro_torch.engine import middleware as mw  # noqa: E402
+from repro_torch.engine import scheduler as sched_lib  # noqa: E402
 from repro_torch.engine import stream  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     autotune, build, distance, fused_step, ops, ref,
@@ -2344,15 +2368,35 @@ GPU_SLEEP_CYCLES = 20_000_000   # ~10 ms of one SM's clock a chunk
 
 
 class Windows(mw.Middleware):
-    """Records each window's per-stream f_new, accepts and iterations."""
+    """Records each window's per-stream f_new, accepts and iterations, its
+    VNS rung, chunk size, incumbent and end time, and the run's start and
+    final winner size."""
 
     def __init__(self):
         self.rows = []
+        self.ladder = []                # (rung, chunk size, f_best)
+        self.times = []
+        self.t_start = None
+        self.winner_s = None
+
+    def on_start(self, ctx):
+        self.t_start = time.monotonic()
 
     def after_window(self, ctx):
         info = ctx.info
         self.rows.append([t.reshape(-1).tolist() for t in (
             info.f_new, info.accepted, info.lloyd_iters)])
+        self.ladder.append((ctx.rung, ctx.last_s,
+                            float(torch.min(ctx.state.f_best))))
+        self.times.append(time.monotonic())
+
+    def on_finish(self, ctx):
+        self.winner_s = ctx.extras.get("winner_s")
+
+    def max_step_s(self) -> float:
+        """The longest time from one window (or the start) to the next."""
+        ends = [self.t_start, *self.times]
+        return max(b - a for a, b in zip(ends, ends[1:]))
 
     def trace(self):
         """Round-major ``(i, f_new, accepted)`` as a fit's trace."""
@@ -2375,14 +2419,19 @@ class SlowConsumer(mw.Middleware):
         return chunk
 
 
-def run_path(path: str, cfg, *extra_middlewares):
+def run_path(path: str, cfg, *extra_middlewares, scheduler=None,
+             wrap=None):
     """``fit(path, cfg)``'s run through ``run_stream`` directly, with
-    ``extra_middlewares`` after the default stack."""
+    ``extra_middlewares`` after the default stack, the config's scheduler
+    (or ``scheduler``) and the memmap provider (wrapped by ``wrap``)."""
+    scheduler = scheduler or sched_lib.get_scheduler(cfg.scheduler, cfg)
     fetch = MemmapSource(path).provider(
-        cfg.s, seed=cfg.seed, with_replacement=cfg.with_replacement)
+        scheduler.fetch_s, seed=cfg.seed,
+        with_replacement=cfg.with_replacement)
     stack = [*mw.default_stack(cfg), *extra_middlewares]
-    return stream.run_stream(fetch, cfg, n_features=PAPER_DATASETS[
-        "hepmass"][1], middlewares=stack)
+    return stream.run_stream(wrap(fetch) if wrap else fetch, cfg,
+                             n_features=PAPER_DATASETS["hepmass"][1],
+                             middlewares=stack, scheduler=scheduler)
 
 
 def same_state(state, res, what: str) -> None:
@@ -2467,174 +2516,540 @@ def host_syncs(run) -> dict:
     return {"total": sum(sites.values()), "by_line": dict(sites)}
 
 
-def phase_streaming(X, seed: int, in_core: dict) -> dict:
-    """Phase 7.  The HEPMASS mixture written to an ``.npy`` by the port's
-    ``gmm_memmap`` (rows checked equal to phase 4's ``X``), then
-    ``fit(path, cfg)`` at ``batch=1`` and ``batch=8, sync_every=2`` under
-    each policy: launches, the plain twin, the policy's drift from f32;
-    prefetch=2 bitwise prefetch=0 and a slowed consumer; the provider and
-    iterator adapters and ``autotune=True`` bitwise the path fit; the
-    pipeline's breakdown.  ``in_core``: {mode: (fit wall s, fit + evaluate
-    wall s)} of phases 4 and 5.  Returns {path: (launches, wall)}."""
+def write_stream_file(X, seed: int, tmp: Path) -> str:
+    """Phase 4's HEPMASS mixture written to ``tmp/hepmass.npy`` by the
+    port's ``gmm_memmap``, its rows checked equal to ``X``."""
     m, n = X.shape
     spec = GMMSpec(m=m, n=n, components=25, seed=seed)
+    path = str(tmp / "hepmass.npy")
+    t0 = time.monotonic()
+    gmm_memmap(spec, path, device="cuda")
+    write_s = time.monotonic() - t0
+    mm = np.load(path, mmap_mode="r")
+    for lo in range(0, m, 1 << 20):
+        hi = min(lo + (1 << 20), m)
+        rows = torch.from_numpy(np.array(mm[lo:hi])).cuda()
+        check(torch.equal(rows, X[lo:hi]),
+              f"file rows {lo}:{hi} differ from phase 4's X")
+    del mm, rows
+    emit({"phase": "streaming_data", "path_bytes": Path(path).stat()
+          .st_size, "write_s": write_s, "rows_equal_in_core_X": True,
+          "page_cache": True, "card": nvidia_smi()})
+    return path
+
+
+def phase_streaming(X, path: str, seed: int, in_core: dict) -> dict:
+    """Phase 7.  ``fit(path, cfg)`` over the HEPMASS ``.npy`` at
+    ``batch=1`` and ``batch=8, sync_every=2`` under each policy: launches,
+    the plain twin, the policy's drift from f32; prefetch=2 bitwise
+    prefetch=0 and a slowed consumer; the provider and iterator adapters
+    and ``autotune=True`` bitwise the path fit; the pipeline's breakdown.
+    ``in_core``: {mode: (fit wall s, fit + evaluate wall s)} of phases 4
+    and 5.  Returns {path: (launches, wall)}."""
+    m, n = X.shape
     n_eval = math.ceil(m / EVAL_BATCH)
     card = nvidia_smi()
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_stream_"))
     paths = {}
-    try:
-        path = str(tmp / "hepmass.npy")
-        t0 = time.monotonic()
-        gmm_memmap(spec, path, device="cuda")
-        write_s = time.monotonic() - t0
-        mm = np.load(path, mmap_mode="r")
-        for lo in range(0, m, 1 << 20):
-            hi = min(lo + (1 << 20), m)
-            rows = torch.from_numpy(np.array(mm[lo:hi])).cuda()
-            check(torch.equal(rows, X[lo:hi]),
-                  f"file rows {lo}:{hi} differ from phase 4's X")
-        del mm, rows
-        emit({"phase": "streaming_data", "path_bytes": Path(path).stat()
-              .st_size, "write_s": write_s, "rows_equal_in_core_X": True,
-              "page_cache": True, "card": card})
-
-        base = BigMeansConfig(k=25, s=64_000, n_chunks=32, seed=seed)
-        fit(path, base.replace(n_chunks=2, seed=seed + 1))     # warm
-        results, f_f32 = {}, {}
-        for prec in POLICIES:
-            for name, extra in STREAM_MODES.items():
-                cfg = base.replace(precision=prec, **extra)
-                ops.reset_launch_counts()
-                t0 = time.monotonic()
-                res = fit(path, cfg)
-                ids, f_full = evaluate(res, X)
-                torch.cuda.synchronize()
-                wall = time.monotonic() - t0
-                launches = ops.launch_counts()
-                check(res.strategy == "streaming" and res.extras["auto"],
-                      f"fit(path) ran {res.strategy}")
-                fit_checks(res, X, ids, f_full, cfg.k, prec)
-                h = res.extras["health"]
-                check(h["chunks_done"] == h["chunks_fetched"]
-                      == cfg.n_chunks == res.n_chunks, f"stream health {h}")
-
-                windows = Windows()
-                state, _ = run_path(path, cfg, windows)
-                same_state(state, res, f"{prec} {name}: run_stream replay")
-                want = dict.fromkeys(launches, 0)
-                want.update(stream_launches(prec, name,
-                                            windows.fused_launches(),
-                                            cfg.n_chunks, n_eval))
-                check(launches == want,
-                      f"{prec} {name} streaming launches {launches} != "
-                      f"{want}")
-                check(sum(i for _, _, its in windows.rows for i in its)
-                      == res.n_iterations, "iterations")
-
-                ref_windows = Windows()
-                state_ref, _ = run_path(path, cfg.replace(impl="ref"),
-                                        ref_windows)
-                _, f_full_ref = evaluate(state_ref.centroids, X, impl="ref")
-                rel = abs(f_full - f_full_ref) / f_full_ref
-                b, t = extra.get("batch", 1), extra.get("sync_every", 1)
-                parting = check_accepts(
-                    types.SimpleNamespace(trace=windows.trace()),
-                    types.SimpleNamespace(trace=ref_windows.trace()), b, t)
-                if prec == "f32":
-                    f_f32[name] = f_full
-                drift = (f_full - f_f32[name]) / f_f32[name]
-                results[prec, name] = res
-                paths[f"streaming_{prec}_{name}"] = (launches, wall)
-                emit({"phase": "streaming", "precision": prec, "run": name,
-                      "m": m, "n": n, "k": cfg.k, "s": cfg.s,
-                      "n_chunks": cfg.n_chunks, "f_best": res.objective,
-                      "f_full": f_full, "n_accepted": res.n_accepted,
-                      "n_iterations": res.n_iterations, "wall_s": wall,
-                      "fit_wall_s": res.wall_time_s,
-                      "in_core_fit_wall_s": in_core[name][0] if prec ==
-                      "f32" else None,
-                      "in_core_wall_s": in_core[name][1] if prec == "f32"
-                      else None,
-                      "launches": launches, "pipeline": pipeline_row(res),
-                      "ref": {"f_full": f_full_ref},
-                      "f_full_rel_diff": rel, "first_parting": parting,
-                      f"{prec}_vs_f32_f_full_drift": drift,
-                      "page_cache": True, "card": card})
-                check(rel <= 1e-3, f"{prec} {name} streaming full "
-                      f"objectives differ by {rel:.3e} (> 1e-3)")
-                check(abs(drift) <= 1e-2, f"{prec} {name} streaming full "
-                      f"objective drifts {drift:.3e} from f32's (> 1 %)")
-
-        # bitwise: prefetch=0, and a slowed consumer, against prefetch=2
-        for prec in POLICIES:
-            for name, extra in STREAM_MODES.items():
-                if name == "batched" and prec != "f32":
-                    continue
-                cfg = base.replace(precision=prec, **extra)
-                res = results[prec, name]
-                same_stream_fit(fit(path, cfg, prefetch=0), res,
-                                f"{prec} {name} prefetch=0")
-                state, _ = run_path(path, cfg, SlowConsumer())
-                same_state(state, res, f"{prec} {name} slowed consumer")
-        # the adapters over the same chunks, and the tuned fit
+    base = BigMeansConfig(k=25, s=64_000, n_chunks=32, seed=seed)
+    fit(path, base.replace(n_chunks=2, seed=seed + 1))     # warm
+    results, f_f32 = {}, {}
+    for prec in POLICIES:
         for name, extra in STREAM_MODES.items():
-            cfg = base.replace(**extra)
-            res = results["f32", name]
-            fetch = MemmapSource(path).provider(cfg.s, seed=cfg.seed)
-            same_stream_fit(fit(ProviderSource(fetch, n_features=n), cfg),
-                            res, f"{name} ProviderSource")
-            same_stream_fit(fit((fetch(c) for c in range(cfg.n_chunks)), cfg,
-                                n_features=n), res, f"{name} IteratorSource")
-            autotune.clear()
-            same_stream_fit(fit(path, cfg, autotune=True), res,
-                            f"{name} autotune=True")
-            autotune.clear()
-        # evaluate() on the path loads the file: the same objective
-        res = results["f32", "sequential"]
-        _, f_path = evaluate(res, path)
-        _, f_x = evaluate(res, X)
-        check(f_path == f_x, f"evaluate(path) {f_path} != evaluate(X) {f_x}")
-        emit({"phase": "streaming_checks", "prefetch0_bitwise": True,
-              "slowed_consumer_bitwise": True, "adapters_bitwise": True,
-              "autotune_bitwise": True, "evaluate_path_equal": True})
-
-        # the breakdown at f32: fetch alone, compute alone, both
-        cfg = base
-        fetch = MemmapSource(path).provider(cfg.s, seed=cfg.seed)
-        t0 = time.perf_counter()
-        chunks = [fetch(c) for c in range(cfg.n_chunks)]
-        fetch_alone_s = time.perf_counter() - t0
-        compute = [fit(ProviderSource(lambda c: chunks[c], n_features=n),
-                       cfg).wall_time_s for _ in range(2)]
-        del chunks
-        turns = {"prefetch2": [], "prefetch0": []}
-        for p in ("prefetch2", "prefetch0", "prefetch0", "prefetch2"):
-            r = fit(path, cfg, prefetch=int(p[-1]))
-            turns[p].append({"fit_wall_s": r.wall_time_s,
-                             **pipeline_row(r)})
-        in_turns = {"in_core": [], "streaming": []}    # fit + evaluate
-        for kind in ("in_core", "streaming", "streaming", "in_core"):
+            cfg = base.replace(precision=prec, **extra)
+            ops.reset_launch_counts()
             t0 = time.monotonic()
-            r = fit(X if kind == "in_core" else path, cfg)
-            evaluate(r, X)
+            res = fit(path, cfg)
+            ids, f_full = evaluate(res, X)
             torch.cuda.synchronize()
-            in_turns[kind].append({"fit_wall_s": r.wall_time_s,
-                                   "wall_s": time.monotonic() - t0})
+            wall = time.monotonic() - t0
+            launches = ops.launch_counts()
+            check(res.strategy == "streaming" and res.extras["auto"],
+                  f"fit(path) ran {res.strategy}")
+            fit_checks(res, X, ids, f_full, cfg.k, prec)
+            h = res.extras["health"]
+            check(h["chunks_done"] == h["chunks_fetched"]
+                  == cfg.n_chunks == res.n_chunks, f"stream health {h}")
+
+            windows = Windows()
+            state, _ = run_path(path, cfg, windows)
+            same_state(state, res, f"{prec} {name}: run_stream replay")
+            want = dict.fromkeys(launches, 0)
+            want.update(stream_launches(prec, name,
+                                        windows.fused_launches(),
+                                        cfg.n_chunks, n_eval))
+            check(launches == want,
+                  f"{prec} {name} streaming launches {launches} != "
+                  f"{want}")
+            check(sum(i for _, _, its in windows.rows for i in its)
+                  == res.n_iterations, "iterations")
+
+            ref_windows = Windows()
+            state_ref, _ = run_path(path, cfg.replace(impl="ref"),
+                                    ref_windows)
+            _, f_full_ref = evaluate(state_ref.centroids, X, impl="ref")
+            rel = abs(f_full - f_full_ref) / f_full_ref
+            b, t = extra.get("batch", 1), extra.get("sync_every", 1)
+            parting = check_accepts(
+                types.SimpleNamespace(trace=windows.trace()),
+                types.SimpleNamespace(trace=ref_windows.trace()), b, t)
+            if prec == "f32":
+                f_f32[name] = f_full
+            drift = (f_full - f_f32[name]) / f_f32[name]
+            results[prec, name] = res
+            paths[f"streaming_{prec}_{name}"] = (launches, wall)
+            emit({"phase": "streaming", "precision": prec, "run": name,
+                  "m": m, "n": n, "k": cfg.k, "s": cfg.s,
+                  "n_chunks": cfg.n_chunks, "f_best": res.objective,
+                  "f_full": f_full, "n_accepted": res.n_accepted,
+                  "n_iterations": res.n_iterations, "wall_s": wall,
+                  "fit_wall_s": res.wall_time_s,
+                  "in_core_fit_wall_s": in_core[name][0] if prec ==
+                  "f32" else None,
+                  "in_core_wall_s": in_core[name][1] if prec == "f32"
+                  else None,
+                  "launches": launches, "pipeline": pipeline_row(res),
+                  "ref": {"f_full": f_full_ref},
+                  "f_full_rel_diff": rel, "first_parting": parting,
+                  f"{prec}_vs_f32_f_full_drift": drift,
+                  "page_cache": True, "card": card})
+            check(rel <= 1e-3, f"{prec} {name} streaming full "
+                  f"objectives differ by {rel:.3e} (> 1e-3)")
+            check(abs(drift) <= 1e-2, f"{prec} {name} streaming full "
+                  f"objective drifts {drift:.3e} from f32's (> 1 %)")
+
+    # bitwise: prefetch=0, and a slowed consumer, against prefetch=2
+    for prec in POLICIES:
         for name, extra in STREAM_MODES.items():
-            c = cfg.replace(**extra)
-            emit({"phase": "streaming_profile", "run": name, "card": card,
-                  **device_busy(lambda: fit(path, c))})
-        emit({"phase": "streaming_host_syncs", "run": "sequential",
-              "chunks": cfg.n_chunks, **host_syncs(lambda: fit(path, cfg))})
-        emit({"phase": "streaming_breakdown", "run": "sequential",
-              "fetch_alone_s": fetch_alone_s,
-              "fetch_alone_ms_per_chunk": 1e3 * fetch_alone_s
-              / cfg.n_chunks, "compute_alone_fit_wall_s": compute,
-              "turns": turns, "in_turns_with_in_core": in_turns,
-              "in_core_fit_wall_s": in_core["sequential"][0],
-              "page_cache": True, "card": card})
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+            if name == "batched" and prec != "f32":
+                continue
+            cfg = base.replace(precision=prec, **extra)
+            res = results[prec, name]
+            same_stream_fit(fit(path, cfg, prefetch=0), res,
+                            f"{prec} {name} prefetch=0")
+            state, _ = run_path(path, cfg, SlowConsumer())
+            same_state(state, res, f"{prec} {name} slowed consumer")
+    # the adapters over the same chunks, and the tuned fit
+    for name, extra in STREAM_MODES.items():
+        cfg = base.replace(**extra)
+        res = results["f32", name]
+        fetch = MemmapSource(path).provider(cfg.s, seed=cfg.seed)
+        same_stream_fit(fit(ProviderSource(fetch, n_features=n), cfg),
+                        res, f"{name} ProviderSource")
+        same_stream_fit(fit((fetch(c) for c in range(cfg.n_chunks)), cfg,
+                            n_features=n), res, f"{name} IteratorSource")
+        autotune.clear()
+        same_stream_fit(fit(path, cfg, autotune=True), res,
+                        f"{name} autotune=True")
+        autotune.clear()
+    # evaluate() on the path loads the file: the same objective
+    res = results["f32", "sequential"]
+    _, f_path = evaluate(res, path)
+    _, f_x = evaluate(res, X)
+    check(f_path == f_x, f"evaluate(path) {f_path} != evaluate(X) {f_x}")
+    emit({"phase": "streaming_checks", "prefetch0_bitwise": True,
+          "slowed_consumer_bitwise": True, "adapters_bitwise": True,
+          "autotune_bitwise": True, "evaluate_path_equal": True})
+
+    # the breakdown at f32: fetch alone, compute alone, both
+    cfg = base
+    fetch = MemmapSource(path).provider(cfg.s, seed=cfg.seed)
+    t0 = time.perf_counter()
+    chunks = [fetch(c) for c in range(cfg.n_chunks)]
+    fetch_alone_s = time.perf_counter() - t0
+    compute = [fit(ProviderSource(lambda c: chunks[c], n_features=n),
+                   cfg).wall_time_s for _ in range(2)]
+    del chunks
+    turns = {"prefetch2": [], "prefetch0": []}
+    for p in ("prefetch2", "prefetch0", "prefetch0", "prefetch2"):
+        r = fit(path, cfg, prefetch=int(p[-1]))
+        turns[p].append({"fit_wall_s": r.wall_time_s,
+                         **pipeline_row(r)})
+    in_turns = {"in_core": [], "streaming": []}    # fit + evaluate
+    for kind in ("in_core", "streaming", "streaming", "in_core"):
+        t0 = time.monotonic()
+        r = fit(X if kind == "in_core" else path, cfg)
+        evaluate(r, X)
+        torch.cuda.synchronize()
+        in_turns[kind].append({"fit_wall_s": r.wall_time_s,
+                               "wall_s": time.monotonic() - t0})
+    for name, extra in STREAM_MODES.items():
+        c = cfg.replace(**extra)
+        emit({"phase": "streaming_profile", "run": name, "card": card,
+              **device_busy(lambda: fit(path, c))})
+    emit({"phase": "streaming_host_syncs", "run": "sequential",
+          "chunks": cfg.n_chunks, **host_syncs(lambda: fit(path, cfg))})
+    emit({"phase": "streaming_breakdown", "run": "sequential",
+          "fetch_alone_s": fetch_alone_s,
+          "fetch_alone_ms_per_chunk": 1e3 * fetch_alone_s
+          / cfg.n_chunks, "compute_alone_fit_wall_s": compute,
+          "turns": turns, "in_turns_with_in_core": in_turns,
+          "in_core_fit_wall_s": in_core["sequential"][0],
+          "page_cache": True, "card": card})
+    return paths
+
+
+# --------------------------------------------------------------------------
+# phase 8: faults and middleware on the streamed HEPMASS file
+# --------------------------------------------------------------------------
+
+FAULT_PLAN = dict(seed=13, transient_rate=0.25, permanent_ids=(12,),
+                  nan_ids=(14,), inf_ids=(20,), shape_ids=(22,))
+
+
+class RecordingCompetitiveS(sched_lib.CompetitiveS):
+    """``competitive_s`` that keeps every window's per-stream scores."""
+
+    def __init__(self, cfg):
+        super().__init__(cfg)
+        self.scores = []
+
+    def observe_window(self, scores, sizes):
+        self.scores.append(list(scores))
+        return super().observe_window(scores, sizes)
+
+
+def near_tie(scores) -> bool:
+    """Two streams' scores within TIE_RTOL of each other (and not equal:
+    streams that share an incumbent score the same bits on both paths)."""
+    v = sorted(scores)
+    return any(0 < b - a <= TIE_RTOL * abs(b) for a, b in zip(v, v[1:]))
+
+
+def history_parting(sched, sched_ref):
+    """The first window whose sizes, winner size or move differ between
+    the paths, which must be a near tie of two streams' scores on either
+    path; None when the histories are equal."""
+    keys = ("sizes", "winner_s", "moved")
+    for w, (h, hr) in enumerate(zip(sched.history, sched_ref.history)):
+        if any(h.get(key) != hr.get(key) for key in keys):
+            check(near_tie(sched.scores[w]) or near_tie(sched_ref.scores[w]),
+                  f"competitive_s histories part at window {w} without a "
+                  f"near tie: {h} against {hr}")
+            return {"window": w, "cuda": {key: h.get(key) for key in keys},
+                    "ref": {key: hr.get(key) for key in keys},
+                    "scores_cuda": sched.scores[w],
+                    "scores_ref": sched_ref.scores[w]}
+    check(len(sched.history) == len(sched_ref.history), "window counts")
+    return None
+
+
+def vns_parting(log, log_ref):
+    """The first window whose accept differs between the paths, which must
+    be a near tie (f_new within TIE_RTOL of the incumbent it met: the last
+    window's f_best rescaled to this chunk's size) on either path; the
+    rung and chunk size of every window up to it must agree.  None when
+    the paths agree throughout."""
+    for i, (row, row_ref) in enumerate(zip(log.rows, log_ref.rows)):
+        if row[1] != row_ref[1]:
+            near = []
+            for lg in (log, log_ref):
+                inc = math.inf if i == 0 else (
+                    lg.ladder[i - 1][2] * lg.ladder[i][1]
+                    / lg.ladder[i - 1][1])
+                near.append(abs(lg.rows[i][0][0] - inc)
+                            <= TIE_RTOL * abs(inc))
+            check(any(near), f"VNS accepts part at window {i} without a "
+                  "near tie")
+            return {"window": i, "f_new_cuda": row[0], "f_new_ref":
+                    row_ref[0]}
+        check(log.ladder[i][:2] == log_ref.ladder[i][:2],
+              f"VNS rung / chunk size differ at window {i}: "
+              f"{log.ladder[i][:2]} against {log_ref.ladder[i][:2]}")
+    check(len(log.rows) == len(log_ref.rows), "VNS window counts")
+    return None
+
+
+def raises(fn, match: str) -> str:
+    """The message of the exception ``fn()`` must raise, checked to hold
+    ``match``."""
+    try:
+        fn()
+    except Exception as exc:            # noqa: BLE001 — checked below
+        check(match in str(exc), f"raised {exc!r}, not {match!r}")
+        return f"{type(exc).__name__}: {exc}"
+    raise AssertionError(f"no exception holding {match!r}")
+
+
+def counting(calls: list):
+    """``wrap`` for :func:`run_path`: a provider that logs each call."""
+    def wrap(fetch):
+        def provider(cid):
+            calls.append(cid)
+            return fetch(cid)
+        return provider
+    return wrap
+
+
+def phase_vns(X, path: str, base, card: str) -> tuple:
+    """8a: the VNS ladder in fold mode, f32, sequential."""
+    cfg = base.replace(vns_ladder=(32_000, 16_000), vns_patience=4)
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    res = fit(path, cfg)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = ops.launch_counts()
+    check(res.strategy == "streaming" and res.extras["auto"],
+          f"fit(path, vns_ladder=...) ran {res.strategy}")
+    log, log_ref = Windows(), Windows()
+    state, _ = run_path(path, cfg, log)
+    same_state(state, res, "VNS: run_stream replay")
+    state_ref, _ = run_path(path, cfg.replace(impl="ref"), log_ref)
+    _, f_full = evaluate(res, X)
+    _, f_full_ref = evaluate(state_ref.centroids, X, impl="ref")
+    rel = abs(f_full - f_full_ref) / f_full_ref
+    parting = vns_parting(log, log_ref)
+    want = dict.fromkeys(launches, 0)
+    want.update(fused_step=log.fused_launches(), update=cfg.n_chunks,
+                assign=cfg.n_chunks)
+    check(launches == want, f"VNS launches {launches} != {want}")
+    turns = {"plain": [], "vns": []}    # fit walls, in turns
+    for kind in ("plain", "vns", "vns", "plain"):
+        turns[kind].append(fit(path, cfg if kind == "vns" else base)
+                           .wall_time_s)
+    emit({"phase": "faults_vns", "fit_walls_in_turns_s": turns,
+          "host_syncs": host_syncs(lambda: fit(path, cfg)), "s": cfg.s, "vns_ladder": cfg.vns_ladder,
+          "vns_patience": cfg.vns_patience, "n_chunks": cfg.n_chunks,
+          "rungs": [r for r, _, _ in log.ladder],
+          "chunk_sizes": [z for _, z, _ in log.ladder],
+          "accepts": [int(a[0]) for _, a, _ in log.rows],
+          "f_best": res.objective, "f_full": f_full,
+          "ref": {"f_full": f_full_ref,
+                  "rungs": [r for r, _, _ in log_ref.ladder]},
+          "f_full_rel_diff": rel, "first_parting": parting,
+          "n_iterations": res.n_iterations, "fit_wall_s": res.wall_time_s,
+          "wall_s": wall, "launches": launches, "card": card})
+    check(rel <= 1e-3, f"VNS full objectives differ by {rel:.3e} (> 1e-3)")
+    return launches, wall
+
+
+def phase_competitive(X, path: str, base, card: str) -> dict:
+    """8b: ``scheduler="competitive_s"``, ``batch=8, sync_every=2``, the
+    default ladder, 64 chunks, under every policy; first ``"worker"``,
+    which streams bitwise like ``"uniform"``."""
+    paths, f_f32 = {}, None
+    cfg = base.replace(batch=BATCH, sync_every=SYNC_EVERY)
+    same_stream_fit(fit(path, cfg.replace(scheduler="worker")),
+                    fit(path, cfg), "scheduler='worker' against 'uniform'")
+    for prec in POLICIES:
+        cfg = base.replace(n_chunks=64, batch=BATCH, sync_every=SYNC_EVERY,
+                           scheduler="competitive_s", precision=prec)
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        res = fit(path, cfg)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = ops.launch_counts()
+        check(res.strategy == "streaming", f"competitive_s ran "
+              f"{res.strategy}")
+        info = res.extras["competitive_s"]
+        sched, sched_ref = RecordingCompetitiveS(cfg), \
+            RecordingCompetitiveS(cfg)
+        log, log_ref = Windows(), Windows()
+        state, _ = run_path(path, cfg, log, scheduler=sched)
+        same_state(state, res, f"{prec} competitive_s: run_stream replay")
+        check({"ladder": sched.ladder, "final_sizes": sched.s_of,
+               "windows": len(sched.history)} == info,
+              f"{prec} competitive_s extras {info}")
+        state_ref, _ = run_path(path, cfg.replace(impl="ref"), log_ref,
+                                scheduler=sched_ref)
+        parting = history_parting(sched, sched_ref)
+        if parting is None:
+            check(sched.s_of == sched_ref.s_of
+                  and log.winner_s == log_ref.winner_s,
+                  f"{prec} competitive_s final sizes / winner differ")
+        _, f_full = evaluate(res, X)
+        _, f_full_ref = evaluate(state_ref.centroids, X, impl="ref")
+        rel = abs(f_full - f_full_ref) / f_full_ref
+        f_f32 = f_full if prec == "f32" else f_f32
+        drift = (f_full - f_f32) / f_f32
+        # the eval chunk is scored, one assignment a stream, at every
+        # round's reduce, twice at each observation window (the scheduler's
+        # scores, then the exchange's) and at the final reduce; the Lloyd
+        # epilogue assigns once a chunk (f32 kernel B; B3 under bf16x3)
+        rounds = cfg.n_chunks // BATCH
+        windows = rounds // SYNC_EVERY
+        scores = BATCH * (rounds + 2 * windows + 1)
+        want = {"assign_bf16": 0, "assign_bf16x3": 0, "assign": 0}
+        want["assign_bf16" if prec == "bf16" else "assign"] += scores
+        want["assign_bf16x3" if prec == "bf16x3" else "assign"] += \
+            res.n_chunks
+        got = {key: launches[key] for key in want}
+        kind = "fused_step_batched" + ("" if prec == "f32" else f"_{prec}")
+        check(got == want, f"{prec} competitive_s assign launches {got} != "
+              f"{want}")
+        check(launches[kind] > 0 and launches[kind.replace("_batched", "")]
+              == 0, f"{prec} competitive_s fused launches {launches}")
+        paths[f"competitive_s_{prec}"] = (launches, wall)
+        if prec == "f32":
+            emit({"phase": "faults_competitive_s_profile", "card": card,
+                  "host_syncs": host_syncs(lambda: fit(path, cfg)),
+                  **device_busy(lambda: fit(path, cfg))})
+        emit({"phase": "faults_competitive_s", "precision": prec,
+              "n_chunks": cfg.n_chunks, "batch": BATCH,
+              "sync_every": SYNC_EVERY, "ladder": info["ladder"],
+              "fetch_rows": sched.fetch_s, "history": [
+                  {key: h.get(key) for key in ("sizes", "winner_s",
+                                               "moved")}
+                  for h in sched.history],
+              "final_sizes": info["final_sizes"],
+              "winner_s": log.winner_s, "ref": {
+                  "final_sizes": sched_ref.s_of,
+                  "winner_s": log_ref.winner_s, "f_full": f_full_ref},
+              "first_parting": parting, "f_best": res.objective,
+              "f_full": f_full, "f_full_rel_diff": rel,
+              f"{prec}_vs_f32_f_full_drift": drift,
+              "score_launches": scores, "launches": launches,
+              "n_iterations": res.n_iterations,
+              "fit_wall_s": res.wall_time_s, "wall_s": wall,
+              "pipeline": pipeline_row(res), "card": card})
+        check(rel <= 1e-3, f"{prec} competitive_s full objectives differ "
+              f"by {rel:.3e} (> 1e-3)")
+        check(abs(drift) <= 1e-2, f"{prec} competitive_s full objective "
+              f"drifts {drift:.3e} from f32's (> 1 %)")
+    # B and B16 at the eval chunk's shape (128,000 rows)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    x = X[torch.randint(0, X.shape[0], (sched.fetch_s,), generator=gen,
+                        device="cuda")].contiguous()
+    c = x[:base.k].clone()
+    m, n, k = x.shape[0], x.shape[1], base.k
+    xb = x.bfloat16()
+    rows = {"assign_f32": timing(
+        lambda: distance.assign_f32(x, c),
+        lambda: distance.assign_plain(x, c), lambda: torch.mm(x, c.t()),
+        4 * (m * n + k * n + 2 * m), 2 * m * k * n, 50),
+        "assign_bf16": timing(
+        lambda: distance.assign_16(xb, c, "bf16"),
+        lambda: distance.assign_plain(xb, c, "bf16"),
+        lambda: torch.mm(xb, c.bfloat16().t()),
+        2 * m * n + 4 * (k * n + 2 * m), 2 * m * k * n, 50,
+        peak=BF16_FLOP_PER_S)}
+    emit({"phase": "faults_score_kernels", "m": m, "n": n, "k": k,
+          "rows": rows, "card": card})
+    return paths
+
+
+def phase_budget(path: str, base, card: str) -> None:
+    """8c: the time budget on the f32 sequential streaming fit (prefetch 0,
+    so that the provider's calls are the chunks fetched)."""
+    cfg = base.replace(prefetch=0)
+    calls: list = []
+    log = Windows()
+    _, m_full = run_path(path, cfg, log, wrap=counting(calls))
+    max_step = log.max_step_s()
+    budget = m_full.wall_time_s / 2
+    calls.clear()
+    log_b = Windows()
+    _, m = run_path(path, cfg.replace(time_budget_s=budget), log_b,
+                    wrap=counting(calls))
+    drops = [cid for t in m.trace if t[0] == "budget_drop" for cid in t[1]]
+    check(m.chunks_done < cfg.n_chunks, f"budget: {m.chunks_done} chunks")
+    check(m.chunks_done + m.chunks_failed + m.chunks_dropped
+          + m.chunks_quarantined == len(calls), "budget reconciliation")
+    check(len(drops) == m.chunks_dropped and set(drops) <= set(calls),
+          f"budget drops {drops} against {m.chunks_dropped}")
+    check(m.wall_time_s <= budget + max_step,
+          f"budgeted wall {m.wall_time_s:.4f} s > budget {budget:.4f} + "
+          f"one step {max_step:.4f}")
+    check(log_b.rows == log.rows[:len(log_b.rows)],
+          "the budgeted run is not a prefix of the unbudgeted one")
+    calls.clear()
+    fetch = MemmapSource(path).provider(cfg.s, seed=cfg.seed)
+    res = fit(ProviderSource(counting(calls)(fetch),
+                             n_features=PAPER_DATASETS["hepmass"][1]),
+              cfg.replace(time_budget_s=budget))
+    h = res.health
+    check(h["chunks_fetched"] == len(calls) < cfg.n_chunks
+          and h["chunks_done"] + h["chunks_dropped"] == len(calls),
+          f"budgeted fit health {h} against {len(calls)} fetched")
+    emit({"phase": "faults_time_budget", "unbudgeted_wall_s":
+          m_full.wall_time_s, "budget_s": budget, "max_step_s": max_step,
+          "budgeted_wall_s": m.wall_time_s, "chunks_done": m.chunks_done,
+          "chunks_dropped": m.chunks_dropped, "budget_drop": drops,
+          "fetched": len(log_b.rows) + len(drops), "fit_health": h,
+          "card": card})
+
+
+def phase_chaos(X, path: str, base, card: str) -> None:
+    """8d: the chaos plan on the HEPMASS provider, against the clean fit
+    and the plain twin."""
+    n = PAPER_DATASETS["hepmass"][1]
+    plan = faults.FaultPlan(**FAULT_PLAN)
+    cfg = base.replace(retries=2, retry_backoff_s=0.0)
+    clean = fit(path, base)
+    hit = plan.transient_ids(cfg.n_chunks)
+    want_reasons = [(14, "non-finite values (NaN/Inf)"),
+                    (20, "non-finite values (NaN/Inf)"),
+                    (22, f"bad shape ({cfg.s}, {n // 2}), want (*, {n})")]
+    out = {}
+    for impl in ("auto", "ref"):
+        wrapped = plan.wrap(MemmapSource(path).provider(cfg.s,
+                                                        seed=cfg.seed))
+        res = fit(ProviderSource(wrapped, n_features=n),
+                  cfg.replace(impl=impl))
+        h = res.health
+        check(h["chunks_done"] + h["chunks_failed"] + h["chunks_dropped"]
+              + h["chunks_quarantined"] == h["chunks_fetched"]
+              == cfg.n_chunks, f"chaos health {h}")
+        check(h["chunks_failed"] == 1 and h["chunks_quarantined"] == 3
+              and h["quarantine_reasons"] == want_reasons,
+              f"chaos health {h}")
+        errors = [t[1] for t in res.trace if t[0] == "fetch_error"]
+        check(errors == [12], f"chaos fetch errors {errors}")
+        check(all(wrapped.attempts[cid] == 2 for cid in hit if cid != 12),
+              f"transients not recovered: {dict(wrapped.attempts)}")
+        check(res.objective <= clean.objective * 1.05,
+              f"chaos objective {res.objective} > 1.05 x {clean.objective}")
+        out[impl] = res, h
+    (res, h), (res_ref, h_ref) = out["auto"], out["ref"]
+    check(h == h_ref, f"chaos health {h} != the plain twin's {h_ref}")
+    _, f_full = evaluate(res, X)
+    _, f_full_ref = evaluate(res_ref.centroids, X, impl="ref")
+    _, f_clean = evaluate(clean, X)
+    rel = abs(f_full - f_full_ref) / f_full_ref
+    emit({"phase": "faults_chaos", "plan": FAULT_PLAN, "transient_ids": hit,
+          "health": h, "objective": res.objective,
+          "clean_objective": clean.objective, "f_full": f_full,
+          "clean_f_full": f_clean, "ref": {"f_full": f_full_ref},
+          "f_full_rel_diff": rel, "fit_wall_s": res.wall_time_s,
+          "card": card})
+    check(rel <= 1e-3, f"chaos full objectives differ by {rel:.3e}")
+
+
+def phase_no_demotion(path: str, base) -> None:
+    """8e: inside ``kernel_failure("fused")`` a fit on the card raises the
+    injected error (the plain path, which launches no kernel, runs); after
+    it the same fit is bitwise the fit before it."""
+    before = fit(path, base)
+    with faults.kernel_failure("fused"):
+        ops.reset_launch_counts()
+        ref = fit(path, base.replace(impl="ref"))
+        check(not any(ops.launch_counts().values()) and math.isfinite(
+            ref.objective), "the plain fit inside kernel_failure")
+        error = raises(lambda: fit(path, base),
+                       "injected fused kernel failure")
+    after = fit(path, base)
+    same_stream_fit(after, before, "the fit after kernel_failure")
+    emit({"phase": "faults_no_demotion", "raised": error,
+          "after_bitwise_before": True})
+
+
+def phase_faults(X, path: str, seed: int) -> dict:
+    """Phase 8: faults and middleware on phase 7's HEPMASS ``.npy``, each
+    run against its plain twin (``impl="ref"`` on the card): 8a the VNS
+    ladder, 8b ``competitive_s`` under every policy, 8c the time budget,
+    8d the chaos plan, 8e no demotion.  Returns {path: (launches, wall)}."""
+    t0 = time.monotonic()
+    card = nvidia_smi()
+    base = BigMeansConfig(k=25, s=64_000, n_chunks=32, seed=seed)
+    paths = {"vns_f32_sequential": phase_vns(X, path, base, card)}
+    paths.update(phase_competitive(X, path, base, card))
+    phase_budget(path, base, card)
+    phase_chaos(X, path, base, card)
+    phase_no_demotion(path, base)
+    emit({"phase": "faults_summary", "wall_s": time.monotonic() - t0,
+          "card": card})
     return paths
 
 
@@ -2709,13 +3124,21 @@ def main() -> int:
 
     # phase 6: times
     times = phase_times(X, res, args.seed)
-    # phase 7: the streaming strategy, fit("data.npy") out of core
-    paths.update(phase_streaming(X, args.seed, {
-        "sequential": (res.wall_time_s, wall),
-        "batched": (res_b.wall_time_s, wall_b)}))
+    # phase 7: the streaming strategy, fit("data.npy") out of core; phase
+    # 8: faults and middleware on the same file
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_stream_"))
+    try:
+        path = write_stream_file(X, args.seed, tmp)
+        paths.update(phase_streaming(X, path, args.seed, {
+            "sequential": (res.wall_time_s, wall),
+            "batched": (res_b.wall_time_s, wall_b)}))
+        fault_paths = phase_faults(X, path, args.seed)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     n_eval = math.ceil(X.shape[0] / EVAL_BATCH)
     for path, (counts, path_wall) in paths.items():
         device_share(path, times, counts, n_eval, path_wall)
+    paths.update(fault_paths)
     paths["kpp_probe_entry"] = kpp_path
     del X
     torch.cuda.empty_cache()

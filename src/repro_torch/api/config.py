@@ -5,15 +5,19 @@ The same fields, defaults and validation as the reference's
 raises ``NotImplementedError`` here, naming the ROADMAP item that brings it,
 so that no knob is silently ignored:
 
-* ``time_budget_s`` / ``vns_ladder`` / ``scheduler != 'uniform'``
-  (queue 1 item 6b, faults and middleware), ``ckpt_dir`` (item 6c,
-  checkpoints), ``topology`` other than
+* ``ckpt_dir`` (queue 1 item 6c, checkpoints), ``topology`` other than
   ``'auto'``/``'single'`` and ``mesh`` — ``'stream_mesh'`` included, so a
   batched fit runs its streams on one device — (item 8).
 
 The streaming runner's own knobs (``prefetch``, ``log_every``,
 ``retries``, ``retry_backoff_s``, ``fetch_timeout_s``,
-``validate_chunks``) are ported with the streaming strategy.
+``validate_chunks``) are ported with the streaming strategy, and its
+middleware and schedulers with them: ``time_budget_s`` (the paper's
+``cpu_max`` stop), ``vns_ladder`` / ``vns_patience`` (the §6 chunk-size
+ladder) and ``scheduler`` — ``'uniform'``, ``'worker'`` (uniform in the
+stream loop) and ``'competitive_s'`` with ``competitive_ladder`` (the
+sample-size race of arXiv:2403.18766).  Each of these runs the
+``streaming`` strategy (``auto`` picks it, an in-core array included).
 
 ``autotune=True`` tunes the launch choices of the fit's kernels on the
 card before it runs (:mod:`repro_torch.kernels.autotune`: kernel A's
@@ -165,13 +169,6 @@ class BigMeansConfig:
     def _check_ported(self, kind: str) -> None:
         if self.ckpt_dir is not None:
             raise _not_ported("ckpt_dir (checkpoints)", "6c")
-        if self.time_budget_s is not None:
-            raise _not_ported("time_budget_s (the TimeBudget middleware)",
-                              "6b")
-        if self.vns_ladder:
-            raise _not_ported("vns_ladder (the VNSLadder middleware)", "6b")
-        if self.scheduler != "uniform":
-            raise _not_ported(f"scheduler={self.scheduler!r}", "6b")
         if kind not in ("auto", "single") or self.mesh is not None:
             raise _not_ported(
                 f"topology={kind!r} / mesh (multi-device runs)", "8")

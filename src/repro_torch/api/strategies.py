@@ -9,8 +9,10 @@ fetched from the source (:mod:`repro_torch.engine.stream`) — and ``auto``;
 ``sharded`` raises ``NotImplementedError`` naming its ROADMAP item.
 ``auto`` resolves over the one device the caller gave: an out-of-core or
 stream-preferring source (an ``.npy`` path, a provider callable, a chunk
-iterator) goes to ``streaming``, an in-core one to ``batched`` when
-``batch > 1`` and to ``sequential`` otherwise.
+iterator), or a knob only the stream loop runs (``time_budget_s``,
+``vns_ladder``, ``scheduler="competitive_s"``), goes to ``streaming``, an
+in-core one to ``batched`` when ``batch > 1`` and to ``sequential``
+otherwise.
 """
 from __future__ import annotations
 
@@ -140,7 +142,8 @@ def _fit_streaming(cfg: BigMeansConfig, source: DataSource, key, *, rng,
     from repro_torch.kernels import precision as px
 
     scheduler = sched_lib.get_scheduler(cfg.scheduler, cfg)
-    provider = source.provider(cfg.s, seed=cfg.seed,
+    # competitive_s fetches at max(ladder) and slices per stream
+    provider = source.provider(scheduler.fetch_s, seed=cfg.seed,
                                with_replacement=cfg.with_replacement)
     # 'auto' follows the source's dtype (bf16 for a bf16 tensor); the
     # loop stages its chunks in that policy's storage
@@ -162,9 +165,19 @@ def _fit_streaming(cfg: BigMeansConfig, source: DataSource, key, *, rng,
         "chunks_fetched": (metrics.chunks_done + metrics.chunks_failed
                            + metrics.chunks_dropped
                            + metrics.chunks_quarantined),
+        # the step a restore healed back to: checkpoints come with ROADMAP
+        # queue 1 item 6c, so no run of the port heals yet
+        "ckpt_fallback": next(
+            (t[1] for t in metrics.trace if t[0] == "ckpt_fallback"), None),
         "quarantine_reasons": [
             (t[1], t[2]) for t in metrics.trace if t[0] == "quarantine"],
     }
+    if isinstance(scheduler, sched_lib.CompetitiveS):
+        extras["competitive_s"] = {
+            "ladder": scheduler.ladder,
+            "final_sizes": list(scheduler.s_of),
+            "windows": len(scheduler.history),
+        }
     extras["pipeline"] = metrics.pipeline
     return FitResult(
         centroids=state.centroids,
@@ -185,12 +198,15 @@ def _fit_streaming(cfg: BigMeansConfig, source: DataSource, key, *, rng,
 def resolve_auto(cfg: BigMeansConfig, source: DataSource) -> str:
     """Pick a strategy as the reference does, over one device.
 
-    Out-of-core or stream-preferring sources go to ``streaming``;
+    Out-of-core or stream-preferring sources and the stream-loop-only
+    knobs (the time budget, VNS, ``competitive_s``) go to ``streaming``;
     ``batch > 1`` goes to ``batched``; everything else to ``sequential``
-    (multi-device topologies and the runner-only knobs of queue 1 items
-    6b, 6c and 8 still raise in the config).
+    (multi-device topologies and checkpoints, queue 1 items 6c and 8,
+    still raise in the config).
     """
-    if not source.in_core or source.prefers_streaming:
+    wants_runner = (cfg.time_budget_s is not None or bool(cfg.vns_ladder)
+                    or cfg.scheduler == "competitive_s")
+    if not source.in_core or source.prefers_streaming or wants_runner:
         return "streaming"
     if cfg.batch > 1:
         return "batched"

@@ -12,6 +12,14 @@ JAX, but the port keeps its own copy):
 * **watchdog** — :func:`call_with_timeout` turns a *hung* provider into a
   raisable :class:`FetchTimeout` (a transient fault): the blocked call is
   abandoned on a daemon thread and the fetch pipeline moves on.
+* **FaultPlan** — a deterministic, seedable injection harness: transient /
+  permanent fetch errors, corrupted chunks (NaN / Inf / wrong shape),
+  provider stalls and serve-side launch faults.  The same plan faults the
+  same chunk ids and launch indices as the reference's (the same NumPy
+  seeds), so a chaos run replays against the reference's.
+* **kernel_failure** — makes the port's kernel entry points raise for the
+  duration.  The port keeps no demotion registry: a fit on the card
+  inside it raises (:mod:`repro_torch.kernels.ops`).
 
 Quarantine vs. failure: a chunk whose *fetch* raised is ``chunks_failed``
 (``("fetch_error", cid, err)``); a chunk that arrived but carries bad data
@@ -19,14 +27,17 @@ is ``chunks_quarantined`` (``("quarantine", cid, reason)``, raised by the
 sanitizer middleware as :class:`ChunkQuarantined`).  Both reconcile into
 ``done + failed + dropped + quarantined == fetched``.
 
-Not ported yet: ``HostDead`` (ROADMAP queue 1 item 8) and the injection
-harness ``FaultPlan`` with ``corrupt_checkpoint``, ``kernel_failure`` and
-``hung_restore`` (queue 1 item 6b).
+Not ported yet: ``HostDead`` (ROADMAP queue 1 item 8), and
+``corrupt_checkpoint`` and ``hung_restore``, which need the checkpoint
+library (queue 1 item 6c).
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import threading
+import time
 
 import numpy as np
 
@@ -151,3 +162,199 @@ def call_with_timeout(fn, timeout: float | None, *, name: str = "watchdog"):
     if "error" in box:
         raise box["error"]
     return box["value"]
+
+
+# ---------------------------------------------------------------------------
+# deterministic fault injection
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultPlan:
+    """A seeded, replayable schedule of injected faults.
+
+    * ``transient_rate`` — fraction of chunk ids whose fetch raises a
+      :class:`TransientFault` for the first ``transient_attempts`` attempts
+      (then succeeds — so a retrying run recovers the chunk, a
+      ``retries=0`` run drops it).  Which ids fault is a pure function of
+      ``(seed, chunk_id)``.
+    * ``permanent_ids`` — fetches that always raise :class:`PermanentFault`.
+    * ``nan_ids`` / ``inf_ids`` / ``shape_ids`` — chunks delivered with
+      NaN-poisoned / Inf-poisoned / wrong-shape data (sanitizer fodder).
+    * ``stall_ids`` — fetches that sleep ``stall_s`` before returning
+      (hung-provider simulation; pair with a ``fetch_timeout_s`` watchdog).
+
+    Serve-side faults (wired via :meth:`wrap_launch` around a
+    ``ModelEntry.launch``):
+
+    * ``launch_transient_rate`` — fraction of launch *indices* that raise
+      a :class:`TransientFault` (the batcher recovers them on the ref
+      path); a pure function of ``(seed, launch_index)``.
+    * ``launch_outage_after`` / ``launch_outage_len`` — a window of
+      consecutive launches that all raise :class:`PermanentFault` (a dead
+      model: bisection finds no healthy requests, the circuit breaker
+      trips).
+    * :meth:`wrap_launch` also fails any launch whose payload carries
+      non-finite values with a :class:`PermanentFault` — the "poisoned
+      request" a real kernel would choke on, isolatable only by bisection.
+    """
+
+    seed: int = 0
+    transient_rate: float = 0.0
+    transient_attempts: int = 1
+    permanent_ids: tuple = ()
+    nan_ids: tuple = ()
+    inf_ids: tuple = ()
+    shape_ids: tuple = ()
+    stall_ids: tuple = ()
+    stall_s: float = 30.0
+    launch_transient_rate: float = 0.0
+    launch_outage_after: int | None = None
+    launch_outage_len: int = 0
+
+    def is_transient(self, chunk_id: int) -> bool:
+        if self.transient_rate <= 0.0:
+            return False
+        rng = np.random.default_rng((self.seed, 0xFA17, chunk_id))
+        return bool(rng.random() < self.transient_rate)
+
+    def transient_ids(self, n_chunks: int) -> list[int]:
+        """The chunk ids in ``range(n_chunks)`` this plan faults."""
+        return [cid for cid in range(n_chunks) if self.is_transient(cid)]
+
+    def wrap(self, provider):
+        """A provider with this plan's faults injected around ``provider``.
+
+        Attempt counts are tracked per chunk id (exposed as
+        ``wrapped.attempts``, a Counter) so transient faults clear after
+        ``transient_attempts`` failures and tests can reconcile fetch
+        accounting against actual provider traffic.
+        """
+        attempts: collections.Counter = collections.Counter()
+        lock = threading.Lock()
+
+        def fetch(chunk_id: int):
+            with lock:
+                attempts[chunk_id] += 1
+                attempt = attempts[chunk_id]
+            if chunk_id in self.stall_ids:
+                time.sleep(self.stall_s)
+            if chunk_id in self.permanent_ids:
+                raise PermanentFault(
+                    f"injected permanent fault on chunk {chunk_id}")
+            if self.is_transient(chunk_id) \
+                    and attempt <= self.transient_attempts:
+                raise TransientFault(
+                    f"injected transient fault on chunk {chunk_id} "
+                    f"(attempt {attempt})")
+            chunk = np.array(provider(chunk_id))  # copy: never poison source
+            if chunk_id in self.nan_ids:
+                chunk[::7] = np.nan
+            if chunk_id in self.inf_ids:
+                chunk[::11] = np.inf
+            if chunk_id in self.shape_ids:
+                chunk = chunk[:, : max(1, chunk.shape[1] // 2)]
+            return chunk
+
+        fetch.attempts = attempts
+        return fetch
+
+    def injector(self):
+        """This plan's fetch-error faults as a legacy ``fault_injector``
+        hook (``injector(cid)`` raises; data corruption and stalls need
+        :meth:`wrap`, which owns the returned chunk)."""
+        wrapped = self.wrap(lambda cid: np.zeros((1, 1), dtype=np.float32))
+
+        def inject(chunk_id: int) -> None:
+            wrapped(chunk_id)
+
+        inject.attempts = wrapped.attempts
+        return inject
+
+    # -- serve-side injection ------------------------------------------------
+    def is_launch_transient(self, launch_index: int) -> bool:
+        if self.launch_transient_rate <= 0.0:
+            return False
+        rng = np.random.default_rng((self.seed, 0x1A47, launch_index))
+        return bool(rng.random() < self.launch_transient_rate)
+
+    def in_outage(self, launch_index: int) -> bool:
+        if self.launch_outage_after is None or self.launch_outage_len <= 0:
+            return False
+        return (self.launch_outage_after <= launch_index
+                < self.launch_outage_after + self.launch_outage_len)
+
+    def wrap_launch(self, launch):
+        """A ``(q, snapshot) -> (ids, dists)`` launch with faults injected.
+
+        Wrap a serving launch with it (``entry.launch =
+        plan.wrap_launch(entry.launch)``; serving is ROADMAP queue 1 item 7)
+        to chaos-test the serving path:
+        non-finite payloads fail permanently (the poisoned-request case
+        that only batch bisection can isolate), outage-window launches
+        fail permanently (a dead model — breaker fodder), and
+        ``launch_transient_rate`` launches fail transiently (ref-retry
+        fodder).  ``wrapped.calls`` counts invocations; which launches
+        fault is a pure function of ``(seed, launch_index)``.
+        """
+        calls: collections.Counter = collections.Counter()
+        lock = threading.Lock()
+
+        def wrapped(q, snapshot):
+            with lock:
+                idx = calls["n"]
+                calls["n"] += 1
+            if not bool(np.isfinite(np.asarray(q)).all()):
+                raise PermanentFault(
+                    f"injected: non-finite payload in launch {idx}")
+            if self.in_outage(idx):
+                raise PermanentFault(
+                    f"injected launch outage (launch {idx})")
+            if self.is_launch_transient(idx):
+                raise TransientFault(
+                    f"injected transient launch fault (launch {idx})")
+            return launch(q, snapshot)
+
+        wrapped.calls = calls
+        return wrapped
+
+
+# kernel_failure's ops: the entry of ops._KERNELS each one replaces
+_KERNEL_OPS = {"assign": "assign", "update": "update", "fused": "fused",
+               "fused_batched": "batched"}
+
+
+@contextlib.contextmanager
+def kernel_failure(op: str = "fused", exc: Exception | None = None):
+    """Make one kernel entry point raise, under every policy, for the
+    duration.
+
+    ``op`` is one of ``assign`` / ``update`` / ``fused`` /
+    ``fused_batched``: the kernel wrappers that
+    :mod:`repro_torch.kernels.ops` dispatches to on the card
+    (``ops._KERNELS``: B·, C·, A· and its dma twin, D·) are replaced by a
+    function that raises ``exc`` (default ``RuntimeError("injected <op>
+    kernel failure")``), and restored on exit.  The port keeps no demotion
+    registry: a fit on the card inside the context raises that error
+    (the reference demotes the shape to its oracle instead).  The plain
+    path on the CPU launches no kernel and is not affected.
+    """
+    from repro_torch.kernels import ops
+
+    if op not in _KERNEL_OPS:
+        raise KeyError(
+            f"unknown kernel op {op!r}; known: {sorted(_KERNEL_OPS)}")
+    entry = _KERNEL_OPS[op]
+    originals = {prec: table[entry] for prec, table in ops._KERNELS.items()}
+    failure = exc or RuntimeError(f"injected {op} kernel failure")
+
+    def boom(*args, **kwargs):
+        raise failure
+
+    for table in ops._KERNELS.values():
+        table[entry] = boom
+    try:
+        yield
+    finally:
+        for prec, fn in originals.items():
+            ops._KERNELS[prec][entry] = fn

@@ -7,10 +7,11 @@ composes them around the loop.  Hook order per window: ``transform_chunk``
 ``should_stop``.  The stack calls hooks in list order.
 
 Ported here: fetch-failure skipping (:class:`FetchSkip`), the chunk
-sanitizer (:class:`ChunkSanitizer`), progress tracing (:class:`TraceLog`)
-and the post-accept invariants (:class:`InvariantGuard`).  ``TimeBudget``
-and ``VNSLadder`` come with queue 1 item 6b, ``Checkpoint`` with item 6c;
-the config rejects their knobs until then.
+sanitizer (:class:`ChunkSanitizer`), the chunk-size VNS ladder
+(:class:`VNSLadder`), progress tracing (:class:`TraceLog`), the
+wall-clock budget (:class:`TimeBudget`) and the post-accept invariants
+(:class:`InvariantGuard`).  ``Checkpoint`` comes with ROADMAP queue 1 item
+6c; the config rejects ``ckpt_dir`` until then.
 
 The sanitizer, the guard and the trace each read the device once per
 window (a finiteness test, ``f_best``): they are the loop's semantics, and
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Any
 
 import torch
@@ -33,8 +35,10 @@ class EngineContext:
 
     ``state`` is the incumbent (one ``BigMeansState``, or the reduced view
     of the persistent streams); ``info`` the latest window's
-    ``ChunkInfo``; ``last_s`` the size of the latest chunk (objectives are
-    sums over its points).
+    ``ChunkInfo``; ``rung`` / ``stall`` / ``last_s`` the VNS loop state
+    (``last_s``: the size of the latest chunk, since objectives are sums
+    over its points); ``start_step`` the chunk the run started from (0
+    until checkpoints, ROADMAP queue 1 item 6c, restore one).
     """
 
     cfg: Any
@@ -43,8 +47,12 @@ class EngineContext:
     state: Any = None
     info: Any = None
     step: int = 0                   # chunks done
+    start_step: int = 0
     last_cid: int = -1
+    batch_len: int = 0
     t0: float = 0.0
+    rung: int = 0
+    stall: int = 0
     last_s: int = 0
     stop_reason: str | None = None
     extras: dict = dataclasses.field(default_factory=dict)
@@ -79,6 +87,12 @@ class MiddlewareStack:
     def __iter__(self):
         return iter(self.middlewares)
 
+    def find(self, cls):
+        for m in self.middlewares:
+            if isinstance(m, cls):
+                return m
+        return None
+
     def on_start(self, ctx):
         for m in self.middlewares:
             m.on_start(ctx)
@@ -107,6 +121,44 @@ class MiddlewareStack:
     def on_finish(self, ctx):
         for m in self.middlewares:
             m.on_finish(ctx)
+
+
+class TimeBudget(Middleware):
+    """The paper's ``cpu_max`` stop condition: stop once ``budget_s``
+    seconds of ``time.monotonic()`` have passed since the run's ``t0``."""
+
+    def __init__(self, budget_s: float):
+        self.budget_s = budget_s
+
+    def should_stop(self, ctx) -> bool:
+        return time.monotonic() - ctx.t0 > self.budget_s
+
+
+class VNSLadder(Middleware):
+    """Chunk-size variable-neighbourhood shaking (§6 extension): a stall of
+    ``patience`` unaccepted chunks escalates to the next (smaller) rung;
+    any acceptance resets to the base neighbourhood.  The accept count is
+    one host read a window."""
+
+    def __init__(self, s: int, ladder, patience: int):
+        self.ladder = (s,) + tuple(ladder)
+        self.patience = patience
+
+    def transform_chunk(self, ctx, cid, chunk):
+        s_now = self.ladder[ctx.rung]
+        if chunk.shape[0] > s_now:
+            chunk = chunk[:s_now]           # VNS: shrink the neighbourhood
+        return chunk
+
+    def after_window(self, ctx):
+        accepted = ctx.info.accepted
+        if int(torch.sum(accepted)):
+            ctx.rung, ctx.stall = 0, 0      # success -> base neighbourhood
+        elif len(self.ladder) > 1:
+            ctx.stall += int(accepted.numel())
+            if ctx.stall >= self.patience:
+                ctx.rung = min(ctx.rung + 1, len(self.ladder) - 1)
+                ctx.stall = 0
 
 
 class TraceLog(Middleware):
@@ -193,15 +245,20 @@ class InvariantGuard(Middleware):
 
 def default_stack(cfg) -> MiddlewareStack:
     """The streaming runner's capability set, in the reference's order:
-    fetch skipping, the sanitizer (chunk admission), the trace, and the
-    invariant guard last.  ``cfg.validate_chunks=False`` drops the
-    sanitizer and the guard."""
+    fetch skipping, the sanitizer (chunk admission) before VNS (policy),
+    then the trace (an observer; the checkpoint slot after it comes with
+    item 6c), the time budget, and the invariant guard last.
+    ``cfg.validate_chunks=False`` drops the sanitizer and the guard."""
     validate = getattr(cfg, "validate_chunks", True)
     mws: list[Middleware] = [FetchSkip()]
     if validate:
         mws.append(ChunkSanitizer())
+    if cfg.vns_ladder:
+        mws.append(VNSLadder(cfg.s, cfg.vns_ladder, cfg.vns_patience))
     if cfg.log_every:
         mws.append(TraceLog(cfg.log_every, cfg.batch))
+    if cfg.time_budget_s is not None:
+        mws.append(TimeBudget(cfg.time_budget_s))
     if validate:
         mws.append(InvariantGuard())
     return MiddlewareStack(mws)

@@ -3,11 +3,11 @@
 Chunks are *fetched* by a provider (memmap slice, user callable, chunk
 iterator), staged onto the device through a prefetch pipeline, and fed to
 ``chunk_step`` / ``chunk_step_batched`` (kernels A·, D·, B·, C· on the
-card).  Capabilities (tracing, fetch-failure skip, chunk sanitizing,
-invariants) come from the middleware stack, not from the loop body.  The
-reference's ``repro.engine.stream`` on one device; checkpoints (queue 1
-item 6c), the time budget, VNS and ``competitive_s`` (6b) and the stream
-and host meshes (item 8) are not ported yet.
+card).  Capabilities (tracing, fetch-failure skip, chunk sanitizing, the
+VNS ladder, the time budget, invariants) come from the middleware stack,
+not from the loop body.  The reference's ``repro.engine.stream`` on one
+device; checkpoints (ROADMAP queue 1 item 6c) and the stream and host
+meshes (item 8) are not ported yet.
 
 * **fault tolerance** — a failed fetch is skipped and accounted
   (``chunks_failed``; bounded retries with deterministic backoff, a fetch
@@ -32,10 +32,14 @@ and host meshes (item 8) are not ported yet.
 Two stream-state modes share the loop:
 
 * **fold** (``sync_every=1``): one incumbent; each batch broadcasts it into
-  B streams, steps, and argmin-reduces back.
-* **persistent streams** (``batch > 1``, ``sync_every != 1``): B
-  incumbents persist across batches and exchange only at sync boundaries
-  — the paper's ``batch=8, sync_every=2``.
+  B streams, steps, and argmin-reduces back.  The VNS ladder re-sizes its
+  chunks.
+* **persistent streams** (``batch > 1``, ``sync_every != 1``, and the
+  ``competitive_s`` scheduler): B incumbents persist across batches and
+  exchange only at sync boundaries — the paper's ``batch=8,
+  sync_every=2``, and the sample-size race of arXiv:2403.18766, whose
+  streams are scored on a common evaluation chunk (kernel B, or B16 on a
+  bf16 chunk, once per stream and scoring).
 """
 from __future__ import annotations
 
@@ -473,6 +477,10 @@ def run_stream(
     ``cfg.scheduler``, ``cfg.sync`` / ``cfg.sync_every``).  ``key``
     defaults to ``rng.key(cfg.seed)``.  Runs on the CUDA device unless
     ``device="cpu"``.
+
+    ``vns_ladder`` needs the fold mode (collective sync), and the
+    ``competitive_s`` scheduler runs the persistent-stream mode, whatever
+    ``sync_every`` says.
     """
     dev = devices.resolve(device)
     if key is None:
@@ -486,7 +494,13 @@ def run_stream(
         stack = middlewares
     else:
         stack = mw.MiddlewareStack(middlewares)
-    persistent = cfg.batch > 1 and sync.every != 1
+    competitive_sched = isinstance(scheduler, sched_lib.CompetitiveS)
+    persistent = competitive_sched or (cfg.batch > 1 and sync.every != 1)
+    if persistent and cfg.vns_ladder:
+        raise ValueError(
+            "vns_ladder requires collective sync (sync_every=1): the ladder "
+            "re-sizes the single incumbent's chunks, which is incompatible "
+            "with persistent per-stream incumbents")
 
     state = bigmeans.init_state(cfg.k, n_features, device=dev)
     metrics = RunnerMetrics()
@@ -514,7 +528,7 @@ def run_stream(
     metrics.pipeline["copy_ms"] = stager.copy_ms()
 
     ctx.state = state
-    ctx.step = metrics.chunks_done
+    ctx.step = ctx.start_step + metrics.chunks_done
     stack.on_finish(ctx)
     metrics.wall_time_s = time.monotonic() - ctx.t0
     metrics.f_best = float(torch.min(state.f_best))
@@ -583,7 +597,7 @@ def _run_fold(source, state, ctx, stack, kernel, scheduler, sync):
         pending.clear()
         _consume_info(ctx, info)
         ctx.state, ctx.info = state, info
-        ctx.step = metrics.chunks_done
+        ctx.step = ctx.start_step + metrics.chunks_done
         stack.after_window(ctx)
         return state
 
@@ -597,8 +611,8 @@ def _run_fold(source, state, ctx, stack, kernel, scheduler, sync):
         if chunk is None:
             continue
         if pending and chunk.shape != pending[0][1].shape:
-            # ragged chunk (a short tail): flush the homogeneous batch
-            # first, then start a new one
+            # ragged chunk (short tail / VNS rung change mid-batch): flush
+            # the homogeneous batch first, then start a new one
             state = flush(state)
         if chunk.shape[0] != ctx.last_s and math.isfinite(
                 float(state.f_best)):
@@ -624,15 +638,32 @@ def _run_fold(source, state, ctx, stack, kernel, scheduler, sync):
 
 def _run_persistent(source, state, ctx, stack, kernel, scheduler, sync):
     """Persistent-stream mode: B incumbents advance across batches and
-    exchange only at sync boundaries."""
+    exchange only at sync boundaries (periodic / competitive modes, and the
+    ``competitive_s`` sample-size race)."""
     cfg = ctx.cfg
     metrics = ctx.metrics
     B = cfg.batch
     base = state
     states = bigmeans.broadcast_state(state, B)
     sizes = list(scheduler.sizes(B))
+    if any(s is None for s in sizes):
+        sizes = [cfg.s] * B
     round_idx = 0
     pending: list = []
+    competitive_sched = isinstance(scheduler, sched_lib.CompetitiveS)
+    eval_chunk = None                   # last admitted chunk (common eval)
+
+    def stream_scores(states) -> np.ndarray:
+        """Every incumbent scored on the SAME evaluation chunk — chunk
+        objectives at different sizes are not comparable (small chunks
+        overfit), a shared eval set is.  One assignment a stream (kernel
+        B, or B16 on a bf16 chunk), all read at once, in float64 on the
+        host."""
+        from repro_torch.core.objective import chunk_objective
+
+        return torch.stack([chunk_objective(eval_chunk, c, impl=cfg.impl)
+                            for c in states.centroids]).cpu().numpy(
+                            ).astype(np.float64)
 
     def stream_slices(pending):
         """Assign this round's chunks to streams 0..len(pending)-1 and
@@ -670,10 +701,15 @@ def _run_persistent(source, state, ctx, stack, kernel, scheduler, sync):
         return states
 
     def reduce(states):
-        """Final keep-the-best across streams: the argmin of ``f_best``
-        per point, in float64 on the host (first stream wins a tie)."""
-        f = states.f_best.cpu().numpy().astype(np.float64)
-        w = int(np.argmin(f / np.asarray(sizes, dtype=np.float64)))
+        """Keep-the-best across streams.  At uniform sizes the argmin of
+        ``f_best`` per point, in float64 on the host (first stream wins a
+        tie); under competitive_s the incumbents are scored on the common
+        eval chunk (raw objectives are size-incomparable)."""
+        if competitive_sched and eval_chunk is not None:
+            w = int(np.argmin(stream_scores(states)))
+        else:
+            f = states.f_best.cpu().numpy().astype(np.float64)
+            w = int(np.argmin(f / np.asarray(sizes, dtype=np.float64)))
         ctx.extras["winner_s"] = int(sizes[w])
         return bigmeans.BigMeansState(
             centroids=states.centroids[w],
@@ -684,10 +720,50 @@ def _run_persistent(source, state, ctx, stack, kernel, scheduler, sync):
             n_dist_evals=torch.sum(states.n_dist_evals) + base.n_dist_evals,
         )
 
+    def clone(states, b: int, src: int, f_best):
+        """Stream ``b`` adopts stream ``src``'s incumbent, with ``f_best``
+        as given."""
+        c, deg, f = (t.clone() for t in states[:3])
+        c[b], deg[b], f[b] = c[src], deg[src], f_best
+        return states._replace(centroids=c, degenerate=deg, f_best=f)
+
     def boundary(states):
-        # periodic argmin exchange (comparable only at equal sizes)
-        if sync.boundary(round_idx) and len(set(sizes)) == 1:
-            states = bigmeans._sync_streams(states)
+        nonlocal sizes
+        if (round_idx + 1) % cfg.sync_every == 0:
+            # scheduler observation window: competitive_s scores every
+            # incumbent on the shared eval chunk and reallocates here
+            if competitive_sched and eval_chunk is not None:
+                scores = stream_scores(states).tolist()
+            else:
+                scores = states.f_best.cpu().numpy().tolist()
+            moves = scheduler.observe_window(scores, list(sizes))
+            for b, new_s, clone_from in moves:
+                ratio = new_s / sizes[clone_from]
+                states = clone(states, b, clone_from,
+                               states.f_best[clone_from] * ratio)
+            sizes = list(scheduler.sizes(B))
+        if sync.boundary(round_idx):
+            if competitive_sched and eval_chunk is not None:
+                # cross-size collective exchange: every stream continues
+                # from the eval winner, acceptance threshold rescaled to
+                # its own chunk size (same per-point quality)
+                scores = stream_scores(states)
+                w = int(np.argmin(scores))
+                s_eval = eval_chunk.shape[0]
+                dev = states.f_best.device
+                ratios = torch.tensor([s_b / s_eval for s_b in sizes],
+                                      dtype=torch.float32, device=dev)
+                states = states._replace(
+                    centroids=states.centroids[w].expand_as(
+                        states.centroids).contiguous(),
+                    degenerate=states.degenerate[w].expand_as(
+                        states.degenerate).contiguous(),
+                    f_best=torch.tensor(scores[w], dtype=torch.float32,
+                                        device=dev) * ratios,
+                )
+            elif len(set(sizes)) == 1:
+                # periodic argmin exchange (comparable only at equal sizes)
+                states = bigmeans._sync_streams(states)
         return states
 
     stopped = False
@@ -697,15 +773,16 @@ def _run_persistent(source, state, ctx, stack, kernel, scheduler, sync):
             _account_stopped(ctx, stack, chunk_id, chunk, pending)
             break
         chunk = _admit(ctx, stack, chunk_id, chunk)
-        if chunk is None:
+        if chunk is None:               # quarantined: never the eval set
             continue
+        eval_chunk = chunk              # raw (unsliced): the common eval set
         pending.append((chunk_id, chunk))
         if len(pending) < B:
             continue
         states = step_round(states, pending)
         pending = []
         ctx.state = reduce(states)
-        ctx.step = metrics.chunks_done
+        ctx.step = ctx.start_step + metrics.chunks_done
         stack.after_window(ctx)
         states = boundary(states)
         round_idx += 1
@@ -717,7 +794,7 @@ def _run_persistent(source, state, ctx, stack, kernel, scheduler, sync):
             states = step_round(states, pending)
             pending = []
             ctx.state = reduce(states)
-            ctx.step = metrics.chunks_done
+            ctx.step = ctx.start_step + metrics.chunks_done
             stack.after_window(ctx)
     if stopped:
         _drop_pending(ctx, pending)

@@ -10,7 +10,13 @@ Dispatch policy
 * ``'auto'``        — ``'cuda'`` for a CUDA tensor, ``'ref'`` for a CPU one.
 
 There is no demotion and no fallback: a kernel that fails to build or to
-launch raises.  Outside the fused envelope, ``fused_step`` takes the
+launch raises.  (The reference demotes a failing Pallas launch to its
+oracle once per shape and reports it as ``("kernel_fallback", ...)``; the
+port keeps the raise as a stated departure, so the reference's
+``tests/test_faults.py::test_kernel_failure_demotes_once_and_falls_back``
+and ``::test_kernel_fallback_surfaces_on_fit_result`` have no mirror.
+``repro_torch.engine.faults.kernel_failure`` swaps the wrappers of
+``_KERNELS`` to show it.)  Outside the fused envelope, ``fused_step`` takes the
 two-pass route through kernels B and C on the card (through the oracles
 under the ref impls), and ``fused_step_batched`` takes it stream by
 stream.  Each kernel wrapper counts its launches; read them with

@@ -986,3 +986,57 @@ def test_streaming_prefetch_bitwise_sync_on_card(tmp_path, batch, precision):
     want = plain.ship(plain.prepare(arr)).take()
     assert got.is_cuda and got.dtype == want.dtype
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_kernel_failure_raises_then_fit_is_bitwise_on_card():
+    """No demotion: inside ``kernel_failure("fused")`` a fit on the card
+    raises the injected error (for every policy's fused kernel); after the
+    context the same fit is bitwise the fit before it."""
+    _card()
+    from repro_torch import api
+    from repro_torch.engine import faults
+
+    x, _ = blobs(20_000, 25, 28, seed=4)
+    cfg = api.BigMeansConfig(k=25, s=4096, n_chunks=4, seed=1)
+    before = api.fit(x, cfg)
+    for precision in ("f32", "int8", "bf16", "bf16x3"):
+        with faults.kernel_failure("fused"):
+            with pytest.raises(RuntimeError,
+                               match="injected fused kernel failure"):
+                api.fit(x, cfg, precision=precision)
+    after = api.fit(x, cfg)
+    assert torch.equal(after.centroids, before.centroids)
+    assert after.trace == before.trace and after.objective == before.objective
+    assert after.health is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_competitive_s_prefetch_bitwise_on_card(tmp_path, precision):
+    """``scheduler="competitive_s"`` on the card (streams of three sizes,
+    scored by B, or B16 on the bf16 eval chunk): ``prefetch=2`` bitwise
+    ``prefetch=0``."""
+    _card()
+    from repro_torch import api
+    from repro_torch.data.synthetic import GMMSpec, gmm_memmap
+    from repro_torch.kernels import ops
+
+    path = str(tmp_path / "x.npy")
+    gmm_memmap(GMMSpec(m=200_000, n=28, components=25, seed=2), path)
+    cfg = api.BigMeansConfig(k=25, s=4096, n_chunks=16, batch=4,
+                             sync_every=2, scheduler="competitive_s",
+                             precision=precision, log_every=1)
+    ops.reset_launch_counts()
+    fetched = api.fit(path, cfg)
+    scored = ops.launch_counts()["assign_bf16" if precision == "bf16"
+                                 else "assign"]
+    serial = api.fit(path, cfg, prefetch=0)
+    assert fetched.extras["competitive_s"]["ladder"] == (2048, 4096, 8192)
+    assert fetched.extras["competitive_s"] == serial.extras["competitive_s"]
+    assert torch.equal(serial.centroids, fetched.centroids)
+    assert serial.trace == fetched.trace
+    assert serial.objective == fetched.objective
+    # 4 rounds: a reduce each, 2 windows (observe + exchange), a final
+    # reduce, each scoring the 4 streams; f32 adds 16 epilogue assigns
+    assert scored == 4 * (4 + 2 * 2 + 1) + (16 if precision == "f32" else 0)

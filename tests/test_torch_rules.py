@@ -95,15 +95,30 @@ def test_cuda_impl_refuses_cpu_tensors():
 @pytest.mark.parametrize("knob,item", [
     (dict(batch=2, topology="stream_mesh"), "queue 1 item 8"),
     (dict(ckpt_dir="ckpt"), "queue 1 item 6"),
-    (dict(time_budget_s=1.0), "queue 1 item 6"),
-    (dict(vns_ladder=(200,)), "queue 1 item 6"),
-    (dict(scheduler="worker"), "queue 1 item 6"),
     (dict(topology="worker_mesh"), "queue 1 item 8"),
     (dict(mesh=object()), "queue 1 item 8"),
 ], ids=lambda v: next(iter(v)) if isinstance(v, dict) else v)
 def test_unported_knobs_raise(knob, item):
     with pytest.raises(NotImplementedError, match=item):
         api.BigMeansConfig(k=3, s=100, n_chunks=2, **knob)
+
+
+@pytest.mark.parametrize("knob", [
+    dict(time_budget_s=60.0), dict(vns_ladder=(200,), vns_patience=1),
+    dict(scheduler="worker"), dict(batch=2, scheduler="competitive_s",
+                                   competitive_ladder=(150, 300))],
+    ids=["time_budget_s", "vns_ladder", "worker", "competitive_s"])
+def test_middleware_knobs_are_ported(knob):
+    """time_budget_s, vns_ladder and the worker and competitive_s
+    schedulers validate and run on the CPU; the runner-only ones send an
+    in-core array to the streaming strategy, as the reference's auto does."""
+    cfg = api.BigMeansConfig(k=3, s=300, n_chunks=4, **knob)
+    res = api.fit(X, cfg, device="cpu")
+    assert res.n_chunks == 4 and np.isfinite(res.objective)
+    want = "sequential" if knob == dict(scheduler="worker") else "streaming"
+    assert res.strategy == want and res.extras["auto"]
+    assert api.fit(X, api.BigMeansConfig(k=3, s=300, n_chunks=4),
+                   device="cpu", **knob).config == cfg
 
 
 def test_autotune_is_ported():
