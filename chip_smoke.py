@@ -141,6 +141,28 @@ Phases, each printing JSON lines:
    5 % of the clean fit, the health record the twin's.  8e: inside
    ``kernel_failure("fused")`` the fit raises (the plain fit runs); after
    it the fit is bitwise the fit before.
+9. checkpoints and resume — on phase 7's file (removed after this phase),
+   ``log_every=1, ckpt_every=8``; each split writes half the chunks with
+   ``resume=False`` and resumes to 32.  9a: sequential under each policy
+   and f32 at ``batch=8, sync_every=1``: the resumed fit runs 16 chunks and
+   is bitwise the uninterrupted one (centroids, objective, ``n_d``, the
+   accepts of both halves summed, the trace of chunks 16-31, the steps,
+   the loop state and the newest checkpoint's leaves), through the
+   policy's A· (launches counted exactly) or D.  9b: the same split under
+   ``vns_ladder=(32000, 16000), vns_patience=4``.  9c: the persistent
+   split (``batch=8, sync_every=2``) against its plain twin resumed from a
+   copy of the directory: the same accepts up to a near tie, the full-data
+   objective within 1e-3, its distance from the uninterrupted fit printed.
+   9d: on a copy of 9a's f32 directory, the newest step torn: the fit to 40
+   chunks falls back to the previous step and runs the rest; every step
+   torn: ``("ckpt_fallback", None)`` and bitwise a fresh ``resume=False``
+   fit.  9e: phase 8d's chaos plan resumed past a torn checkpoint: exact
+   reconciliation, the fallback, one failed and three quarantined chunks
+   with the reference's reasons, the objective within 5 % of the clean
+   fit.  9f: every step written is intact, with the four meta keys and the
+   seven leaves ``f32[25,28] bool[25] f32 i32 f32 u32[2] i64[3]``.  The
+   median save (and device-read) and restore ms, the walls of U and of the
+   split's fits.
 
 Then the one ``{"kernels": [...]}`` line, the card's name and power limit,
 and the final ``{"ok": true, "device": {...}}`` line.  Any failed check raises.
@@ -172,6 +194,7 @@ from repro_torch import random as rnd  # noqa: E402
 from repro_torch.api import (  # noqa: E402
     BigMeansConfig, MemmapSource, ProviderSource, evaluate, fit,
 )
+from repro_torch.cluster import checkpoint as ckpt_lib  # noqa: E402
 from repro_torch.core import big_means_batched  # noqa: E402
 from repro_torch.core.objective import EVAL_BATCH  # noqa: E402
 from repro_torch.data.synthetic import (  # noqa: E402
@@ -1204,11 +1227,12 @@ def phase_main(seed: int):
 # --------------------------------------------------------------------------
 
 
-def incumbents_before(trace, batch: int, sync_every: int) -> list:
+def incumbents_before(trace, batch: int, sync_every: int,
+                      start: float = math.inf) -> list:
     """The incumbent f each chunk of a round-major batched trace was
-    compared with (streams start at inf, exchange the best every
-    ``sync_every`` rounds)."""
-    f_best = [math.inf] * batch
+    compared with (streams start at ``start``, inf unless resumed, and
+    exchange the best every ``sync_every`` rounds)."""
+    f_best = [start] * batch
     out = []
     for i, (_, f_new, accepted) in enumerate(trace):
         b = i % batch
@@ -1220,7 +1244,8 @@ def incumbents_before(trace, batch: int, sync_every: int) -> list:
     return out
 
 
-def check_accepts(res, res_ref, batch: int, sync_every: int):
+def check_accepts(res, res_ref, batch: int, sync_every: int,
+                  start: float = math.inf):
     """The two paths take the same accept decisions up to the first one
     that is a near tie (f_new within TIE_RTOL of its incumbent on either
     path); after such a decision the trajectories may part."""
@@ -1229,11 +1254,10 @@ def check_accepts(res, res_ref, batch: int, sync_every: int):
         return None
     i = parting["chunk"]
     near = [abs(tr[i][1] - inc) <= TIE_RTOL * abs(inc)
-            for tr, inc in ((res.trace, incumbents_before(res.trace, batch,
-                                                          sync_every)[i]),
-                            (res_ref.trace,
-                             incumbents_before(res_ref.trace, batch,
-                                               sync_every)[i]))]
+            for tr, inc in ((res.trace, incumbents_before(
+                                res.trace, batch, sync_every, start)[i]),
+                            (res_ref.trace, incumbents_before(
+                                res_ref.trace, batch, sync_every, start)[i]))]
     check(any(near), f"accept sequences part at chunk {i} without a near "
           f"tie: {parting}")
     return parting
@@ -3053,6 +3077,320 @@ def phase_faults(X, path: str, seed: int) -> dict:
     return paths
 
 
+# --------------------------------------------------------------------------
+# phase 9: checkpoints and resume on the streamed HEPMASS file
+# --------------------------------------------------------------------------
+
+CKPT_TIMES = ("save_ms", "restore_ms")
+
+
+def leaf_layout(k: int, n: int) -> list:
+    """The engine payload's seven leaves, ``(dtype, shape)``, the
+    reference's: state (f32[k,n], bool[k], f32, i32, f32), key u32[2],
+    aux i64[3]."""
+    return [("<f4", (k, n)), ("|b1", (k,)), ("<f4", ()), ("<i4", ()),
+            ("<f4", ()), ("<u4", (2,)), ("<i8", (3,))]
+
+
+def ckpt_fit(data, cfg, times: dict):
+    """``fit(data, cfg)`` with its checkpoint times appended to
+    ``times``."""
+    res = fit(data, cfg)
+    for key in CKPT_TIMES:
+        times[key].extend(res.extras["checkpoint"][key])
+    return res
+
+
+def step_arrays(directory: str, step: int) -> dict:
+    with np.load(Path(directory) / f"step_{step:012d}" / "arrays.npz") as z:
+        return {f: z[f] for f in z.files}
+
+
+def same_checkpoints(a_dir: str, b_dir: str, what: str) -> None:
+    """Equal step lists, loop states and newest payloads, bitwise."""
+    check(ckpt_lib.steps(a_dir) == ckpt_lib.steps(b_dir),
+          f"{what}: steps {ckpt_lib.steps(a_dir)} != {ckpt_lib.steps(b_dir)}")
+    check(mw.load_loop_state(a_dir) == mw.load_loop_state(b_dir),
+          f"{what}: loop states differ")
+    step = ckpt_lib.latest_step(a_dir)
+    a, b = step_arrays(a_dir, step), step_arrays(b_dir, step)
+    check(list(a) == list(b) and all(
+        a[f].dtype == b[f].dtype and np.array_equal(a[f], b[f]) for f in a),
+        f"{what}: the newest checkpoints differ")
+
+
+def split_fits(path: str, cfg, root: Path, name: str, times: dict):
+    """The uninterrupted fit U into ``<name>_U`` and the split: half the
+    chunks with ``resume=False`` into ``<name>_R``, then the fit resumed
+    from there (its launches and wall counted)."""
+    u_dir, r_dir = str(root / f"{name}_U"), str(root / f"{name}_R")
+    full = ckpt_fit(path, cfg.replace(ckpt_dir=u_dir), times)
+    first = ckpt_fit(path, cfg.replace(ckpt_dir=r_dir, resume=False,
+                                       n_chunks=cfg.n_chunks // 2), times)
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    resumed = ckpt_fit(path, cfg.replace(ckpt_dir=r_dir), times)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = ops.launch_counts()
+    return full, first, resumed, u_dir, r_dir, launches, wall
+
+
+def check_resumed(full, first, resumed, u_dir: str, r_dir: str,
+                  what: str) -> None:
+    """9a: the resumed fit is bitwise the uninterrupted one."""
+    half = full.config.n_chunks // 2
+    check(first.n_chunks == resumed.n_chunks == half,
+          f"{what}: {first.n_chunks} + {resumed.n_chunks} chunks")
+    check(resumed.extras["health"]["ckpt_fallback"] is None
+          and len(resumed.extras["checkpoint"]["restore_ms"]) == 1,
+          f"{what}: no clean restore")
+    check(torch.equal(resumed.centroids, full.centroids)
+          and resumed.objective == full.objective
+          and resumed.n_dist_evals == full.n_dist_evals
+          and first.n_accepted + resumed.n_accepted == full.n_accepted,
+          f"{what}: resumed fit differs from the uninterrupted one")
+    check(resumed.trace == [t for t in full.trace if t[0] >= half],
+          f"{what}: accept traces of chunks {half}.. differ")
+    same_checkpoints(r_dir, u_dir, what)
+
+
+def resumed_launches(prec: str, name: str, res, launches: dict) -> None:
+    """The resumed fit went through the policy's kernels: A· once per Lloyd
+    iteration (sequential), or D· (batched) and never A·; the epilogue's
+    B· and C· once a chunk."""
+    if name == "sequential":
+        want = dict.fromkeys(launches, 0)
+        want.update(stream_launches(prec, name, res.n_iterations,
+                                    res.n_chunks, 0))
+        check(launches == want, f"{prec} resume launches {launches} != "
+              f"{want}")
+    else:
+        d = COUNTS[f"fused_step_batched_{prec}"]
+        check(0 < launches[d] <= res.n_iterations
+              and launches[COUNTS[f"fused_step_{prec}"]] == 0
+              and launches["update"] == launches["assign"] == res.n_chunks,
+              f"{prec} batched resume launches {launches}")
+
+
+def check_layout(root: Path, k: int, n: int, skip: set) -> int:
+    """9f: every step phase 9 wrote (outside ``skip``) is intact, with
+    exactly the four meta keys and the seven leaves of the reference's
+    dtypes and shapes.  Returns the count of steps checked."""
+    want = leaf_layout(k, n)
+    count = 0
+    for d in sorted(p for p in root.iterdir() if p.name not in skip):
+        for step in ckpt_lib.steps(str(d)):
+            check(ckpt_lib.verify_step(str(d), step),
+                  f"{d.name} step {step} fails verification")
+            meta = json.loads((d / f"step_{step:012d}" / "meta.json")
+                              .read_text())
+            check(sorted(meta) == ["digests", "n_leaves", "step", "treedef"]
+                  and meta["step"] == step and meta["n_leaves"] == 7,
+                  f"{d.name} step {step} meta {sorted(meta)}")
+            arrays = step_arrays(str(d), step)
+            got = [(arrays[f"a{i}"].dtype.str, arrays[f"a{i}"].shape)
+                   for i in range(len(arrays))]
+            check(list(arrays) == [f"a{i}" for i in range(7)]
+                  and got == want, f"{d.name} step {step} leaves {got}")
+            count += 1
+    return count
+
+
+def device_read_ms(directory: str, reps: int = 50) -> dict:
+    """A save's device read, alone: the newest payload of ``directory``
+    restored onto the card (five tensors, the key and the aux as numpy) and
+    read back by ``ckpt_lib.to_host`` (leaf by leaf), against one packed
+    copy of the same tensors; median ms of ``reps`` each."""
+    example = tuple(torch.empty(0) for _ in range(5)) + (
+        np.zeros(2, np.uint32), np.zeros(3, np.int64))
+    payload, _ = ckpt_lib.restore(directory, example, device="cuda")
+    tensors = payload[:5]
+
+    def packed():
+        torch.cat([t.reshape(-1).view(torch.uint8) for t in tensors]
+                  ).cpu().numpy()
+
+    out = {}
+    for name, read in (("per_leaf", lambda: ckpt_lib.to_host(payload)),
+                       ("packed", packed)):
+        ms = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            read()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        out[f"read_ms_{name}_median"] = float(np.median(ms))
+    host = ckpt_lib.to_host(payload)
+    check(all(np.array_equal(a, t.cpu().numpy())
+              for a, t in zip(host[:5], tensors)),
+          "to_host differs from the card's tensors")
+    return out
+
+
+def phase_resume_persistent(X, path: str, base, root: Path,
+                            times: dict) -> dict:
+    """9c: the persistent split (f32, ``batch=8, sync_every=2``) resumed on
+    the card and by its plain twin from a copy of the same directory."""
+    cfg = base.replace(batch=BATCH, sync_every=SYNC_EVERY)
+    r_dir, twin_dir = root / "persistent_R", root / "persistent_twin"
+    full = ckpt_fit(path, cfg.replace(ckpt_dir=str(root / "persistent_U")),
+                    times)
+    ckpt_fit(path, cfg.replace(ckpt_dir=str(r_dir), resume=False,
+                               n_chunks=cfg.n_chunks // 2), times)
+    shutil.copytree(r_dir, twin_dir)
+    start = float(step_arrays(str(r_dir), ckpt_lib.latest_step(
+        str(r_dir)))["a2"])
+    log, log_ref = Windows(), Windows()
+    state, m = run_path(path, cfg.replace(ckpt_dir=str(r_dir)), log)
+    state_ref, m_ref = run_path(
+        path, cfg.replace(ckpt_dir=str(twin_dir), impl="ref"), log_ref)
+    half = cfg.n_chunks // 2
+    check(m.chunks_done == m_ref.chunks_done == half,
+          f"persistent resume: {m.chunks_done} / {m_ref.chunks_done} chunks")
+    parting = check_accepts(
+        types.SimpleNamespace(trace=log.trace()),
+        types.SimpleNamespace(trace=log_ref.trace()), BATCH, SYNC_EVERY,
+        start)
+    _, f_full = evaluate(state.centroids, X)
+    _, f_full_ref = evaluate(state_ref.centroids, X, impl="ref")
+    _, f_full_u = evaluate(full, X)
+    rel = abs(f_full - f_full_ref) / f_full_ref
+    check(rel <= 1e-3, f"persistent resume: full objectives differ by "
+          f"{rel:.3e} (> 1e-3)")
+    return {"f_full": f_full, "ref_f_full": f_full_ref,
+            "f_full_rel_diff": rel, "first_parting": parting,
+            "uninterrupted_f_full": f_full_u,
+            "vs_uninterrupted_rel": (f_full - f_full_u) / f_full_u,
+            "restored_f_best": start, "accepts": m.accepted,
+            "ref_accepts": m_ref.accepted}
+
+
+def phase_resume_healing(path: str, base, r_dir: str, root: Path,
+                         times: dict) -> dict:
+    """9d: on a copy of 9a's f32 split, the newest step torn, then every
+    step: the fallback and the fresh start."""
+    h_dir = str(root / "healed")
+    shutil.copytree(r_dir, h_dir)
+    intact = ckpt_lib.steps(h_dir)[-2]
+    faults.corrupt_checkpoint(h_dir)
+    res = ckpt_fit(path, base.replace(ckpt_dir=h_dir, n_chunks=40), times)
+    h = res.health
+    check(h["ckpt_fallback"] == intact
+          and h["chunks_done"] == res.n_chunks == 40 - intact,
+          f"healing: health {h} against the intact step {intact}")
+    torn = ckpt_lib.steps(h_dir)
+    for step in torn:
+        faults.corrupt_checkpoint(h_dir, step=step)
+    healed = ckpt_fit(path, base.replace(ckpt_dir=h_dir), times)
+    fresh = ckpt_fit(path, base.replace(ckpt_dir=str(root / "fresh"),
+                                        resume=False), times)
+    check(healed.trace[0] == ("ckpt_fallback", None)
+          and healed.health["ckpt_fallback"] is None,
+          "every step torn: no fresh start recorded")
+    same_stream_fit(types.SimpleNamespace(**{
+        **vars(healed), "trace": healed.trace[1:]}), fresh,
+        "every step torn: the fresh start")
+    return {"fallback_step": intact, "chunks_done": h["chunks_done"],
+            "torn_steps": torn, "fresh_start_bitwise": True}
+
+
+def phase_resume_chaos(path: str, base, clean, root: Path,
+                       times: dict) -> dict:
+    """9e: phase 8d's chaos plan resumed past a torn checkpoint."""
+    n = PAPER_DATASETS["hepmass"][1]
+    c_dir = str(root / "chaos")
+    ckpt_fit(path, base.replace(ckpt_dir=c_dir, n_chunks=11, ckpt_every=5),
+             times)
+    torn = ckpt_lib.latest_step(c_dir)
+    faults.corrupt_checkpoint(c_dir)
+    intact = ckpt_lib.latest_intact_step(c_dir)
+    plan = faults.FaultPlan(**FAULT_PLAN)
+    cfg = base.replace(retries=2, retry_backoff_s=0.0, ckpt_dir=c_dir,
+                       ckpt_every=5)
+    wrapped = plan.wrap(MemmapSource(path).provider(cfg.s, seed=cfg.seed))
+    res = ckpt_fit(ProviderSource(wrapped, n_features=n), cfg, times)
+    h = res.health
+    want_reasons = [(14, "non-finite values (NaN/Inf)"),
+                    (20, "non-finite values (NaN/Inf)"),
+                    (22, f"bad shape ({cfg.s}, {n // 2}), want (*, {n})")]
+    check(h["chunks_done"] + h["chunks_failed"] + h["chunks_dropped"]
+          + h["chunks_quarantined"] == h["chunks_fetched"]
+          == cfg.n_chunks - intact, f"chaos resume health {h}")
+    check(intact is not None and intact < torn
+          and h["ckpt_fallback"] == intact,
+          f"chaos resume fallback {h['ckpt_fallback']} (torn {torn})")
+    check(h["chunks_failed"] == 1 and h["chunks_quarantined"] == 3
+          and h["quarantine_reasons"] == want_reasons,
+          f"chaos resume health {h}")
+    check(res.objective <= clean.objective * 1.05,
+          f"chaos resume objective {res.objective} > 1.05 x "
+          f"{clean.objective}")
+    return {"torn_step": torn, "health": h, "objective": res.objective,
+            "clean_objective": clean.objective}
+
+
+def phase_resume(X, path: str, seed: int, root: Path) -> dict:
+    """Phase 9: ``ckpt_dir`` / ``resume`` on phase 7's HEPMASS ``.npy``:
+    9a fold-mode splits bitwise the uninterrupted fits (sequential under
+    each policy, f32 at ``batch=8``), 9b the VNS split, 9c the persistent
+    split against its plain twin, 9d self-healing, 9e chaos past a torn
+    checkpoint, 9f the layout of every step written; the save, device-read
+    (alone, per leaf against packed) and restore ms.  Returns {path: (launches, wall)} of the resumed
+    fits."""
+    t0 = time.monotonic()
+    card = nvidia_smi()
+    k, n = 25, PAPER_DATASETS["hepmass"][1]
+    base = BigMeansConfig(k=k, s=64_000, n_chunks=32, seed=seed,
+                          log_every=1, ckpt_every=8)
+    times = {key: [] for key in CKPT_TIMES}
+    paths, walls, fits = {}, {}, {}
+    cases = [(prec, "sequential", {}) for prec in POLICIES]
+    cases.append(("f32", "batched", dict(batch=BATCH, sync_every=1)))
+    for prec, name, extra in cases:
+        what = f"resume {prec} {name}"
+        out = split_fits(path, base.replace(precision=prec, **extra), root,
+                         f"{prec}_{name}", times)
+        full, first, resumed, u_dir, r_dir, launches, wall = out
+        check_resumed(full, first, resumed, u_dir, r_dir, what)
+        resumed_launches(prec, name, resumed, launches)
+        paths[f"resume_{prec}_{name}"] = (launches, wall)
+        fits[prec, name] = out
+        walls[f"{prec}_{name}"] = {
+            "uninterrupted_s": full.wall_time_s,
+            "first_half_s": first.wall_time_s,
+            "resumed_s": resumed.wall_time_s}
+    emit({"phase": "resume_fold", "cases": [f"{p}_{m}" for p, m, _ in cases],
+          "bitwise_uninterrupted": True, "walls": walls, "card": card})
+
+    vns = base.replace(vns_ladder=(32_000, 16_000), vns_patience=4)
+    full, first, resumed, u_dir, r_dir, _, _ = split_fits(
+        path, vns, root, "vns", times)
+    check_resumed(full, first, resumed, u_dir, r_dir, "resume VNS")
+    emit({"phase": "resume_vns", "bitwise_uninterrupted": True,
+          "loop_state": mw.load_loop_state(r_dir),
+          "mid_loop_state_restored": True, "card": card})
+
+    emit({"phase": "resume_persistent", "card": card,
+          **phase_resume_persistent(X, path, base, root, times)})
+    emit({"phase": "resume_healing", **phase_resume_healing(
+        path, base, fits["f32", "sequential"][4], root, times)})
+    emit({"phase": "resume_chaos", "card": card, **phase_resume_chaos(
+        path, base, fits["f32", "sequential"][0], root, times)})
+    steps_checked = check_layout(root, k, n, skip={"healed"})
+    emit({"phase": "resume_layout", "steps_checked": steps_checked,
+          "leaves": leaf_layout(k, n)})
+    med = {f"{key}_median": float(np.median(times[key]))
+           for key in CKPT_TIMES}
+    med.update(device_read_ms(fits["f32", "sequential"][3]))
+    emit({"phase": "resume_times", **med,
+          **{f"{key}_count": len(times[key]) for key in CKPT_TIMES},
+          "save_ms_max": max(times["save_ms"]),
+          "f32_sequential_walls_s": walls["f32_sequential"],
+          "wall_s": time.monotonic() - t0, "card": card})
+    return paths
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3133,6 +3471,10 @@ def main() -> int:
             "sequential": (res.wall_time_s, wall),
             "batched": (res_b.wall_time_s, wall_b)}))
         fault_paths = phase_faults(X, path, args.seed)
+        # phase 9: checkpoints and resume on the same file
+        ckpt_root = tmp / "ckpt"
+        ckpt_root.mkdir()
+        fault_paths.update(phase_resume(X, path, args.seed, ckpt_root))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     n_eval = math.ceil(X.shape[0] / EVAL_BATCH)

@@ -5,13 +5,14 @@ The same fields, defaults and validation as the reference's
 raises ``NotImplementedError`` here, naming the ROADMAP item that brings it,
 so that no knob is silently ignored:
 
-* ``ckpt_dir`` (queue 1 item 6c, checkpoints), ``topology`` other than
-  ``'auto'``/``'single'`` and ``mesh`` — ``'stream_mesh'`` included, so a
-  batched fit runs its streams on one device — (item 8).
+* ``topology`` other than ``'auto'``/``'single'`` and ``mesh`` —
+  ``'stream_mesh'`` included, so a batched fit runs its streams on one
+  device — (queue 1 item 8).
 
 The streaming runner's own knobs (``prefetch``, ``log_every``,
 ``retries``, ``retry_backoff_s``, ``fetch_timeout_s``,
-``validate_chunks``) are ported with the streaming strategy, and its
+``validate_chunks``, and the checkpoints' ``ckpt_dir``, ``ckpt_every``
+and ``resume``) are ported with the streaming strategy, and its
 middleware and schedulers with them: ``time_budget_s`` (the paper's
 ``cpu_max`` stop), ``vns_ladder`` / ``vns_patience`` (the §6 chunk-size
 ladder) and ``scheduler`` — ``'uniform'``, ``'worker'`` (uniform in the
@@ -167,8 +168,6 @@ class BigMeansConfig:
         self._check_ported(kind)
 
     def _check_ported(self, kind: str) -> None:
-        if self.ckpt_dir is not None:
-            raise _not_ported("ckpt_dir (checkpoints)", "6c")
         if kind not in ("auto", "single") or self.mesh is not None:
             raise _not_ported(
                 f"topology={kind!r} / mesh (multi-device runs)", "8")

@@ -27,14 +27,19 @@ class FitResult:
       f_new)`` progress entries every ``log_every`` chunks, and the
       runner's events — ``("fetch_error", chunk_id, "ExcType: message")``,
       ``("quarantine", chunk_id, reason)``, ``("short_chunk", chunk_id,
-      rows, need)``, ``("budget_drop", (chunk_ids...))``.
+      rows, need)``, ``("budget_drop", (chunk_ids...))``,
+      ``("ckpt_fallback", step or None)``.
+    * ``checkpoint_dir`` — the streaming fit's ``ckpt_dir`` (None without
+      checkpoints).
     * ``extras`` — ``extras["fit"]`` records how the fit was dispatched,
       the impl and device actually used included; ``batched`` adds
       ``batch`` and ``rounds``; ``streaming`` adds ``chunks_failed``,
       ``chunks_dropped``, ``chunks_quarantined``, ``health`` (``done +
       failed + dropped + quarantined == fetched``), ``pipeline`` (the
       prefetch pipeline's per-chunk times,
-      :class:`repro_torch.engine.stream.RunnerMetrics`) and, under
+      :class:`repro_torch.engine.stream.RunnerMetrics`), with
+      ``ckpt_dir`` ``checkpoint`` (the save, device-read and restore ms)
+      and, under
       ``scheduler="competitive_s"``, ``competitive_s`` (``ladder``,
       ``final_sizes``, ``windows``).
     """

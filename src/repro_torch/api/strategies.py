@@ -9,8 +9,9 @@ fetched from the source (:mod:`repro_torch.engine.stream`) — and ``auto``;
 ``sharded`` raises ``NotImplementedError`` naming its ROADMAP item.
 ``auto`` resolves over the one device the caller gave: an out-of-core or
 stream-preferring source (an ``.npy`` path, a provider callable, a chunk
-iterator), or a knob only the stream loop runs (``time_budget_s``,
-``vns_ladder``, ``scheduler="competitive_s"``), goes to ``streaming``, an
+iterator), or a knob only the stream loop runs (``ckpt_dir``,
+``time_budget_s``, ``vns_ladder``, ``scheduler="competitive_s"``), goes to
+``streaming``, an
 in-core one to ``batched`` when ``batch > 1`` and to ``sequential``
 otherwise.
 """
@@ -150,8 +151,8 @@ def _fit_streaming(cfg: BigMeansConfig, source: DataSource, key, *, rng,
     prec = px.resolve(cfg.precision, source.data_dtype)
     run_cfg = cfg if cfg.precision == prec else cfg.replace(precision=prec)
     state, metrics = stream.run_stream(
-        provider, run_cfg, n_features=source.n_features, key=key,
-        scheduler=scheduler, rng=rng, device=device)
+        provider, run_cfg, n_features=source.n_features, resume=cfg.resume,
+        key=key, scheduler=scheduler, rng=rng, device=device)
     extras = {"chunks_failed": metrics.chunks_failed,
               "chunks_dropped": metrics.chunks_dropped,
               "chunks_quarantined": metrics.chunks_quarantined}
@@ -165,8 +166,6 @@ def _fit_streaming(cfg: BigMeansConfig, source: DataSource, key, *, rng,
         "chunks_fetched": (metrics.chunks_done + metrics.chunks_failed
                            + metrics.chunks_dropped
                            + metrics.chunks_quarantined),
-        # the step a restore healed back to: checkpoints come with ROADMAP
-        # queue 1 item 6c, so no run of the port heals yet
         "ckpt_fallback": next(
             (t[1] for t in metrics.trace if t[0] == "ckpt_fallback"), None),
         "quarantine_reasons": [
@@ -179,6 +178,8 @@ def _fit_streaming(cfg: BigMeansConfig, source: DataSource, key, *, rng,
             "windows": len(scheduler.history),
         }
     extras["pipeline"] = metrics.pipeline
+    if cfg.ckpt_dir is not None:
+        extras["checkpoint"] = metrics.checkpoint
     return FitResult(
         centroids=state.centroids,
         objective=float(state.f_best),
@@ -190,6 +191,7 @@ def _fit_streaming(cfg: BigMeansConfig, source: DataSource, key, *, rng,
         n_dist_evals=float(state.n_dist_evals),
         wall_time_s=metrics.wall_time_s,
         trace=list(metrics.trace),
+        checkpoint_dir=cfg.ckpt_dir,
         config=cfg,
         extras=extras,
     )
@@ -199,12 +201,14 @@ def resolve_auto(cfg: BigMeansConfig, source: DataSource) -> str:
     """Pick a strategy as the reference does, over one device.
 
     Out-of-core or stream-preferring sources and the stream-loop-only
-    knobs (the time budget, VNS, ``competitive_s``) go to ``streaming``;
-    ``batch > 1`` goes to ``batched``; everything else to ``sequential``
-    (multi-device topologies and checkpoints, queue 1 items 6c and 8,
-    still raise in the config).
+    knobs (checkpoints, the time budget, VNS, ``competitive_s``) go to
+    ``streaming``; ``batch > 1`` goes to ``batched``; everything else to
+    ``sequential`` (multi-device topologies, queue 1 item 8, still raise in
+    the config; so does the reference's in-core mesh with checkpoints,
+    which it sends to ``sharded``).
     """
-    wants_runner = (cfg.time_budget_s is not None or bool(cfg.vns_ladder)
+    wants_runner = (cfg.ckpt_dir is not None or cfg.time_budget_s is not None
+                    or bool(cfg.vns_ladder)
                     or cfg.scheduler == "competitive_s")
     if not source.in_core or source.prefers_streaming or wants_runner:
         return "streaming"

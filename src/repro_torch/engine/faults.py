@@ -27,19 +27,25 @@ is ``chunks_quarantined`` (``("quarantine", cid, reason)``, raised by the
 sanitizer middleware as :class:`ChunkQuarantined`).  Both reconcile into
 ``done + failed + dropped + quarantined == fetched``.
 
-Not ported yet: ``HostDead`` (ROADMAP queue 1 item 8), and
-``corrupt_checkpoint`` and ``hung_restore``, which need the checkpoint
-library (queue 1 item 6c).
+* **checkpoint faults** — :func:`corrupt_checkpoint` tears a stored
+  checkpoint (a truncated write) and :func:`hung_restore` makes every
+  restore block (a stalled filesystem), on
+  :mod:`repro_torch.cluster.checkpoint`.
+
+Not ported yet: ``HostDead`` (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
 import collections
 import contextlib
 import dataclasses
+import os
 import threading
 import time
 
 import numpy as np
+
+from repro_torch.cluster import checkpoint as ckpt_lib
 
 TRANSIENT = "transient"
 PERMANENT = "permanent"
@@ -358,3 +364,46 @@ def kernel_failure(op: str = "fused", exc: Exception | None = None):
     finally:
         for prec, fn in originals.items():
             ops._KERNELS[prec][entry] = fn
+
+
+def corrupt_checkpoint(directory: str, *, step: int | None = None,
+                       keep_bytes: int = 64) -> str:
+    """Truncate a checkpoint's ``arrays.npz`` to ``keep_bytes`` (a crashed /
+    torn write), defaulting to the newest step.  Returns the mangled path —
+    restore must now fall back to the previous intact step."""
+    if step is None:
+        step = ckpt_lib.latest_step(directory)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint under {directory}")
+    path = os.path.join(directory, f"step_{step:012d}", "arrays.npz")
+    with open(path, "rb") as f:
+        head = f.read(keep_bytes)
+    with open(path, "wb") as f:
+        f.write(head)
+    return path
+
+
+@contextlib.contextmanager
+def hung_restore(stall_s: float | None = None):
+    """Make checkpoint restore *hang* for the duration.
+
+    Simulates an NFS-stalled checkpoint load: inside the context every
+    ``checkpoint.restore`` call blocks (``stall_s`` seconds, or until the
+    context exits when ``None``) before proceeding.  Yields the release
+    :class:`threading.Event` — set it early to un-stall mid-test.  Exiting
+    the context releases stalled calls (they then complete normally, like
+    a filesystem coming back).
+    """
+    original = ckpt_lib.restore
+    release = threading.Event()
+
+    def stalled(*args, **kwargs):
+        release.wait(stall_s)
+        return original(*args, **kwargs)
+
+    ckpt_lib.restore = stalled
+    try:
+        yield release
+    finally:
+        release.set()
+        ckpt_lib.restore = original

@@ -9,9 +9,9 @@ composes them around the loop.  Hook order per window: ``transform_chunk``
 Ported here: fetch-failure skipping (:class:`FetchSkip`), the chunk
 sanitizer (:class:`ChunkSanitizer`), the chunk-size VNS ladder
 (:class:`VNSLadder`), progress tracing (:class:`TraceLog`), the
-wall-clock budget (:class:`TimeBudget`) and the post-accept invariants
-(:class:`InvariantGuard`).  ``Checkpoint`` comes with ROADMAP queue 1 item
-6c; the config rejects ``ckpt_dir`` until then.
+wall-clock budget (:class:`TimeBudget`), the post-accept invariants
+(:class:`InvariantGuard`) and the loop-state checkpoint
+(:class:`Checkpoint`, on :mod:`repro_torch.cluster.checkpoint`).
 
 The sanitizer, the guard and the trace each read the device once per
 window (a finiteness test, ``f_best``): they are the loop's semantics, and
@@ -21,11 +21,15 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 from typing import Any
 
+import numpy as np
 import torch
 
+from repro_torch import random as rnd
+from repro_torch.cluster import checkpoint as ckpt_lib
 from repro_torch.engine import faults
 
 
@@ -37,8 +41,9 @@ class EngineContext:
     of the persistent streams); ``info`` the latest window's
     ``ChunkInfo``; ``rung`` / ``stall`` / ``last_s`` the VNS loop state
     (``last_s``: the size of the latest chunk, since objectives are sums
-    over its points); ``start_step`` the chunk the run started from (0
-    until checkpoints, ROADMAP queue 1 item 6c, restore one).
+    over its points); ``start_step`` the chunk the run started from (a
+    restored checkpoint's step, else 0); ``rng`` the key-tree backend,
+    whose codec turns ``key`` into the checkpoint's ``uint32[2]`` leaf.
     """
 
     cfg: Any
@@ -55,6 +60,7 @@ class EngineContext:
     stall: int = 0
     last_s: int = 0
     stop_reason: str | None = None
+    rng: Any = rnd.TORCH
     extras: dict = dataclasses.field(default_factory=dict)
 
 
@@ -243,12 +249,100 @@ class InvariantGuard(Middleware):
         self._best_per_point = min(self._best_per_point, per_point)
 
 
+class Checkpoint(Middleware):
+    """Persist the *full* loop state: ``((state, key), vns_aux)`` where
+    ``vns_aux = [rung, stall, last_s]`` — the reference's seven leaves
+    (``f32[k,n]``, ``bool[k]``, ``f32[]``, ``i32[]``, ``f32[]``,
+    ``u32[2]``, ``i64[3]``), the key through the backend's codec.
+
+    ``last_s`` makes the post-resume objective rescale exact (objectives are
+    sums over the chunk's points), and ``(rung, stall)`` resumes the VNS
+    ladder where it stopped.  Checkpoints without the aux leaf (the legacy
+    ``(state, key)`` payload) restore with the ladder reset to the base
+    rung.  Each :meth:`after_window` save (from the device read to
+    ``os.replace``) and each restore is timed into
+    ``ctx.metrics.checkpoint``.
+    """
+
+    def __init__(self, directory: str, every: int, batch: int):
+        self.directory = directory
+        self.every = every
+        self.batch = batch
+
+    def _payload(self, ctx):
+        aux = np.asarray([ctx.rung, ctx.stall, ctx.last_s], dtype=np.int64)
+        return ((ctx.state, ctx.rng.key_to_array(ctx.key)), aux)
+
+    def maybe_restore(self, ctx, example_state) -> bool:
+        """Restore the newest *intact* checkpoint into ``ctx`` (state, key,
+        step and VNS loop state); no-op when the directory holds none.
+
+        Self-healing: a corrupt newest ``step_*`` falls back to the newest
+        intact one, recorded as a ``("ckpt_fallback", step)`` trace event;
+        when every stored checkpoint is corrupt the run restarts fresh with
+        ``("ckpt_fallback", None)`` instead of crashing.  The state comes
+        back on ``example_state``'s device.
+        """
+        t0 = time.perf_counter()
+        latest = ckpt_lib.latest_step(self.directory)
+        if latest is None:
+            return False
+        step = ckpt_lib.latest_intact_step(self.directory)
+        if step is None:
+            ctx.metrics.trace.append(("ckpt_fallback", None))
+            return False
+        if step != latest:
+            ctx.metrics.trace.append(("ckpt_fallback", step))
+        key = ctx.rng.key_to_array(ctx.key)
+        example_new = ((example_state, key), np.zeros(3, dtype=np.int64))
+        n = ckpt_lib.n_leaves(self.directory, step)
+        if n == len(ckpt_lib.flatten(example_new)[0]):
+            ((state, key), aux), step = ckpt_lib.restore(
+                self.directory, example_new, step=step)
+            ctx.rung, ctx.stall = int(aux[0]), int(aux[1])
+            ctx.last_s = int(aux[2])
+        else:                       # legacy (state, key) checkpoint
+            (state, key), step = ckpt_lib.restore(
+                self.directory, (example_state, key), step=step)
+        ctx.state, ctx.key = state, ctx.rng.key_from_array(key)
+        ctx.step = ctx.start_step = step
+        ctx.metrics.checkpoint["restore_ms"].append(
+            1e3 * (time.perf_counter() - t0))
+        return True
+
+    def after_window(self, ctx):
+        if (ctx.last_cid + 1) % self.every < self.batch:
+            t0 = time.perf_counter()
+            ckpt_lib.save(self.directory, ctx.last_cid + 1,
+                          self._payload(ctx))
+            ctx.metrics.checkpoint["save_ms"].append(
+                1e3 * (time.perf_counter() - t0))
+
+    def on_finish(self, ctx):
+        ckpt_lib.save(self.directory, ctx.step, self._payload(ctx))
+
+
+def load_loop_state(directory: str):
+    """Debug/test helper: the VNS aux payload of the latest checkpoint, as
+    ``{'rung', 'stall', 'last_s'}`` (None for legacy checkpoints)."""
+    step = ckpt_lib.latest_step(directory)
+    if step is None:
+        return None
+    n = ckpt_lib.n_leaves(directory, step)
+    with np.load(os.path.join(
+            directory, f"step_{step:012d}", "arrays.npz")) as data:
+        aux = data[f"a{n - 1}"]             # the aux leaf flattens last
+    if aux.shape != (3,):
+        return None
+    return {"rung": int(aux[0]), "stall": int(aux[1]), "last_s": int(aux[2])}
+
+
 def default_stack(cfg) -> MiddlewareStack:
     """The streaming runner's capability set, in the reference's order:
     fetch skipping, the sanitizer (chunk admission) before VNS (policy),
-    then the trace (an observer; the checkpoint slot after it comes with
-    item 6c), the time budget, and the invariant guard last.
-    ``cfg.validate_chunks=False`` drops the sanitizer and the guard."""
+    then the observers (trace, checkpoint), the time budget, and the
+    invariant guard last.  ``cfg.validate_chunks=False`` drops the
+    sanitizer and the guard."""
     validate = getattr(cfg, "validate_chunks", True)
     mws: list[Middleware] = [FetchSkip()]
     if validate:
@@ -257,6 +351,8 @@ def default_stack(cfg) -> MiddlewareStack:
         mws.append(VNSLadder(cfg.s, cfg.vns_ladder, cfg.vns_patience))
     if cfg.log_every:
         mws.append(TraceLog(cfg.log_every, cfg.batch))
+    if cfg.ckpt_dir:
+        mws.append(Checkpoint(cfg.ckpt_dir, cfg.ckpt_every, cfg.batch))
     if cfg.time_budget_s is not None:
         mws.append(TimeBudget(cfg.time_budget_s))
     if validate:

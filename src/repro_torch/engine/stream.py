@@ -4,10 +4,16 @@ Chunks are *fetched* by a provider (memmap slice, user callable, chunk
 iterator), staged onto the device through a prefetch pipeline, and fed to
 ``chunk_step`` / ``chunk_step_batched`` (kernels A·, D·, B·, C· on the
 card).  Capabilities (tracing, fetch-failure skip, chunk sanitizing, the
-VNS ladder, the time budget, invariants) come from the middleware stack,
-not from the loop body.  The reference's ``repro.engine.stream`` on one
-device; checkpoints (ROADMAP queue 1 item 6c) and the stream and host
-meshes (item 8) are not ported yet.
+VNS ladder, checkpoints, the time budget, invariants) come from the
+middleware stack, not from the loop body.  The reference's
+``repro.engine.stream`` on one device; the stream and host meshes (ROADMAP
+queue 1 item 8) are not ported yet.
+
+* **resume** — with a :class:`~repro_torch.engine.middleware.Checkpoint`
+  in the stack and ``resume=True``, the newest intact checkpoint is
+  restored (state, key, VNS loop state) before anything reads the key or
+  the chunk ids; the run continues from its step.  In fold mode a resumed
+  run is bitwise the uninterrupted one.
 
 * **fault tolerance** — a failed fetch is skipped and accounted
   (``chunks_failed``; bounded retries with deterministic backoff, a fetch
@@ -81,6 +87,10 @@ class RunnerMetrics:
     chunks_dropped + chunks_quarantined`` always reconciles with the number
     of chunks fetched.
 
+    ``checkpoint`` times the checkpoint middleware: ``save_ms`` of each
+    periodic save, ``restore_ms`` of the restore (empty without
+    checkpoints).
+
     ``pipeline`` times the prefetch pipeline, one entry per staged chunk:
     ``fetch_ms`` (the provider call, host clock), ``stage_ms`` (host
     staging: the int8 quantization or the copy into a pinned buffer and
@@ -98,6 +108,8 @@ class RunnerMetrics:
     trace: list = dataclasses.field(default_factory=list)
     pipeline: dict = dataclasses.field(default_factory=lambda: {
         "fetch_ms": [], "stage_ms": [], "copy_ms": [], "wait_ms": []})
+    checkpoint: dict = dataclasses.field(default_factory=lambda: {
+        "save_ms": [], "restore_ms": []})
 
 
 class _FetchFailure:
@@ -460,6 +472,7 @@ def run_stream(
     cfg,
     *,
     n_features: int,
+    resume: bool = True,
     fault_injector: Callable[[int], None] | None = None,
     key=None,
     middlewares=None,
@@ -476,7 +489,9 @@ def run_stream(
     the config's (:func:`repro_torch.engine.middleware.default_stack`,
     ``cfg.scheduler``, ``cfg.sync`` / ``cfg.sync_every``).  ``key``
     defaults to ``rng.key(cfg.seed)``.  Runs on the CUDA device unless
-    ``device="cpu"``.
+    ``device="cpu"``.  With ``resume`` and a checkpoint middleware in the
+    stack (``cfg.ckpt_dir``), the run restores the newest intact
+    checkpoint and continues from its step.
 
     ``vns_ladder`` needs the fold mode (collective sync), and the
     ``competitive_s`` scheduler runs the persistent-stream mode, whatever
@@ -505,14 +520,20 @@ def run_stream(
     state = bigmeans.init_state(cfg.k, n_features, device=dev)
     metrics = RunnerMetrics()
     ctx = mw.EngineContext(cfg=cfg, key=key, metrics=metrics, state=state,
-                           t0=time.monotonic(), last_s=cfg.s)
+                           t0=time.monotonic(), last_s=cfg.s, rng=rng)
+    ckpt = stack.find(mw.Checkpoint)
+    if resume and ckpt is not None:
+        ckpt.maybe_restore(ctx, state)
+        state, key = ctx.state, ctx.key
+    start_chunk = ctx.start_step
+    metrics.f_best = float(torch.min(state.f_best))
 
     stager = _Stager(dev, getattr(cfg, "precision", "auto"),
                      metrics.pipeline)
     fetcher = _Fetcher(provider, fault_injector, stager,
                        retry=faults.RetryPolicy.from_config(cfg),
                        timeout=getattr(cfg, "fetch_timeout_s", None))
-    ids = range(cfg.n_chunks)
+    ids = range(start_chunk, cfg.n_chunks)
     source = (_Prefetcher(fetcher, ids, cfg.prefetch, metrics.pipeline)
               if cfg.prefetch > 0 else _sync_chunks(fetcher, ids))
     kernel = _StepKernel(cfg, key, rng)
@@ -528,7 +549,7 @@ def run_stream(
     metrics.pipeline["copy_ms"] = stager.copy_ms()
 
     ctx.state = state
-    ctx.step = ctx.start_step + metrics.chunks_done
+    ctx.step = start_chunk + metrics.chunks_done
     stack.on_finish(ctx)
     metrics.wall_time_s = time.monotonic() - ctx.t0
     metrics.f_best = float(torch.min(state.f_best))
@@ -643,7 +664,7 @@ def _run_persistent(source, state, ctx, stack, kernel, scheduler, sync):
     cfg = ctx.cfg
     metrics = ctx.metrics
     B = cfg.batch
-    base = state
+    base = state                        # restored counters live here
     states = bigmeans.broadcast_state(state, B)
     sizes = list(scheduler.sizes(B))
     if any(s is None for s in sizes):

@@ -11,7 +11,10 @@ backend object with this interface:
   streaming loop's per-chunk keys: ``fold_in(key, chunk_id)``);
 * ``randint(key, shape, lo, hi, device)`` — int64 in ``[lo, hi)``;
 * ``gumbel(key, shape, device)`` — float32 standard Gumbel noise;
-* ``choice(key, n, size, device)`` — ``size`` distinct ints of ``[0, n)``.
+* ``choice(key, n, size, device)`` — ``size`` distinct ints of ``[0, n)``;
+* ``key_to_array(key)`` / ``key_from_array(a)`` — the key as the
+  ``uint32[2]`` numpy array a checkpoint stores (the reference's
+  ``PRNGKey`` leaf), and back.
 
 :class:`TorchRNG` is the package's backend: keys are 64-bit integers,
 children are derived with the splitmix64 finalizer, and every draw runs on
@@ -22,6 +25,7 @@ held against the reference one decision at a time.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _MASK = (1 << 64) - 1
@@ -74,6 +78,16 @@ class TorchRNG:
         perm = torch.randperm(n, generator=self.generator(key, device),
                               device=device)
         return perm[:size]
+
+    @staticmethod
+    def key_to_array(key: int) -> np.ndarray:
+        """The 64-bit key as ``uint32[2]``: ``[hi, lo]``."""
+        return np.asarray([key >> 32, key & 0xFFFFFFFF], dtype=np.uint32)
+
+    @staticmethod
+    def key_from_array(a) -> int:
+        a = np.asarray(a)
+        return (int(a[0]) << 32) | int(a[1])
 
 
 TORCH = TorchRNG()

@@ -1040,3 +1040,66 @@ def test_competitive_s_prefetch_bitwise_on_card(tmp_path, precision):
     # 4 rounds: a reduce each, 2 windows (observe + exchange), a final
     # reduce, each scoring the 4 streams; f32 adds 16 epilogue assigns
     assert scored == 4 * (4 + 2 * 2 + 1) + (16 if precision == "f32" else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "int8", "bf16", "bf16x3"])
+def test_streaming_resume_bitwise_uninterrupted_on_card(tmp_path, precision):
+    """A sequential streaming fit on the card split in two (8 chunks with
+    ``resume=False``, then resumed to 16) is bitwise the uninterrupted
+    16-chunk fit: centroids, objective, ``n_d``, the accepts of chunks
+    8-15 and the checkpoint steps."""
+    _card()
+    from repro_torch import api
+    from repro_torch.cluster import checkpoint
+    from repro_torch.data.synthetic import GMMSpec, gmm_memmap
+
+    path = str(tmp_path / "x.npy")
+    gmm_memmap(GMMSpec(m=200_000, n=28, components=25, seed=2), path)
+    cfg = api.BigMeansConfig(k=25, s=8192, n_chunks=16, precision=precision,
+                             log_every=1, ckpt_every=3)
+    d_full, d_split = str(tmp_path / "full"), str(tmp_path / "split")
+    full = api.fit(path, cfg.replace(ckpt_dir=d_full))
+    first = api.fit(path, cfg.replace(ckpt_dir=d_split, n_chunks=8,
+                                      resume=False))
+    resumed = api.fit(path, cfg.replace(ckpt_dir=d_split))
+    assert first.n_chunks == resumed.n_chunks == 8
+    assert torch.equal(resumed.centroids, full.centroids)
+    assert resumed.objective == full.objective
+    assert resumed.n_dist_evals == full.n_dist_evals
+    assert first.n_accepted + resumed.n_accepted == full.n_accepted
+    assert resumed.trace == [t for t in full.trace if t[0] >= 8]
+    assert checkpoint.steps(d_split) == checkpoint.steps(d_full) == [12, 15,
+                                                                      16]
+    assert len(resumed.extras["checkpoint"]["restore_ms"]) == 1
+
+
+@pytest.mark.cuda
+def test_checkpoint_from_card_restores_on_both_devices(tmp_path):
+    """A state saved from the card (one packed device read) restores with
+    ``device="cpu"`` and ``device="cuda"`` bitwise, in the stored dtypes;
+    the key leaf stays numpy."""
+    _card()
+    from repro_torch import random as rnd
+    from repro_torch.cluster import checkpoint
+    from repro_torch.core import bigmeans
+
+    x, c = blobs(4096, 25, 28, seed=5)
+    state = bigmeans.BigMeansState(
+        centroids=torch.from_numpy(c).cuda(),
+        degenerate=torch.arange(25, device="cuda") % 3 == 0,
+        f_best=torch.tensor(1234.5, device="cuda"),
+        n_accepted=torch.tensor(7, dtype=torch.int32, device="cuda"),
+        n_dist_evals=torch.tensor(3.5e9, device="cuda"))
+    key = rnd.TORCH.key_to_array(rnd.TORCH.key(11))
+    payload = ((state, key), np.asarray([1, 2, 4096], np.int64))
+    checkpoint.save(str(tmp_path), 4, payload)
+    for device in ("cpu", "cuda"):
+        ((got, k), aux), step = checkpoint.restore(str(tmp_path), payload,
+                                                   device=device)
+        assert step == 4 and isinstance(k, np.ndarray)
+        np.testing.assert_array_equal(k, key)
+        np.testing.assert_array_equal(aux, [1, 2, 4096])
+        for g, w in zip(got, state):
+            assert g.device.type == device and g.dtype == w.dtype
+            assert torch.equal(g.cpu(), w.cpu())

@@ -37,6 +37,13 @@ class JaxReplay:
         idx = jax.random.choice(key, n, (size,), replace=False)
         return torch.from_numpy(np.array(idx)).to(device)
 
+    def key_to_array(self, key):
+        """The jax key as it is: the reference's ``uint32[2]`` leaf."""
+        return np.asarray(key, dtype=np.uint32)
+
+    def key_from_array(self, a):
+        return jax.numpy.asarray(np.asarray(a, dtype=np.uint32))
+
 
 REPLAY = JaxReplay()
 
@@ -84,6 +91,24 @@ def test_torch_rng_deterministic_and_distinct_children():
     assert g.dtype == torch.float32 and torch.isfinite(g).all()
     # standard Gumbel: mean = Euler-Mascheroni 0.5772 (4000 draws: se ~0.02)
     assert abs(float(g.mean()) - 0.5772) < 0.1
+
+
+@pytest.mark.parametrize("backend", [rnd.TORCH, REPLAY],
+                         ids=["torch", "jax-replay"])
+def test_key_codec_round_trips(backend):
+    """A key survives the checkpoint's ``uint32[2]`` leaf: the same
+    children after the round trip; TorchRNG stores ``[hi, lo]``."""
+    for seed in (0, 1, 2**40 + 3):
+        key = backend.key(seed)
+        a = backend.key_to_array(key)
+        assert a.dtype == np.uint32 and a.shape == (2,)
+        back = backend.key_from_array(a)
+        np.testing.assert_array_equal(np.asarray(backend.fold_in(back, 7)),
+                                      np.asarray(backend.fold_in(key, 7)))
+    key = rnd.TORCH.key(5)
+    assert rnd.TORCH.key_from_array(rnd.TORCH.key_to_array(key)) == key
+    np.testing.assert_array_equal(
+        rnd.TORCH.key_to_array((1 << 63) | 2), [1 << 31, 2])
 
 
 @pytest.mark.parametrize("backend", [rnd.TORCH, REPLAY],

@@ -94,7 +94,6 @@ def test_cuda_impl_refuses_cpu_tensors():
 
 @pytest.mark.parametrize("knob,item", [
     (dict(batch=2, topology="stream_mesh"), "queue 1 item 8"),
-    (dict(ckpt_dir="ckpt"), "queue 1 item 6"),
     (dict(topology="worker_mesh"), "queue 1 item 8"),
     (dict(mesh=object()), "queue 1 item 8"),
 ], ids=lambda v: next(iter(v)) if isinstance(v, dict) else v)
@@ -119,6 +118,24 @@ def test_middleware_knobs_are_ported(knob):
     assert res.strategy == want and res.extras["auto"]
     assert api.fit(X, api.BigMeansConfig(k=3, s=300, n_chunks=4),
                    device="cpu", **knob).config == cfg
+
+
+def test_checkpoint_knobs_are_ported(tmp_path):
+    """ckpt_dir, ckpt_every and resume validate and run on the CPU: the
+    checkpoints send an in-core array to the streaming strategy, as the
+    reference's auto does, and a second fit resumes from the first."""
+    d = str(tmp_path)
+    cfg = api.BigMeansConfig(k=3, s=300, n_chunks=4, ckpt_dir=d,
+                             ckpt_every=2)
+    res = api.fit(X, cfg, device="cpu")
+    assert res.strategy == "streaming" and res.extras["auto"]
+    assert res.n_chunks == 4 and res.checkpoint_dir == d
+    assert sorted(os.listdir(d)) == ["step_000000000002",
+                                     "step_000000000004"]
+    again = api.fit(X, cfg.replace(n_chunks=6), device="cpu")
+    assert again.n_chunks == 2 and np.isfinite(again.objective)
+    fresh = api.fit(X, cfg.replace(n_chunks=6, resume=False), device="cpu")
+    assert fresh.n_chunks == 6
 
 
 def test_autotune_is_ported():
