@@ -164,8 +164,37 @@ Phases, each printing JSON lines:
    median save (and device-read) and restore ms, the walls of U and of the
    split's fits.
 
-Then the one ``{"kernels": [...]}`` line, the card's name and power limit,
-and the final ``{"ok": true, "device": {...}}`` line.  Any failed check raises.
+10. serving — ``repro_torch.serve`` on phase 4's fit with the default
+   ``ServeConfig`` (buckets 64-4,096: seven CUDA graphs a tenant, captured
+   at registration), four tenants (k = 25, n = 28; f32, int8, bf16,
+   bf16x3) and a wide f32 tenant (k = 2,048, n = 1,024, seeded), in two
+   servers (``max_linger_ms`` 0 and 2).  10a: each bucket's replay bitwise
+   the eager launch of the policy, held against the plain version (ids off
+   near ties, d within 1e-5); the kernels at buckets 64 and 4,096 timed
+   beside bound, plain and library call, one plan replay and one
+   ``ModelEntry.launch`` on the host clock.  10b: 8 client threads x 200
+   requests of 48 HEPMASS rows a tenant and linger: no fault, retry,
+   demotion or capture; B·'s launches equal the replays times what each
+   capture counted; under f32, bf16 and bf16x3 every response bitwise the
+   request served alone (int8: where it rode alone); p50/p99, requests/s
+   and a launch, replays a bucket; the same loops with eager launches, in
+   turns with the graphs, and under ``torch.profiler`` for the card's busy
+   share.  A tenant registered under traffic.  10c: the f32 tenant swapped
+   mid-traffic from checkpoints the port writes, through ``Server.watch``:
+   nothing dropped, both steps seen, no capture, every response its
+   generation's.  10d: ``FaultPlan.wrap_launch`` chaos (a poisoned
+   request, 20 % transient launches, a 20-launch outage): the poisoned
+   request fails alone, transients retried by a graph replay, the breaker
+   opens and closes, every served response bitwise 10b's; a bucket demoted
+   on the card fails its requests (no plain route), the next one serves.
+   10e:
+   ``kernel_failure("assign")`` at registration raises under each policy,
+   and nothing is registered.
+
+Then the one ``{"kernels": [...]}`` line (the assign kernels' rows carry
+their serving times as ``at_serving``; ``launches_per_path`` the serving
+run's launches as ``serve``), the card's name and power limit, and the
+final ``{"ok": true, "device": {...}}`` line.  Any failed check raises.
 It needs a CUDA card and the repository's ``src`` beside it.
 """
 from __future__ import annotations
@@ -180,6 +209,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 from pathlib import Path
@@ -191,11 +221,13 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import random as rnd  # noqa: E402
+from repro_torch import serve as serve_lib  # noqa: E402
 from repro_torch.api import (  # noqa: E402
     BigMeansConfig, MemmapSource, ProviderSource, evaluate, fit,
 )
 from repro_torch.cluster import checkpoint as ckpt_lib  # noqa: E402
 from repro_torch.core import big_means_batched  # noqa: E402
+from repro_torch.core import bigmeans as bm_lib  # noqa: E402
 from repro_torch.core.objective import EVAL_BATCH  # noqa: E402
 from repro_torch.data.synthetic import (  # noqa: E402
     PAPER_DATASETS, GMMSpec, gmm_dataset, gmm_memmap,
@@ -210,6 +242,7 @@ from repro_torch.kernels import (  # noqa: E402
 from repro_torch.kernels import kpp_probe as kpp  # noqa: E402
 from repro_torch.kernels import precision as px  # noqa: E402
 from repro_torch.kernels import update as upd  # noqa: E402
+from repro_torch.serve import ServeConfig  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOP_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
@@ -3391,6 +3424,692 @@ def phase_resume(X, path: str, seed: int, root: Path) -> dict:
     return paths
 
 
+# --------------------------------------------------------------------------
+# phase 10: serving at HEPMASS scale
+# --------------------------------------------------------------------------
+
+SERVE_CLIENTS, SERVE_PER_CLIENT = 8, 200
+REQ_POINTS = 48             # one request (benchmarks/serve_latency.py:39)
+SERVE_LINGERS = (0.0, 2.0)
+WIDE_K, WIDE_N = 2048, 1024  # the two-pass shape (phases 5c, 5f)
+TIMED_BUCKETS = (64, 4096)
+# a poisoned request, transient launch faults and an outage window
+SERVE_CHAOS = dict(launch_transient_rate=0.2, launch_outage_after=60,
+                   launch_outage_len=20)
+
+
+class Tenant(types.SimpleNamespace):
+    """One served model: its centroids ``c`` (on the card), ``prec``, a
+    pool ``x`` of request rows on the card and ``requests``, the closed
+    loop's requests as host arrays [R, REQ_POINTS, n]."""
+
+    def rows(self, m: int, off: int = 0) -> torch.Tensor:
+        return self.x[off:off + m]
+
+
+def serve_tenants(X, res, seed: int) -> dict:
+    """Four tenants on phase 4's fit (k = 25, n = 28), one per policy, with
+    HEPMASS rows as requests; a fifth, ``wide``, f32 at k = 2,048, n =
+    1,024 on seeded centroids and points around them."""
+    n_req = SERVE_CLIENTS * SERVE_PER_CLIENT
+    pool = X[1_000_000:1_000_000 + n_req * REQ_POINTS + 8192]
+    reqs = pool[:n_req * REQ_POINTS].cpu().numpy().reshape(
+        n_req, REQ_POINTS, -1)
+    out = {prec: Tenant(c=res.centroids.contiguous(), prec=prec, x=pool,
+                        requests=reqs) for prec in POLICIES}
+    xw, cw = separated(n_req * REQ_POINTS + 8192, WIDE_K, WIDE_N, seed + 5)
+    out["wide"] = Tenant(c=cw, prec="f32", x=xw, requests=xw[
+        :n_req * REQ_POINTS].cpu().numpy().reshape(n_req, REQ_POINTS, -1))
+    return out
+
+
+def assign_plain_at(prec: str, x, c):
+    return (distance.assign_int8_plain(x, c) if prec == "int8"
+            else distance.assign_plain(x, c, prec))
+
+
+def assign_ties_at(prec: str, x, c) -> torch.Tensor:
+    if prec == "int8":
+        return near_ties_int8(px.quantize_chunk(x), c)
+    return near_ties(x, c) if prec == "f32" else near_ties_16(x, c, prec)
+
+
+def check_against_plain(prec: str, x, c, ids, d, what: str) -> float:
+    """ids (host or card) equal the plain version's off near ties, d within
+    RTOL of its terms' magnitude; returns the max abs err of d."""
+    ids = torch.as_tensor(ids).to(x.device)
+    d = torch.as_tensor(d).to(x.device)
+    ids_p, d_p = assign_plain_at(prec, x, c)
+    ok = ~assign_ties_at(prec, x, c)
+    check(torch.equal(ids[ok], ids_p[ok]), f"{what}: ids differ off ties")
+    xs = (px.dequantize(px.quantize_chunk(x)) if prec == "int8"
+          else px.cast_storage(x, prec).float())
+    x2 = (xs * xs).sum(1)
+    c2 = (c * c).sum(1)[ids_p.long()]
+    scale = x2 + c2 + 2 * (x2 * c2).sqrt()
+    err = (d - d_p).abs()
+    check(bool((err[ok] <= RTOL * scale[ok] + 1e-6).all()),
+          f"{what}: d off by {float(err.max())}")
+    return float(err.max())
+
+
+def serve_replays(srv, tenants: dict) -> dict:
+    """10a: every bucket's capture counted one launch of its policy's
+    kernel (what each replay then adds), and its replay is bitwise the
+    eager launch of the same policy on the same rows, and held against the
+    plain version."""
+    errs = {}
+    for name, t in tenants.items():
+        entry = srv.registry.get(name)
+        snap = entry.snapshot()
+        worst = 0.0
+        kernel = ops.ASSIGN_COUNTERS[t.prec]
+        for b in srv.config.buckets():
+            check(entry.plan(b).launches == {kernel: 1},
+                  f"serve {name} bucket {b}: the capture counted "
+                  f"{entry.plan(b).launches}, not one launch of {kernel}")
+            x = t.rows(b, off=b)
+            buf = entry.host_buffer(b)
+            buf.copy_(x.cpu())
+            ids, d = entry.launch(buf, snap)
+            ids_e, d_e = ops.assign(x, snap.centroids, precision=t.prec)
+            check(np.array_equal(ids, ids_e.cpu().numpy())
+                  and np.array_equal(d, d_e.cpu().numpy()),
+                  f"serve {name} bucket {b}: replay not bitwise eager")
+            worst = max(worst, check_against_plain(
+                t.prec, x, t.c, ids, d, f"serve {name} bucket {b}"))
+        errs[name] = worst
+    return errs
+
+
+def assign_cost(prec: str, m: int, k: int, n: int) -> tuple:
+    """(bytes, operations, peak) of one assignment at ``prec``, as phase
+    6's rows of B, B8, B16 and B3 count them."""
+    if prec == "int8":
+        return (m * n + 5 * k * n + 4 * k + 4 * n + 8 * m, 2 * m * k * n,
+                INT8_OP_PER_S)
+    if prec == "f32":
+        return 4 * (m * n + k * n + 2 * m), 2 * m * k * n, F32_FLOP_PER_S
+    eb = 2 if prec == "bf16" else 4
+    mult = 1 if prec == "bf16" else 3
+    return (eb * m * n + 4 * (k * n + k) + 8 * m, mult * 2 * m * k * n,
+            BF16_FLOP_PER_S)
+
+
+def plan_replay_ms(plan, replays: int = 200) -> float:
+    """Device ms of one replay of a serving plan's graph (the policy's
+    quantization or cast and its kernel), by CUDA events."""
+    plan.graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        plan.graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / replays
+
+
+def eager_launch(entry):
+    """``entry.launch`` without its CUDA graph: the rows copied to the card,
+    the policy's assign called eagerly, ids and d read back through pinned
+    buffers, all on the entry's stream; the graph's twin, for timing."""
+    pinned = {}
+
+    def launch(q, snap):
+        b = int(q.shape[0])
+        if b not in pinned:
+            pinned[b] = (torch.empty(b, dtype=torch.int32, pin_memory=True),
+                         torch.empty(b, dtype=torch.float32,
+                                     pin_memory=True))
+        host_ids, host_d = pinned[b]
+        with torch.cuda.stream(entry.stream):
+            x = q.to(entry.device, non_blocking=True)
+            ids, d = ops.assign(x, snap.centroids, impl=entry.impl,
+                                precision=entry.precision)
+            host_ids.copy_(ids, non_blocking=True)
+            host_d.copy_(d, non_blocking=True)
+        entry.stream.synchronize()
+        return host_ids.numpy().copy(), host_d.numpy().copy()
+
+    return launch
+
+
+def serve_times(srv, tenants: dict) -> dict:
+    """Each tenant's assign kernel at buckets 64 and 4,096: the kernel by
+    graph replay beside its bound, plain version and dots-only library
+    call (``timing``), one replay of the serving plan, and one whole
+    ``ModelEntry.launch`` on the host clock (rows in, replay, ids and d
+    out: the floor under a request's latency) in turns with the same
+    launch made eagerly (:func:`eager_launch`)."""
+    rows = {}
+    for name, t in tenants.items():
+        entry = srv.registry.get(name)
+        snap = entry.snapshot()
+        c = t.c
+        k, n = c.shape
+        kernel_name = f"assign_{t.prec}"
+        for b in TIMED_BUCKETS:
+            x = t.rows(b)
+            nbytes, flops, peak = assign_cost(t.prec, b, k, n)
+            if t.prec == "int8":
+                qx = px.quantize_chunk(x)
+                cq, tq = px.quantize_centroids(c, qx.scale)
+                row = timing(
+                    lambda: distance.launch_assign_int8(qx.q, qx.scale, cq,
+                                                        tq, c),
+                    lambda: distance.assign_int8_plain(qx, c),
+                    int_mm(qx.q, cq), nbytes, flops, 100, peak,
+                    wrapper=lambda: distance.assign_int8(qx, c))
+                row["library"] = int_mm_note(qx.q, cq)
+            elif t.prec == "f32":
+                row = timing(lambda: distance.assign_f32(x, c),
+                             lambda: distance.assign_plain(x, c),
+                             lambda: torch.mm(x, c.t()), nbytes, flops,
+                             100, peak)
+                row["library"] = MM_F32
+            else:
+                xs, c16 = px.cast_storage(x, t.prec), c.bfloat16()
+                row = timing(
+                    lambda: distance.assign_16(xs, c, t.prec),
+                    lambda: distance.assign_plain(xs, c, t.prec),
+                    (lambda: torch.mm(xs, c16.t())) if t.prec == "bf16"
+                    else None, nbytes, flops, 100, peak)
+                row["library"] = (MM_BF16 if t.prec == "bf16" else
+                                  "none (no single call computes it)")
+            row["plan_replay_ms"] = plan_replay_ms(entry.plan(b))
+            buf = entry.host_buffer(b)
+            buf.copy_(x.cpu())
+            eager = eager_launch(entry)
+            eager(buf, snap)
+            graph_ms, eager_ms = [], []
+            for _ in range(50):
+                for fn, ms in ((entry.launch, graph_ms), (eager, eager_ms)):
+                    t0 = time.perf_counter()
+                    fn(buf, snap)
+                    ms.append(1e3 * (time.perf_counter() - t0))
+            row["launch_host_ms_median"] = float(np.median(graph_ms))
+            row["eager_launch_host_ms_median"] = float(np.median(eager_ms))
+            row.update(tenant=name, bucket=b, k=k, n=n)
+            rows.setdefault(kernel_name, {})[f"{name}_b{b}"] = row
+            emit({"phase": "serve_times", "kernel": kernel_name, **row})
+    return rows
+
+
+def closed_loop(srv, name: str, requests, clients: int,
+                per_client: int) -> tuple[list, float]:
+    """``clients`` threads, each sending its ``per_client`` requests one
+    after another; returns the responses in request order and the wall."""
+    out = [None] * (clients * per_client)
+    errors = []
+
+    def client(cid: int) -> None:
+        for i in range(cid * per_client, (cid + 1) * per_client):
+            try:
+                out[i] = srv.assign(name, requests[i], timeout=120)
+            except Exception as exc:  # noqa: BLE001 — reported below
+                errors.append(f"{type(exc).__name__}: {exc}")
+                return
+
+    threads = [threading.Thread(target=client, args=(cid,))
+               for cid in range(clients)]
+    t0 = time.monotonic()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.monotonic() - t0
+    check(not errors and not any(th.is_alive() for th in threads),
+          f"serve {name}: clients failed: {errors[:3]}")
+    return out, wall
+
+
+def same_response(a, b) -> bool:
+    return np.array_equal(a.ids, b.ids) and np.array_equal(a.dists, b.dists)
+
+
+def serve_traffic(servers: dict, tenants: dict) -> tuple[dict, dict]:
+    """10b: the closed loop on every tenant at each linger; responses under
+    f32, bf16 and bf16x3 bitwise the same request served alone (one at a
+    time, linger 0); under int8 bitwise where the request rode alone, its
+    agreement elsewhere printed.  Returns ({path: (launches, wall)} and
+    the per-tenant rows)."""
+    counts = dict.fromkeys(ops.launch_counts(), 0)
+    wall_all, rows, loops = 0.0, {}, {}
+    for linger, srv in servers.items():
+        for name, t in tenants.items():
+            entry = srv.registry.get(name)
+            before = dict(entry.replays)
+            ops.reset_launch_counts()
+            got, wall = closed_loop(srv, name, t.requests, SERVE_CLIENTS,
+                                    SERVE_PER_CLIENT)
+            launches = ops.launch_counts()
+            replays = {b: v - before.get(b, 0)
+                       for b, v in sorted(entry.replays.items())
+                       if v - before.get(b, 0)}
+            kernel = ops.ASSIGN_COUNTERS[t.prec]
+            want = dict.fromkeys(launches, 0)
+            for b, r in replays.items():
+                for key, v in entry.plan(b).launches.items():
+                    want[key] += r * v
+            check(launches == want and launches[kernel] == sum(
+                      replays.values()),
+                  f"serve {name} linger {linger}: launches "
+                  f"{ {k: v for k, v in launches.items() if v} } != "
+                  f"replays {replays} times the captures' counts")
+            stats = srv.stats(name)
+            check(stats["n_launch_faults"] == stats["n_ref_retries"] == 0
+                  and not entry.demoted_buckets
+                  and stats["recompiles"] == len(srv.config.buckets()),
+                  f"serve {name} linger {linger}: healthy run stats {stats}")
+            for key, v in launches.items():
+                counts[key] += v
+            wall_all += wall
+            loops[linger, name] = got
+            rows[f"{name}_linger{linger:g}"] = {
+                "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
+                "mean_ms": stats["mean_ms"],
+                "requests_per_s": len(got) / wall,
+                "requests_per_launch": stats["requests_per_batch"],
+                "launches": stats["n_batches"], "wall_s": wall,
+                "replays_per_bucket": replays,
+                "kernel_launches": {kernel: launches[kernel]},
+                "padded_rows": stats["n_padded_rows"],
+                "captures": stats["recompiles"]}
+            emit({"phase": "serve_traffic", "tenant": name,
+                  "precision": t.prec, "linger_ms": linger,
+                  **rows[f"{name}_linger{linger:g}"]})
+    alone_srv = servers[0.0]
+    for name, t in tenants.items():
+        alone = [alone_srv.assign(name, r) for r in t.requests]
+        check(all(r.n_coalesced == 1 for r in alone), "alone coalesced")
+        t.alone = alone
+        for linger in servers:
+            got = loops[linger, name]
+            if t.prec != "int8":
+                check(all(same_response(g, a) for g, a in zip(got, alone)),
+                      f"serve {name} linger {linger}: coalesced not bitwise "
+                      "the request served alone")
+                continue
+            single = [(g, a) for g, a in zip(got, alone)
+                      if g.n_coalesced == 1]
+            check(all(same_response(g, a) for g, a in single),
+                  f"serve int8 linger {linger}: a lone launch differs")
+            ids = np.stack([g.ids for g in got])
+            ids_a = np.stack([a.ids for a in alone])
+            d = np.stack([g.dists for g in got])
+            d_a = np.stack([a.dists for a in alone])
+            rows[f"{name}_linger{linger:g}"]["int8_vs_alone"] = {
+                "lone_launches_bitwise": len(single),
+                "ids_agree": float((ids == ids_a).mean()),
+                "d_max_rel_diff": float(np.max(np.abs(d - d_a)
+                                               / np.maximum(d_a, 1e-30)))}
+    emit({"phase": "serve_alone_bitwise", "policies": ["f32", "bf16",
+                                                       "bf16x3"],
+          "int8": {k: v["int8_vs_alone"] for k, v in rows.items()
+                   if "int8_vs_alone" in v}})
+    return {"serve": (counts, wall_all)}, rows
+
+
+def loop_row(got, wall: float) -> dict:
+    lat = np.array([r.latency_ms for r in got])
+    return {"p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "requests_per_s": len(got) / wall}
+
+
+def serve_graph_vs_eager(servers: dict, tenants: dict) -> dict:
+    """Each tenant's closed loop (10b's requests) at each linger with its
+    launches replayed from the graphs and made eagerly
+    (:func:`eager_launch`), in turns graph, eager, eager, graph; responses
+    under f32, bf16 and bf16x3 bitwise 10b's alone-served ones either way.
+    Returns {tenant_linger: {"graph": [row, row], "eager": [row, row]}}."""
+    out = {}
+    for linger, srv in servers.items():
+        for name, t in tenants.items():
+            entry = srv.registry.get(name)
+            eager = eager_launch(entry)
+            turns = {"graph": [], "eager": []}
+            for way in ("graph", "eager", "eager", "graph"):
+                if way == "eager":
+                    entry.launch = eager
+                got, wall = closed_loop(srv, name, t.requests, SERVE_CLIENTS,
+                                        SERVE_PER_CLIENT)
+                if way == "eager":
+                    del entry.launch
+                check(t.prec == "int8" or all(
+                    same_response(g, a) for g, a in zip(got, t.alone)),
+                    f"serve {name} linger {linger} {way}: a response "
+                    "differs from 10b's")
+                turns[way].append(loop_row(got, wall))
+            out[f"{name}_linger{linger:g}"] = turns
+            emit({"phase": "serve_graph_vs_eager", "tenant": name,
+                  "linger_ms": linger, **turns})
+    return out
+
+
+def serve_busy_share(srv, tenants: dict) -> dict:
+    """The card's busy and idle share of one 10b closed loop per tenant
+    (linger 0), from a ``torch.profiler`` trace (:func:`device_busy`: the
+    union of its kernels and copies over the loop's wall, the profiler's
+    own cost inside that wall)."""
+    out = {}
+    for name, t in tenants.items():
+        box = {}
+        out[name] = device_busy(lambda: box.update(got=closed_loop(
+            srv, name, t.requests, SERVE_CLIENTS, SERVE_PER_CLIENT)))
+        out[name].update(loop_row(*box["got"]))
+        emit({"phase": "serve_busy_share", "tenant": name, **out[name]})
+    return out
+
+
+def save_serving_checkpoint(directory: str, step: int, c) -> None:
+    """A checkpoint in the engine's ``((state, key), aux)`` layout, written
+    by the port's checkpoint library, serving ``c``."""
+    k, n = c.shape
+    state = bm_lib.init_state(k, n, device=c.device)._replace(
+        centroids=c, f_best=torch.tensor(1.0, device=c.device))
+    ckpt_lib.save(directory, step, ((state, np.zeros(2, np.uint32)),
+                                    np.zeros(3, np.int64)))
+
+
+def padded_eager(x, c, bucket: int = 64):
+    """The f32 assignment of rows ``x`` served alone: zero-padded to the
+    smallest bucket, kernel B, read back."""
+    xp = torch.zeros((bucket, x.shape[1]), device=c.device)
+    xp[:len(x)] = torch.from_numpy(x).to(c.device)
+    ids, d = ops.assign(xp, c, precision="f32")
+    return ids[:len(x)].cpu().numpy(), d[:len(x)].cpu().numpy()
+
+
+def serve_hot_swap(srv, t, root: Path) -> dict:
+    """10c: the f32 tenant swapped mid-traffic from checkpoints the port
+    writes, through ``Server.watch``: no request dropped, both steps seen,
+    no capture, each response bitwise the alone-served assignment on its
+    step's centroids."""
+    d = str(root / "serve_ckpt")
+    c0 = t.c
+    c1 = c0[torch.roll(torch.arange(c0.shape[0], device=c0.device), 1)]
+    gens = {1: c0, 2: c1.contiguous()}
+    captures = srv.recompiles("f32")
+    save_serving_checkpoint(d, 1, c0)
+    watcher = srv.watch("f32", d, poll_interval_s=0.02)
+    t0 = time.monotonic()
+    while srv.stats("f32")["step"] != 1 and time.monotonic() - t0 < 30:
+        time.sleep(0.01)
+    results, errors = [], []
+    lock = threading.Lock()
+    stop = threading.Event()
+
+    def client(cid: int) -> None:
+        i = cid
+        while not stop.is_set():
+            p = t.requests[i % len(t.requests)]
+            try:
+                r = srv.assign("f32", p, timeout=60)
+            except Exception as exc:  # noqa: BLE001 — reported below
+                with lock:
+                    errors.append(f"{type(exc).__name__}: {exc}")
+                return
+            with lock:
+                results.append((p, r))
+            i += SERVE_CLIENTS
+
+    def wait_for(count: int) -> None:
+        t1 = time.monotonic()
+        while time.monotonic() - t1 < 60:
+            with lock:
+                if len(results) >= count or errors:
+                    return
+            time.sleep(0.002)
+
+    threads = [threading.Thread(target=client, args=(cid,))
+               for cid in range(SERVE_CLIENTS)]
+    for th in threads:
+        th.start()
+    wait_for(400)
+    save_serving_checkpoint(d, 2, gens[2])
+    t_swap = time.monotonic()
+    while srv.stats("f32")["step"] != 2 and time.monotonic() - t_swap < 30:
+        time.sleep(0.002)
+    swap_s = time.monotonic() - t_swap
+    wait_for(len(results) + 400)
+    stop.set()
+    for th in threads:
+        th.join(timeout=60)
+    watcher.stop()
+    check(not errors and not any(th.is_alive() for th in threads),
+          f"hot swap: clients failed {errors[:3]}")
+    steps = sorted({r.step for _, r in results})
+    check(steps == [1, 2], f"hot swap: steps seen {steps}")
+    check(srv.recompiles("f32") == captures,
+          f"hot swap captured: {srv.recompiles('f32')} != {captures}")
+    check(watcher.n_errors == 0 and watcher.last_step == 2,
+          f"watcher {watcher.describe()}")
+    for p, r in results:
+        ids, dd = padded_eager(p, gens[r.step])
+        check(np.array_equal(r.ids, ids) and np.array_equal(r.dists, dd),
+              f"hot swap: a response is not its generation's (step "
+              f"{r.step})")
+    return {"responses": len(results), "steps_seen": steps,
+            "captures": srv.recompiles("f32"), "swap_visible_s": swap_s,
+            "watcher": watcher.describe()}
+
+
+def serve_late_register(srv, t) -> dict:
+    """A tenant registered (warmup: its seven captures) while the f32
+    tenant serves 8 x 50 requests: both tenants' responses bitwise 10b's
+    alone-served ones, and the late tenant captured once per bucket."""
+    per = min(50, SERVE_PER_CLIENT)
+    n_req = SERVE_CLIENTS * per
+    box = {}
+    runner = threading.Thread(target=lambda: box.update(out=closed_loop(
+        srv, "f32", t.requests[:n_req], SERVE_CLIENTS, per)))
+    runner.start()
+    time.sleep(0.01)
+    t0 = time.monotonic()
+    srv.register("late", t.c, precision="f32")
+    register_s = time.monotonic() - t0
+    runner.join(timeout=300)
+    check(not runner.is_alive() and "out" in box, "f32 traffic hung")
+    got, wall = box["out"]
+    check(all(same_response(g, a) for g, a in zip(got, t.alone)),
+          "late registration: f32 responses not bitwise 10b's")
+    late = [srv.assign("late", r) for r in t.requests[:per]]
+    check(all(same_response(g, a) for g, a in zip(late, t.alone)),
+          "late tenant: responses not bitwise the f32 tenant's")
+    check(srv.recompiles("late") == len(srv.config.buckets()),
+          f"late tenant: {srv.recompiles('late')} captures")
+    return {"register_s": register_s, "traffic_wall_s": wall,
+            "requests": n_req, "late_captures": srv.recompiles("late")}
+
+
+def serve_chaos(srv, t) -> dict:
+    """10d: ``FaultPlan.wrap_launch`` on the f32 tenant: a poisoned request
+    isolated by bisection, transient faults recovered by replaying the
+    bucket's graph (``ModelEntry.relaunch``), an outage window that trips
+    the breaker, which closes again.  Every response served is bitwise
+    10b's alone-served one: no launch takes the plain version."""
+    entry = srv.registry.get("f32")
+    plan = faults.FaultPlan(seed=23, **SERVE_CHAOS)
+    chaotic = plan.wrap_launch(entry.launch)
+    gate = threading.Event()
+
+    def gated(q, snap):
+        gate.wait(30)
+        return chaotic(q, snap)
+
+    entry.launch = gated
+    blocker = srv.submit("f32", t.requests[0])
+    time.sleep(0.05)
+    healthy = list(range(1, 7))
+    poison = t.requests[7].copy()
+    poison[5, 3] = np.nan
+    futs = [srv.submit("f32", t.requests[i]) for i in healthy[:3]]
+    poisoned = srv.submit("f32", poison, validate=False)
+    futs += [srv.submit("f32", t.requests[i]) for i in healthy[3:]]
+    gate.set()
+    served = {0: blocker.result(timeout=30)}
+    served.update({i: f.result(timeout=30) for i, f in zip(healthy, futs)})
+    try:
+        poisoned.result(timeout=30)
+        check(False, "the poisoned request was served")
+    except serve_lib.LaunchFault:
+        pass
+    entry.launch = chaotic
+    check(max(r.n_coalesced for r in served.values()) > 1,
+          "the poisoned request did not ride a coalesced launch")
+
+    failed, unhealthy = [], [0]
+    lock = threading.Lock()
+    n_req = min(SERVE_CLIENTS * 100, len(t.requests))
+
+    def client(cid: int) -> None:
+        for i in range(8 + cid, n_req, SERVE_CLIENTS):
+            for _ in range(200):
+                try:
+                    r = srv.assign("f32", t.requests[i], timeout=60)
+                except serve_lib.ModelUnhealthy as exc:
+                    with lock:
+                        unhealthy[0] += 1
+                    time.sleep(max(exc.retry_in_s, 0.005))
+                    continue
+                except serve_lib.LaunchFault:
+                    with lock:
+                        failed.append(i)
+                    break
+                with lock:
+                    served[i] = r
+                break
+
+    threads = [threading.Thread(target=client, args=(cid,))
+               for cid in range(SERVE_CLIENTS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    check(not any(th.is_alive() for th in threads), "chaos clients hung")
+    stats = srv.stats("f32")
+    kinds = [e[0] for e in srv.trace]
+    check(stats["n_ref_retries"] > 0, f"chaos: no retries {stats}")
+    check("breaker_open" in kinds and "breaker_close" in kinds,
+          f"chaos: breaker events {sorted(set(kinds))}")
+    check(srv.health()["models"]["f32"]["breaker"]["state"] == "closed",
+          "chaos: the breaker did not close again")
+    for i, r in served.items():
+        check(same_response(r, t.alone[i]),
+              f"chaos request {i}: not bitwise 10b's")
+    return {"plan": SERVE_CHAOS, "served": len(served),
+            "served_bitwise_10b": len(served),
+            "failed_in_outage": len(failed), "breaker_rejections": unhealthy[0],
+            "n_launch_faults": stats["n_launch_faults"],
+            "retries_by_replay": stats["n_ref_retries"],
+            "n_failed": stats["n_failed"], "launches": chaotic.calls["n"],
+            "breaker_events": [e for e in srv.trace
+                               if e[0].startswith("breaker")]}
+
+
+def serve_demoted(t) -> dict:
+    """10d, demotion on the card: bucket 64 of an f32 tenant fails every
+    primary launch transiently (each retried by a replay) until
+    ``demote_after`` = 2 demotes it; then its requests fail with
+    ``LaunchFault`` (no plain route on the card) while bucket 128 serves
+    bitwise 10b's request from its graph."""
+    with serve_lib.serve({"f32": t.c}, ServeConfig(
+            launch_retries=1, demote_after=2)) as srv:
+        entry = srv.registry.get("f32")
+        healthy = entry.launch
+        flaky = faults.FaultPlan(seed=0, launch_transient_rate=1.0
+                                 ).wrap_launch(healthy)
+        entry.launch = lambda q, snap: (
+            flaky if q.shape[0] == 64 else healthy)(q, snap)
+        for i in range(2):
+            check(same_response(srv.assign("f32", t.requests[i]),
+                                t.alone[i]),
+                  "demotion: a retried response differs from 10b's")
+        check(entry.demoted_buckets == (64,),
+              f"demotion: demoted {entry.demoted_buckets}")
+        why = raises(lambda: srv.assign("f32", t.requests[2]), "demoted")
+        pair = np.concatenate([t.requests[3], t.requests[4]])
+        r = srv.assign("f32", pair)
+        check(r.batch_rows == 128 and same_response(
+            types.SimpleNamespace(ids=r.ids[:REQ_POINTS],
+                                  dists=r.dists[:REQ_POINTS]), t.alone[3]),
+              "demotion: bucket 128 not bitwise 10b's")
+        stats = srv.stats("f32")
+        check(stats["n_failed"] == 1 and stats["n_ref_retries"] == 2,
+              f"demotion: stats {stats}")
+        return {"demoted_buckets": list(entry.demoted_buckets),
+                "raised": why, "n_failed": stats["n_failed"],
+                "retries_by_replay": stats["n_ref_retries"]}
+
+
+def phase_serve(X, res, seed: int, root: Path) -> tuple[dict, dict]:
+    """Phase 10: ``repro_torch.api.serve`` on phase 4's fit with the
+    default ``ServeConfig`` (buckets 64-4,096): 10a replays against eager
+    launches and the plain version, times at buckets 64 and 4,096, 10b the
+    closed loop at linger 0 and 2 ms (then again with the launches made
+    eagerly, in turns with the graphs, and once under the profiler for the
+    card's busy share), 10c the hot swap from checkpoints, 10d chaos and a
+    demoted bucket, 10e a failing kernel at registration; between 10b and
+    10c a tenant registered under traffic.  Returns ({path:
+    (launches, wall)}, {kernel: {tenant_bucket: row}})."""
+    t0 = time.monotonic()
+    card = nvidia_smi()
+    tenants = serve_tenants(X, res, seed)
+    models = {name: t.c for name, t in tenants.items()}
+    servers, reg_s = {}, {}
+    for linger in SERVE_LINGERS:
+        t1 = time.monotonic()
+        srv = serve_lib.Server(ServeConfig(max_linger_ms=linger))
+        for name, t in tenants.items():
+            srv.register(name, models[name], precision=t.prec)
+        reg_s[linger] = time.monotonic() - t1
+        servers[linger] = srv
+    try:
+        buckets = servers[0.0].config.buckets()
+        for srv in servers.values():
+            for name in tenants:
+                check(srv.recompiles(name) == len(buckets),
+                      f"serve {name}: {srv.recompiles(name)} captures")
+        errs = serve_replays(servers[0.0], tenants)
+        emit({"phase": "serve_replays", "buckets": list(buckets),
+              "tenants": {n: t.prec for n, t in tenants.items()},
+              "captures_per_tenant": len(buckets), "register_s": reg_s,
+              "max_abs_err_d": errs, "bitwise_eager": True, "card": card})
+        times = serve_times(servers[0.0], tenants)
+        paths, rows = serve_traffic(servers, tenants)
+        serve_graph_vs_eager(servers, tenants)
+        serve_busy_share(servers[0.0], tenants)
+        emit({"phase": "serve_late_register", **serve_late_register(
+            servers[2.0], tenants["f32"]), "card": card})
+        swap = serve_hot_swap(servers[2.0], tenants["f32"], root)
+        emit({"phase": "serve_hot_swap", **swap, "card": card})
+    finally:
+        for srv in servers.values():
+            srv.close()
+    with serve_lib.serve({"f32": tenants["f32"].c}, ServeConfig(
+            breaker_backoff_s=0.05, breaker_backoff_max_s=0.2,
+            demote_after=0)) as chaos_srv:
+        chaos = serve_chaos(chaos_srv, tenants["f32"])
+    emit({"phase": "serve_chaos", **chaos, "card": card})
+    emit({"phase": "serve_demoted", **serve_demoted(tenants["f32"]),
+          "card": card})
+    failing = {}
+    with serve_lib.Server(ServeConfig()) as srv:
+        for prec in POLICIES:
+            with faults.kernel_failure("assign"):
+                failing[prec] = raises(
+                    lambda: srv.register(f"broken_{prec}", res.centroids,
+                                         precision=prec),
+                    "injected assign kernel failure")
+            check(srv.models() == [], f"{prec}: a failing model registered")
+    emit({"phase": "serve_kernel_failure", "raised": failing,
+          "registered": [], "wall_s": time.monotonic() - t0, "card": card})
+    return paths, times
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3475,6 +4194,9 @@ def main() -> int:
         ckpt_root = tmp / "ckpt"
         ckpt_root.mkdir()
         fault_paths.update(phase_resume(X, path, args.seed, ckpt_root))
+        # phase 10: serving phase 4's fit
+        serve_paths, serve_rows = phase_serve(X, res, args.seed, tmp)
+        fault_paths.update(serve_paths)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     n_eval = math.ceil(X.shape[0] / EVAL_BATCH)
@@ -3499,6 +4221,9 @@ def main() -> int:
     for name, row in two_pass_times.items():
         times[name]["at_two_pass_shape"] = row
     times["assign_f32"]["at_two_pass_evaluate_batch"] = b_eval
+    # the assign kernels at the serving buckets (phase 10)
+    for name, rows in serve_rows.items():
+        times[name]["at_serving"] = rows
     del X2
     torch.cuda.empty_cache()
     # B8, C8 and B16 run on the main path only at the two-pass shape: their

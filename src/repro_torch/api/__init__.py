@@ -16,6 +16,8 @@
     result = fit("data.npy", cfg)                       # streamed from disk
     result = fit(provider, cfg, n_features=28)          # chunk_id -> [s, n]
     ids, f = evaluate(result, "data.npy")               # loads the file
+    with serve({"m": result}) as srv:                   # serving, on the card
+        resp = srv.assign("m", queries)                 # -> AssignResponse
 
 ``fit`` runs on the CUDA device unless ``device="cpu"`` is passed, and
 raises ``RuntimeError`` when no CUDA device is present and the CPU was not
@@ -54,12 +56,16 @@ from repro_torch.api.strategies import (
 from repro_torch.data import synthetic as synthetic
 from repro_torch.kernels import autotune, ops
 from repro_torch.kernels import precision as px
+# The assignment-serving subsystem (see repro_torch.serve): training
+# produces the centroids, serve() is how their value is realized at
+# assignment time.
+from repro_torch.serve import ServeConfig, Server, serve
 
 __all__ = [
     "ArraySource", "BigMeansConfig", "DataSource", "FitResult",
-    "IteratorSource", "MemmapSource", "ProviderSource", "as_source",
-    "evaluate", "fit", "get_strategy",
-    "list_strategies", "register_strategy", "resolve_auto",
+    "IteratorSource", "MemmapSource", "ProviderSource", "ServeConfig",
+    "Server", "as_source", "evaluate", "fit", "get_strategy",
+    "list_strategies", "register_strategy", "resolve_auto", "serve",
     "strategies", "synthetic",
 ]
 

@@ -14,7 +14,8 @@ JAX, but the port keeps its own copy):
   abandoned on a daemon thread and the fetch pipeline moves on.
 * **FaultPlan** — a deterministic, seedable injection harness: transient /
   permanent fetch errors, corrupted chunks (NaN / Inf / wrong shape),
-  provider stalls and serve-side launch faults.  The same plan faults the
+  provider stalls and serve-side launch faults (around
+  ``repro_torch.serve.ModelEntry.launch``).  The same plan faults the
   same chunk ids and launch indices as the reference's (the same NumPy
   seeds), so a chaos run replays against the reference's.
 * **kernel_failure** — makes the port's kernel entry points raise for the
@@ -44,6 +45,7 @@ import threading
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.cluster import checkpoint as ckpt_lib
 
@@ -293,15 +295,20 @@ class FaultPlan:
     def wrap_launch(self, launch):
         """A ``(q, snapshot) -> (ids, dists)`` launch with faults injected.
 
-        Wrap a serving launch with it (``entry.launch =
-        plan.wrap_launch(entry.launch)``; serving is ROADMAP queue 1 item 7)
-        to chaos-test the serving path:
-        non-finite payloads fail permanently (the poisoned-request case
-        that only batch bisection can isolate), outage-window launches
-        fail permanently (a dead model — breaker fodder), and
-        ``launch_transient_rate`` launches fail transiently (ref-retry
-        fodder).  ``wrapped.calls`` counts invocations; which launches
-        fault is a pure function of ``(seed, launch_index)``.
+        Wrap a :meth:`repro_torch.serve.ModelEntry.launch` with it
+        (``entry.launch = plan.wrap_launch(entry.launch)``) to chaos-test
+        the serving path: non-finite payloads fail permanently (the
+        poisoned-request case that only batch bisection can isolate),
+        outage-window launches fail permanently (a dead model — breaker
+        fodder), and ``launch_transient_rate`` launches fail transiently
+        (retry fodder).  ``wrapped.calls`` counts invocations; which
+        launches fault is a pure function of ``(seed, launch_index)``, the
+        reference's schedule (the same NumPy seeds).
+
+        The payload check reads the padded host buffer that the batcher
+        hands the launch (``ModelEntry.host_buffer``: pinned host memory
+        on the card), so it never synchronises the card; it goes through
+        ``torch.isfinite``, which takes a numpy array too.
         """
         calls: collections.Counter = collections.Counter()
         lock = threading.Lock()
@@ -310,7 +317,7 @@ class FaultPlan:
             with lock:
                 idx = calls["n"]
                 calls["n"] += 1
-            if not bool(np.isfinite(np.asarray(q)).all()):
+            if not bool(torch.isfinite(torch.as_tensor(q)).all()):
                 raise PermanentFault(
                     f"injected: non-finite payload in launch {idx}")
             if self.in_outage(idx):
@@ -389,7 +396,10 @@ def hung_restore(stall_s: float | None = None):
 
     Simulates an NFS-stalled checkpoint load: inside the context every
     ``checkpoint.restore`` call blocks (``stall_s`` seconds, or until the
-    context exits when ``None``) before proceeding.  Yields the release
+    context exits when ``None``) before proceeding, so a
+    :class:`repro_torch.serve.CheckpointWatcher` poll that reaches the load
+    hangs and its ``poll_timeout_s`` watchdog must abandon it (the watcher
+    calls the module attribute, which this patches).  Yields the release
     :class:`threading.Event` — set it early to un-stall mid-test.  Exiting
     the context releases stalled calls (they then complete normally, like
     a filesystem coming back).

@@ -16,11 +16,13 @@ port keeps the raise as a stated departure, so the reference's
 ``tests/test_faults.py::test_kernel_failure_demotes_once_and_falls_back``
 and ``::test_kernel_fallback_surfaces_on_fit_result`` have no mirror.
 ``repro_torch.engine.faults.kernel_failure`` swaps the wrappers of
-``_KERNELS`` to show it.)  Outside the fused envelope, ``fused_step`` takes the
-two-pass route through kernels B and C on the card (through the oracles
-under the ref impls), and ``fused_step_batched`` takes it stream by
-stream.  Each kernel wrapper counts its launches; read them with
-:func:`launch_counts` and zero them with :func:`reset_launch_counts`.
+``_KERNELS`` to show it; serving's :func:`warm_assign` raises likewise.)
+Outside the fused envelope, ``fused_step`` takes the two-pass route
+through kernels B and C on the card (through the oracles under the ref
+impls), and ``fused_step_batched`` takes it stream by stream.  Each kernel
+wrapper counts its launches; read them with :func:`launch_counts`, zero
+them with :func:`reset_launch_counts`, and add a CUDA graph's replays with
+:func:`add_launch_counts`.
 
 ``precision`` follows :mod:`.precision`: all four policies are ported.  A
 :class:`~.precision.QuantizedChunk` input is int8 whatever the knob says.
@@ -55,10 +57,12 @@ it.
 from __future__ import annotations
 
 import functools
+import threading
 from functools import partial
 
 import torch
 
+from repro_torch import device as devices
 from repro_torch.kernels import autotune, distance, ref
 from repro_torch.kernels import fused_step as fused
 from repro_torch.kernels import kpp_probe as kpp
@@ -93,36 +97,73 @@ _KERNELS = {
 }
 
 
+def _counters() -> list[tuple]:
+    """``(name, holder, key)`` of every launch counter: ``holder`` is the
+    kernel module whose attribute ``key`` counts, or a per-policy dict."""
+    rows = [("fused_step", fused, "launches"),
+            ("assign", distance, "launches"), ("update", upd, "launches"),
+            ("fused_step_batched", fused, "batched_launches"),
+            ("fused_step_int8", fused, "int8_launches"),
+            ("fused_step_batched_int8", fused, "batched_int8_launches"),
+            ("assign_int8", distance, "int8_launches"),
+            ("update_int8", upd, "int8_launches"),
+            ("kpp_probe", kpp, "launches")]
+    for name, per_policy in _COUNTS16:
+        rows += [(f"{name}_{p}", per_policy, p) for p in per_policy]
+    rows += [("fused_step_dma" + ("" if p == "f32" else f"_{p}"),
+              fused.dma_launches, p) for p in fused.dma_launches]
+    return rows
+
+
+def _get(holder, key) -> int:
+    return holder[key] if isinstance(holder, dict) else getattr(holder, key)
+
+
+def _set(holder, key, value: int) -> None:
+    if isinstance(holder, dict):
+        holder[key] = value
+    else:
+        setattr(holder, key, value)
+
+
+# The counter of each policy's assign kernel (B, B8, B16, B3).
+ASSIGN_COUNTERS = {"f32": "assign", "int8": "assign_int8",
+                   "bf16": "assign_bf16", "bf16x3": "assign_bf16x3"}
+
+_count_lock = threading.RLock()
+
+
+def counts_held():
+    """The counters' lock, as a context manager: while one thread holds
+    it, no other adds to the counters through :func:`add_launch_counts` or
+    resets them (the serving registry reads a capture's count under it)."""
+    return _count_lock
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last reset, per kernel."""
-    counts = {"fused_step": fused.launches, "assign": distance.launches,
-              "update": upd.launches,
-              "fused_step_batched": fused.batched_launches,
-              "fused_step_int8": fused.int8_launches,
-              "fused_step_batched_int8": fused.batched_int8_launches,
-              "assign_int8": distance.int8_launches,
-              "update_int8": upd.int8_launches,
-              "kpp_probe": kpp.launches}
-    for name, per_policy in _COUNTS16:
-        counts.update({f"{name}_{p}": v for p, v in per_policy.items()})
-    counts.update({"fused_step_dma" + ("" if p == "f32" else f"_{p}"): v
-                   for p, v in fused.dma_launches.items()})
-    return counts
+    return {name: _get(holder, key) for name, holder, key in _counters()}
 
 
 def reset_launch_counts() -> None:
-    fused.launches = 0
-    fused.batched_launches = 0
-    fused.int8_launches = 0
-    fused.batched_int8_launches = 0
-    distance.launches = 0
-    distance.int8_launches = 0
-    upd.launches = 0
-    upd.int8_launches = 0
-    kpp.launches = 0
-    fused.dma_launches.update(dict.fromkeys(fused.dma_launches, 0))
-    for _, per_policy in _COUNTS16:
-        per_policy.update(dict.fromkeys(per_policy, 0))
+    with _count_lock:
+        for _, holder, key in _counters():
+            _set(holder, key, 0)
+
+
+def add_launch_counts(delta: dict[str, int]) -> None:
+    """Add ``delta`` ({counter name: launches}) to the counters.
+
+    A kernel wrapper counts where it runs, so under a CUDA graph it counts
+    the capture, which launches nothing, and not the replays, which do:
+    the serving registry takes the capture's count back and adds each
+    replay's here (``serve/registry.py``).
+    """
+    rows = {name: (holder, key) for name, holder, key in _counters()}
+    with _count_lock:
+        for name, value in delta.items():
+            holder, key = rows[name]
+            _set(holder, key, _get(holder, key) + value)
 
 
 def resolve_precision(precision: str | None, x) -> str:
@@ -192,6 +233,37 @@ def assign(x, c: torch.Tensor, *, impl: str = "auto",
               if precision == "int8" else [x[i:i + chunk] for i in starts])
     parts = [ref.assign_ref(b, c, precision=precision) for b in blocks]
     return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+def warm_assign(m: int, k: int, n: int, *, impl: str = "auto",
+                precision: str = "auto", dtype=torch.float32,
+                device=None) -> str:
+    """Run :func:`assign` once, eagerly, at ``(m, k, n)``; return the impl
+    that shape runs.
+
+    The port of the reference's ``ops.warm_assign``
+    (``repro/kernels/ops.py:212``).  Serving replays each bucket's assign
+    launch from a CUDA graph (``serve/registry.py``), and nothing inside a
+    capture may synchronise the card: this eager call on zeros of
+    ``dtype`` (the serving buckets' f32; :func:`assign` casts to the
+    policy's storage, as in the graph) builds the kernels and consults and
+    fills the autotune cache first, so the capture finds its launch choice
+    cached.  It runs on ``device`` (None: the card) and synchronises it, so
+    a launch fault surfaces here.
+
+    Departure, stated: a kernel that fails to build or launch here
+    *raises*.  The reference demotes the shape to its oracle
+    (``record_demotion``); the port keeps no demotion table (see the
+    module docstring), in serving as in ``fit``.
+    """
+    dev = devices.resolve(device)
+    impl = resolve_impl(impl, dev)
+    x = torch.zeros((m, n), dtype=dtype, device=dev)
+    c = torch.zeros((k, n), dtype=torch.float32, device=dev)
+    assign(x, c, impl=impl, precision=px.resolve(precision, x.dtype))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return impl
 
 
 def update(x, ids: torch.Tensor, k: int, *,

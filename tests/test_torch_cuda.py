@@ -1103,3 +1103,168 @@ def test_checkpoint_from_card_restores_on_both_devices(tmp_path):
         for g, w in zip(got, state):
             assert g.device.type == device and g.dtype == w.dtype
             assert torch.equal(g.cpu(), w.cpu())
+
+
+# ---------------------------------------------------------------------------
+# serving: one CUDA graph per bucket
+
+
+SERVE_POLICIES = ["f32", "int8", "bf16", "bf16x3"]
+
+
+def _serving(precision, k=25, n=28, **overrides):
+    from repro_torch.serve import ServeConfig, serve
+
+    _, c = blobs(16, k, n, seed=7)
+    cfg = ServeConfig(min_bucket=64, max_batch=512, **overrides)
+    return serve({"m": c}, cfg, precision=precision), c, cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", SERVE_POLICIES)
+def test_serve_captures_one_graph_per_bucket_replay_bitwise_eager(precision):
+    """Registration captures each bucket once; each bucket's replay is
+    bitwise an eager launch of the policy on the same rows, and counts one
+    launch of the policy's kernel: the capture recorded exactly that, and
+    counts none itself."""
+    _card()
+    from repro_torch.kernels import ops
+
+    srv, c, cfg = _serving(precision)
+    with srv:
+        entry = srv.registry.get("m")
+        snap = entry.snapshot()
+        assert srv.recompiles("m") == len(cfg.buckets()) == 4
+        ops.reset_launch_counts()
+        for b in cfg.buckets():
+            x, _ = blobs(b, 25, 28, seed=b)
+            buf = entry.host_buffer(b)
+            assert buf.is_pinned()
+            buf.copy_(torch.from_numpy(x))
+            ids, d = entry.launch(buf, snap)
+            ids_e, d_e = ops.assign(torch.from_numpy(x).cuda(),
+                                    snap.centroids, precision=precision)
+            assert np.array_equal(ids, ids_e.cpu().numpy())
+            assert np.array_equal(d, d_e.cpu().numpy())
+        kernel = ops.ASSIGN_COUNTERS[precision]
+        for b in cfg.buckets():
+            assert entry.plan(b).launches == {kernel: 1}
+        counts = ops.launch_counts()
+        assert counts[kernel] == 2 * len(cfg.buckets())   # replays + eager
+        assert sum(counts.values()) == counts[kernel]
+        assert srv.recompiles("m") == len(cfg.buckets())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16", "bf16x3"])
+def test_serve_coalesced_bitwise_per_request_on_card(precision):
+    """Coalesced launches give bitwise each request served alone: kernels
+    B, B16 and B3 compute every row by itself."""
+    _card()
+    reqs = [blobs(m, 25, 28, seed=100 + m)[0]
+            for m in (3, 48, 64, 65, 100, 1, 200, 31)]
+    srv, _, _ = _serving(precision, max_linger_ms=0.0)
+    with srv:
+        alone = [srv.assign("m", p) for p in reqs]
+    srv, _, _ = _serving(precision, max_linger_ms=100.0)
+    with srv:
+        futs = [srv.submit("m", p) for p in reqs]
+        coalesced = [f.result(timeout=60) for f in futs]
+        assert srv.recompiles("m") == 4
+    assert any(r.n_coalesced > 1 for r in coalesced)
+    for a, r in zip(alone, coalesced):
+        assert np.array_equal(a.ids, r.ids)
+        assert np.array_equal(a.dists, r.dists)
+
+
+@pytest.mark.cuda
+def test_serve_swap_captures_nothing_on_card():
+    """A swap is one device copy at the next launch: no capture, and the
+    responses follow the generation they name."""
+    _card()
+    from repro_torch.kernels import ops
+
+    srv, c, _ = _serving("f32")
+    with srv:
+        x, _ = blobs(48, 25, 28, seed=3)
+        c1 = np.roll(c, 1, axis=0)
+        r0 = srv.assign("m", x)
+        srv.swap("m", c1, step=9)
+        r1 = srv.assign("m", x)
+        assert srv.recompiles("m") == 4
+        assert (r0.version, r1.version, r1.step) == (0, 1, 9)
+        for r, cc in ((r0, c), (r1, c1)):
+            xp = torch.zeros((64, 28), device="cuda")
+            xp[:48] = torch.from_numpy(x).cuda()
+            ids, d = ops.assign(xp, torch.from_numpy(cc).cuda())
+            assert np.array_equal(r.ids, ids[:48].cpu().numpy())
+            assert np.array_equal(r.dists, d[:48].cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_wrap_launch_runs_on_a_device_launch():
+    """``FaultPlan.wrap_launch`` around a launch on the card: a poisoned
+    request fails alone (bisection), transients recover by replaying the
+    bucket's graph (bitwise a healthy launch; the plain fallback is never
+    taken), and the breaker stays closed."""
+    _card()
+    from repro_torch.engine import faults
+    from repro_torch.serve import LaunchFault
+
+    srv, c, _ = _serving("f32", launch_retries=1, demote_after=0)
+    with srv:
+        entry = srv.registry.get("m")
+        healthy = entry.launch
+        entry.launch = faults.FaultPlan(
+            seed=0, launch_transient_rate=0.5).wrap_launch(entry.launch)
+        bad = blobs(8, 25, 28, seed=1)[0]
+        bad[3, 3] = np.nan
+        with pytest.raises(LaunchFault):
+            srv.assign("m", bad, validate=False)
+        for i in range(8):
+            x = blobs(20, 25, 28, seed=i)[0]
+            r = srv.assign("m", x)
+            buf = entry.host_buffer(64)
+            buf.zero_()
+            buf[:20] = torch.from_numpy(x)
+            ids, d = healthy(buf, entry.snapshot())
+            assert np.array_equal(r.ids, ids[:20])
+            assert np.array_equal(r.dists, d[:20])
+        stats = srv.stats("m")
+        assert stats["n_ref_retries"] > 0 and stats["n_failed"] == 1
+        assert srv.health()["models"]["m"]["breaker"]["state"] == "closed"
+        assert entry.launch.calls["n"] >= 9
+
+
+@pytest.mark.cuda
+def test_serve_demoted_bucket_fails_on_card():
+    """A bucket demoted on the card has no plain route: its requests fail
+    with ``LaunchFault`` and feed the breaker, and the fallback is never
+    run; other buckets go on serving from their graphs."""
+    _card()
+    from repro_torch.engine import faults
+    from repro_torch.serve import LaunchFault
+
+    srv, c, _ = _serving("f32", launch_retries=1, demote_after=2)
+    with srv:
+        entry = srv.registry.get("m")
+        healthy = entry.launch
+        flaky = faults.FaultPlan(seed=0, launch_transient_rate=1.0
+                                 ).wrap_launch(healthy)
+
+        def on_small(q, snap):
+            return (flaky if q.shape[0] == 64 else healthy)(q, snap)
+
+        entry.launch = on_small
+        for i in range(2):                      # retried, then demoted
+            srv.assign("m", blobs(20, 25, 28, seed=i)[0])
+        assert entry.demoted_buckets == (64,)
+        with pytest.raises(LaunchFault, match="demoted"):
+            srv.assign("m", blobs(20, 25, 28, seed=5)[0])
+        with pytest.raises(RuntimeError, match="no plain fallback"):
+            entry.launch_fallback(entry.host_buffer(64), entry.snapshot())
+        r = srv.assign("m", blobs(100, 25, 28, seed=6)[0])
+        assert r.batch_rows == 128 and np.isfinite(r.dists).all()
+        stats = srv.stats("m")
+        assert stats["n_failed"] == 1 and stats["n_ref_retries"] == 2
+        assert srv.health()["models"]["m"]["demoted_buckets"] == [64]
