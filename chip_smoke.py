@@ -191,10 +191,36 @@ Phases, each printing JSON lines:
    ``kernel_failure("assign")`` at registration raises under each policy,
    and nothing is registered.
 
+11. baselines — the paper's §5 competitors through ``fit(X, cfg,
+   method=name)`` on phase 4's data and config.  11a: ``forgy``,
+   ``kmeanspp`` (3 starts), ``kmeans_parallel``, ``coreset`` and
+   ``da_mssc`` (q = 32), one key each, each against its plain twin
+   (``impl="ref"`` on the card, the same key and backend): the full-data
+   objective at most the twin's plus 1e-3 relative, a second fit on the
+   key bitwise the first, counts summing to m (forgy, kmeanspp,
+   K-means||; the coreset's weights within 5 % of m; DA-MSSC's pool
+   weights to q * s), A launched by every full-data Lloyd, B and C once
+   each at K-means||'s pool (k = 251) over all rows; per baseline the
+   warm ``evaluate`` objective beside phase 4's Big-means, the walls and
+   the launches by kernel and k.  11b: a weighted Lloyd on a 64,000-row
+   coreset against its plain twin (B once a step and in the epilogue, no
+   A or C; ids equal off near ties, the objective within 1e-3).  11c:
+   Ward at 20,000 rows (k labels, an objective below one cluster's, its
+   wall) and its ``MemoryError`` at 20,001.  11d: B and C at k = 251 and
+   A at k = 25 over the 10.5M rows, each held to its plain version on the
+   same inputs (B's ids off near ties and d, C's counts equal and sums
+   within their bound, A's counts, sums and objective, as phase 3 holds
+   them), then timed as in phase 6.  11e: ``kmeanspp`` seeding all 10.5M
+   rows alone, warm; kernel P (which ``seed`` does not call) held to its
+   plain version and timed at one slot's probe of that seeding.
+
 Then the one ``{"kernels": [...]}`` line (the assign kernels' rows carry
 their serving times as ``at_serving``; ``launches_per_path`` the serving
-run's launches as ``serve``), the card's name and power limit, and the
-final ``{"ok": true, "device": {...}}`` line.  Any failed check raises.
+run's launches as ``serve`` and phase 11's as ``baselines``; A's row its
+time over the 10.5M rows as ``at_full_data``, B's and C's theirs at the
+K-means|| pool as ``at_kmeans_parallel_pool``, P's its probe over the
+10.5M rows as ``at_full_data``), the card's name and power
+limit, and the final ``{"ok": true, "device": {...}}`` line.  Any failed check raises.
 It needs a CUDA card and the repository's ``src`` beside it.
 """
 from __future__ import annotations
@@ -1117,6 +1143,26 @@ def seeding_probe(x, seed: int):
     return x[idx[1:]].contiguous(), d.contiguous()
 
 
+def check_kpp(xc, cc, dc, why: str) -> float:
+    """Kernel P twice (bitwise) against ``kpp_probe_plain``: newd within
+    RTOL of its terms' magnitude, pot within RTOL.  Returns the max abs
+    error."""
+    newd, pot = twice(kpp.kpp_probe_cuda, xc, cc, dc)
+    newd_p, pot_p = kpp.kpp_probe_plain(xc, cc, dc)
+    terms = (xc.norm(dim=1)[:, None] + cc.norm(dim=1)[None, :]) ** 2
+    e = (newd - newd_p).abs()
+    check(bool((e <= RTOL * terms).all()),
+          f"kpp_probe newd off by {float(e.max())} at {why}")
+    pe = (pot - pot_p).abs()
+    check(bool((pe <= RTOL * pot_p.abs()).all()),
+          f"kpp_probe pot off by {float(pe.max())} at {why}")
+    emit({"phase": "kernels_kpp", "m": xc.shape[0], "n": xc.shape[1],
+          "L": cc.shape[0], "case": why, "newd_max_abs_err":
+          float(e.max()), "pot_max_rel_err": float((pe / pot_p).max()),
+          "repeat_bitwise": True})
+    return max(float(e.max()), float(pe.max()))
+
+
 def phase_kpp(seed: int):
     """Phase 3e: kernel P against ``kpp_probe_plain`` at the reference
     test's shapes (standard normal x and candidates, d uniform in [0, 5))
@@ -1140,20 +1186,7 @@ def phase_kpp(seed: int):
     cases.append(("seeding shape", x, cands, d))
     err = 0.0
     for why, xc, cc, dc in cases:
-        newd, pot = twice(kpp.kpp_probe_cuda, xc, cc, dc)
-        newd_p, pot_p = kpp.kpp_probe_plain(xc, cc, dc)
-        terms = (xc.norm(dim=1)[:, None] + cc.norm(dim=1)[None, :]) ** 2
-        e = (newd - newd_p).abs()
-        check(bool((e <= RTOL * terms).all()),
-              f"kpp_probe newd off by {float(e.max())} at {why}")
-        pe = (pot - pot_p).abs()
-        check(bool((pe <= RTOL * pot_p.abs()).all()),
-              f"kpp_probe pot off by {float(pe.max())} at {why}")
-        row_err = max(float(e.max()), float(pe.max()))
-        emit({"phase": "kernels_kpp", "m": xc.shape[0], "n": xc.shape[1],
-              "L": cc.shape[0], "case": why, "newd_max_abs_err":
-              float(e.max()), "pot_max_rel_err": float((pe / pot_p).max()),
-              "repeat_bitwise": True})
+        row_err = check_kpp(xc, cc, dc, why)
         if why == "seeding shape":
             err = row_err
     ops.reset_launch_counts()
@@ -2065,15 +2098,21 @@ def eager_ms(fn, launches: int) -> float:
     return start.elapsed_time(stop) / launches
 
 
-def device_ms(fn, launches: int, replays: int = 5) -> float:
+def device_ms(fn, launches: int, replays: int = 5,
+              free_cache: bool = False) -> float:
     """Device time per call: CUDA events around replays of a CUDA graph
-    holding ``launches`` back-to-back calls (warm)."""
+    holding ``launches`` back-to-back calls (warm); ``free_cache``: return
+    the warm-up call's cached blocks before the capture, so that the
+    graph's pool starts from free memory (phase 11's [10.5M, 251] plain
+    versions)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
+    if free_cache:
+        torch.cuda.empty_cache()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(launches):
@@ -2102,16 +2141,18 @@ def bound(nbytes: float, flops: float, peak: float = F32_FLOP_PER_S
 
 
 def timing(fn, plain, library, nbytes, flops, launches,
-           peak: float = F32_FLOP_PER_S, wrapper=None):
+           peak: float = F32_FLOP_PER_S, wrapper=None,
+           free_cache: bool = False):
     """Device ms of ``fn`` (the kernel's launch), its plain version and a
     library call, beside the bound; ``wrapper``: the whole wrapper call
-    where it does more than launch (the int8 centroid quantization)."""
+    where it does more than launch (the int8 centroid quantization);
+    ``free_cache``: as :func:`device_ms`'s."""
     b_ms, b_by = bound(nbytes, flops, peak)
-    row = {"ms": device_ms(fn, launches),
+    row = {"ms": device_ms(fn, launches, free_cache=free_cache),
            "eager_ms": eager_ms(fn, launches),
-           "plain_ms": device_ms(plain, launches),
+           "plain_ms": device_ms(plain, launches, free_cache=free_cache),
            "library_ms": None if library is None
-           else device_ms(library, launches),
+           else device_ms(library, launches, free_cache=free_cache),
            "bound_ms": b_ms, "bound_us": 1e3 * b_ms, "bound_by": b_by,
            "bytes": nbytes, "flops": flops,
            "peak_ops_per_s": peak}
@@ -4110,6 +4151,335 @@ def phase_serve(X, res, seed: int, root: Path) -> tuple[dict, dict]:
     return paths, times
 
 
+# --------------------------------------------------------------------------
+# phase 11: the §5 baselines on the card at HEPMASS scale
+# --------------------------------------------------------------------------
+
+BASELINE_RUNS = ("forgy", "kmeanspp", "kmeans_parallel", "coreset",
+                 "da_mssc")
+FULL_DATA_LLOYD = ("forgy", "kmeanspp", "kmeans_parallel")
+POOL_K = 1 + 2 * 25 * 5         # K-means||'s pool at k = 25 (l = 2k, r = 5)
+WARD_ROWS = 20_000              # Ward's cap (core/baselines/ward.py)
+
+
+def recording_k(seen: dict):
+    """Wrap the f32 assign and update wrappers of ``ops._KERNELS`` so that
+    each call notes its k in ``seen`` (the wrappers still count their own
+    launches); returns the restore function."""
+    table = ops._KERNELS["f32"]
+    originals = dict(table)
+
+    def note(name, fn, k_of):
+        def wrapped(*args, **kwargs):
+            k = k_of(*args)
+            seen.setdefault(name, {}).setdefault(k, 0)
+            seen[name][k] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    table["assign"] = note("assign", originals["assign"],
+                           lambda x, c, *a: c.shape[0])
+    table["update"] = note("update", originals["update"],
+                           lambda x, ids, k, *a: k)
+
+    def restore():
+        table.update(originals)
+    return restore
+
+
+def baseline_fit(X, cfg, name: str, key, f_full_bm: float) -> tuple:
+    """One baseline through ``fit`` on the card, counted, against its plain
+    twin (``impl="ref"`` on the card, the same key): returns (row,
+    launches)."""
+    m = X.shape[0]
+    seen: dict = {}
+    restore = recording_k(seen)
+    try:
+        ops.reset_launch_counts()
+        res = fit(X, cfg, method=name, key=key)
+        launches = ops.launch_counts()
+    finally:
+        restore()
+    warm = fit(X, cfg, method=name, key=key)         # warm wall, same bits
+    check(torch.equal(warm.centroids, res.centroids),
+          f"{name}: a second fit on the same key differs")
+    ops.reset_launch_counts()
+    plain = fit(X, cfg.replace(impl="ref"), method=name, key=key)
+    check(not any(ops.launch_counts().values()),
+          f"{name}: the plain twin launched a kernel")
+    _, f_full = evaluate(res, X)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    _, f_full = evaluate(res, X)
+    eval_s = time.monotonic() - t0
+    _, f_plain = evaluate(plain, X)
+    counts = np.asarray(res.extras["counts"], np.float64)
+    check(res.algorithm == name and res.strategy is None,
+          f"{name}: algorithm {res.algorithm}, strategy {res.strategy}")
+    check(res.extras["fit"]["impl"] == "cuda" and res.centroids.is_cuda,
+          f"{name}: the fit did not run the kernels on the card")
+    check(tuple(res.centroids.shape) == (cfg.k, X.shape[1])
+          and bool(torch.isfinite(res.centroids).all()),
+          f"{name}: centroids")
+    check(math.isfinite(f_full) and f_full > 0, f"{name}: full objective")
+    rel = (f_full - f_plain) / f_plain
+    check(f_full <= f_plain * (1 + 1e-3),
+          f"{name}: full objective {f_full} above the plain twin's "
+          f"{f_plain} by {rel:.3e} (> 1e-3)")
+    if name in FULL_DATA_LLOYD:
+        check(counts.sum() == m, f"{name}: counts sum {counts.sum()} != {m}")
+        check(launches["fused_step"] > 0, f"{name}: kernel A not launched")
+    if name == "coreset":
+        # Σw estimates m without bias; its deviation is at most 2m/√s
+        check(abs(counts.sum() - m) <= 0.05 * m,
+              f"coreset: weights sum {counts.sum()} far from {m}")
+        check(res.extras["objective_scope"] == "weighted coreset",
+              "coreset: objective scope")
+    if name == "da_mssc":
+        check(res.n_chunks == cfg.n_chunks
+              and counts.sum() == res.n_chunks * cfg.s,
+              f"da_mssc: pool weights sum {counts.sum()} != q * s")
+    if name == "kmeans_parallel":
+        check(seen.get("assign", {}).get(POOL_K, 0) == 1
+              and seen.get("update", {}).get(POOL_K, 0) == 1,
+              f"kmeans_parallel: B and C at k = {POOL_K}: {seen}")
+    # the weighted steps' sums and counts are plain (ops.update): the
+    # coreset's only Lloyd is weighted, so it launches B alone
+    check(launches["assign"] > 0
+          and (launches["update"] > 0) == (name != "coreset"),
+          f"{name}: B and C launches: {launches}")
+    row = {"phase": "baselines", "method": name, "f_full": f_full,
+           "f_full_per_point": f_full / m, "objective": res.objective,
+           "f_full_plain": f_plain, "f_full_rel_diff": rel,
+           "f_full_big_means": f_full_bm,
+           "f_full_over_big_means": f_full / f_full_bm,
+           "fit_wall_s": res.wall_time_s, "fit_wall_warm_s":
+           warm.wall_time_s, "plain_fit_wall_s": plain.wall_time_s,
+           "evaluate_warm_s": eval_s, "n_iterations": res.n_iterations,
+           "n_chunks": res.n_chunks, "counts_sum": counts.sum(),
+           "launches": {"A": launches["fused_step"],
+                        "B": launches["assign"], "C": launches["update"]},
+           "launches_by_k": seen,
+           "other_launches": {k: v for k, v in launches.items()
+                              if v and k not in ("fused_step", "assign",
+                                                 "update")}}
+    check(not row["other_launches"], f"{name}: {row['other_launches']}")
+    emit(row)
+    return row, launches
+
+
+def weighted_alone(X, seed: int) -> dict:
+    """11b: a weighted Lloyd on a 64,000-row coreset against its plain
+    twin, from the same weighted K-means++ start."""
+    from repro_torch.core import kmeans as kmeans_lib
+    from repro_torch.core.baselines import coreset
+    from repro_torch.core.kmeanspp import kmeanspp
+
+    ka, kb = rnd.TORCH.split(rnd.TORCH.key(seed + 12))
+    C, w = coreset.sample(X, ka, 64_000)
+    c0 = kmeanspp(C, kb, 25, weights=w)
+    ops.reset_launch_counts()
+    res = kmeans_lib.lloyd(C, c0, weights=w)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    plain = kmeans_lib.lloyd(C, c0, weights=w, impl="ref")
+    check(launches["fused_step"] == 0 and launches["update"] == 0
+          and launches["assign"] == res.iterations + 1,
+          f"weighted Lloyd launches {launches} for {res.iterations} "
+          "iterations (B once a step and in the epilogue)")
+    ties = near_ties(C, res.centroids)
+    off = ~ties
+    same = bool(torch.equal(res.assignments[off], plain.assignments[off]))
+    f, f_plain = float(res.objective), float(plain.objective)
+    rel = (f - f_plain) / f_plain
+    row = {"phase": "baselines_weighted", "rows": C.shape[0],
+           "iterations": res.iterations,
+           "iterations_plain": plain.iterations, "objective": f,
+           "objective_plain": f_plain, "rel_diff": rel,
+           "near_ties": int(ties.sum()), "ids_equal_off_ties": same,
+           "weights_sum": float(w.sum()),
+           "launches": {"A": launches["fused_step"], "B": launches["assign"],
+                        "C": launches["update"]}}
+    emit(row)
+    check(same, "weighted Lloyd: ids differ from the plain twin off near "
+          "ties")
+    check(f <= f_plain * (1 + 1e-3),
+          f"weighted Lloyd: objective {f} above the plain twin's {f_plain}")
+    return launches
+
+
+def ward_at_cap(X, cfg) -> tuple:
+    """11c: Ward on the first 20,000 rows (its cap) through ``fit``, and its
+    refusal one row above it."""
+    Xw = X[:WARD_ROWS].contiguous()
+    ops.reset_launch_counts()
+    res = fit(Xw, cfg, method="ward")
+    launches = ops.launch_counts()
+    labels = res.extras["labels"]
+    f_one = float(torch.sum((Xw - Xw.mean(0)) ** 2))
+    refused = raises(lambda: fit(X[:WARD_ROWS + 1], cfg, method="ward"),
+                     f"m={WARD_ROWS + 1}")
+    emit({"phase": "baselines_ward", "rows": WARD_ROWS,
+          "objective": res.objective, "one_cluster_objective": f_one,
+          "fit_wall_s": res.wall_time_s,
+          "labels_distinct": int(np.unique(labels).size),
+          "launches": {k: v for k, v in launches.items() if v},
+          "refused_above_cap": refused})
+    check(labels.shape == (WARD_ROWS,) and np.unique(labels).size == cfg.k,
+          "Ward: k labels")
+    check(math.isfinite(res.objective) and res.objective < f_one,
+          f"Ward: objective {res.objective} not below one cluster's {f_one}")
+    check("MemoryError" in refused, f"Ward above its cap: {refused}")
+    return res, launches
+
+
+def near_ties_rows(x, c, rows: int = 1 << 20) -> torch.Tensor:
+    """:func:`near_ties` a block of rows at a time (its [m, k] scores at
+    m = 10.5M, k = 251 would be 10.5 GB each)."""
+    return torch.cat([near_ties(x[i:i + rows], c)
+                      for i in range(0, x.shape[0], rows)])
+
+
+def hold_baseline_kernels(X, pool) -> dict:
+    """11d: B and C at K-means||'s pool (k = 251) over all 10.5M rows and A
+    over them at k = 25, each against its plain version on the same
+    inputs, as phase 3 holds them: B's ids equal off near ties and its d
+    within RTOL of its terms; C on B's ids with counts equal and sums
+    within :func:`sums_bound`; A's counts within two per near tie, sums
+    within the bound, objective within RTOL.  Returns max abs errors."""
+    k = pool.shape[0]
+    ties = near_ties_rows(X, pool)
+    errs = {"assign_f32": check_assign(X, pool, ties)}
+    ids, _ = distance.assign_f32(X, pool)
+    sums, counts = twice(upd.update_f32, X, ids, k)
+    sums_p, counts_p = upd.update_plain(X, ids, k)
+    check(torch.equal(counts, counts_p),
+          f"update counts differ at k = {k} over {X.shape[0]} rows")
+    err = (sums - sums_p).abs()
+    check(bool((err <= sums_bound(X, ids, k, 0)).all()),
+          f"update sums off by {float(err.max())} at k = {k}")
+    errs["update_f32"] = float(err.max())
+    del sums_p, counts_p, err
+    c = pool[:25].contiguous()
+    ties_c = int(near_ties_rows(X, c).sum())
+    errs["fused_step_f32"] = check_fused(X, c, ties_c)
+    emit({"phase": "baselines_kernels", "m": X.shape[0], "n": X.shape[1],
+          "k_pool": k, "near_ties_pool": int(ties.sum()),
+          "near_ties_k25": ties_c, "max_abs_err": errs})
+    return errs
+
+
+def times_baselines(X, pool) -> dict:
+    """11d: B and C at the K-means|| pool (k = 251) over all 10.5M rows, and
+    A over them at k = 25, held to their plain versions, then timed by
+    CUDA-graph replay beside bound, plain version and library call."""
+    m, n = X.shape
+    k = pool.shape[0]
+    errs = hold_baseline_kernels(X, pool)
+    ids, _ = distance.assign_f32(X, pool)
+    ids64 = ids.long()
+    out = {}
+    out["assign_f32"] = timing(
+        lambda: distance.assign_f32(X, pool),
+        lambda: distance.assign_plain(X, pool),
+        lambda: torch.mm(X, pool.t()),
+        4 * (m * n + k * n + 2 * m), 2 * m * k * n, 1, free_cache=True)
+    out["assign_f32"]["library"] = MM_F32
+    out["update_f32"] = timing(
+        lambda: upd.update_f32(X, ids, k),
+        lambda: upd.update_plain(X, ids, k),
+        lambda: torch.zeros((k, n), device=X.device).index_add_(0, ids64, X),
+        4 * (m * n + m + k * n + k), m * n, 1, free_cache=True)
+    out["update_f32"]["library"] = "index_add_ (sums only; counts excluded)"
+    c = pool[:25].contiguous()
+    nbytes, flops, peak = fused_cost("f32", m, 25, n)
+    out["fused_step_f32"] = timing(
+        lambda: fused_step.fused_step_f32(X, c),
+        lambda: fused_step.fused_step_plain(X, c), None, nbytes, flops, 1,
+        peak, free_cache=True)
+    for name, row in out.items():
+        row.update(m=m, k=k if name != "fused_step_f32" else 25, n=n,
+                   max_abs_err=errs[name])
+        emit({"phase": "baselines_times", "kernel": name, **row})
+    return out
+
+
+def time_seed(X, seed: int, k: int = 25, candidates: int = 3) -> dict:
+    """11e: ``kmeanspp`` seeding all 10.5M rows alone, as the ``kmeanspp``
+    baseline does once a start (warm, host wall around a synchronised
+    call); then kernel P, which ``seed`` does not call, held to its plain
+    version and timed at the probe one slot of that seeding gives it
+    (10.5M rows, three candidates), as phase 6 times it at a chunk.
+    Returns P's timing row."""
+    from repro_torch.core.kmeanspp import kmeanspp
+
+    m, n = X.shape
+    key = rnd.TORCH.key(seed + 13)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        c = kmeanspp(X, key, k, candidates=candidates)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.monotonic() - t0))
+    check(tuple(c.shape) == (k, n) and bool(torch.isfinite(c).all()),
+          "kmeanspp seeding at full data")
+    cands, d = seeding_probe(X, seed)
+    L = cands.shape[0]
+    err = check_kpp(X, cands, d, "full data")
+    row = timing(
+        lambda: kpp.kpp_probe_cuda(X, cands, d),
+        lambda: kpp.kpp_probe_plain(X, cands, d), None,
+        4 * (m * n + m + L * n + m * L + L), 2 * m * L * n + 2 * m * n, 1,
+        free_cache=True)
+    row.update(m=m, n=n, L=L, max_abs_err=err,
+               library="none (no single call computes it)")
+    emit({"phase": "baselines_seed", "m": m, "n": n, "k": k,
+          "candidates": L, "seed_ms_first": walls[0],
+          "seed_ms_warm": min(walls[1:]), "seed_ms": walls,
+          "kpp_probe_ms": row["ms"], "kpp_probe_plain_ms": row["plain_ms"],
+          "kpp_probe_bound_ms": row["bound_ms"],
+          "probes_a_seeding": k, "probes_ms_plain": k * row["plain_ms"],
+          "probes_ms_kernel": k * row["ms"]})
+    return row
+
+
+def phase_baselines(X, f_full_bm: float, seed: int) -> tuple:
+    """Phase 11: the §5 baselines through ``fit(method=...)`` at HEPMASS
+    scale, each against its plain twin; the weighted path alone; Ward at
+    its cap; B, C at the K-means|| pool and A over the full data held to
+    their plain versions and timed; the full-data seeding timed."""
+    t_phase = time.monotonic()
+    torch.cuda.empty_cache()        # the plain K-means|| twin peaks ~33 GB
+    cfg = BigMeansConfig(k=25, s=64_000, n_chunks=32, seed=seed)
+    total = {name: 0 for name in ops.launch_counts()}
+    walls = 0.0
+    for i, name in enumerate(BASELINE_RUNS):
+        key = rnd.TORCH.fold_in(rnd.TORCH.key(seed + 11), i)
+        row, launches = baseline_fit(X, cfg, name, key, f_full_bm)
+        for k, v in launches.items():
+            total[k] += v
+        walls += row["fit_wall_s"]
+        torch.cuda.empty_cache()
+    for k, v in weighted_alone(X, seed).items():
+        total[k] += v
+    _, ward_launches = ward_at_cap(X, cfg)
+    for k, v in ward_launches.items():
+        total[k] += v
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    pool = X[torch.randint(0, X.shape[0], (POOL_K,), generator=gen,
+                           device=X.device)].contiguous()
+    times = times_baselines(X, pool)
+    torch.cuda.empty_cache()
+    times["kpp_probe"] = time_seed(X, seed)
+    emit({"phase": "baselines_done", "seconds": time.monotonic() - t_phase,
+          "launches": {k: v for k, v in total.items() if v}})
+    return (total, walls), times
+
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4199,6 +4569,16 @@ def main() -> int:
         fault_paths.update(serve_paths)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    # phase 11: the §5 baselines on phase 4's data
+    fault_paths["baselines"], baseline_times = phase_baselines(
+        X, f_full, args.seed)
+    times["assign_f32"]["at_kmeans_parallel_pool"] = baseline_times[
+        "assign_f32"]
+    times["update_f32"]["at_kmeans_parallel_pool"] = baseline_times[
+        "update_f32"]
+    times["fused_step_f32"]["at_full_data"] = baseline_times[
+        "fused_step_f32"]
+    times["kpp_probe"]["at_full_data"] = baseline_times["kpp_probe"]
     n_eval = math.ceil(X.shape[0] / EVAL_BATCH)
     for path, (counts, path_wall) in paths.items():
         device_share(path, times, counts, n_eval, path_wall)

@@ -13,6 +13,8 @@
     result = fit(X, cfg, precision="bf16x3")            # 3 bf16 products
     result = fit(X.bfloat16(), cfg)                     # 'auto': bf16
     result = fit(X, cfg, autotune=True)                 # tuned launches
+    result = fit(X, cfg, method="kmeanspp")             # a §5 baseline
+    list_methods()    # ['auto', 'batched', ..., 'coreset', 'da_mssc', ...]
     result = fit("data.npy", cfg)                       # streamed from disk
     result = fit(provider, cfg, n_features=28)          # chunk_id -> [s, n]
     ids, f = evaluate(result, "data.npy")               # loads the file
@@ -25,8 +27,12 @@ asked for.  An ``.npy`` path, a provider callable or a chunk iterator runs
 the ``streaming`` strategy (:mod:`repro_torch.engine.stream`): chunks are
 fetched on a worker thread and staged onto the card through pinned
 buffers on a copy stream, so the data never has to fit on the device.
-Strategies and knobs that the port does not run yet raise
-``NotImplementedError`` naming their ROADMAP item.
+The paper's §5 baselines (:mod:`repro_torch.api.baselines`: ``forgy``,
+``kmeanspp``, ``kmeans_parallel``, ``coreset``, ``da_mssc``, ``ward``) run
+through the same ``fit`` on in-core data only; a provider or an iterator
+raises ``TypeError`` there.  Strategies and knobs that the port does not
+run yet raise ``NotImplementedError`` naming their ROADMAP item; an
+unknown method raises ``KeyError``.
 
 ``autotune=True`` times the launch choices of the fit's kernels at its
 shapes before it runs (:func:`_pretune`) and caches the winners
@@ -43,7 +49,11 @@ import torch
 
 from repro_torch import device as devices
 from repro_torch import random as rnd
+from repro_torch.api import baselines as baselines
 from repro_torch.api import strategies as strategies
+from repro_torch.api.baselines import (
+    get_baseline, list_baselines, register_baseline,
+)
 from repro_torch.api.config import BigMeansConfig
 from repro_torch.api.result import FitResult
 from repro_torch.api.sources import (
@@ -64,21 +74,27 @@ from repro_torch.serve import ServeConfig, Server, serve
 __all__ = [
     "ArraySource", "BigMeansConfig", "DataSource", "FitResult",
     "IteratorSource", "MemmapSource", "ProviderSource", "ServeConfig",
-    "Server", "as_source", "evaluate", "fit", "get_strategy",
-    "list_strategies", "register_strategy", "resolve_auto", "serve",
+    "Server", "as_source", "baselines", "evaluate", "fit", "get_baseline",
+    "get_strategy", "list_baselines", "list_methods", "list_strategies",
+    "register_baseline", "register_strategy", "resolve_auto", "serve",
     "strategies", "synthetic",
 ]
 
-# The reference's §5 baselines (repro.api.baselines).
-BASELINES = ("coreset", "da_mssc", "forgy", "kmeans_parallel", "kmeanspp",
-             "multistart", "ward")
+
+def list_methods() -> list[str]:
+    """Everything :func:`fit` accepts as ``method``, as the reference lists
+    it; a strategy not ported yet (``sharded``) is listed and raises
+    ``NotImplementedError`` naming its ROADMAP item."""
+    names = sorted(list_strategies() + list(strategies.NOT_PORTED))
+    return ["auto"] + names + list_baselines()
 
 
 def _resolve_method(method: str):
-    if method in BASELINES:
-        raise NotImplementedError(
-            f"baseline {method!r} is not ported yet (ROADMAP queue 1 item 9)")
-    return get_strategy(method)
+    if method in list_baselines():
+        return get_baseline(method)
+    if method in list_methods():
+        return get_strategy(method)
+    raise KeyError(f"unknown method {method!r}; known: {list_methods()}")
 
 
 def _pretune(cfg: BigMeansConfig, source, device: torch.device) -> None:
@@ -91,6 +107,10 @@ def _pretune(cfg: BigMeansConfig, source, device: torch.device) -> None:
     batched step at ``[batch, s, n]`` when ``batch > 1`` — from a
     ``torch.Generator`` seeded 0 on the card.  Only on the card, with the
     kernels: there is nothing to tune on the CPU or under a ``ref`` impl.
+    As in the reference, these chunk shapes are all it tunes, whatever the
+    method: a §5 baseline then runs with tuning off (the reference's run
+    under ``jit``, where nothing is timed), so its full-data Lloyd takes
+    the cached or default launch choice and nothing is timed at m = 10.5M.
     """
     impl = ops.resolve_impl(cfg.impl, device)
     if impl != "cuda":
@@ -135,7 +155,8 @@ def fit(
     * ``method`` — ``'auto'``, ``'sequential'``, ``'batched'`` or
       ``'streaming'`` (``'auto'`` picks ``'streaming'`` for an ``.npy``
       path, a provider or an iterator, else ``'batched'`` when
-      ``batch > 1``, else ``'sequential'``).
+      ``batch > 1``, else ``'sequential'``), or a §5 baseline (see
+      :func:`list_methods`).
     * ``rng`` — the key-tree backend (:class:`repro_torch.random.TorchRNG`
       by default); ``key`` defaults to ``rng.key(config.seed)``.
     * ``device`` — ``None`` runs on the CUDA device; ``'cpu'`` runs the
@@ -173,6 +194,8 @@ def fit(
             prev_tuning = autotune.enabled()
             autotune.enable(True)
             _pretune(cfg, source, dev)
+            if method in list_baselines():
+                autotune.enable(False)
         t0 = time.monotonic()
         result = fn(cfg, source, key, rng=rng, device=dev)
         if dev.type == "cuda":

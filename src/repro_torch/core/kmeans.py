@@ -84,10 +84,13 @@ def lloyd(
 ) -> KMeansResult:
     """Run Lloyd's algorithm from ``init_centroids`` on an in-memory chunk
     (a tensor, or under int8 possibly a :class:`~.precision.QuantizedChunk`).
+
+    ``weights`` ([m], optional) is the weighted variant of the coreset,
+    K-means|| and DA-MSSC baselines: w_i multiplies both the objective and
+    the centroid update, every step the weighted two-pass route of
+    :func:`~repro_torch.kernels.ops.fused_step` (kernel B for its ids on
+    the card).
     """
-    if weights is not None:
-        raise NotImplementedError(
-            "weighted Lloyd is not ported yet (ROADMAP queue 1 item 9)")
     precision = ops.resolve_precision(precision, points)
     points, points_eval = _split_views(points, precision)
     c = init_centroids.float()
@@ -96,8 +99,8 @@ def lloyd(
     it = 0
     active = max_iters > 0
     while active:
-        sums, counts, f = ops.fused_step(points, c, impl=impl,
-                                         precision=precision)
+        sums, counts, f = ops.fused_step(points, c, weights=weights,
+                                         impl=impl, precision=precision)
         c = torch.where(counts[:, None] > 0, sums / counts[:, None], c)
         f_prev, f_curr = f_curr, f
         it += 1
@@ -108,11 +111,12 @@ def lloyd(
     # cluster sizes and the degeneracy mask (reference kmeans.py:131-146).
     eval_prec, upd_prec = _epilogue_precisions(precision)
     ids, d = ops.assign(points_eval, c, impl=impl, precision=eval_prec)
-    _, counts = ops.update(points_eval, ids, k, impl=impl,
+    _, counts = ops.update(points_eval, ids, k, weights=weights, impl=impl,
                            precision=upd_prec)
+    f = torch.sum(d) if weights is None else torch.sum(d * weights)
     return KMeansResult(
         centroids=c,
-        objective=torch.sum(d),
+        objective=f,
         counts=counts,
         degenerate=counts == 0,
         iterations=it,

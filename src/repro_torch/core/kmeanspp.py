@@ -43,14 +43,17 @@ def seed(
     weights: torch.Tensor | None = None,
     rng=rnd.TORCH,
 ) -> torch.Tensor:
-    """Return [k, n] centroids; non-degenerate rows of ``init`` are kept."""
-    if weights is not None:
-        raise NotImplementedError(
-            "weighted K-means++ is not ported yet (ROADMAP queue 1 item 9)")
+    """Return [k, n] centroids; non-degenerate rows of ``init`` are kept.
+
+    ``weights`` (optional, [s]) makes this the weighted D² sampling of the
+    coreset, K-means|| and DA-MSSC baselines: sampling probabilities and
+    potentials are both scaled by w_i.
+    """
     if points.dtype != torch.bfloat16:
         points = points.float()
     s, n = points.shape
     dev = points.device
+    w = None if weights is None else weights.float()
     if init is None:
         init = torch.zeros((k, n), dtype=torch.float32, device=dev)
         degenerate = torch.ones((k,), dtype=torch.bool, device=dev)
@@ -70,22 +73,25 @@ def seed(
         key, k1 = rng.split(key)
         if not is_deg:
             continue
-        logits = _safe_d2_logits(d)
+        logits = _safe_d2_logits(d if w is None else d * w)
         noise = rng.gumbel(k1, (candidates, s), dev)
         cand_idx = torch.argmax(noise + logits[None, :], dim=1)    # [L]
         cands = points[cand_idx]                                   # [L, n]
         dc = pairwise_sqdist_ref(points, cands, x2)                # [s, L]
         newd = torch.minimum(d[:, None], dc)                       # [s, L]
-        b = torch.argmin(torch.sum(newd, dim=0))
+        pot = newd if w is None else newd * w[:, None]
+        b = torch.argmin(torch.sum(pot, dim=0))
         c[j] = cands[b]
         d = newd[:, b]
     return c
 
 
 def kmeanspp(points: torch.Tensor, key, k: int, *, candidates: int = 3,
+             weights: torch.Tensor | None = None,
              rng=rnd.TORCH) -> torch.Tensor:
     """Fresh K-means++ seeding of k centers (paper Algorithm 2)."""
-    return seed(points, key, k, candidates=candidates, rng=rng)
+    return seed(points, key, k, candidates=candidates, weights=weights,
+                rng=rng)
 
 
 def seed_batched(

@@ -46,6 +46,15 @@ kernel B, true fp32 on the CUDA cores (a register-tiled product, bitwise
 the body it replaced), runs about as fast as its plain version there
 (``PERF.md`` §6 row 4).
 
+A weighted step (the §5 baselines' coresets and pools) takes the two-pass
+route on every device, as in the reference (``ops.py:309``), but its
+assignment on the card is kernel B at the policy, where the reference's
+fallback runs its oracle (``ops.py:331``): the two-pass decision above,
+carried to weights, since a plain assign would be a plain version on the
+path.  Its sums and counts are the weighted contraction of
+:func:`.ref.update_ref` on every device (the reference computes it outside
+any Pallas kernel, ``ops.py:260-261``).
+
 On the card every launch asks the autotuner (:mod:`.autotune`) for its
 launch choice — ``fused_step`` its pipeline (kernel A or A-dma),
 ``assign`` its CTAs per SM, ``fused_step_batched`` kernel D's default —
@@ -70,10 +79,6 @@ from repro_torch.kernels import precision as px
 from repro_torch.kernels import update as upd
 
 IMPLS = ("cuda", "ref", "ref_chunked")
-
-_WEIGHTS = ("weighted steps are not ported yet (ROADMAP queue 1 item 9, "
-            "the §5 baselines that use them)")
-
 
 # (name prefix, per-policy launch counts) of the bf16 / bf16x3 bodies
 _COUNTS16 = (("fused_step", fused.launches16),
@@ -269,11 +274,16 @@ def warm_assign(m: int, k: int, n: int, *, impl: str = "auto",
 def update(x, ids: torch.Tensor, k: int, *,
            weights: torch.Tensor | None = None, impl: str = "auto",
            precision: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
-    """Cluster sums/counts: x [m,n], ids [m] -> (sums [k,n], counts [k])."""
-    if weights is not None:
-        raise NotImplementedError(_WEIGHTS)
+    """Cluster sums/counts: x [m,n], ids [m] -> (sums [k,n], counts [k]).
+
+    Weighted (``weights`` [m]): the weighted contraction of
+    :func:`.ref.update_ref` on every device, as in the reference, whose
+    weighted update runs outside any Pallas kernel (``ops.py:260-261``).
+    """
     impl = resolve_impl(impl, x.device)
     precision = resolve_precision(precision, x)
+    if weights is not None:
+        return ref.update_ref(x, ids, k, weights, precision=precision)
     if impl == "cuda":
         kernel = _KERNELS[precision]["update"]
         return kernel(px.cast_storage(x, precision), ids, k)
@@ -287,21 +297,24 @@ def fused_step(x, c: torch.Tensor, *,
     """One Lloyd iteration's (sums, counts, objective): kernel A at the
     policy (A8, A16, A3; or its dma twin, as the tuner says) inside the
     fused envelope, two passes (assign + update: kernels B and C at the
-    policy) outside it."""
-    if weights is not None:
-        raise NotImplementedError(_WEIGHTS)
+    policy) outside it.  A weighted step never enters a fused kernel: its
+    ids and d come from :func:`assign` (kernel B at the policy on the
+    card), its sums and counts from the weighted contraction of
+    :func:`update`, and its objective is ``sum(d * w)``."""
     impl = resolve_impl(impl, x.device)
     precision = resolve_precision(precision, x)
     if precision == "int8":
         x = px.as_quantized(x)          # quantized once for both passes
     k = c.shape[0]
-    if impl == "cuda" and fused.fits(k, c.shape[1]):
+    if weights is None and impl == "cuda" and fused.fits(k, c.shape[1]):
         kernel = _KERNELS[precision]["fused"]
         xs = px.cast_storage(x, precision)
         return _tuned("fused", partial(kernel, xs, c), xs, 1, k, precision)
     ids, d = assign(x, c, impl=impl, precision=precision)
-    sums, counts = update(x, ids, k, impl=impl, precision=precision)
-    return sums, counts, torch.sum(d)
+    sums, counts = update(x, ids, k, weights=weights, impl=impl,
+                          precision=precision)
+    obj = torch.sum(d) if weights is None else torch.sum(d * weights)
+    return sums, counts, obj
 
 
 def fused_step_batched(x, c: torch.Tensor, *,

@@ -66,26 +66,35 @@ def assign_ref(x, c: torch.Tensor,
 
 
 def update_ref(x, ids: torch.Tensor, k: int,
+               weights: torch.Tensor | None = None,
                *, precision: str | None = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-cluster feature sums f32 [k,n] and counts f32 [k].
 
-    ``ids`` outside [0, k) contribute nothing (used for padding).  Under
-    ``'int8'`` the one-hot (0/1) contracts with the codes in exact int32,
-    and the int32 sums are scaled by ``scale[f]`` only after the whole
-    contraction.  (The reference's weighted int8 update is not ported:
-    ROADMAP queue 1 item 9.)
+    ``ids`` outside [0, k) contribute nothing (used for padding).
+    ``weights`` ([m], optional) scale each row's one-hot entry, so the
+    sums are weighted and the counts are the clusters' total weights.
+    Under ``'int8'`` the unweighted one-hot (0/1) contracts with the codes
+    in exact int32, and the int32 sums are scaled by ``scale[f]`` only
+    after the whole contraction; a weighted update has non-integer
+    membership and runs f32 on the dequantized codes (reference
+    ``ref.py:93-96``).
     """
     prec = px.from_dtype(x.dtype) if precision is None else px.check(
         precision)
     lanes = torch.arange(k, device=ids.device, dtype=ids.dtype)
     if prec == "int8":
         qx = px.as_quantized(x)
+        if weights is not None:
+            return update_ref(px.dequantize(qx), ids, k, weights,
+                              precision="f32")
         hit = ids[:, None] == lanes[None, :]                  # [m,k]
         isums = px.intdot(hit.to(torch.int8), qx.q, ([0], [0]))  # [k,n] i32
         sums = isums.float() * qx.scale[None, :]
         return sums, torch.sum(hit.float(), dim=0)
     onehot = (ids[:, None] == lanes[None, :]).float()         # [m,k]
+    if weights is not None:
+        onehot = onehot * weights.float()[:, None]
     sums = px.dot(onehot, x, ([0], [0]), prec)                # [k,n]
     counts = torch.sum(onehot, dim=0)                         # [k]
     return sums, counts

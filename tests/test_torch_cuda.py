@@ -1268,3 +1268,108 @@ def test_serve_demoted_bucket_fails_on_card():
         stats = srv.stats("m")
         assert stats["n_failed"] == 1 and stats["n_ref_retries"] == 2
         assert srv.health()["models"]["m"]["demoted_buckets"] == [64]
+
+
+@pytest.mark.cuda
+def test_weighted_step_runs_kernel_b_on_card():
+    """A weighted Lloyd step on the card never enters a fused kernel: its
+    ids and d come from kernel B (one launch), its sums and counts from the
+    weighted contraction; the plain twin agrees (same ids on blobs, so the
+    same contraction bitwise; the objective within RTOL)."""
+    _card()
+    from repro_torch.core import kmeans
+    from repro_torch.kernels import ops
+
+    x, c = blobs(4000, 25, 28, seed=7)
+    w = np.random.default_rng(7).uniform(0.1, 4.0, 4000).astype(np.float32)
+    xt, ct, wt = (torch.from_numpy(a).cuda() for a in (x, c, w))
+    ops.reset_launch_counts()
+    sums, counts, f = ops.fused_step(xt, ct, weights=wt)
+    assert {k: v for k, v in ops.launch_counts().items() if v} == {
+        "assign": 1}
+    s_ref, n_ref, f_ref = ops.fused_step(xt, ct, weights=wt, impl="ref")
+    assert torch.equal(sums, s_ref) and torch.equal(counts, n_ref)
+    assert abs(float(f) - float(f_ref)) <= RTOL * abs(float(f_ref))
+    ops.reset_launch_counts()
+    res = kmeans.lloyd(xt, ct, weights=wt)
+    launches = ops.launch_counts()
+    assert launches["fused_step"] == 0
+    assert launches["assign"] == res.iterations + 1
+    want = kmeans.lloyd(xt, ct, weights=wt, impl="ref")
+    assert res.iterations == want.iterations
+    assert torch.equal(res.assignments, want.assignments)
+    assert abs(float(res.objective) - float(want.objective)) <= (
+        RTOL * abs(float(want.objective)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["forgy", "kmeanspp", "kmeans_parallel",
+                                  "coreset", "da_mssc"])
+def test_baseline_fit_on_card_against_plain_twin(name):
+    """``fit(method=name)`` on the card through the kernels against the
+    same call with ``impl="ref"`` (same key, the torch backend): the
+    full-data objective within 1e-3, A launched by every full-data Lloyd,
+    B and C at the pool's k = 1 + 2k*5 by K-means||."""
+    _card()
+    from repro_torch import api
+    from repro_torch.kernels import ops
+
+    x, _ = blobs(40_000, 10, 28, seed=11)
+    X = torch.from_numpy(x).cuda()
+    cfg = api.BigMeansConfig(k=10, s=4_000, n_chunks=4, seed=5)
+    ops.reset_launch_counts()
+    res = api.fit(X, cfg, method=name)
+    launches = ops.launch_counts()
+    plain = api.fit(X, cfg.replace(impl="ref"), method=name)
+    assert ops.launch_counts() == launches
+    _, f = api.evaluate(res, X)
+    _, f_plain = api.evaluate(plain, X)
+    assert abs(f - f_plain) <= 1e-3 * f_plain
+    assert res.algorithm == name and res.centroids.is_cuda
+    counts = res.extras["counts"]
+    if name in ("forgy", "kmeanspp", "kmeans_parallel"):
+        assert counts.sum() == 40_000 and launches["fused_step"] > 0
+    if name == "da_mssc":
+        assert counts.sum() == res.n_chunks * cfg.s
+    if name == "kmeans_parallel":
+        assert launches["assign"] > 0 and launches["update"] > 0
+
+
+@pytest.mark.cuda
+def test_torch_categorical_on_card():
+    """The inverse-CDF draw on the card: softmax(logits)'s distribution
+    (chi-square over 8 categories, one of zero mass, below the 0.999
+    quantile at 6 degrees of freedom) and a pure function of its key."""
+    _card()
+    from repro_torch import random as rnd
+
+    p = np.array([0.3, 0.05, 0.0, 0.15, 0.2, 0.1, 0.12, 0.08])
+    logits = torch.log(torch.tensor(p, dtype=torch.float32)).cuda()
+    idx = rnd.TORCH.categorical(rnd.TORCH.key(2), logits, 200_000, "cuda")
+    assert idx.is_cuda and torch.equal(
+        idx, rnd.TORCH.categorical(rnd.TORCH.key(2), logits, 200_000, "cuda"))
+    freq = np.bincount(idx.cpu().numpy(), minlength=8)
+    expect = 200_000 * p[p > 0]
+    assert freq[2] == 0
+    assert float(np.sum((freq[p > 0] - expect) ** 2 / expect)) < 24.32
+
+
+@pytest.mark.cuda
+def test_baseline_autotune_times_the_chunk_shapes_only(_tuner):
+    """``fit(method="forgy", autotune=True)`` tunes the chunk shapes as
+    the reference's ``_pretune`` does and nothing at the baseline's own
+    full-data shape (tuning is off while it runs), and is bitwise the
+    untuned fit."""
+    _card()
+    from repro_torch import api
+
+    x, _ = blobs(40_000, 10, 28, seed=12)
+    X = torch.from_numpy(x).cuda()
+    cfg = api.BigMeansConfig(k=10, s=4_000, n_chunks=4, seed=5)
+    untuned = api.fit(X, cfg, method="forgy")
+    was, n_timed = _tuner.enabled(), len(_tuner.timings())
+    tuned = api.fit(X, cfg.replace(autotune=True), method="forgy")
+    keys = {key for key, _, _ in _tuner.timings()[n_timed:]}
+    assert keys and all("|m4000|" in key for key in keys)
+    assert _tuner.enabled() == was
+    assert torch.equal(tuned.centroids, untuned.centroids)

@@ -37,6 +37,11 @@ class JaxReplay:
         idx = jax.random.choice(key, n, (size,), replace=False)
         return torch.from_numpy(np.array(idx)).to(device)
 
+    def categorical(self, key, logits, size, device):
+        logits = np.asarray(logits.detach().cpu().numpy(), np.float32)
+        idx = jax.random.categorical(key, logits, shape=(size,))
+        return torch.from_numpy(np.array(idx)).to(device)
+
     def key_to_array(self, key):
         """The jax key as it is: the reference's ``uint32[2]`` leaf."""
         return np.asarray(key, dtype=np.uint32)

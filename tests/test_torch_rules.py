@@ -194,9 +194,7 @@ def test_bf16_precisions_are_ported(precision):
 
 
 @pytest.mark.parametrize("method,item", [
-    ("forgy", "queue 1 item 9"),
-    ("sharded", "queue 1 item 8"), ("kmeanspp", "queue 1 item 9"),
-    ("coreset", "queue 1 item 9"),
+    ("sharded", "queue 1 item 8"),
 ])
 def test_unported_methods_raise(method, item):
     cfg = api.BigMeansConfig(k=3, s=100, n_chunks=2)
@@ -206,9 +204,6 @@ def test_unported_methods_raise(method, item):
 
 def test_unported_inputs_raise():
     cfg = api.BigMeansConfig(k=3, s=100, n_chunks=2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        ops.update(torch.from_numpy(X), torch.zeros(600, dtype=torch.int32),
-                   3, weights=torch.ones(600))
     with pytest.raises(KeyError):
         api.fit(X, cfg, method="nope", device="cpu")
 
