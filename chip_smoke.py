@@ -37,10 +37,12 @@ Phases, each printing JSON lines:
    off its buffer, held against the plain versions with phase 3's
    tolerances, repeat launches bitwise.
 3e. kernel P — ``kpp_probe_cuda`` against ``kpp_probe_plain`` at the
-   reference test's shapes and the seeding shape (m = 64,000, n = 28,
-   L = 3): newd within 1e-5 of its terms' magnitude, pot within 1e-5
-   relative, repeat launches bitwise; then the entry point ``kpp_probe``
-   once at the seeding shape, its launch counted.
+   reference test's shapes, at L = 1, 5, 9, 33 (around its candidate
+   tiles), at the seeding shape (m = 64,000, n = 28, L = 3), the same with
+   x and d one element off their buffers, and at the two-pass width
+   (16,384 x 1,024, L = 3): newd within 1e-5 of its terms' magnitude, pot
+   within 1e-5 relative, repeat launches bitwise; then the entry point
+   ``kpp_probe`` once at the seeding shape, its launch counted.
 4. main path, sequential — ``repro_torch.api.fit`` + ``evaluate`` on a
    HEPMASS-shaped mixture (m = 10.5M, n = 28, 25 components) generated on
    the card, with k = 25, s = 64,000, 32 chunks, through the kernels
@@ -93,7 +95,8 @@ Phases, each printing JSON lines:
    the fused envelope's edge (k = n = 1,024); batched and sequential fit
    walls in turns, f32 against int8, bf16 and bf16x3 fit walls in turns;
    each dma kernel beside its blocks twin in turns, at the main shape and
-   at the envelope's edge; kernel P at the seeding shape.
+   at the envelope's edge; kernel P at the seeding shape and at the
+   two-pass width (16,384 x 1,024, L = 3; ``at_two_pass_width``).
    The assign kernels beside the dots-only library product (``torch.mm``
    f32 for B, bf16 for B16; ``torch._int_mm`` for B8 where the widths are
    multiples of 8).  Phases 5c and 5f time B8, C8, C, B16, C16, C3, B
@@ -1165,30 +1168,45 @@ def check_kpp(xc, cc, dc, why: str) -> float:
 
 def phase_kpp(seed: int):
     """Phase 3e: kernel P against ``kpp_probe_plain`` at the reference
-    test's shapes (standard normal x and candidates, d uniform in [0, 5))
-    and at the seeding shape (a main path chunk, candidates drawn from it).
-    newd within RTOL of its terms' magnitude (||x|| + ||c||)^2, the
-    condition of (csq - 2 dot) + xsq (a candidate's own row has newd ~ 0);
-    pot within RTOL; repeat launches bitwise.  Then the entry point
-    ``kpp_probe`` once at the seeding shape, its launches counted: P's own
-    path.  Returns (max abs err at the seeding shape, the path's counts)."""
+    test's shapes and at L = 1, 5, 9, 33 around its candidate tiles (4, 8
+    and 32 dots a row; standard normal x and candidates, d uniform in
+    [0, 4n), so that about half the rows take a candidate's distance), at
+    the seeding shape (a main path chunk, candidates drawn from it), the
+    same with x and d one element off their buffers, and at the two-pass
+    width (16,384 x 1,024, L = 3).  newd within RTOL of its terms'
+    magnitude (||x|| + ||c||)^2, the condition of (csq - 2 dot) + xsq (a
+    candidate's own row has newd ~ 0); pot within RTOL; repeat launches
+    bitwise.  Then the entry point ``kpp_probe`` once at the seeding shape,
+    its launches counted: P's own path.  Returns (max abs err at the
+    seeding shape, the path's counts)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     cases = []
-    for m, n, L in ((100, 7, 3), (513, 28, 3), (300, 768, 8),
-                    (1000, 68, 128)):
-        cases.append(("reference test shape",
+    for m, n, L, why in ((100, 7, 3, "reference test shape"),
+                         (513, 28, 3, "reference test shape"),
+                         (300, 768, 8, "reference test shape"),
+                         (1000, 68, 128, "reference test shape"),
+                         (3000, 28, 1, "L = 1"), (3000, 28, 5, "L = 5"),
+                         (3000, 28, 9, "L = 9"), (3000, 28, 33, "L = 33")):
+        cases.append((why,
                       torch.randn((m, n), generator=gen, device="cuda"),
                       torch.randn((L, n), generator=gen, device="cuda"),
-                      torch.rand((m,), generator=gen, device="cuda") * 5.0))
+                      torch.rand((m,), generator=gen, device="cuda")
+                      * 4.0 * n))
     x, _ = separated(64_000, 25, 28, seed)
     cands, d = seeding_probe(x, seed)
     cases.append(("seeding shape", x, cands, d))
+    cases.append(("seeding shape, x and d one element off their buffers",
+                  offset_view(x, 1), cands, offset_view(d, 1)))
+    x2, _ = separated(16_384, 2048, 1024, seed)
+    cands2, d2 = seeding_probe(x2, seed)
+    cases.append(("two-pass width", x2, cands2, d2))
     err = 0.0
     for why, xc, cc, dc in cases:
         row_err = check_kpp(xc, cc, dc, why)
         if why == "seeding shape":
             err = row_err
+    del cases, x2, cands2, d2
     ops.reset_launch_counts()
     t0 = time.monotonic()
     newd, pot = kpp.kpp_probe(x, cands, d)
@@ -2315,12 +2333,30 @@ def phase_times(X, res, seed: int) -> dict:
     out["kpp_probe"] = timing(
         lambda: kpp.kpp_probe_cuda(x, cands, d),
         lambda: kpp.kpp_probe_plain(x, cands, d), None,
-        4 * (s * n + s + L * n + s * L + L), 2 * s * L * n + 2 * s * n, 200)
+        *kpp_cost(s, n, L), 200)
     out["kpp_probe"].update(L=L, library="none (no single call computes it)")
+    # and at the two-pass width (16,384 x 1,024: the two-pass data's chunk
+    # seeding)
+    m2, n2 = 16_384, 1024
+    x2, _ = separated(m2, 2048, n2, seed)
+    cands2, d2 = seeding_probe(x2, seed)
+    out["kpp_probe"]["at_two_pass_width"] = timing(
+        lambda: kpp.kpp_probe_cuda(x2, cands2, d2),
+        lambda: kpp.kpp_probe_plain(x2, cands2, d2), None,
+        *kpp_cost(m2, n2, L), 50)
+    out["kpp_probe"]["at_two_pass_width"].update(m=m2, n=n2, L=L)
+    del x2, cands2, d2
     for name, row in out.items():
         emit({"phase": "times", "kernel": name, "m": s, "k": k, "n": n,
               **row})
     return out
+
+
+def kpp_cost(m: int, n: int, L: int) -> tuple:
+    """(bytes, operations) of kernel P: x, d and the candidates read once,
+    newd and pot written once; the L dots, ||x||^2 and ||c||^2 as FMAs."""
+    return (4 * (m * n + m + L * n + m * L + L),
+            2 * m * L * n + 2 * m * n + 2 * L * n)
 
 
 def fused_cost(prec: str, m: int, k: int, n: int) -> tuple:
@@ -4430,8 +4466,7 @@ def time_seed(X, seed: int, k: int = 25, candidates: int = 3) -> dict:
     row = timing(
         lambda: kpp.kpp_probe_cuda(X, cands, d),
         lambda: kpp.kpp_probe_plain(X, cands, d), None,
-        4 * (m * n + m + L * n + m * L + L), 2 * m * L * n + 2 * m * n, 1,
-        free_cache=True)
+        *kpp_cost(m, n, L), 3, free_cache=True)
     row.update(m=m, n=n, L=L, max_abs_err=err,
                library="none (no single call computes it)")
     emit({"phase": "baselines_seed", "m": m, "n": n, "k": k,

@@ -60,7 +60,7 @@ SIGNATURES = {
                               _I, _I, _I, _P),
     "repro_fused_step_batched_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _I, _I64, _I, _I, _I, _P),
-    "repro_kpp_probe": (_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P),
+    "repro_kpp_probe": (_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P),
 }
 # The bf16 and bf16x3 entry points of the update and fused kernels share
 # one signature.
@@ -205,6 +205,8 @@ def load(rebuild: bool = False) -> ctypes.CDLL:
         getattr(lib, fn).restype = ctypes.c_int
     lib.repro_error_string.argtypes = [ctypes.c_int]
     lib.repro_error_string.restype = ctypes.c_char_p
+    lib.repro_kpp_probe_ctas_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.repro_kpp_probe_ctas_per_sm.restype = ctypes.c_int
     lib.repro_fused_step_dma_smem_bytes.argtypes = [ctypes.c_int]
     lib.repro_fused_step_dma_smem_bytes.restype = ctypes.c_int
     info.dma_smem_bytes = {prec: lib.repro_fused_step_dma_smem_bytes(i)
@@ -282,10 +284,11 @@ SCRATCH_BYTES = 256 << 20      # cap on the per-CTA partials of one launch
 def grid(device: torch.device, m: int, partial_floats: int = 0,
          per_sm: int = 2) -> int:
     """CTAs of a launch over ``m`` rows: at most one per point tile,
-    ``per_sm`` per SM (two, unless an assignment's tuned launch says
-    otherwise: its rows are independent, so its result does not depend on
-    the grid), and (with per-CTA partials of ``partial_floats`` floats) as
-    many as fit ``SCRATCH_BYTES``.  The grid depends only on the shape and
+    ``per_sm`` per SM (two, unless kernel P's shared memory or an
+    assignment's tuned launch says otherwise: an assignment's rows are
+    independent, so its result does not depend on the grid), and (with
+    per-CTA partials of ``partial_floats`` floats) as many as fit
+    ``SCRATCH_BYTES``.  The grid depends only on the shape and
     the card, so the summation order (and the result) is fixed for both."""
     tiles = max(1, -(-m // TILE_ROWS))
     sms = torch.cuda.get_device_properties(device).multi_processor_count

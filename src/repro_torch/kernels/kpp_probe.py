@@ -5,8 +5,10 @@ Kernel P (``csrc/kpp_probe.cu``, :func:`kpp_probe_cuda`) replaces
 L candidate seeds cands [L,n] and the current distances d [m] it returns
 the relaxed distances ``newd [m,L] = min(d, max(||c||^2 - 2 x.c + ||x||^2,
 0))`` and each candidate's potential ``pot [L]``, the sum of its column
-over the rows, in one pass over the chunk.  Both operands are cast to f32
-first, as the reference's wrapper casts them (``kpp_probe.py:74-75``).
+over the rows, in one pass over the chunk and one launch (the last CTA
+adds the per-CTA partials, found by an integer ticket kept per stream in
+:data:`_TICKETS`).  Both operands are cast to f32 first, as the
+reference's wrapper casts them (``kpp_probe.py:74-75``).
 :func:`kpp_probe_plain` is its plain version, with the same association
 ``(csq - 2 dot) + xsq``; :func:`kpp_probe` takes the plain version for
 tensors on the CPU and the kernel for tensors on the card.
@@ -26,6 +28,8 @@ MAX_L = 128
 MAX_N = 1024
 
 launches = 0    # kernel launches by kpp_probe_cuda (ops.launch_counts)
+_PER_SM: dict = {}      # (device, L, n) -> CTAs an SM holds
+_TICKETS: dict = {}     # (device, stream) -> the launches' ticket
 
 
 def fits(l: int, n: int) -> bool:
@@ -47,7 +51,7 @@ def kpp_probe_plain(x: torch.Tensor, cands: torch.Tensor, d: torch.Tensor
 def kpp_probe_cuda(x: torch.Tensor, cands: torch.Tensor, d: torch.Tensor
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel P: x [m,n], cands [L,n] (cast to f32), d f32 [m] -> (newd f32
-    [m,L], pot f32 [L]).
+    [m,L], pot f32 [L]), in one launch.
 
     Raises ``ValueError`` unless the operands are CUDA tensors and (L, n)
     :func:`fits`.
@@ -65,19 +69,50 @@ def kpp_probe_cuda(x: torch.Tensor, cands: torch.Tensor, d: torch.Tensor
     if d.shape != (m,) or d.device != x.device:
         raise ValueError(f"d must be [{m}] on {x.device}, got "
                          f"{tuple(d.shape)} on {d.device}")
-    grid = build.grid(x.device, m, L)
+    lib = build.load()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    grid = build.grid(x.device, m, L,
+                      per_sm=_ctas_per_sm(lib, x.device, L, n))
     newd = torch.empty((m, L), dtype=torch.float32, device=x.device)
     part = torch.empty(grid * L, dtype=torch.float32, device=x.device)
     pot = torch.empty(L, dtype=torch.float32, device=x.device)
-    lib = build.load()
     global launches
     launches += 1
     err = lib.repro_kpp_probe(
         x.data_ptr(), cands.data_ptr(), d.data_ptr(), newd.data_ptr(),
-        part.data_ptr(), pot.data_ptr(), m, L, n, grid,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        part.data_ptr(), pot.data_ptr(),
+        _ticket(x.device, stream).data_ptr(), m, L, n, grid, stream)
     build.check(err, "kpp_probe")
     return newd, pot
+
+
+def _ctas_per_sm(lib, device: torch.device, L: int, n: int) -> int:
+    """CTAs of kernel P an SM holds at (L, n) (its shared memory)."""
+    key = (device.index, L, n)
+    per_sm = _PER_SM.get(key)
+    if per_sm is None:
+        per_sm = lib.repro_kpp_probe_ctas_per_sm(L, n)
+        if per_sm < 0:
+            build.check(-per_sm, "kpp_probe occupancy")
+        if per_sm == 0:
+            raise RuntimeError(f"kpp_probe: no CTA fits an SM at L={L}, "
+                               f"n={n}")
+        _PER_SM[key] = per_sm
+    return per_sm
+
+
+def _ticket(device: torch.device, stream: int) -> torch.Tensor:
+    """The stream's ticket: an int32 on the card, 0 between launches (the
+    last CTA of each launch resets it), so launches and graph replays on
+    one stream take it in turn.  Made on first use on the stream; when that
+    use is inside a graph capture, the graph zeroes it before each replay
+    too."""
+    key = (device.index, stream)
+    ticket = _TICKETS.get(key)
+    if ticket is None:
+        ticket = torch.zeros(1, dtype=torch.int32, device=device)
+        _TICKETS[key] = ticket
+    return ticket
 
 
 def kpp_probe(x: torch.Tensor, cands: torch.Tensor, d: torch.Tensor, *,

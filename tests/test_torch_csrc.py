@@ -13,9 +13,13 @@ conversions.  The dma kernels' ``cp.async`` copies are deferred: a copy
 lands when the ``cp.async.wait_group`` that retires its group runs, as on
 the card, so a slab read before its wait, or a slot overwritten while it is
 read, shows as a wrong result; their dynamic shared memory is one static
-buffer (the CTAs run one after another).  The tensor-core kernels B8 and
-B16 (``assign_mma.cuh``) run their entry points (``REPRO_LAUNCH`` runs the
-CTAs); each ``wgmma`` is emulated on the card's fragment layout, reading
+buffer (the CTAs run one after another).  Kernel P's ``cp.async.bulk``
+copies fill their destination with NaN when issued and land when an
+``mbarrier`` wait finds every expected arrival of their phase made, so a
+tile read before its wait, or a stage overwritten while it is read, shows
+too; its integer ticket is an atomic add and ``__threadfence`` a fence.
+The tensor-core kernels B8 and B16 (``assign_mma.cuh``) run their entry
+points (``REPRO_LAUNCH`` runs the CTAs); each ``wgmma`` is emulated on the card's fragment layout, reading
 its operands through the 128-byte swizzle, and held like a copy until the
 ``wgmma.wait_group`` that retires it; the warp intrinsics
 (``__shfl_sync``, ``__shfl_xor_sync``, ``__shfl_up_sync``,
@@ -51,12 +55,15 @@ RTOL = 1e-5
 STUB = r"""
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
 #include <functional>
+#include <map>
+#include <mutex>
 #include <thread>
 #include <type_traits>
 #include <vector>
@@ -147,6 +154,79 @@ inline void cp_async_wait() {
     }
     cp_groups.erase(cp_groups.begin());
   }
+}
+// cp.async.bulk on mbarriers (kpp_probe.cu): a copy fills its destination
+// with NaN bytes when it is issued and lands when a wait finds every
+// expected arrival of its barrier's phase made (so every copy of the phase
+// issued); the phase then completes.  A slab read before its wait, or a
+// stage overwritten while it is read, shows as a wrong result.
+#define REPRO_HOST_BULK_COPY
+struct PendingBulk { void* dst; const void* src; unsigned bytes; };
+struct HostBarrier {
+  unsigned count = 0, pending = 0, phase = 0;
+  int64_t tx = 0;
+  std::vector<PendingBulk> copies;
+};
+inline std::mutex barrier_mutex;
+inline std::map<const void*, HostBarrier> host_barriers;
+inline void mbar_init(uint64_t* bar, unsigned count) {
+  std::lock_guard<std::mutex> lock(barrier_mutex);
+  host_barriers[bar] = HostBarrier{count, count, 0, 0, {}};
+}
+inline void mbar_fence_init() {}
+inline void async_proxy_fence() {}
+inline void mbar_arrive_tx(uint64_t* bar, unsigned bytes) {
+  std::lock_guard<std::mutex> lock(barrier_mutex);
+  HostBarrier& b = host_barriers.at(bar);
+  if (b.pending == 0) std::abort();        // more arrivals than expected
+  --b.pending;
+  b.tx += bytes;
+}
+inline void bulk_load(void* dst, const void* src, unsigned bytes,
+                      uint64_t* bar) {
+  if (((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)
+        | bytes) & 15) || bytes == 0)
+    std::abort();                          // the card needs 16-byte units
+  std::memset(dst, 0xFF, bytes);
+  std::lock_guard<std::mutex> lock(barrier_mutex);
+  host_barriers.at(bar).copies.push_back({dst, src, bytes});
+}
+inline void mbar_wait(uint64_t* bar, unsigned parity) {
+  for (;;) {
+    {
+      std::lock_guard<std::mutex> lock(barrier_mutex);
+      HostBarrier& b = host_barriers.at(bar);
+      if ((b.phase & 1u) != parity) return;  // that phase has completed
+      if (b.pending == 0) {
+        for (const PendingBulk& c : b.copies) {
+          std::memcpy(c.dst, c.src, c.bytes);
+          b.tx -= c.bytes;
+        }
+        b.copies.clear();
+        if (b.tx == 0) {
+          ++b.phase;
+          b.pending = b.count;
+          return;
+        }
+      }
+    }
+    std::this_thread::yield();
+  }
+}
+// the integer ticket and the loads of other CTAs' partials
+inline int atomicAdd(int* p, int v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline void __threadfence() {
+  std::atomic_thread_fence(std::memory_order_seq_cst);
+}
+template <class T>
+inline T __ldcg(const T* p) { return *p; }
+template <class F>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int* blocks, F, int, size_t) {
+  *blocks = 1;
+  return 0;
 }
 // dynamic shared memory: the CTAs of a launch run one after another
 inline unsigned char* dynamic_smem() {
@@ -773,28 +853,46 @@ HARNESS_KPP = r"""
 #include "kpp_probe.inc"
 #include <cstdio>
 #include <cstdlib>
-// harness_kpp m L n grid in out: in = x[m,n], cands[L,n], d[m] (f32);
-// out = newd [m,L] ++ pot [L], twice (two launches)
+// harness_kpp m L n grid ct shift in out: in = x[m,n], cands[L,n], d[m]
+// (f32); x and d start `shift` floats past a 16-byte boundary of their
+// buffers, with slack around them; ct: the candidate tile (0: the entry
+// point's, from L).  out = newd [m,L] ++ pot [L] ++ the ticket after the
+// launch (int32), twice (two launches)
+static float* placed(std::vector<float>& buf, int64_t count, int shift) {
+  buf.assign(count + 16 + shift, 0.f);
+  const uintptr_t a = (reinterpret_cast<uintptr_t>(buf.data()) + 15) & ~15;
+  return reinterpret_cast<float*>(a) + 4 + shift;
+}
 int main(int argc, char** argv) {
   const int64_t m = atoll(argv[1]);
   const int L = atoi(argv[2]), n = atoi(argv[3]), grid = atoi(argv[4]);
-  std::vector<float> x(m * n), c((size_t)L * n), d(m), newd(m * L),
-      part(grid * L), pot(L);
-  FILE* f = fopen(argv[5], "rb");
-  if (fread(x.data(), 4, x.size(), f) != x.size() ||
+  const int ct = atoi(argv[5]), shift = atoi(argv[6]);
+  std::vector<float> xb, db, c((size_t)L * n), newd(m * L), part(grid * L),
+      pot(L);
+  float* x = placed(xb, m * n, shift);
+  float* d = placed(db, m, shift);
+  FILE* f = fopen(argv[7], "rb");
+  if (fread(x, 4, m * n, f) != (size_t)(m * n) ||
       fread(c.data(), 4, c.size(), f) != c.size() ||
-      fread(d.data(), 4, d.size(), f) != d.size()) return 1;
+      fread(d, 4, m, f) != (size_t)m) return 1;
   fclose(f);
-  const int64_t tiles = (m + TM - 1) / TM;
-  FILE* o = fopen(argv[6], "wb");
+  int ticket = 0;
+  FILE* o = fopen(argv[8], "wb");
   for (int rep = 0; rep < 2; ++rep) {
-    launch(grid, TM, [&] {
-      kpp_probe_kernel(x.data(), c.data(), d.data(), newd.data(), part.data(),
-                       m, L, n, tiles);
-    });
-    launch(2, 256, [&] { kpp_probe_reduce(part.data(), pot.data(), L, grid); });
+    int err;
+    if (ct == 0) {
+      err = repro_kpp_probe(x, c.data(), d, newd.data(), part.data(),
+                            pot.data(), &ticket, m, L, n, grid, nullptr);
+    } else {
+      const repro::KppArgs a{x, c.data(), d, newd.data(), part.data(),
+                             pot.data(), &ticket, m, L, n,
+                             (m + repro::TM - 1) / repro::TM};
+      err = repro::kpp_launch(a, grid, ct, nullptr);
+    }
+    if (err) return 2;
     fwrite(newd.data(), 4, newd.size(), o);
     fwrite(pot.data(), 4, pot.size(), o);
+    fwrite(&ticket, 4, 1, o);
   }
   fclose(o);
   return 0;
@@ -1721,42 +1819,94 @@ def test_dma_kernel_sources_bitwise_blocks(harness, tmp_path, shape):
 # kernel P (kpp_probe)
 # --------------------------------------------------------------------------
 
-KPP_SHAPES = [  # (m, L, n, grid): the reference test's small shapes, n > 32
-    (100, 3, 7, 1),        # (feature tiles), L > 32 (candidate tiles), CTAs
-    (513, 3, 28, 2),       # with two tiles and a ragged last one
-    (300, 8, 70, 1),
-    (600, 40, 68, 2),
+KPP_SHAPES = [  # (m, L, n, grid, base shift): the reference test's small
+    (100, 3, 7, 1, 0),     # shapes, n > 32 (feature tiles), L > 32
+    (513, 3, 28, 2, 0),    # (candidate tiles), CTAs with two tiles and a
+    (300, 8, 70, 1, 0),    # ragged last one;
+    (600, 40, 68, 2, 0),
+    (300, 1, 28, 2, 0),    # L around every candidate-tile boundary (4, 8,
+    (300, 4, 28, 2, 0),    # 32: 4 dots a row for L <= 4, 8 for L <= 8,
+    (300, 5, 28, 2, 0),    # else 32 a candidate tile);
+    (300, 8, 13, 2, 0),
+    (300, 9, 12, 2, 0),
+    (300, 33, 20, 1, 0),
+    (260, 128, 28, 1, 0),
+    (513, 3, 28, 2, 1),    # x and d one element off a 16-byte boundary;
+    (300, 5, 70, 2, 1),    # the same with feature tiles;
+    (1000, 3, 28, 1, 0),   # one CTA walking four tiles, the ring (3 stages)
+    (600, 3, 68, 1, 0),    # wrapping, ragged last tile; 9 slabs over a
+    (300, 3, 28, 4, 0),    # 4-stage ring; more CTAs than tiles
 ]
 
 
+def kpp_inputs(m, L, n):
+    """Standard normal x and candidates, d uniform in [0, 4n): the
+    distances are about 2n, so about half the rows take a candidate's
+    distance and half keep d (below 5, as the reference test draws d, every
+    row would keep it and the dots would not show)."""
+    rng = np.random.default_rng(m + L)
+    x = rng.normal(size=(m, n)).astype(np.float32)
+    c = rng.normal(size=(L, n)).astype(np.float32)
+    d = (rng.uniform(size=m) * 4.0 * n).astype(np.float32)
+    return x, c, d
+
+
+def run_kpp(harness, tmp_path, x, c, d, grid, ct=0, shift=0):
+    """Kernel P through the stand-in, launched twice: returns (newd, pot,
+    ticket) of each launch."""
+    (m, n), L = x.shape, c.shape[0]
+    (tmp_path / "in.bin").write_bytes(x.tobytes() + c.tobytes() + d.tobytes())
+    subprocess.run([str(harness.parent / "harness_kpp"), str(m), str(L),
+                    str(n), str(grid), str(ct), str(shift),
+                    str(tmp_path / "in.bin"), str(tmp_path / "out.bin")],
+                   check=True, timeout=300)
+    out = np.fromfile(tmp_path / "out.bin", dtype=np.float32)
+    one = m * L + L + 1
+    assert out.size == 2 * one
+    return [(out[k:k + m * L].reshape(m, L), out[k + m * L:k + one - 1],
+             int(out[k + one - 1:k + one].view(np.int32)[0]))
+            for k in (0, one)]
+
+
 @pytest.mark.parametrize("shape", KPP_SHAPES, ids=[
-    f"m{m}-L{L}-n{n}-g{g}" for m, L, n, g in KPP_SHAPES])
+    f"m{m}-L{L}-n{n}-g{g}" + (f"-off{s}" if s else "")
+    for m, L, n, g, s in KPP_SHAPES])
 def test_kpp_probe_source_matches_plain(harness, tmp_path, shape):
     """Kernel P against ``kpp_probe_plain``.  Tolerances: newd within
     ``RTOL`` of the magnitude of its terms, (||x|| + ||c||)^2 (norms and
     dots summed in another order); pot within ``RTOL``; two launches
-    bitwise equal."""
-    m, L, n, grid = shape
-    rng = np.random.default_rng(m + L)
-    x = rng.normal(size=(m, n)).astype(np.float32)
-    c = rng.normal(size=(L, n)).astype(np.float32)
-    d = (rng.uniform(size=m) * 5.0).astype(np.float32)
-    (tmp_path / "in.bin").write_bytes(x.tobytes() + c.tobytes() + d.tobytes())
-    subprocess.run([str(harness.parent / "harness_kpp"), str(m), str(L),
-                    str(n), str(grid), str(tmp_path / "in.bin"),
-                    str(tmp_path / "out.bin")], check=True, timeout=300)
-    out = np.fromfile(tmp_path / "out.bin", dtype=np.float32)
-    one = m * L + L
-    assert out.size == 2 * one
-    np.testing.assert_array_equal(out[:one].view(np.uint32),
-                                  out[one:].view(np.uint32))
-    newd, pot = out[:m * L].reshape(m, L), out[m * L:one]
+    bitwise equal, the ticket back at 0 after each."""
+    m, L, n, grid, shift = shape
+    x, c, d = kpp_inputs(m, L, n)
+    (newd, pot, ticket), again = run_kpp(harness, tmp_path, x, c, d, grid,
+                                         shift=shift)
+    np.testing.assert_array_equal(newd.view(np.uint32),
+                                  again[0].view(np.uint32))
+    np.testing.assert_array_equal(pot.view(np.uint32),
+                                  again[1].view(np.uint32))
+    assert ticket == 0 and again[2] == 0
     want_newd, want_pot = kpp_probe_plain(torch.from_numpy(x),
                                           torch.from_numpy(c),
                                           torch.from_numpy(d))
     bound = np.stack([d_bound(x, c, np.full(m, j)) for j in range(L)], 1)
     assert np.all(np.abs(newd - want_newd.numpy()) <= bound)
     np.testing.assert_allclose(pot, want_pot.numpy(), rtol=RTOL)
+
+
+@pytest.mark.parametrize("n", [28, 68])
+def test_kpp_probe_newd_bitwise_across_grids_and_tiles(harness, tmp_path, n):
+    """A row's newd depends only on its FMA order over the features: the
+    same bits whatever grid and candidate tile compute it (L = 3 at tiles
+    4, 8 and 32; one, three and five CTAs); pot within ``RTOL`` of the
+    entry point's."""
+    m, L = 700, 3
+    x, c, d = kpp_inputs(m, L, n)
+    runs = [run_kpp(harness, tmp_path, x, c, d, grid, ct)[0]
+            for grid, ct in ((1, 0), (3, 8), (5, 32), (2, 4))]
+    for newd, pot, _ in runs[1:]:
+        np.testing.assert_array_equal(newd.view(np.uint32),
+                                      runs[0][0].view(np.uint32))
+        np.testing.assert_allclose(pot, runs[0][1], rtol=RTOL)
 
 
 # --------------------------------------------------------------------------

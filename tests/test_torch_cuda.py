@@ -720,13 +720,47 @@ def test_dma_kernels_bitwise_blocks_on_card(shape, precision, data):
         assert torch.equal(a, b) and torch.equal(b, d)
 
 
-KPP_CARD_SHAPES = [(100, 7, 3), (513, 28, 3), (300, 768, 8), (1000, 68, 128),
-                   (64_000, 28, 3)]
+KPP_CARD_SHAPES = [  # (m, n, L, base offset in elements)
+    (100, 7, 3, 0), (513, 28, 3, 0), (300, 768, 8, 0), (1000, 68, 128, 0),
+    (64_000, 28, 3, 0),
+    # L around every candidate tile (4, 8, 32), x and d one element off
+    # their buffers, the two-pass width
+    (3000, 28, 1, 0), (3000, 28, 4, 0), (3000, 28, 5, 0), (3000, 28, 8, 0),
+    (3000, 28, 9, 0), (3000, 28, 33, 0), (3000, 28, 128, 0),
+    (64_000, 28, 3, 1), (3000, 70, 5, 1), (16_384, 1024, 3, 0)]
+
+
+def kpp_card_inputs(m, n, L, off=0):
+    """x, cands standard normal, d uniform in [0, 4n) (about half the rows
+    take a candidate's distance), on the card; x and d ``off`` elements
+    into their buffers."""
+    rng = np.random.default_rng(m + n + L)
+
+    def placed(a):
+        buf = torch.empty(a.size + off, dtype=torch.float32, device="cuda")
+        view = buf[off:].view(a.shape)
+        view.copy_(torch.from_numpy(a))
+        return view
+
+    x = placed(rng.normal(size=(m, n)).astype(np.float32))
+    cands = torch.from_numpy(rng.normal(size=(L, n)).astype(np.float32)).cuda()
+    d = placed((rng.uniform(size=m) * 4.0 * n).astype(np.float32))
+    return x, cands, d
+
+
+def check_kpp_against_plain(x, cands, d, newd, pot):
+    from repro_torch.kernels import kpp_probe as kpp
+
+    want_newd, want_pot = kpp.kpp_probe_plain(x, cands, d)
+    terms = (x.norm(dim=1)[:, None] + cands.norm(dim=1)[None, :]) ** 2
+    assert bool(((newd - want_newd).abs() <= RTOL * terms).all())
+    assert bool(((pot - want_pot).abs() <= RTOL * want_pot.abs()).all())
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", KPP_CARD_SHAPES, ids=[
-    f"m{m}-n{n}-L{L}" for m, n, L in KPP_CARD_SHAPES])
+    f"m{m}-n{n}-L{L}" + (f"-off{o}" if o else "")
+    for m, n, L, o in KPP_CARD_SHAPES])
 def test_kpp_probe_matches_plain_on_card(shape):
     """Kernel P against ``kpp_probe_plain``: newd within RTOL of its
     terms' magnitude (||x|| + ||c||)^2, pot within RTOL, two launches
@@ -735,20 +769,46 @@ def test_kpp_probe_matches_plain_on_card(shape):
     from repro_torch.kernels import kpp_probe as kpp
     from repro_torch.kernels import ops
 
-    m, n, L = shape
-    rng = np.random.default_rng(m + n + L)
-    x = torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32)).cuda()
-    cands = torch.from_numpy(rng.normal(size=(L, n)).astype(np.float32)).cuda()
-    d = torch.from_numpy((rng.uniform(size=m) * 5).astype(np.float32)).cuda()
+    x, cands, d = kpp_card_inputs(*shape)
     ops.reset_launch_counts()
     newd, pot = kpp.kpp_probe(x, cands, d)
     newd2, pot2 = kpp.kpp_probe_cuda(x, cands, d)
     assert ops.launch_counts()["kpp_probe"] == 2
     assert torch.equal(newd, newd2) and torch.equal(pot, pot2)
-    want_newd, want_pot = kpp.kpp_probe_plain(x, cands, d)
-    terms = (x.norm(dim=1)[:, None] + cands.norm(dim=1)[None, :]) ** 2
-    assert bool(((newd - want_newd).abs() <= RTOL * terms).all())
-    assert bool(((pot - want_pot).abs() <= RTOL * want_pot.abs()).all())
+    check_kpp_against_plain(x, cands, d, newd, pot)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64_000, 28, 3, 0), (3000, 70, 5, 0)],
+                         ids=["seeding", "feature-tiles"])
+def test_kpp_probe_graph_replay_on_card(shape):
+    """P's one launch in a CUDA graph, replayed twice: both replays bitwise
+    equal to each other and to an eager launch, so the last CTA's ticket
+    is back at 0 after every launch (the capture runs on the stream whose
+    ticket the warm-up made, so no zeroing of it is captured)."""
+    _card()
+    from repro_torch.kernels import kpp_probe as kpp
+
+    x, cands, d = kpp_card_inputs(*shape)
+    eager = kpp.kpp_probe_cuda(x, cands, d)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kpp.kpp_probe_cuda(x, cands, d)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):  # the ticket made above
+        newd, pot = kpp.kpp_probe_cuda(x, cands, d)
+    replays = []
+    for _ in range(2):
+        newd.fill_(float("nan"))
+        pot.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append((newd.clone(), pot.clone()))
+    for got in replays:
+        assert torch.equal(got[0], eager[0]) and torch.equal(got[1], eager[1])
+    check_kpp_against_plain(x, cands, d, *replays[-1])
 
 
 @pytest.fixture
