@@ -41,8 +41,11 @@ Phases, each printing JSON lines:
    tiles), at the seeding shape (m = 64,000, n = 28, L = 3), the same with
    x and d one element off their buffers, and at the two-pass width
    (16,384 x 1,024, L = 3): newd within 1e-5 of its terms' magnitude, pot
-   within 1e-5 relative, repeat launches bitwise; then the entry point
-   ``kpp_probe`` once at the seeding shape, its launch counted.
+   within 1e-5 relative, repeat launches bitwise; two CUDA graphs of P
+   captured on one stream and replayed at once on two others, 200 times
+   each, every replay bitwise a lone launch (each launch owns its
+   ticket); then the entry point ``kpp_probe`` once at the seeding shape,
+   its launch counted.
 4. main path, sequential — ``repro_torch.api.fit`` + ``evaluate`` on a
    HEPMASS-shaped mixture (m = 10.5M, n = 28, 25 components) generated on
    the card, with k = 25, s = 64,000, 32 chunks, through the kernels
@@ -217,9 +220,34 @@ Phases, each printing JSON lines:
    rows alone, warm; kernel P (which ``seed`` does not call) held to its
    plain version and timed at one slot's probe of that seeding.
 
+12. multi-device and multi-host — on phase 4's data, inside phase 7's
+   temporary directory (run after phase 10).  The workers of a mesh, and
+   the groups of a stream mesh, are dealt onto the one card and run in
+   order.  12a: ``fit(method="sharded")`` with 4 workers, 8 chunks each,
+   ``sync_every=2``, on a 1-axis worker mesh and on a (2, 2) mesh over
+   ("data", "model"): with ``evaluate``, against its plain twin (the
+   full-data objective within 1e-3, the accept sequence up to near ties),
+   A once per Lloyd iteration of every worker's chunk, B and C once a
+   chunk and per evaluate batch, the full-data objective at most 1.15x
+   phase 4's; the fit walls in turns with the sequential fit.  12b: the
+   sharded fit with ``ckpt_dir``, stopped after window 2 and resumed
+   through ``fit``: bitwise the uninterrupted fit and its checkpoints.
+   12c: phase 5's batched fit on a 4-group stream mesh, bitwise phase 5's
+   (centroids, f_best, every chunk's f_new and accept, the trace
+   group-major), D once per Lloyd iteration of each group's slowest
+   stream.  12d: two ranks from the port's ``launch_local`` on the card,
+   streaming phase 7's ``.npy`` with ``topology="host_mesh"``,
+   ``batch=4``, fold and ``sync_every=2``: each rank bitwise the
+   single-process streaming fit, the health reconciled, the ranks'
+   launches and the store's round trips; they load the library phase 2
+   built and import no jax.  A rank killed at its first own chunk: its
+   peer raises ``HostDead`` at window 0 within ``sync_timeout_s``.
+
 Then the one ``{"kernels": [...]}`` line (the assign kernels' rows carry
 their serving times as ``at_serving``; ``launches_per_path`` the serving
-run's launches as ``serve`` and phase 11's as ``baselines``; A's row its
+run's launches as ``serve``, phase 11's as ``baselines`` and phase 12's
+as ``sharded``, ``sharded_2x2``, ``sharded_resume``, ``stream_mesh`` and
+``host_mesh`` (both ranks' fold and persistent fits); A's row its
 time over the 10.5M rows as ``at_full_data``, B's and C's theirs at the
 K-means|| pool as ``at_kmeans_parallel_pool``, P's its probe over the
 10.5M rows as ``at_full_data``), the card's name and power
@@ -252,7 +280,8 @@ import torch  # noqa: E402
 from repro_torch import random as rnd  # noqa: E402
 from repro_torch import serve as serve_lib  # noqa: E402
 from repro_torch.api import (  # noqa: E402
-    BigMeansConfig, MemmapSource, ProviderSource, evaluate, fit,
+    BigMeansConfig, MemmapSource, ProviderSource, TopologySpec, evaluate,
+    fit,
 )
 from repro_torch.cluster import checkpoint as ckpt_lib  # noqa: E402
 from repro_torch.core import big_means_batched  # noqa: E402
@@ -262,9 +291,12 @@ from repro_torch.data.synthetic import (  # noqa: E402
     PAPER_DATASETS, GMMSpec, gmm_dataset, gmm_memmap,
 )
 from repro_torch.engine import faults  # noqa: E402
+from repro_torch.engine import hostmesh  # noqa: E402
+from repro_torch.engine import incore  # noqa: E402
 from repro_torch.engine import middleware as mw  # noqa: E402
 from repro_torch.engine import scheduler as sched_lib  # noqa: E402
 from repro_torch.engine import stream  # noqa: E402
+from repro_torch.engine import topology as topo_lib  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     autotune, build, distance, fused_step, ops, ref,
 )
@@ -1166,6 +1198,43 @@ def check_kpp(xc, cc, dc, why: str) -> float:
     return max(float(e.max()), float(pe.max()))
 
 
+def kpp_graphs_on_two_streams(x, cands, d, replays: int = 200) -> int:
+    """Two CUDA graphs of kernel P captured on one stream, replayed at once
+    on two other streams ``replays`` times each: every replay's pot (and
+    the last replay's newd) bitwise a lone launch's.  Each launch owns its
+    ticket, so the last CTA of one replay is never chosen by the other's.
+    Returns the replays checked per graph."""
+    newd0, pot0 = kpp.kpp_probe_cuda(x, cands, d)
+    cap = torch.cuda.Stream()
+    cap.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(cap):
+        kpp.kpp_probe_cuda(x, cands, d)         # warm-up on the capture stream
+    graphs = []
+    for _ in range(2):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=cap):
+            out = kpp.kpp_probe_cuda(x, cands, d)
+        graphs.append((graph, out))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    pots = [torch.full((replays, cands.shape[0]), math.nan, device="cuda")
+            for _ in graphs]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+        st.wait_stream(cap)
+    for i in range(replays):
+        for (graph, (_, pot)), st, rec in zip(graphs, streams, pots):
+            with torch.cuda.stream(st):
+                graph.replay()
+                rec[i].copy_(pot)
+    torch.cuda.synchronize()
+    for (_, (newd, _)), rec in zip(graphs, pots):
+        check(torch.equal(rec, pot0.expand_as(rec))
+              and torch.equal(newd, newd0),
+              "kernel P: a graph replayed beside another differs from a "
+              "lone launch")
+    return replays
+
+
 def phase_kpp(seed: int):
     """Phase 3e: kernel P against ``kpp_probe_plain`` at the reference
     test's shapes and at L = 1, 5, 9, 33 around its candidate tiles (4, 8
@@ -1176,7 +1245,9 @@ def phase_kpp(seed: int):
     width (16,384 x 1,024, L = 3).  newd within RTOL of its terms'
     magnitude (||x|| + ||c||)^2, the condition of (csq - 2 dot) + xsq (a
     candidate's own row has newd ~ 0); pot within RTOL; repeat launches
-    bitwise.  Then the entry point ``kpp_probe`` once at the seeding shape,
+    bitwise.  Two graphs of P replayed at once on two streams, each replay
+    bitwise a lone launch (:func:`kpp_graphs_on_two_streams`).  Then the
+    entry point ``kpp_probe`` once at the seeding shape,
     its launches counted: P's own path.  Returns (max abs err at the
     seeding shape, the path's counts)."""
     gen = torch.Generator(device="cuda")
@@ -1207,6 +1278,11 @@ def phase_kpp(seed: int):
         if why == "seeding shape":
             err = row_err
     del cases, x2, cands2, d2
+    replays = kpp_graphs_on_two_streams(x, cands, d)
+    emit({"phase": "kernels_kpp_two_streams", "m": x.shape[0],
+          "n": x.shape[1], "L": cands.shape[0], "graphs": 2,
+          "replays_each": replays, "pot_bitwise_lone_launch": True,
+          "newd_bitwise_lone_launch": True})
     ops.reset_launch_counts()
     t0 = time.monotonic()
     newd, pot = kpp.kpp_probe(x, cands, d)
@@ -1352,7 +1428,8 @@ PROFILED = (  # (file under src/repro_torch, function): host time read
     ("core/kmeanspp.py", "seed_batched"), ("core/kmeans.py", "lloyd"),
     ("core/kmeans.py", "lloyd_batched"), ("kernels/ops.py", "fused_step"),
     ("kernels/ops.py", "fused_step_batched"), ("kernels/ops.py", "assign"),
-    ("kernels/ops.py", "update"))
+    ("kernels/ops.py", "update"), ("core/bigmeans.py", "_exchange_best"),
+    ("engine/incore.py", "_sharded_segment"))
 
 
 def host_profile(path: str, run) -> None:
@@ -4515,6 +4592,439 @@ def phase_baselines(X, f_full_bm: float, seed: int) -> tuple:
 
 
 
+# --------------------------------------------------------------------------
+# phase 12: multi-device and multi-host on the one card
+# --------------------------------------------------------------------------
+
+WORKERS = 4         # phase 12's worker mesh, and its stream groups
+
+
+class StopAfter(mw.Middleware):
+    """Stops a rounds loop once ``windows`` windows are done."""
+
+    def __init__(self, windows: int):
+        self.windows = windows
+
+    def should_stop(self, ctx) -> bool:
+        return ctx.step >= self.windows
+
+
+def sharded_incumbents(trace, workers: int, sync_every: int) -> list:
+    """The incumbent f each chunk of a worker-major sharded trace was
+    compared with: the worker's own, set to the minimum over the workers
+    after every window of ``sync_every`` chunks."""
+    cpw = len(trace) // workers
+    f = [math.inf] * workers
+    out = [math.inf] * len(trace)
+    for r in range(cpw // sync_every):
+        for w in range(workers):
+            for j in range(r * sync_every, (r + 1) * sync_every):
+                i = w * cpw + j
+                out[i] = f[w]
+                if trace[i][2]:
+                    f[w] = trace[i][1]
+        f = [min(f)] * workers
+    return out
+
+
+def check_sharded_accepts(res, twin, workers: int, sync_every: int):
+    """The kernels and the plain twin take the same accept decisions up to
+    the first near tie (f_new within TIE_RTOL of its incumbent on either
+    path), as phase 5 holds them."""
+    parting = first_parting(res.trace, twin.trace)
+    if parting is None:
+        return None
+    i = parting["chunk"]
+    near = [abs(tr[i][1] - inc[i]) <= TIE_RTOL * abs(inc[i])
+            for tr, inc in ((res.trace, sharded_incumbents(
+                                res.trace, workers, sync_every)),
+                            (twin.trace, sharded_incumbents(
+                                twin.trace, workers, sync_every)))]
+    check(any(near), f"sharded accept sequences part at chunk {i} without "
+          f"a near tie: {parting}")
+    return parting
+
+
+def phase_sharded(X, seed: int, f_full_seq: float, card: str) -> tuple:
+    """12a: ``fit(method="sharded")`` on phase 4's data: 4 workers on a
+    1-axis worker mesh and on a (2, 2) mesh over ("data", "model"), 8
+    chunks a worker, ``sync_every=2``; each with ``evaluate``, against its
+    plain twin (the full-data objective within 1e-3, the accept sequence
+    up to near ties), A once per Lloyd iteration of every worker's chunk
+    and the epilogue's B and C once a chunk, the full-data objective at
+    most 1.15x phase 4's sequential fit's.  The fit walls in turns with
+    the sequential fit.  Returns ({path: (launches, wall)}, the 1-axis
+    fit's row)."""
+    m, n = X.shape
+    n_eval = math.ceil(m / EVAL_BATCH)
+    base = BigMeansConfig(k=25, s=64_000, n_chunks=32,
+                          sync_every=SYNC_EVERY, seed=seed)
+    cpw = base.n_chunks // WORKERS
+    meshes = {"sharded": TopologySpec(kind="worker_mesh", devices=WORKERS),
+              "sharded_2x2": TopologySpec(kind="worker_mesh", devices=(2, 2),
+                                          axes=("data", "model"))}
+    fit(X, base.replace(n_chunks=2 * WORKERS, seed=seed + 1,
+                        topology=meshes["sharded"]), method="sharded")
+    paths, rows, fits = {}, {}, {}
+    for name, spec in meshes.items():
+        cfg = base.replace(topology=spec)
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        res = fit(X, cfg, method="sharded")
+        ids, f_full = evaluate(res, X)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = ops.launch_counts()
+        check(res.strategy == "sharded" and res.extras["workers"] == WORKERS
+              and res.extras["chunks_per_worker"] == cpw,
+              f"{name}: {res.strategy}, {res.extras}")
+        check(res.extras["fit"]["impl"] == "cuda" and res.centroids.is_cuda,
+              f"{name} did not run on the kernels")
+        check(tuple(res.centroids.shape) == (25, n)
+              and bool(torch.isfinite(res.centroids).all()),
+              f"{name} centroids")
+        check(tuple(ids.shape) == (m,) and math.isfinite(f_full),
+              f"{name} evaluate")
+        check(res.n_chunks == base.n_chunks == len(res.trace),
+              f"{name} trace length {len(res.trace)}")
+        want = dict.fromkeys(launches, 0)
+        want.update(fused_step=res.n_iterations, update=base.n_chunks,
+                    assign=base.n_chunks + n_eval)
+        check(launches == want, f"{name} launches {launches} != {want}")
+        twin = fit(X, cfg.replace(impl="ref"), method="sharded")
+        _, f_twin = evaluate(twin, X, impl="ref")
+        rel = abs(f_full - f_twin) / f_twin
+        check(rel <= 1e-3, f"{name}: full objectives differ by {rel:.3e}")
+        parting = check_sharded_accepts(res, twin, WORKERS, SYNC_EVERY)
+        ratio = f_full / f_full_seq
+        check(ratio <= 1.15, f"{name}: full objective {ratio:.4f}x the "
+              "sequential fit's (> 1.15)")
+        rows[name] = {
+            "workers": WORKERS, "chunks_per_worker": cpw,
+            "sync_every": SYNC_EVERY, "devices": spec.devices,
+            "axes": spec.axes or ("data",),
+            "f_best": res.objective, "f_full": f_full,
+            "f_full_ratio_to_sequential": ratio,
+            "n_accepted": res.n_accepted, "n_iterations": res.n_iterations,
+            "launches": launches, "wall_s": wall,
+            "fit_wall_s": res.wall_time_s,
+            "twin": {"f_full": f_twin, "n_accepted": twin.n_accepted,
+                     "fit_wall_s": twin.wall_time_s},
+            "f_full_rel_diff": rel, "first_parting": parting,
+            "accepts": [int(a) for _, _, a in res.trace],
+            "accepts_twin": [int(a) for _, _, a in twin.trace]}
+        paths[name] = (launches, wall)
+        fits[name] = res
+    a, b = fits["sharded"], fits["sharded_2x2"]
+    check(torch.equal(a.centroids, b.centroids) and a.trace == b.trace,
+          "the (2, 2) worker mesh differs from the 1-axis one (the same "
+          "4 workers)")
+    walls = {"sequential": [], "sharded": []}      # fit walls, in turns
+    for method in ("sequential", "sharded", "sharded", "sequential"):
+        cfg = base.replace(topology=meshes["sharded"]) \
+            if method == "sharded" else base
+        walls[method].append(fit(X, cfg, method=method).wall_time_s)
+    host_profile("sharded", lambda: fit(
+        X, base.replace(topology=meshes["sharded"]), method="sharded"))
+    for name, row in rows.items():
+        emit({"phase": f"multi_{name}", **row, "card": card})
+    emit({"phase": "multi_sharded_walls", "fit_walls_in_turns_s": walls,
+          "card": card})
+    return paths, rows["sharded"]
+
+
+def phase_sharded_resume(X, seed: int, root: Path, card: str) -> dict:
+    """12b: the sharded fit with ``ckpt_dir`` (a checkpoint every window,
+    by window index): the run stopped after window 2 and resumed through
+    ``fit`` is bitwise the uninterrupted fit, its trace windows 2-3 of
+    each worker, and its newest checkpoint bitwise the uninterrupted
+    one's."""
+    base = BigMeansConfig(k=25, s=64_000, n_chunks=32, seed=seed,
+                          sync_every=SYNC_EVERY, ckpt_every=SYNC_EVERY,
+                          topology=TopologySpec(kind="worker_mesh",
+                                                devices=WORKERS))
+    cpw = base.n_chunks // WORKERS
+    u_dir, r_dir = str(root / "sharded_U"), str(root / "sharded_R")
+    full = fit(X, base.replace(ckpt_dir=u_dir), method="sharded")
+    _, infos, ctx = incore.worker_sharded_rounds(
+        X, rnd.TORCH.key(seed), mesh=topo_lib.make_mesh((WORKERS,),
+                                                        ("data",)),
+        k=base.k, s=base.s, chunks_per_worker=cpw, sync_every=SYNC_EVERY,
+        middlewares=[mw.Checkpoint(r_dir, SYNC_EVERY, SYNC_EVERY,
+                                   step_from="step"), StopAfter(2)])
+    check(ctx.step == 2 and infos.f_new.numel() == 2 * SYNC_EVERY * WORKERS
+          and ckpt_lib.latest_step(r_dir) == 2,
+          f"sharded split stopped at window {ctx.step}")
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    resumed = fit(X, base.replace(ckpt_dir=r_dir), method="sharded")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = ops.launch_counts()
+    check(resumed.extras["rounds_done"] == cpw // SYNC_EVERY
+          and len(resumed.extras["checkpoint"]["restore_ms"]) == 1,
+          f"sharded resume: {resumed.extras}")
+    check(torch.equal(resumed.centroids, full.centroids)
+          and resumed.objective == full.objective
+          and resumed.n_accepted == full.n_accepted
+          and resumed.n_dist_evals == full.n_dist_evals,
+          "the resumed sharded fit differs from the uninterrupted one")
+    tail = [t[1:] for w in range(WORKERS)
+            for t in full.trace[w * cpw + 2 * SYNC_EVERY:(w + 1) * cpw]]
+    check([t[1:] for t in resumed.trace] == tail,
+          "the resumed sharded trace differs from windows 2-3")
+    same_checkpoints(r_dir, u_dir, "sharded resume")
+    want = dict.fromkeys(launches, 0)
+    want.update(fused_step=resumed.n_iterations, update=resumed.n_chunks,
+                assign=resumed.n_chunks)
+    check(launches == want, f"sharded resume launches {launches}")
+    emit({"phase": "multi_sharded_resume", "bitwise_uninterrupted": True,
+          "stopped_after_window": 2, "resumed_chunks": resumed.n_chunks,
+          "steps": ckpt_lib.steps(r_dir), "launches": launches,
+          "uninterrupted_fit_s": full.wall_time_s,
+          "resumed_fit_s": resumed.wall_time_s,
+          "save_ms": full.extras["checkpoint"]["save_ms"],
+          "restore_ms": resumed.extras["checkpoint"]["restore_ms"],
+          "card": card})
+    return {"sharded_resume": (launches, wall)}
+
+
+def phase_stream_mesh(X, seed: int, res_b, f_full_b: float,
+                      card: str) -> dict:
+    """12c: phase 5's batched fit (``batch=8, sync_every=2``) on a
+    4-group stream mesh: bitwise phase 5's (centroids, f_best, accepts and
+    each chunk's f_new, the trace group-major), and kernel D launched once
+    per Lloyd iteration of each group's slowest stream."""
+    m = X.shape[0]
+    n_eval = math.ceil(m / EVAL_BATCH)
+    cfg = BigMeansConfig(k=25, s=64_000, n_chunks=32, batch=BATCH,
+                         sync_every=SYNC_EVERY, seed=seed)
+    spec = TopologySpec(kind="stream_mesh", devices=WORKERS)
+    rounds, bl = cfg.n_chunks // BATCH, BATCH // WORKERS
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    res = fit(X, cfg.replace(topology=spec))
+    _, f_full = evaluate(res, X)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = ops.launch_counts()
+    check(res.strategy == "batched", f"stream mesh ran {res.strategy}")
+    check(torch.equal(res.centroids, res_b.centroids)
+          and res.objective == res_b.objective
+          and res.n_accepted == res_b.n_accepted and f_full == f_full_b,
+          "the stream-mesh fit differs from phase 5's")
+    # group-major (group, round, stream) -> phase 5's round-major order
+    order = [r * BATCH + g * bl + j for g in range(WORKERS)
+             for r in range(rounds) for j in range(bl)]
+    check([t[1:] for t in res.trace]
+          == [res_b.trace[i][1:] for i in order],
+          "the stream-mesh trace differs from phase 5's")
+    ops.reset_launch_counts()
+    _, infos = big_means_batched(
+        X, rnd.TORCH.key(seed), k=cfg.k, s=cfg.s, batch=BATCH, rounds=rounds,
+        sync_every=SYNC_EVERY,
+        mesh=topo_lib.make_mesh((WORKERS,), ("streams",)))
+    iters = infos.lloyd_iters.view(WORKERS, rounds, bl)
+    slowest = int(iters.max(dim=2).values.sum())
+    check(ops.launch_counts()["fused_step_batched"] == slowest,
+          "kernel D launches != the groups' slowest streams' iterations")
+    want = dict.fromkeys(launches, 0)
+    want.update(fused_step_batched=slowest, update=cfg.n_chunks,
+                assign=cfg.n_chunks + n_eval)
+    check(launches == want, f"stream mesh launches {launches} != {want}")
+    emit({"phase": "multi_stream_mesh", "groups": WORKERS,
+          "streams_per_group": bl, "bitwise_phase5": True,
+          "f_full": f_full, "launches": launches,
+          "slowest_group_stream_iterations_sum": slowest, "wall_s": wall,
+          "fit_wall_s": res.wall_time_s,
+          "phase5_fit_wall_s": res_b.wall_time_s, "card": card})
+    return {"stream_mesh": (launches, wall)}
+
+
+HOST_RANK = r"""
+import json, os, sys, time
+import numpy as np
+import torch
+from repro_torch.api import BigMeansConfig, MemmapSource, TopologySpec, fit
+from repro_torch.engine import hostmesh
+from repro_torch.engine.faults import HostDead
+from repro_torch.kernels import build, ops
+
+path, seed, mode = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+timeout_s = float(sys.argv[4])
+rank = int(os.environ[hostmesh.ENV_RANK])
+build.load()
+gathers = []
+allgather = hostmesh.HostRuntime.allgather
+
+
+def timed(self, tag, payload):
+    t0 = time.perf_counter()
+    try:
+        return allgather(self, tag, payload)
+    finally:
+        gathers.append([tag, 1e3 * (time.perf_counter() - t0)])
+
+
+hostmesh.HostRuntime.allgather = timed
+spec = TopologySpec(kind="host_mesh", sync_timeout_s=timeout_s)
+base = BigMeansConfig(k=25, s=64_000, n_chunks=32, batch=4, seed=seed,
+                      log_every=0, topology=spec)
+out = {"rank": rank, "built_here": build.info().built,
+       "jax": any(m == "jax" or m.startswith("jax.") for m in sys.modules)}
+if mode == "run":
+    fit(path, base.replace(n_chunks=8))     # warm: first-use costs
+    for name, sync_every in (("fold", 1), ("persistent", 2)):
+        ops.reset_launch_counts()
+        gathers.clear()
+        r = fit(path, base.replace(sync_every=sync_every))
+        torch.cuda.synchronize()
+        out[name] = {
+            "objective": r.objective, "centroids": r.centroids.tolist(),
+            "n_accepted": r.n_accepted, "n_iterations": r.n_iterations,
+            "n_dist_evals": r.n_dist_evals, "wall_s": r.wall_time_s,
+            "host": r.extras["host"], "ranks": r.extras["health"]["ranks"],
+            "syncs": [t[1] for t in r.trace if t[0] == "host_sync"],
+            "launches": ops.launch_counts(), "gather_ms": list(gathers)}
+else:   # rank 1 dies on its first own chunk; rank 0 must raise HostDead
+    fetch = MemmapSource(path).provider(base.s, seed=seed)
+
+    def provider(cid):
+        if rank == 1 and cid in (2, 3):
+            os._exit(3)
+        return fetch(cid)
+
+    t0 = time.monotonic()
+    try:
+        fit(provider, base.replace(prefetch=0), n_features=28)
+        out["host_dead"] = False
+    except HostDead as e:
+        out.update(host_dead=True, window=e.window, dead_rank=e.rank,
+                   health=e.health, gather_ms=list(gathers),
+                   run_s=time.monotonic() - t0)
+print("RESULT " + json.dumps(out), flush=True)
+"""
+
+
+def rank_results(procs, what: str) -> list:
+    outs = []
+    for p in procs:
+        lines = [ln for ln in p.output.splitlines()
+                 if ln.startswith("RESULT ")]
+        check(bool(lines), f"{what}: rank {p.rank} (exit {p.returncode}) "
+              f"printed no result: {p.output[-2000:]}")
+        outs.append(json.loads(lines[-1][len("RESULT "):]))
+    return outs
+
+
+def phase_host_mesh(path: str, seed: int, card: str) -> dict:
+    """12d: two ranks on the one card from the port's ``launch_local``,
+    each streaming phase 7's ``.npy`` with ``topology="host_mesh"``,
+    ``batch=4`` (two streams a rank), fold and ``sync_every=2``: each rank
+    bitwise the single-process streaming fit of the same config, the
+    per-rank health reconciled, the ranks' launches (D once per Lloyd
+    iteration of their batched steps, B and C once a chunk), the store's
+    round trips (each rank warmed by a fit of 8 chunks first); the ranks
+    load the kernels the parent built, and import no jax.  Then a rank killed at its first own chunk: its peer raises
+    ``HostDead`` at window 0 within ``sync_timeout_s``."""
+    env = {"PYTHONPATH": str(ROOT / "src")}
+    base = BigMeansConfig(k=25, s=64_000, n_chunks=32, batch=4, seed=seed,
+                          log_every=0)
+    single = {}
+    for name, sync_every in (("fold", 1), ("persistent", 2)):
+        single[name] = fit(path, base.replace(sync_every=sync_every))
+    t0 = time.monotonic()
+    procs = hostmesh.launch_local(
+        [sys.executable, "-c", HOST_RANK, path, str(seed), "run", "60"], 2,
+        timeout_s=300, env_extra=env)
+    wall = time.monotonic() - t0
+    outs = rank_results(procs, "host mesh")
+    check([p.returncode for p in procs] == [0, 0],
+          f"host mesh ranks exited {[p.returncode for p in procs]}")
+    total = {}
+    for out in outs:
+        check(not out["jax"] and not out["built_here"],
+              f"rank {out['rank']}: jax imported or kernels rebuilt")
+        for name, want in single.items():
+            got = out[name]
+            check(got["objective"] == want.objective
+                  and np.array_equal(np.asarray(got["centroids"],
+                                                dtype=np.float32),
+                                     want.centroids.cpu().numpy())
+                  and got["n_accepted"] == want.n_accepted
+                  and got["n_iterations"] == want.n_iterations,
+                  f"rank {out['rank']} {name} differs from the "
+                  "single-process fit")
+            check(got["host"]["processes"] == 2
+                  and [h["rank"] for h in got["ranks"]] == [0, 1]
+                  and all(h["chunks_done"] == 16 and h["chunks_fetched"]
+                          == 16 for h in got["ranks"]),
+                  f"rank {out['rank']} {name} health {got['ranks']}")
+            lc = got["launches"]
+            check(lc["fused_step"] == 0 and lc["fused_step_batched"] > 0
+                  and lc["assign"] == lc["update"] == 16,
+                  f"rank {out['rank']} {name} launches {lc}")
+            for kname, v in lc.items():
+                total[kname] = total.get(kname, 0) + v
+    check(outs[0]["fold"]["syncs"] == list(range(8)) + ["final"]
+          and outs[0]["persistent"]["syncs"] == [1, 3, 5, 7, "final"],
+          f"host syncs {outs[0]['fold']['syncs']}, "
+          f"{outs[0]['persistent']['syncs']}")
+    rows = {name: {
+        "single_process_fit_s": single[name].wall_time_s,
+        "rank_fit_s": [o[name]["wall_s"] for o in outs],
+        "gathers": len(outs[0][name]["gather_ms"]),
+        "gather_ms_median": [float(np.median([g[1] for g in o[name][
+            "gather_ms"]])) for o in outs],
+        "gather_ms": [o[name]["gather_ms"] for o in outs],
+        "n_dist_evals": [o[name]["n_dist_evals"] for o in outs],
+        "single_n_dist_evals": single[name].n_dist_evals}
+        for name in single}
+
+    t1 = time.monotonic()
+    timeout_s = 10.0
+    procs = hostmesh.launch_local(
+        [sys.executable, "-c", HOST_RANK, path, str(seed), "killed",
+         str(timeout_s)], 2, timeout_s=180, env_extra=env)
+    killed_wall = time.monotonic() - t1
+    outs = rank_results(procs[:1], "host mesh, killed peer")
+    dead = outs[0]
+    failing = [g[1] for g in dead.get("gather_ms", []) if g[0] == "x0"]
+    check(procs[1].returncode == 3 and dead["host_dead"]
+          and dead["window"] == 0 and dead["dead_rank"] == 0
+          and dead["health"]["chunks_done"] == 2
+          and failing and failing[0] <= 1e3 * (timeout_s + 2.0),
+          f"killed peer: {dead}, rank 1 exit {procs[1].returncode}")
+    emit({"phase": "multi_host_mesh", "ranks": 2, "batch": 4,
+          "bitwise_single_process": True, "launch_wall_s": wall,
+          "launches_both_ranks": total, "modes": rows,
+          "killed_peer": {"host_dead_window": dead["window"],
+                          "sync_timeout_s": timeout_s,
+                          "failing_gather_ms": failing[0],
+                          "survivor_run_s": dead["run_s"],
+                          "survivor_health": dead["health"],
+                          "launch_wall_s": killed_wall},
+          "card": card})
+    return {"host_mesh": (total, wall)}
+
+
+def phase_multi(X, path: str, seed: int, root: Path, f_full_seq: float,
+                res_b, f_full_b: float) -> dict:
+    """Phase 12: 12a sharded, 12b sharded resume, 12c the stream mesh,
+    12d the host mesh.  Returns {path: (launches, wall)}."""
+    t0 = time.monotonic()
+    card = nvidia_smi()
+    paths, _ = phase_sharded(X, seed, f_full_seq, card)
+    paths.update(phase_sharded_resume(X, seed, root, card))
+    paths.update(phase_stream_mesh(X, seed, res_b, f_full_b, card))
+    t_host = time.monotonic()
+    paths.update(phase_host_mesh(path, seed, card))
+    emit({"phase": "multi_walls", "in_core_s": t_host - t0,
+          "host_mesh_s": time.monotonic() - t_host,
+          "wall_s": time.monotonic() - t0, "card": card})
+    return paths
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4602,6 +5112,10 @@ def main() -> int:
         # phase 10: serving phase 4's fit
         serve_paths, serve_rows = phase_serve(X, res, args.seed, tmp)
         fault_paths.update(serve_paths)
+        # phase 12: the sharded strategy, the stream mesh and the host
+        # mesh (12d streams the same file)
+        fault_paths.update(phase_multi(X, path, args.seed, tmp, f_full,
+                                       res_b, f_full_b))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # phase 11: the §5 baselines on phase 4's data

@@ -18,6 +18,11 @@
     result = fit("data.npy", cfg)                       # streamed from disk
     result = fit(provider, cfg, n_features=28)          # chunk_id -> [s, n]
     ids, f = evaluate(result, "data.npy")               # loads the file
+    result = fit(X, cfg, method="sharded",              # 4 workers
+                 topology=TopologySpec(kind="worker_mesh", devices=4))
+    result = fit(X, cfg, batch=8, topology=TopologySpec(
+        kind="stream_mesh", devices=4))                 # 4 stream groups
+    result = fit("data.npy", cfg, topology="host_mesh") # one rank of many
     with serve({"m": result}) as srv:                   # serving, on the card
         resp = srv.assign("m", queries)                 # -> AssignResponse
 
@@ -30,9 +35,15 @@ buffers on a copy stream, so the data never has to fit on the device.
 The paper's §5 baselines (:mod:`repro_torch.api.baselines`: ``forgy``,
 ``kmeanspp``, ``kmeans_parallel``, ``coreset``, ``da_mssc``, ``ward``) run
 through the same ``fit`` on in-core data only; a provider or an iterator
-raises ``TypeError`` there.  Strategies and knobs that the port does not
-run yet raise ``NotImplementedError`` naming their ROADMAP item; an
-unknown method raises ``KeyError``.
+raises ``TypeError`` there.  An unknown method raises ``KeyError``.
+
+``topology`` places the run (:mod:`repro_torch.engine.topology`): a
+worker mesh for the ``sharded`` strategy, a stream mesh for ``batched``
+and ``streaming``, and ``host_mesh`` — one process per host, each
+streaming its shard of the chunk ids and exchanging incumbents through a
+``torch.distributed.TCPStore`` (:mod:`repro_torch.engine.hostmesh`).  A
+mesh's positions are dealt round-robin over the devices of ``device``:
+W workers on one card run one after another in worker order.
 
 ``autotune=True`` times the launch choices of the fit's kernels at its
 shapes before it runs (:func:`_pretune`) and caches the winners
@@ -64,6 +75,7 @@ from repro_torch.api.strategies import (
     get_strategy, list_strategies, register_strategy, resolve_auto,
 )
 from repro_torch.data import synthetic as synthetic
+from repro_torch.engine.topology import DeviceMesh, TopologySpec
 from repro_torch.kernels import autotune, ops
 from repro_torch.kernels import precision as px
 # The assignment-serving subsystem (see repro_torch.serve): training
@@ -72,9 +84,9 @@ from repro_torch.kernels import precision as px
 from repro_torch.serve import ServeConfig, Server, serve
 
 __all__ = [
-    "ArraySource", "BigMeansConfig", "DataSource", "FitResult",
+    "ArraySource", "BigMeansConfig", "DataSource", "DeviceMesh", "FitResult",
     "IteratorSource", "MemmapSource", "ProviderSource", "ServeConfig",
-    "Server", "as_source", "baselines", "evaluate", "fit", "get_baseline",
+    "Server", "TopologySpec", "as_source", "baselines", "evaluate", "fit", "get_baseline",
     "get_strategy", "list_baselines", "list_methods", "list_strategies",
     "register_baseline", "register_strategy", "resolve_auto", "serve",
     "strategies", "synthetic",
@@ -83,10 +95,8 @@ __all__ = [
 
 def list_methods() -> list[str]:
     """Everything :func:`fit` accepts as ``method``, as the reference lists
-    it; a strategy not ported yet (``sharded``) is listed and raises
-    ``NotImplementedError`` naming its ROADMAP item."""
-    names = sorted(list_strategies() + list(strategies.NOT_PORTED))
-    return ["auto"] + names + list_baselines()
+    it."""
+    return ["auto"] + list_strategies() + list_baselines()
 
 
 def _resolve_method(method: str):
@@ -152,11 +162,13 @@ def fit(
       chunk iterator, or a source.
     * ``config`` — a :class:`BigMeansConfig`; ``overrides`` are applied on
       top (or, with no config, must include at least ``k`` and ``s``).
-    * ``method`` — ``'auto'``, ``'sequential'``, ``'batched'`` or
-      ``'streaming'`` (``'auto'`` picks ``'streaming'`` for an ``.npy``
-      path, a provider or an iterator, else ``'batched'`` when
-      ``batch > 1``, else ``'sequential'``), or a §5 baseline (see
-      :func:`list_methods`).
+    * ``method`` — ``'auto'``, ``'sequential'``, ``'batched'``,
+      ``'sharded'`` or ``'streaming'`` (``'auto'`` picks ``'streaming'``
+      for an ``.npy`` path, a provider or an iterator, else ``'batched'``
+      when ``batch > 1``, else ``'sharded'`` on a worker mesh or when the
+      run sees several devices, else ``'sequential'``; see
+      :func:`repro_torch.api.strategies.resolve_auto`), or a §5 baseline
+      (see :func:`list_methods`).
     * ``rng`` — the key-tree backend (:class:`repro_torch.random.TorchRNG`
       by default); ``key`` defaults to ``rng.key(config.seed)``.
     * ``device`` — ``None`` runs on the CUDA device; ``'cpu'`` runs the

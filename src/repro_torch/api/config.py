@@ -1,13 +1,18 @@
 """`BigMeansConfig` — one validated dataclass for every algorithm knob.
 
 The same fields, defaults and validation as the reference's
-``repro.api.BigMeansConfig``.  What this slice of the port does not run
-raises ``NotImplementedError`` here, naming the ROADMAP item that brings it,
-so that no knob is silently ignored:
+``repro.api.BigMeansConfig``.
 
-* ``topology`` other than ``'auto'``/``'single'`` and ``mesh`` —
-  ``'stream_mesh'`` included, so a batched fit runs its streams on one
-  device — (queue 1 item 8).
+``topology`` is normalized to a
+:class:`repro_torch.engine.topology.TopologySpec` (a kind name or a
+spec): ``'single'``, ``'stream_mesh'`` (the batched streams split into
+groups over a device mesh), ``'worker_mesh'`` (the ``sharded`` strategy's
+workers) and ``'host_mesh'`` (one process per host,
+:mod:`repro_torch.engine.hostmesh`).  The deprecated raw ``mesh`` takes a
+:class:`repro_torch.engine.topology.DeviceMesh`: it warns, is wrapped into
+the equivalent topology (bitwise the spec path) and is mutually exclusive
+with an explicit ``topology``.  ``mesh_axes`` is the legacy axis-name knob
+of the ``sharded`` strategy.
 
 The streaming runner's own knobs (``prefetch``, ``log_every``,
 ``retries``, ``retry_backoff_s``, ``fetch_timeout_s``,
@@ -44,13 +49,6 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import precision as px
 
 SCHEDULERS = ("competitive_s", "uniform", "worker")
-TOPOLOGY_KINDS = ("auto", "single", "stream_mesh", "worker_mesh",
-                  "host_mesh")
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1 item {item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,16 +159,29 @@ class BigMeansConfig:
             raise ValueError(
                 "scheduler='competitive_s' races streams against each "
                 f"other; it needs batch >= 2, got batch={self.batch}")
-        kind = getattr(self.topology, "kind", self.topology)
-        if kind not in TOPOLOGY_KINDS:
-            raise ValueError(
-                f"unknown topology kind {kind!r}; known: {TOPOLOGY_KINDS}")
-        self._check_ported(kind)
+        from repro_torch.engine import topology as topo_lib
 
-    def _check_ported(self, kind: str) -> None:
-        if kind not in ("auto", "single") or self.mesh is not None:
-            raise _not_ported(
-                f"topology={kind!r} / mesh (multi-device runs)", "8")
+        # normalize to a frozen TopologySpec (validates kind and fields
+        # once, here, so every strategy downstream can trust the spec)
+        object.__setattr__(self, "topology", topo_lib.as_spec(self.topology))
+        if self.mesh is not None:
+            if self.topology.kind != "auto":
+                raise ValueError(
+                    "cfg.mesh (deprecated) and cfg.topology are mutually "
+                    "exclusive; drop the raw mesh and describe it with "
+                    f"topology= (got topology={self.topology.kind!r})")
+            if not isinstance(self.mesh, topo_lib.DeviceMesh):
+                raise TypeError(
+                    "cfg.mesh takes a repro_torch.engine.topology.DeviceMesh"
+                    f", got {type(self.mesh).__name__}")
+            import warnings
+
+            warnings.warn(
+                "BigMeansConfig(mesh=...) is deprecated: pass a declarative "
+                "topology= spec (e.g. topology='stream_mesh' or "
+                "TopologySpec(kind='worker_mesh', devices=4)); the raw mesh "
+                "is wrapped into the equivalent topology for now",
+                DeprecationWarning, stacklevel=3)
 
     def replace(self, **overrides) -> "BigMeansConfig":
         """A copy with ``overrides`` applied (re-validated)."""

@@ -17,13 +17,14 @@ class FitResult:
     * ``centroids`` — [k, n] float32 cluster centers (torch tensor).
     * ``objective`` — f(C, P) on the winning chunk (a sum over ``s`` points);
       :func:`repro_torch.api.evaluate` gives the full-data f(C, X).
-    * ``strategy`` — the strategy that ran ("sequential", "batched" or
-      "streaming").
+    * ``strategy`` — the strategy that ran ("sequential", "batched",
+      "sharded" or "streaming").
     * ``n_chunks`` / ``n_accepted`` / ``n_iterations`` — chunks processed,
       incumbent improvements, total Lloyd iterations.
     * ``n_dist_evals`` — the paper's analytic n_d counter.
     * ``trace`` — ``(chunk_idx, f_new, accepted)`` triples (round-major
-      under ``batched``).  Under ``streaming``: ``(chunk_id, f_best,
+      under ``batched``, group-major on a stream mesh, worker-major under
+      ``sharded``).  Under ``streaming``: ``(chunk_id, f_best,
       f_new)`` progress entries every ``log_every`` chunks, and the
       runner's events — ``("fetch_error", chunk_id, "ExcType: message")``,
       ``("quarantine", chunk_id, reason)``, ``("short_chunk", chunk_id,
@@ -41,7 +42,12 @@ class FitResult:
       ``ckpt_dir`` ``checkpoint`` (the save, device-read and restore ms)
       and, under
       ``scheduler="competitive_s"``, ``competitive_s`` (``ladder``,
-      ``final_sizes``, ``windows``).
+      ``final_sizes``, ``windows``); on a host mesh ``host`` (``rank``,
+      ``processes``, ``winner_rank``) and ``health["ranks"]`` (every
+      rank's accounting), with the run's totals global on every rank.
+      ``sharded`` adds ``workers``, ``chunks_per_worker`` and, with
+      checkpoints or a time budget, ``rounds_done`` (and ``checkpoint``
+      under ``ckpt_dir``).
     """
 
     centroids: Any

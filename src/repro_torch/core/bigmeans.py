@@ -7,7 +7,9 @@ analytic distance-evaluation counter ``n_d``.  :func:`sample_chunk` is the
 uniform decomposition sampler.  :func:`chunk_step_batched` is the same step
 for B incumbent streams at once, with the state algebra of the batched
 driver (:func:`broadcast_state`, :func:`reduce_state`,
-:func:`_sync_streams`).  The chunk loops live in
+:func:`_sync_streams`).  :func:`big_means_sharded` runs one chunk stream
+per worker of a device mesh, exchanging incumbents every ``sync_every``
+chunks (:func:`_exchange_best`).  The chunk loops live in
 :mod:`repro_torch.engine.incore`.
 """
 from __future__ import annotations
@@ -267,6 +269,8 @@ def big_means_batched(
     precision: str = "auto",
     rng=rnd.TORCH,
     device=None,
+    mesh=None,
+    stream_axis: str = "streams",
 ) -> tuple[BigMeansState, ChunkInfo]:
     """Batched Big-means: B incumbent streams over ``rounds`` chunk rounds,
     exchanging incumbents every ``sync_every`` rounds.  Returns the reduced
@@ -275,17 +279,81 @@ def big_means_batched(
     schedule, and in this package the same result bit for bit.
 
     Runs on the CUDA device unless ``device="cpu"``
-    (:func:`repro_torch.engine.incore.batched_local`).  The reference's
-    ``mesh`` (a stream axis sharded over devices) is not ported (ROADMAP
-    queue 1 item 8).
+    (:func:`repro_torch.engine.incore.batched_local`).  With ``mesh`` (a
+    :class:`repro_torch.engine.topology.DeviceMesh` with a ``stream_axis``
+    of D positions) the B streams are split into D groups of B / D, each
+    advanced on its mesh device, and the periodic exchange is an argmin
+    over all streams (:func:`repro_torch.engine.incore.batched_stream_mesh`):
+    the same key schedule and, stream by stream, the same steps as on one
+    device.  The trace is then group-major, as the reference's is.
     """
     from repro_torch.engine import incore
 
     if rounds % sync_every:
         raise ValueError(
             f"sync_every ({sync_every}) must divide rounds ({rounds})")
-    return incore.batched_local(
-        X, key, k=k, s=s, batch=batch, rounds=rounds, sync_every=sync_every,
+    kwargs = dict(
+        k=k, s=s, batch=batch, rounds=rounds, sync_every=sync_every,
         max_iters=max_iters, tol=tol, candidates=candidates, impl=impl,
-        with_replacement=with_replacement, precision=precision, rng=rng,
-        device=device)
+        with_replacement=with_replacement, precision=precision, rng=rng)
+    if mesh is not None:
+        return incore.batched_stream_mesh(
+            X, key, mesh=mesh, stream_axis=stream_axis, **kwargs)
+    return incore.batched_local(X, key, device=device, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# one chunk stream per worker (the reference's sharded strategy)
+# ---------------------------------------------------------------------------
+
+
+def _exchange_best(states: list) -> list:
+    """Keep-the-best across workers: the argmin of the workers' ``f_best``
+    (the first worker wins a tie, as ``jnp.argmin`` picks), read on the
+    host; every worker continues from the winner's centroids, degenerate
+    mask and ``f_best``, on its own device.  Counters stay per worker."""
+    f_all = torch.stack([st.f_best.detach().cpu() for st in states])
+    w = states[int(torch.argmin(f_all))]
+    return [st._replace(centroids=w.centroids.to(st.centroids.device),
+                        degenerate=w.degenerate.to(st.degenerate.device),
+                        f_best=w.f_best.to(st.f_best.device))
+            for st in states]
+
+
+def big_means_sharded(
+    X,
+    key,
+    *,
+    mesh,
+    k: int,
+    s: int,
+    chunks_per_worker: int,
+    sync_every: int = 1,
+    axes: tuple = ("data",),
+    max_iters: int = 300,
+    tol: float = 1e-4,
+    candidates: int = 3,
+    impl: str = "auto",
+    with_replacement: bool = True,
+    precision: str = "auto",
+    rng=rnd.TORCH,
+) -> tuple[BigMeansState, ChunkInfo]:
+    """Multi-worker Big-means: X row-sharded over the ``axes`` of ``mesh``
+    (a :class:`repro_torch.engine.topology.DeviceMesh`); one chunk stream
+    per worker, with an incumbent exchange every ``sync_every`` chunks.
+
+    Each worker samples chunks from its own contiguous row shard (uniform
+    placement makes local sampling equivalent to global sampling) with the
+    key ``fold_in(key, worker_index)``, so results are reproducible for a
+    fixed topology.  Workers run in worker order, each on its mesh device
+    (:func:`repro_torch.engine.incore.worker_sharded`).  Returns the
+    incumbent (counters summed over the workers) and the worker-major
+    trace of every worker's chunks.
+    """
+    from repro_torch.engine import incore
+
+    return incore.worker_sharded(
+        X, key, mesh=mesh, k=k, s=s, chunks_per_worker=chunks_per_worker,
+        sync_every=sync_every, axes=axes, max_iters=max_iters, tol=tol,
+        candidates=candidates, impl=impl, with_replacement=with_replacement,
+        precision=precision, rng=rng)

@@ -4,8 +4,9 @@
 loading it (the path for the paper's GB-scale datasets); ``csv_to_npy`` is
 the one-off ingestion helper (streaming, bounded RAM).  Chunks are sampled
 with NumPy's counter-based generator keyed on ``(seed, chunk_id)``, so
-restarts replay identical streams.  A copy of the reference's
-``repro.data.loader`` (``sharded_provider`` comes with queue 1 item 8).
+restarts replay identical streams; ``sharded_provider`` partitions one
+chunk stream across workers by chunk id.  A copy of the reference's
+``repro.data.loader``.
 """
 from __future__ import annotations
 
@@ -73,3 +74,11 @@ def csv_to_npy(csv_path: str, npy_path: str, *, skip_header: bool = True,
     if written != rows:
         raise RuntimeError(f"{csv_path}: wrote {written} of {rows} rows")
     return rows, cols
+
+
+def sharded_provider(provider, worker: int, n_workers: int):
+    """Partition one chunk stream across workers by chunk id (for host-level
+    multi-process deployments where each worker owns disjoint chunk ids)."""
+    def shard(chunk_id: int):
+        return provider(chunk_id * n_workers + worker)
+    return shard

@@ -32,8 +32,8 @@ sanitizer middleware as :class:`ChunkQuarantined`).  Both reconcile into
   checkpoint (a truncated write) and :func:`hung_restore` makes every
   restore block (a stalled filesystem), on
   :mod:`repro_torch.cluster.checkpoint`.
-
-Not ported yet: ``HostDead`` (ROADMAP queue 1 item 8).
+* **HostDead** — a peer of a multi-host run missed an exchange window
+  (:mod:`repro_torch.engine.hostmesh`).
 """
 from __future__ import annotations
 
@@ -65,6 +65,23 @@ class PermanentFault(Exception):
 
 class FetchTimeout(TransientFault):
     """A provider call exceeded the watchdog timeout (hung fetch)."""
+
+
+class HostDead(PermanentFault):
+    """A peer process missed a cross-host exchange window (crashed, hung,
+    or partitioned): the multi-host run fails *loudly* at the sync window
+    instead of hanging.  Raised by :mod:`repro_torch.engine.hostmesh` with
+    the local ``rank``, the exchange ``window`` that timed out, and this
+    rank's ``health`` accounting (``done+failed+dropped+quarantined ==
+    fetched``) attached — so a surviving rank can report exactly what it
+    completed."""
+
+    def __init__(self, message: str, *, rank: int | None = None,
+                 window=None, health: dict | None = None):
+        super().__init__(message)
+        self.rank = rank
+        self.window = window
+        self.health = health
 
 
 class ChunkQuarantined(Exception):

@@ -262,12 +262,29 @@ class Checkpoint(Middleware):
     rung.  Each :meth:`after_window` save (from the device read to
     ``os.replace``) and each restore is timed into
     ``ctx.metrics.checkpoint``.
+
+    ``step_from`` says what a checkpoint's step indexes: the next chunk id
+    (``"chunks"``, the stream loop's) or ``ctx.step`` (``"step"``: the
+    sharded rounds loop's window index, and the host mesh's global chunk
+    frontier).
     """
 
-    def __init__(self, directory: str, every: int, batch: int):
+    def __init__(self, directory: str, every: int, batch: int,
+                 step_from: str = "chunks"):
+        if step_from not in ("chunks", "step"):
+            raise ValueError(
+                f"step_from must be 'chunks' or 'step', got {step_from!r}")
         self.directory = directory
         self.every = every
         self.batch = batch
+        self.step_from = step_from
+
+    def _step(self, ctx) -> int:
+        return ctx.step if self.step_from == "step" else ctx.last_cid + 1
+
+    @staticmethod
+    def _time(ctx, what: str, t0: float) -> None:
+        ctx.metrics.checkpoint[what].append(1e3 * (time.perf_counter() - t0))
 
     def _payload(self, ctx):
         aux = np.asarray([ctx.rung, ctx.stall, ctx.last_s], dtype=np.int64)
@@ -306,17 +323,15 @@ class Checkpoint(Middleware):
                 self.directory, (example_state, key), step=step)
         ctx.state, ctx.key = state, ctx.rng.key_from_array(key)
         ctx.step = ctx.start_step = step
-        ctx.metrics.checkpoint["restore_ms"].append(
-            1e3 * (time.perf_counter() - t0))
+        self._time(ctx, "restore_ms", t0)
         return True
 
     def after_window(self, ctx):
         if (ctx.last_cid + 1) % self.every < self.batch:
             t0 = time.perf_counter()
-            ckpt_lib.save(self.directory, ctx.last_cid + 1,
+            ckpt_lib.save(self.directory, self._step(ctx),
                           self._payload(ctx))
-            ctx.metrics.checkpoint["save_ms"].append(
-                1e3 * (time.perf_counter() - t0))
+            self._time(ctx, "save_ms", t0)
 
     def on_finish(self, ctx):
         ckpt_lib.save(self.directory, ctx.step, self._payload(ctx))

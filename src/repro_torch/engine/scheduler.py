@@ -8,9 +8,9 @@ the stream loop:
   ``0..B-1`` with chunk ids ``r*B..r*B+B-1``, all at the configured ``s``
   (in the host loop that is the prefetcher's id order).
 * :class:`WorkerPartitioned` — the multi-worker schedule's descriptor: the
-  sharded strategy (ROADMAP queue 1 item 8) realizes it by folding the
-  worker index into the key; in the stream loop it behaves like
-  :class:`Uniform`.
+  sharded strategy (:func:`repro_torch.engine.incore.worker_sharded`)
+  realizes it by folding the worker index into the key; in the stream
+  loop it behaves like :class:`Uniform`.
 * :class:`CompetitiveS` — competitive stochastic sample-size optimization
   (arXiv:2403.18766): streams race *different* sample sizes ``s_b``; at
   every sync window all incumbents are scored on a common evaluation chunk
@@ -80,9 +80,8 @@ class Uniform(_StatelessScheduler):
 @register_scheduler("worker")
 class WorkerPartitioned(_StatelessScheduler):
     """Descriptor for the multi-worker partitioned schedule (the sharded
-    strategy, ROADMAP queue 1 item 8, realizes it by folding the worker
-    index into the key); in the stream loop it behaves like
-    :class:`Uniform`."""
+    strategy realizes it by folding the worker index into the key); in the
+    stream loop it behaves like :class:`Uniform`."""
 
     name = "worker"
 

@@ -6,8 +6,12 @@ iterator), staged onto the device through a prefetch pipeline, and fed to
 card).  Capabilities (tracing, fetch-failure skip, chunk sanitizing, the
 VNS ladder, checkpoints, the time budget, invariants) come from the
 middleware stack, not from the loop body.  The reference's
-``repro.engine.stream`` on one device; the stream and host meshes (ROADMAP
-queue 1 item 8) are not ported yet.
+``repro.engine.stream``: on one device, with a
+:class:`~repro_torch.engine.topology.StreamMesh` (each batched step's
+streams split into groups, each group advanced on its mesh device), or as
+one rank of a host mesh (``host=``: a
+:class:`repro_torch.engine.hostmesh.HostExchanger` owns the rank's
+chunk-id shard and the cross-host exchanges).
 
 * **resume** — with a :class:`~repro_torch.engine.middleware.Checkpoint`
   in the stack and ``resume=True``, the newest intact checkpoint is
@@ -66,6 +70,7 @@ from repro_torch.engine import faults
 from repro_torch.engine import middleware as mw
 from repro_torch.engine import scheduler as sched_lib
 from repro_torch.engine import sync as sync_lib
+from repro_torch.engine import topology as topo_lib
 from repro_torch.kernels import precision as px
 
 ChunkProvider = Callable[[int], np.ndarray]
@@ -110,6 +115,9 @@ class RunnerMetrics:
         "fetch_ms": [], "stage_ms": [], "copy_ms": [], "wait_ms": []})
     checkpoint: dict = dataclasses.field(default_factory=lambda: {
         "save_ms": [], "restore_ms": []})
+    # multi-host runs (repro_torch.engine.hostmesh): the final per-rank
+    # health gather — {"rank", "processes", "winner_rank", "per_rank"}
+    host: dict | None = None
 
 
 class _FetchFailure:
@@ -428,12 +436,13 @@ def _sync_chunks(fetcher: _Fetcher, ids):
 
 
 class _StepKernel:
-    """One accept step on the device."""
+    """One accept step against the chosen topology."""
 
-    def __init__(self, cfg, key, rng):
+    def __init__(self, cfg, key, rng, topology=None):
         self.cfg = cfg
         self.key = key
         self.rng = rng
+        self.topology = topology
 
     def _kwargs(self):
         cfg = self.cfg
@@ -452,9 +461,33 @@ class _StepKernel:
             chunk, state, self.keys_for([cid])[0], **self._kwargs())
 
     def step_states(self, chunks, states, cids):
-        """Advance B persistent streams by their chunks (stacked [B, s, n])."""
-        return bigmeans.chunk_step_batched(
-            chunks, states, self.keys_for(cids), **self._kwargs())
+        """Advance B persistent streams by their chunks (stacked [B, s, n]).
+        On a stream mesh whose D groups divide B, group g (streams
+        ``g*B/D .. (g+1)*B/D - 1``) steps on its mesh device; the streams
+        are independent, so this is bitwise the one-device step."""
+        keys = self.keys_for(cids)
+        topo = self.topology
+        batch = chunks.shape[0]
+        if not isinstance(topo, topo_lib.StreamMesh) \
+                or batch % topo.devices:
+            return bigmeans.chunk_step_batched(chunks, states, keys,
+                                               **self._kwargs())
+        bl = batch // topo.devices
+        home = chunks.device
+        parts, infos = [], []
+        for g, dev in enumerate(topo.group_devices()):
+            sl = slice(g * bl, (g + 1) * bl)
+            sub, info = bigmeans.chunk_step_batched(
+                chunks[sl].to(dev),
+                bigmeans.BigMeansState(*(a[sl].to(dev) for a in states)),
+                keys[sl], **self._kwargs())
+            parts.append(sub)
+            infos.append(info)
+        states = bigmeans.BigMeansState(
+            *(torch.cat([f.to(home) for f in field]) for field in zip(*parts)))
+        info = bigmeans.ChunkInfo(
+            *(torch.cat([f.to(home) for f in field]) for field in zip(*infos)))
+        return states, info
 
     def step_fold(self, state, pending):
         """Advance one incumbent by len(pending) concurrent chunk streams."""
@@ -476,8 +509,10 @@ def run_stream(
     fault_injector: Callable[[int], None] | None = None,
     key=None,
     middlewares=None,
+    topology=None,
     scheduler=None,
     sync=None,
+    host=None,
     rng=rnd.TORCH,
     device=None,
 ) -> tuple[bigmeans.BigMeansState, RunnerMetrics]:
@@ -485,9 +520,11 @@ def run_stream(
     stop condition ends the run.
 
     ``cfg`` is a :class:`repro_torch.api.BigMeansConfig` (or anything with
-    the same fields).  ``middlewares`` / ``scheduler`` / ``sync`` default to
-    the config's (:func:`repro_torch.engine.middleware.default_stack`,
-    ``cfg.scheduler``, ``cfg.sync`` / ``cfg.sync_every``).  ``key``
+    the same fields).  ``middlewares`` / ``topology`` / ``scheduler`` /
+    ``sync`` default to the config's
+    (:func:`repro_torch.engine.middleware.default_stack`,
+    :func:`repro_torch.engine.topology.for_streams`, ``cfg.scheduler``,
+    ``cfg.sync`` / ``cfg.sync_every``).  ``key``
     defaults to ``rng.key(cfg.seed)``.  Runs on the CUDA device unless
     ``device="cpu"``.  With ``resume`` and a checkpoint middleware in the
     stack (``cfg.ckpt_dir``), the run restores the newest intact
@@ -496,6 +533,12 @@ def run_stream(
     ``vns_ladder`` needs the fold mode (collective sync), and the
     ``competitive_s`` scheduler runs the persistent-stream mode, whatever
     ``sync_every`` says.
+
+    ``host`` plugs in a :class:`repro_torch.engine.hostmesh.HostExchanger`
+    for multi-host runs: it owns this rank's chunk-id shard, the
+    cross-host incumbent exchange at sync windows, and the final
+    argmin-reduce.  With ``host=None`` (every single-process run) the loop
+    body is untouched.
     """
     dev = devices.resolve(device)
     if key is None:
@@ -503,6 +546,17 @@ def run_stream(
     scheduler = scheduler if scheduler is not None else \
         sched_lib.get_scheduler(getattr(cfg, "scheduler", "uniform"), cfg)
     sync = sync if sync is not None else sync_lib.from_config(cfg)
+    topology = topology if topology is not None else \
+        topo_lib.for_streams(cfg, dev)
+    if isinstance(topology, topo_lib.WorkerMesh):
+        raise ValueError(
+            "the stream loop parallelizes over the stream axis; use "
+            "StreamMesh (or the 'sharded' strategy for worker meshes)")
+    if isinstance(topology, topo_lib.HostMesh) and host is None:
+        raise ValueError(
+            "host_mesh runs go through repro_torch.engine.hostmesh."
+            "run_host_stream (or fit(), which routes there): the stream "
+            "loop needs the exchanger's chunk-id shard and sync hooks")
     if middlewares is None:
         stack = mw.default_stack(cfg)
     elif isinstance(middlewares, mw.MiddlewareStack):
@@ -516,6 +570,11 @@ def run_stream(
             "vns_ladder requires collective sync (sync_every=1): the ladder "
             "re-sizes the single incumbent's chunks, which is incompatible "
             "with persistent per-stream incumbents")
+    if competitive_sched and isinstance(topology, topo_lib.StreamMesh):
+        raise ValueError(
+            "competitive_s schedules ragged per-stream chunk sizes, which "
+            "cannot shard over a stream mesh; use the single-device "
+            "topology")
 
     state = bigmeans.init_state(cfg.k, n_features, device=dev)
     metrics = RunnerMetrics()
@@ -526,6 +585,10 @@ def run_stream(
         ckpt.maybe_restore(ctx, state)
         state, key = ctx.state, ctx.key
     start_chunk = ctx.start_step
+    if host is not None:
+        # collective start: every rank adopts rank 0's restored
+        # (state, key, step) so the fleet resumes the same global window
+        state, key, start_chunk = host.sync_start(ctx, state, key)
     metrics.f_best = float(torch.min(state.f_best))
 
     stager = _Stager(dev, getattr(cfg, "precision", "auto"),
@@ -533,16 +596,18 @@ def run_stream(
     fetcher = _Fetcher(provider, fault_injector, stager,
                        retry=faults.RetryPolicy.from_config(cfg),
                        timeout=getattr(cfg, "fetch_timeout_s", None))
-    ids = range(start_chunk, cfg.n_chunks)
+    ids = (host.chunk_ids(start_chunk) if host is not None
+           else range(start_chunk, cfg.n_chunks))
     source = (_Prefetcher(fetcher, ids, cfg.prefetch, metrics.pipeline)
               if cfg.prefetch > 0 else _sync_chunks(fetcher, ids))
-    kernel = _StepKernel(cfg, key, rng)
+    kernel = _StepKernel(cfg, key, rng, topology)
     ctx.extras["stream_mode"] = "persistent" if persistent else "fold"
     stack.on_start(ctx)
 
     runner_fn = _run_persistent if persistent else _run_fold
     try:
-        state = runner_fn(source, state, ctx, stack, kernel, scheduler, sync)
+        state = runner_fn(source, state, ctx, stack, kernel, scheduler, sync,
+                          host)
     finally:
         if isinstance(source, _Prefetcher):
             source.close()
@@ -550,6 +615,12 @@ def run_stream(
 
     ctx.state = state
     ctx.step = start_chunk + metrics.chunks_done
+    if host is not None:
+        # final cross-host argmin-reduce + counter merge + health gather;
+        # a dead peer surfaces here as a typed HostDead, never a hang
+        state = host.finalize(ctx, state)
+        ctx.state = state
+        ctx.step = host.global_step
     stack.on_finish(ctx)
     metrics.wall_time_s = time.monotonic() - ctx.t0
     metrics.f_best = float(torch.min(state.f_best))
@@ -605,7 +676,7 @@ def _admit(ctx, stack, chunk_id, chunk):
     return _sanitize(ctx, stack, chunk_id, chunk)
 
 
-def _run_fold(source, state, ctx, stack, kernel, scheduler, sync):
+def _run_fold(source, state, ctx, stack, kernel, scheduler, sync, host=None):
     """Collective mode: one incumbent, argmin-reduced after every batch."""
     cfg = ctx.cfg
     metrics = ctx.metrics
@@ -617,8 +688,14 @@ def _run_fold(source, state, ctx, stack, kernel, scheduler, sync):
         ctx.last_cid = pending[-1][0]
         pending.clear()
         _consume_info(ctx, info)
+        if host is not None:
+            # cross-host exchange BEFORE after_window, so the (rank-0)
+            # checkpoint holds the post-exchange global incumbent at the
+            # global chunk frontier
+            state = host.fold_boundary(ctx, state)
         ctx.state, ctx.info = state, info
-        ctx.step = ctx.start_step + metrics.chunks_done
+        ctx.step = (host.global_step if host is not None
+                    else ctx.start_step + metrics.chunks_done)
         stack.after_window(ctx)
         return state
 
@@ -657,7 +734,8 @@ def _run_fold(source, state, ctx, stack, kernel, scheduler, sync):
     return state
 
 
-def _run_persistent(source, state, ctx, stack, kernel, scheduler, sync):
+def _run_persistent(source, state, ctx, stack, kernel, scheduler, sync,
+                    host=None):
     """Persistent-stream mode: B incumbents advance across batches and
     exchange only at sync boundaries (periodic / competitive modes, and the
     ``competitive_s`` sample-size race)."""
@@ -802,10 +880,21 @@ def _run_persistent(source, state, ctx, stack, kernel, scheduler, sync):
             continue
         states = step_round(states, pending)
         pending = []
-        ctx.state = reduce(states)
-        ctx.step = ctx.start_step + metrics.chunks_done
-        stack.after_window(ctx)
-        states = boundary(states)
+        if host is None:
+            ctx.state = reduce(states)
+            ctx.step = ctx.start_step + metrics.chunks_done
+            stack.after_window(ctx)
+            states = boundary(states)
+        else:
+            # host order: local boundary (observe + local sync) first, then
+            # the cross-host exchange, and only then checkpoint — so the
+            # rank-0 checkpoint holds the post-exchange global state at the
+            # global window frontier
+            states = boundary(states)
+            states = host.persistent_boundary(ctx, states, sizes)
+            ctx.state = reduce(states)
+            ctx.step = host.global_step
+            stack.after_window(ctx)
         round_idx += 1
         if stack.should_stop(ctx):
             stopped = True
@@ -815,7 +904,8 @@ def _run_persistent(source, state, ctx, stack, kernel, scheduler, sync):
             states = step_round(states, pending)
             pending = []
             ctx.state = reduce(states)
-            ctx.step = ctx.start_step + metrics.chunks_done
+            ctx.step = (host.global_step if host is not None
+                        else ctx.start_step + metrics.chunks_done)
             stack.after_window(ctx)
     if stopped:
         _drop_pending(ctx, pending)

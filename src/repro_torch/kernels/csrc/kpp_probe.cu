@@ -43,8 +43,11 @@
 //   * One launch, no float atomics: the last CTA to finish, found by an
 //     integer ticket (atomicAdd after __threadfence), adds the partials in
 //     a fixed order (contiguous runs of CTAs in CTA order, then the runs by
-//     a tree) and resets the ticket to 0 for the next launch or graph
-//     replay.  Repeated launches are bitwise equal.
+//     a tree).  The ticket belongs to the launch: the caller allocates it
+//     with the launch's partials, and the entry point zeroes it on the
+//     launch's stream before the kernel (a memset node when captured into
+//     a graph), so launches and graph replays on other streams never share
+//     one.  Repeated launches are bitwise equal.
 #include "common.cuh"
 
 namespace repro {
@@ -146,7 +149,7 @@ struct KppArgs {
   float* newd;
   float* part;  // [grid, L] per-CTA partial potentials
   float* pot;
-  int* ticket;  // 0 between launches
+  int* ticket;  // the launch's own, zeroed before it
   int64_t m;
   int L;
   int n;
@@ -648,14 +651,17 @@ int kpp_launch(const KppArgs& a, int grid, int ct, cudaStream_t st) {
 using namespace repro;
 
 // x [m,n], cands [L,n], d [m] (f32, 4-byte aligned); newd: [m, L]; part:
-// scratch [grid, L]; pot: [L]; ticket: an int, 0 before the launch and
-// after it (no two launches sharing it may overlap).
+// scratch [grid, L]; pot: [L]; ticket: an int of this launch alone (no
+// other launch in flight may use it), zeroed here on the stream first.
 extern "C" int repro_kpp_probe(const float* x, const float* cands,
                                const float* d, float* newd, float* part,
                                float* pot, int* ticket, int64_t m, int L,
                                int n, int grid, void* stream) {
   const KppArgs a{x, cands, d, newd, part, pot, ticket, m, L, n,
                   (m + TM - 1) / TM};
+  const cudaError_t err =
+      cudaMemsetAsync(ticket, 0, sizeof(int), (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   return kpp_launch(a, grid, candidate_tile(L), (cudaStream_t)stream);
 }
 

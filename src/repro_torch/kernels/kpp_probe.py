@@ -6,8 +6,9 @@ L candidate seeds cands [L,n] and the current distances d [m] it returns
 the relaxed distances ``newd [m,L] = min(d, max(||c||^2 - 2 x.c + ||x||^2,
 0))`` and each candidate's potential ``pot [L]``, the sum of its column
 over the rows, in one pass over the chunk and one launch (the last CTA
-adds the per-CTA partials, found by an integer ticket kept per stream in
-:data:`_TICKETS`).  Both operands are cast to f32 first, as the
+adds the per-CTA partials, found by an integer ticket that each launch
+allocates with its partials, so a launch or a graph replay never shares
+its ticket with another in flight).  Both operands are cast to f32 first, as the
 reference's wrapper casts them (``kpp_probe.py:74-75``).
 :func:`kpp_probe_plain` is its plain version, with the same association
 ``(csq - 2 dot) + xsq``; :func:`kpp_probe` takes the plain version for
@@ -29,7 +30,6 @@ MAX_N = 1024
 
 launches = 0    # kernel launches by kpp_probe_cuda (ops.launch_counts)
 _PER_SM: dict = {}      # (device, L, n) -> CTAs an SM holds
-_TICKETS: dict = {}     # (device, stream) -> the launches' ticket
 
 
 def fits(l: int, n: int) -> bool:
@@ -74,14 +74,18 @@ def kpp_probe_cuda(x: torch.Tensor, cands: torch.Tensor, d: torch.Tensor
     grid = build.grid(x.device, m, L,
                       per_sm=_ctas_per_sm(lib, x.device, L, n))
     newd = torch.empty((m, L), dtype=torch.float32, device=x.device)
-    part = torch.empty(grid * L, dtype=torch.float32, device=x.device)
+    # the per-CTA partials and, after them, the launch's own ticket (the
+    # entry point zeroes it on the stream): a graph captured with this
+    # launch owns both
+    scratch = torch.empty(grid * L + 1, dtype=torch.float32, device=x.device)
+    ticket = scratch[grid * L:].view(torch.int32)
     pot = torch.empty(L, dtype=torch.float32, device=x.device)
     global launches
     launches += 1
     err = lib.repro_kpp_probe(
         x.data_ptr(), cands.data_ptr(), d.data_ptr(), newd.data_ptr(),
-        part.data_ptr(), pot.data_ptr(),
-        _ticket(x.device, stream).data_ptr(), m, L, n, grid, stream)
+        scratch.data_ptr(), pot.data_ptr(), ticket.data_ptr(), m, L, n,
+        grid, stream)
     build.check(err, "kpp_probe")
     return newd, pot
 
@@ -99,20 +103,6 @@ def _ctas_per_sm(lib, device: torch.device, L: int, n: int) -> int:
                                f"n={n}")
         _PER_SM[key] = per_sm
     return per_sm
-
-
-def _ticket(device: torch.device, stream: int) -> torch.Tensor:
-    """The stream's ticket: an int32 on the card, 0 between launches (the
-    last CTA of each launch resets it), so launches and graph replays on
-    one stream take it in turn.  Made on first use on the stream; when that
-    use is inside a graph capture, the graph zeroes it before each replay
-    too."""
-    key = (device.index, stream)
-    ticket = _TICKETS.get(key)
-    if ticket is None:
-        ticket = torch.zeros(1, dtype=torch.int32, device=device)
-        _TICKETS[key] = ticket
-    return ticket
 
 
 def kpp_probe(x: torch.Tensor, cands: torch.Tensor, d: torch.Tensor, *,

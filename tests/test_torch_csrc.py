@@ -17,7 +17,8 @@ buffer (the CTAs run one after another).  Kernel P's ``cp.async.bulk``
 copies fill their destination with NaN when issued and land when an
 ``mbarrier`` wait finds every expected arrival of their phase made, so a
 tile read before its wait, or a stage overwritten while it is read, shows
-too; its integer ticket is an atomic add and ``__threadfence`` a fence.
+too; its integer ticket is an atomic add, ``__threadfence`` a fence and
+``cudaMemsetAsync`` a ``memset``.
 The tensor-core kernels B8 and B16 (``assign_mma.cuh``) run their entry
 points (``REPRO_LAUNCH`` runs the CTAs); each ``wgmma`` is emulated on the card's fragment layout, reading
 its operands through the 128-byte swizzle, and held like a copy until the
@@ -92,6 +93,10 @@ const int cudaSuccess = 0;
 const int cudaErrorInvalidValue = 1;
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return ""; }
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  std::memset(p, v, n);
+  return 0;
+}
 // CTAs one after another (x fastest); the threads of a CTA concurrently.
 inline void launch2(unsigned gx, unsigned gy, unsigned block,
                     std::function<void()> fn) {
@@ -857,7 +862,8 @@ HARNESS_KPP = r"""
 // (f32); x and d start `shift` floats past a 16-byte boundary of their
 // buffers, with slack around them; ct: the candidate tile (0: the entry
 // point's, from L).  out = newd [m,L] ++ pot [L] ++ the ticket after the
-// launch (int32), twice (two launches)
+// launch (int32), twice (two launches).  The entry point takes a ticket
+// left at garbage: it zeroes the launch's ticket itself.
 static float* placed(std::vector<float>& buf, int64_t count, int shift) {
   buf.assign(count + 16 + shift, 0.f);
   const uintptr_t a = (reinterpret_cast<uintptr_t>(buf.data()) + 15) & ~15;
@@ -881,6 +887,7 @@ int main(int argc, char** argv) {
   for (int rep = 0; rep < 2; ++rep) {
     int err;
     if (ct == 0) {
+      ticket = 0x5eed + rep;
       err = repro_kpp_probe(x, c.data(), d, newd.data(), part.data(),
                             pot.data(), &ticket, m, L, n, grid, nullptr);
     } else {
@@ -1875,7 +1882,8 @@ def test_kpp_probe_source_matches_plain(harness, tmp_path, shape):
     """Kernel P against ``kpp_probe_plain``.  Tolerances: newd within
     ``RTOL`` of the magnitude of its terms, (||x|| + ||c||)^2 (norms and
     dots summed in another order); pot within ``RTOL``; two launches
-    bitwise equal, the ticket back at 0 after each."""
+    bitwise equal, each from a ticket left at garbage (the entry point
+    zeroes the launch's ticket), the ticket back at 0 after each."""
     m, L, n, grid, shift = shape
     x, c, d = kpp_inputs(m, L, n)
     (newd, pot, ticket), again = run_kpp(harness, tmp_path, x, c, d, grid,

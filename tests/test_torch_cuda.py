@@ -357,6 +357,45 @@ def test_batched_fit_on_card_goes_through_kernel_d():
 
 
 @pytest.mark.cuda
+def test_sharded_and_stream_mesh_fits_on_card():
+    """The sharded strategy with 4 workers dealt onto the card goes
+    through A, B and C (A once per Lloyd iteration of every worker's chunk)
+    and its plain twin's full-data objective within 1e-3; the (2, 2) mesh
+    over ("data", "model") has the same 4 workers, bitwise; the batched
+    fit on a 2-group stream mesh is bitwise the one-device fit."""
+    _card()
+    from repro_torch import api
+    from repro_torch.data.synthetic import GMMSpec, gmm_dataset
+    from repro_torch.kernels import ops
+
+    X = gmm_dataset(GMMSpec(m=300_000, n=28, components=25, seed=1))
+    cfg = api.BigMeansConfig(k=25, s=8192, n_chunks=8, sync_every=2)
+    spec = api.TopologySpec(kind="worker_mesh", devices=4)
+    ops.reset_launch_counts()
+    res = api.fit(X, cfg.replace(topology=spec), method="sharded")
+    counts = ops.launch_counts()
+    assert res.extras["workers"] == 4 and res.centroids.is_cuda
+    assert counts["fused_step"] == res.n_iterations
+    assert counts["update"] == counts["assign"] == cfg.n_chunks
+    ref = api.fit(X, cfg.replace(topology=spec, impl="ref"),
+                  method="sharded")
+    _, f = api.evaluate(res, X)
+    _, f_ref = api.evaluate(ref, X)
+    assert abs(f - f_ref) <= 1e-3 * f_ref
+    two = api.fit(X, cfg.replace(topology=api.TopologySpec(
+        kind="worker_mesh", devices=(2, 2), axes=("data", "model"))),
+        method="sharded")
+    assert torch.equal(two.centroids, res.centroids)
+    assert two.trace == res.trace
+    bcfg = cfg.replace(batch=4)
+    one = api.fit(X, bcfg)
+    mesh = api.fit(X, bcfg.replace(topology=api.TopologySpec(
+        kind="stream_mesh", devices=2)))
+    assert torch.equal(one.centroids, mesh.centroids)
+    assert one.objective == mesh.objective
+
+
+@pytest.mark.cuda
 def test_kernel_library_is_cached_by_source_digest():
     _card()
     from repro_torch.kernels import build
@@ -783,9 +822,8 @@ def test_kpp_probe_matches_plain_on_card(shape):
                          ids=["seeding", "feature-tiles"])
 def test_kpp_probe_graph_replay_on_card(shape):
     """P's one launch in a CUDA graph, replayed twice: both replays bitwise
-    equal to each other and to an eager launch, so the last CTA's ticket
-    is back at 0 after every launch (the capture runs on the stream whose
-    ticket the warm-up made, so no zeroing of it is captured)."""
+    equal to each other and to an eager launch (the graph holds the
+    launch's own ticket and the memset that zeroes it)."""
     _card()
     from repro_torch.kernels import kpp_probe as kpp
 
@@ -809,6 +847,45 @@ def test_kpp_probe_graph_replay_on_card(shape):
     for got in replays:
         assert torch.equal(got[0], eager[0]) and torch.equal(got[1], eager[1])
     check_kpp_against_plain(x, cands, d, *replays[-1])
+
+
+@pytest.mark.cuda
+def test_kpp_probe_two_graphs_on_two_streams_on_card():
+    """Two graphs of P captured on one stream and replayed at once on two
+    other streams, 200 times each: every replay's pot bitwise a lone
+    launch's, and newd too.  Each launch owns its ticket; a ticket shared
+    by the two captures (one per capture stream) would let one replay's
+    CTAs be counted by the other's and pick a wrong last CTA."""
+    _card()
+    from repro_torch.kernels import kpp_probe as kpp
+
+    x, cands, d = kpp_card_inputs(64_000, 28, 3)
+    newd0, pot0 = kpp.kpp_probe_cuda(x, cands, d)
+    cap = torch.cuda.Stream()
+    cap.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(cap):
+        kpp.kpp_probe_cuda(x, cands, d)
+    graphs = []
+    for _ in range(2):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=cap):
+            out = kpp.kpp_probe_cuda(x, cands, d)
+        graphs.append((graph, out))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    pots = [torch.full((200, 3), float("nan"), device="cuda")
+            for _ in graphs]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+        st.wait_stream(cap)
+    for i in range(200):
+        for (graph, (_, pot)), st, rec in zip(graphs, streams, pots):
+            with torch.cuda.stream(st):
+                graph.replay()
+                rec[i].copy_(pot)
+    torch.cuda.synchronize()
+    for (_, (newd, _)), rec in zip(graphs, pots):
+        assert torch.equal(rec, pot0.expand_as(rec))
+        assert torch.equal(newd, newd0)
 
 
 @pytest.fixture

@@ -92,14 +92,34 @@ def test_cuda_impl_refuses_cpu_tensors():
         ops.resolve_impl("pallas", torch.device("cpu"))
 
 
-@pytest.mark.parametrize("knob,item", [
-    (dict(batch=2, topology="stream_mesh"), "queue 1 item 8"),
-    (dict(topology="worker_mesh"), "queue 1 item 8"),
-    (dict(mesh=object()), "queue 1 item 8"),
-], ids=lambda v: next(iter(v)) if isinstance(v, dict) else v)
-def test_unported_knobs_raise(knob, item):
-    with pytest.raises(NotImplementedError, match=item):
-        api.BigMeansConfig(k=3, s=100, n_chunks=2, **knob)
+@pytest.mark.parametrize("knob", [
+    dict(batch=2, topology="stream_mesh"), dict(topology="worker_mesh"),
+    dict(mesh=("data", 2)), dict(method="sharded")],
+    ids=["stream_mesh", "worker_mesh", "mesh", "sharded"])
+def test_multi_device_knobs_are_ported(knob):
+    """The multi-device knobs validate and run on the CPU: a stream mesh
+    sends ``batch > 1`` to ``batched``, a worker mesh and the deprecated raw
+    ``mesh`` (a ``DeviceMesh``, with its warning) send an in-core array to
+    ``sharded``, as the reference's auto does, and ``method="sharded"``
+    runs a worker per local device."""
+    from repro_torch.engine import topology as topo
+
+    knob = dict(knob)
+    method = knob.pop("method", "auto")
+    if "mesh" in knob:
+        axis, size = knob["mesh"]
+        knob["mesh"] = topo.make_mesh((size,), (axis,), "cpu")
+        with pytest.warns(DeprecationWarning, match="topology"):
+            cfg = api.BigMeansConfig(k=3, s=100, n_chunks=2, **knob)
+    else:
+        cfg = api.BigMeansConfig(k=3, s=100, n_chunks=2, **knob)
+    res = api.fit(X, cfg, method=method, device="cpu")
+    assert np.isfinite(res.objective) and res.n_chunks == 2
+    want = "batched" if cfg.batch > 1 else "sharded"
+    assert res.strategy == want
+    if want == "sharded":
+        assert res.extras["workers"] == (2 if cfg.mesh is not None else 1)
+        assert res.extras["chunks_per_worker"] * res.extras["workers"] == 2
 
 
 @pytest.mark.parametrize("knob", [
@@ -191,15 +211,6 @@ def test_bf16_precisions_are_ported(precision):
     same = api.fit(X, base, device="cpu", precision="bf16")
     assert torch.equal(auto.centroids, same.centroids)
     assert auto.trace == same.trace
-
-
-@pytest.mark.parametrize("method,item", [
-    ("sharded", "queue 1 item 8"),
-])
-def test_unported_methods_raise(method, item):
-    cfg = api.BigMeansConfig(k=3, s=100, n_chunks=2)
-    with pytest.raises(NotImplementedError, match=item):
-        api.fit(X, cfg, method=method, device="cpu")
 
 
 def test_unported_inputs_raise():
