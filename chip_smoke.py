@@ -243,11 +243,35 @@ Phases, each printing JSON lines:
    built and import no jax.  A rank killed at its first own chunk: its
    peer raises ``HostDead`` at window 0 within ``sync_timeout_s``.
 
+13. the reproduction suite — ``repro_torch.evalsuite`` on the card (run
+   after phase 11, in a temporary data root; the datasets generated on the
+   CPU generator).  13a: the quick tier, every quick method (the two-rank
+   ``bm/hostmesh-2p`` cell too), seeds 0 and 1: the document valid under
+   the port's schema, every row's fit on the kernels (``impl="cuda"``) at
+   its dataset's chunk budget, A, D, B and C launched, each host-cell row
+   bitwise the single-process streaming fit of its config.  13b: the full
+   tier, 5 seeds: every in-process method on the five datasets and the
+   host cell on the quick tier's datasets (each fleet is two new
+   processes; 13a's rows stand for seeds 0 and 1), merged into one
+   document; D16 and D8 launched too; ε,
+   success rate and ``wall_mean_s`` of every cell printed with the card's
+   name and power limit, each dataset's best run; with ``f_star``
+   committed, each dataset's best ε within 1e-6.  13c: the gate on 13b's
+   document: a self-compare exits 0, every ``epsilon_mean`` raised by 0.2
+   exits 1, a dropped cell fails with "coverage regressed".  13d:
+   ``BigMeansConfig.from_workload(configs.bigmeans_paper.CONFIG,
+   n_chunks=32)`` equal to phase 5's config field by field, its fit on
+   phase 4's data bitwise phase 5's.  13e: ``launch.roofline.
+   precision_roofline`` on the chunk rates of phases 4-5e (32 chunks over
+   the ``fit`` wall, Lloyd passes a chunk from the fused launches): the
+   dominant term and the share of 3.35 TB/s, which must not exceed 1.
+
 Then the one ``{"kernels": [...]}`` line (the assign kernels' rows carry
 their serving times as ``at_serving``; ``launches_per_path`` the serving
 run's launches as ``serve``, phase 11's as ``baselines`` and phase 12's
 as ``sharded``, ``sharded_2x2``, ``sharded_resume``, ``stream_mesh`` and
-``host_mesh`` (both ranks' fold and persistent fits); A's row its
+``host_mesh`` (both ranks' fold and persistent fits), phase 13's as
+``evalsuite_quick`` and ``evalsuite_full`` (in-process cells); A's row its
 time over the 10.5M rows as ``at_full_data``, B's and C's theirs at the
 K-means|| pool as ``at_kmeans_parallel_pool``, P's its probe over the
 10.5M rows as ``at_full_data``), the card's name and power
@@ -258,6 +282,7 @@ from __future__ import annotations
 
 import argparse
 import cProfile
+import dataclasses
 import json
 import math
 import pstats
@@ -297,12 +322,18 @@ from repro_torch.engine import middleware as mw  # noqa: E402
 from repro_torch.engine import scheduler as sched_lib  # noqa: E402
 from repro_torch.engine import stream  # noqa: E402
 from repro_torch.engine import topology as topo_lib  # noqa: E402
+from repro_torch.configs import bigmeans_paper as paper_cfg  # noqa: E402
+from repro_torch.evalsuite import datasets as suite_ds  # noqa: E402
+from repro_torch.evalsuite import gate, suite  # noqa: E402
+from repro_torch.evalsuite import metrics as suite_metrics  # noqa: E402
+from repro_torch.evalsuite import schema as suite_schema  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     autotune, build, distance, fused_step, ops, ref,
 )
 from repro_torch.kernels import kpp_probe as kpp  # noqa: E402
 from repro_torch.kernels import precision as px  # noqa: E402
 from repro_torch.kernels import update as upd  # noqa: E402
+from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.serve import ServeConfig  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
@@ -368,6 +399,8 @@ PATH_OF = {"fused_step_f32": "sequential", "assign_f32": "sequential",
               for prec in ("f32", "int8", "bf16", "bf16x3")},
            "kpp_probe": "kpp_probe_entry"}
 BATCH, SYNC_EVERY = 8, 2        # the paper's (configs/bigmeans_paper.py)
+# Each main-path fit's `fit` wall (phases 4-5e), read by phase 13e.
+FIT_WALLS: dict = {}
 
 
 def emit(obj) -> None:
@@ -1379,6 +1412,7 @@ def phase_main(seed: int):
     check({k for k, v in launches.items() if v}
           == {"fused_step", "assign", "update"},
           f"sequential path launches {launches}")
+    FIT_WALLS["sequential"] = res.wall_time_s
     return X, res, launches, wall, walls, f_full
 
 
@@ -1555,6 +1589,7 @@ def phase_batched(X, seed: int, seq_fit_walls: dict):
           "fit_walls_s": walls,
           "sequential_fit_walls_s_phase4": seq_fit_walls})
     check(rel <= 1e-3, f"full objectives differ by {rel:.3e} (> 1e-3)")
+    FIT_WALLS["batched"] = res.wall_time_s
     return res, f_full, launches, wall
 
 
@@ -1624,6 +1659,7 @@ def phase_main_int8(X, seed: int, f_full_f32: float):
           "int8_vs_f32_f_full_drift": (f_full - f_full_f32) / f_full_f32,
           "fit_walls_s_in_turns": walls})
     check(rel <= 1e-3, f"int8 full objectives differ by {rel:.3e} (> 1e-3)")
+    FIT_WALLS["int8_sequential"] = res.wall_time_s
     return launches, wall
 
 
@@ -1682,6 +1718,7 @@ def phase_batched_int8(X, seed: int, f_full_f32: float):
           "first_parting": parting, "f32_f_full": f_full_f32,
           "int8_vs_f32_f_full_drift": (f_full - f_full_f32) / f_full_f32})
     check(rel <= 1e-3, f"int8 batched full objectives differ by {rel:.3e}")
+    FIT_WALLS["int8_batched"] = res.wall_time_s
     return launches, wall
 
 
@@ -1870,6 +1907,7 @@ def phase_main_16(X, seed: int, prec: str, f_full_f32: float):
     check(rel <= 1e-3, f"{prec} full objectives differ by {rel:.3e} (> 1e-3)")
     check(abs(drift) <= 1e-2, f"{prec} full objective drifts {drift:.3e} "
           "from f32's (> 1 %)")
+    FIT_WALLS[f"{prec}_sequential"] = res.wall_time_s
     return launches, wall
 
 
@@ -1931,6 +1969,7 @@ def phase_batched_16(X, seed: int, prec: str, f_full_f32: float):
     check(rel <= 1e-3, f"{prec} batched full objectives differ by {rel:.3e}")
     check(abs(drift) <= 1e-2, f"{prec} batched full objective drifts "
           f"{drift:.3e} from f32's (> 1 %)")
+    FIT_WALLS[f"{prec}_batched"] = res.wall_time_s
     return launches, wall
 
 
@@ -5025,6 +5064,300 @@ def phase_multi(X, path: str, seed: int, root: Path, f_full_seq: float,
     return paths
 
 
+# --------------------------------------------------------------------------
+# phase 13: the reproduction suite (repro_torch.evalsuite), the paper's
+# workload config and the chunk roofline
+# --------------------------------------------------------------------------
+
+# A committed f* (7 significant digits: at most 5e-7 off the run's
+# value) reproduces within this.
+SUITE_F_STAR_RTOL = 1e-6
+# The kernels each suite tier must launch in-process (the host cell's ranks
+# launch theirs in their own processes).
+SUITE_KERNELS = {
+    "quick": ("fused_step", "fused_step_batched", "assign", "update"),
+    "full": ("fused_step", "fused_step_batched", "fused_step_batched_bf16",
+             "fused_step_batched_int8", "assign", "update"),
+}
+# 13b runs the host cell on the quick tier's datasets only (each fleet is
+# two new processes on the card)
+HOST_CELL = "bm/hostmesh-2p"
+
+
+def suite_doc_checks(doc, what: str) -> None:
+    """The port's validator and the row contract: every row finite on the
+    card, every Big-means row at its dataset's chunk budget."""
+    errors = suite_schema.validate(doc, suite_schema.SUITE_SCHEMA)
+    check(not errors, f"{what}: schema errors {errors[:3]}")
+    budget = {d["name"]: d["n_chunks"] for d in doc["datasets"]}
+    for r in doc["rows"]:
+        check(math.isfinite(r["f_full"]) and r["f_full"] > 0,
+              f"{what}: {r['dataset']} {r['method']} f_full {r['f_full']}")
+        check(r["fit"]["impl"] == "cuda" and r["fit"]["device"]
+              .startswith("cuda"), f"{what}: {r['method']} fit {r['fit']}")
+        if r["kind"] == "bigmeans":
+            check(r["n_chunks"] == budget[r["dataset"]],
+                  f"{what}: {r['dataset']} {r['method']} ran "
+                  f"{r['n_chunks']} chunks")
+    check(doc["host"]["backend"] == "cuda" and doc["host"]["device"]
+          == torch.cuda.get_device_name(0), f"{what}: host {doc['host']}")
+
+
+def suite_cells(doc) -> list:
+    return [{key: c[key] for key in (
+        "dataset", "method", "n_seeds", "epsilon_mean", "epsilon_min",
+        "epsilon_max", "success_rate", "wall_mean_s")} for c in doc["cells"]]
+
+
+def run_tier(tier: str, root: Path, **kw) -> tuple:
+    """``run_suite`` on the card with the launch counts set to 0 just
+    before it; returns (doc, launches, seconds)."""
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    doc = suite.run_suite(tier, data_root=str(root), verbose=False, **kw)
+    torch.cuda.synchronize()
+    return doc, ops.launch_counts(), time.monotonic() - t0
+
+
+def merge_suite(docs: list) -> dict:
+    """One suite document from runs over parts of one tier's matrix: each
+    dataset's f* the committed one, or (bootstrap) the best f_full of all
+    the runs' rows; ε, success and the cells recomputed with the port's
+    metrics."""
+    first = docs[0]
+    rows = [dict(r) for d in docs for r in d["rows"]]
+    records = {}
+    for d in docs:
+        for rec in d["datasets"]:
+            records.setdefault(rec["name"], dict(rec))
+    for name, rec in records.items():
+        if rec["f_star_source"] != "committed":
+            rec["f_star"] = min(r["f_full"] for r in rows
+                                if r["dataset"] == name)
+    for r in rows:
+        r["epsilon"] = suite_metrics.relative_error(
+            r["f_full"], records[r["dataset"]]["f_star"])
+        r["success"] = r["epsilon"] <= first["success_tol"]
+    kinds = {}
+    for r in rows:
+        kinds.setdefault((r["dataset"], r["method"]), r["kind"])
+    cells = [suite_metrics.aggregate_cell(
+        ds_name, method, kind,
+        [r for r in rows if (r["dataset"], r["method"]) == (ds_name,
+                                                            method)],
+        success_tol=first["success_tol"])
+        for (ds_name, method), kind in kinds.items()]
+    doc = dict(first, rows=rows, datasets=list(records.values()),
+               cells=cells)
+    suite_schema.check(doc, suite_schema.SUITE_SCHEMA, what="merged suite")
+    return doc
+
+
+def host_cell_bitwise(doc, root: Path) -> int:
+    """Each host-cell row's f_native bitwise the single-process streaming
+    fit of its config on the card; returns the rows checked."""
+    m = next(x for x in suite.METHODS if x.name == HOST_CELL)
+    over = {k: v for k, v in m.overrides.items() if k != "hosts"}
+    n = 0
+    for r in doc["rows"]:
+        if r["method"] != HOST_CELL:
+            continue
+        spec = suite_ds.get_dataset(r["dataset"])
+        cfg = BigMeansConfig(k=spec.k, s=spec.s, n_chunks=spec.n_chunks,
+                             seed=r["seed"], log_every=0, **over)
+        one = fit(suite_ds.source(spec, str(root)), cfg, method="streaming")
+        check(one.objective == r["f_native"] and one.n_chunks
+              == r["n_chunks"], f"host cell {r['dataset']} seed "
+              f"{r['seed']}: {r['f_native']}, {r['n_chunks']} chunks "
+              f"against one process's {one.objective}, {one.n_chunks}")
+        n += 1
+    return n
+
+
+def phase_suite_quick(root: Path, card: str) -> tuple:
+    """13a: the quick tier, every quick method (the host cell too), seeds
+    0 and 1."""
+    doc, launches, secs = run_tier("quick", root)
+    suite_doc_checks(doc, "13a quick tier")
+    check({c["method"] for c in doc["cells"]}
+          == set(suite.list_methods("quick")), "13a: quick methods")
+    missing = [k for k in SUITE_KERNELS["quick"] if not launches[k]]
+    check(not missing, f"13a: kernels not launched {missing}")
+    t0 = time.monotonic()
+    checked = host_cell_bitwise(doc, root)
+    emit({"phase": "suite_quick", "seconds": secs, "launches": launches,
+          "host_cell_rows_bitwise_one_process": checked,
+          "host_cell_check_s": time.monotonic() - t0,
+          "datasets": doc["datasets"], "cells": suite_cells(doc),
+          "card": card})
+    return doc, launches, secs
+
+
+def phase_suite_full(root: Path, quick_doc, card: str) -> tuple:
+    """13b: the full tier, 5 seeds: every in-process method on the five
+    datasets, the host cell on the quick tier's datasets (13a's rows for
+    the quick tier's seeds, new fleets for the others); one document,
+    validated; with f* committed, each dataset's best ε within
+    SUITE_F_STAR_RTOL."""
+    in_process = [m for m in suite.list_methods("full") if m != HOST_CELL]
+    doc_a, launches, secs_a = run_tier("full", root,
+                                       method_names=in_process)
+    quick_seeds = suite.SEEDS["quick"]
+    doc_h, _, secs_h = run_tier(
+        "full", root, method_names=[HOST_CELL],
+        dataset_names=suite_ds.list_datasets("quick"),
+        seeds=[x for x in suite.SEEDS["full"] if x not in quick_seeds])
+    reused = {"rows": [r for r in quick_doc["rows"] if r["method"]
+                       == HOST_CELL and r["seed"] in quick_seeds],
+              "datasets": []}
+    doc = merge_suite([doc_a, doc_h, reused])
+    suite_doc_checks(doc, "13b full tier")
+    missing = [k for k in SUITE_KERNELS["full"] if not launches[k]]
+    check(not missing, f"13b: kernels not launched {missing}")
+    best = {}
+    for rec in doc["datasets"]:
+        rows = [r for r in doc["rows"] if r["dataset"] == rec["name"]]
+        top = min(rows, key=lambda r: r["f_full"])
+        best[rec["name"]] = {"f_best": top["f_full"],
+                             "f_best_7g": float(f"{top['f_full']:.7g}"),
+                             "method": top["method"], "seed": top["seed"],
+                             "epsilon_min": top["epsilon"],
+                             "f_star": rec["f_star"],
+                             "f_star_source": rec["f_star_source"]}
+    emit({"phase": "suite_full", "seconds_in_process": secs_a,
+          "seconds_host_cell": secs_h, "host_cell_rows_from_13a":
+          len(reused["rows"]), "launches": launches,
+          "cpu_capability": torch.backends.cpu.get_cpu_capability(),
+          "best": best, "cells": suite_cells(doc), "card": card})
+    for name, b in best.items():
+        if b["f_star_source"] == "committed":
+            check(abs(b["epsilon_min"]) <= SUITE_F_STAR_RTOL,
+                  f"13b: {name} best epsilon {b['epsilon_min']:.3e}: the "
+                  f"committed f* {b['f_star']} does not reproduce")
+    return doc, launches, secs_a + secs_h
+
+
+def phase_suite_gate(doc, root: Path) -> dict:
+    """13c: the gate on the card's own documents: a self-compare exits 0,
+    every epsilon_mean raised by 0.2 exits 1, a dropped cell fails with
+    "coverage regressed"."""
+    import contextlib
+    import io
+
+    def run(fresh, name: str) -> tuple:
+        base_p, fresh_p = root / "gate_base.json", root / f"gate_{name}.json"
+        base_p.write_text(json.dumps(doc))
+        fresh_p.write_text(json.dumps(fresh))
+        report = root / f"gate_{name}.txt"
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = gate.main(["--baseline", str(base_p), "--fresh",
+                            str(fresh_p), "--report", str(report)])
+        return rc, report.read_text()
+
+    rc_self, _ = run(doc, "self")
+    check(rc_self == 0, f"13c: self-compare exited {rc_self}")
+    worse = json.loads(json.dumps(doc))
+    for cell in worse["cells"]:
+        cell["epsilon_mean"] += 0.2
+    rc_worse, rep_worse = run(worse, "worse")
+    check(rc_worse == 1 and "FAIL" in rep_worse,
+          f"13c: epsilon +0.2 exited {rc_worse}")
+    dropped = json.loads(json.dumps(doc))
+    gone = dropped["cells"].pop()
+    rc_drop, rep_drop = run(dropped, "dropped")
+    check(rc_drop == 1 and "coverage regressed" in rep_drop,
+          f"13c: a dropped cell exited {rc_drop}: {rep_drop[-300:]}")
+    out = {"self": rc_self, "epsilon_plus_0.2": rc_worse,
+           "dropped_cell": [gone["dataset"], gone["method"], rc_drop],
+           "failures_epsilon_plus_0.2": rep_worse.count("FAIL  ")}
+    emit({"phase": "suite_gate", **out})
+    return out
+
+
+def phase_workload(X, seed: int, res_b) -> None:
+    """13d: ``BigMeansConfig.from_workload(bigmeans_paper.CONFIG,
+    n_chunks=32)`` is phase 5's config field by field, and its fit on
+    phase 4's data bitwise phase 5's f32 batched fit."""
+    cfg = BigMeansConfig.from_workload(paper_cfg.CONFIG, n_chunks=32,
+                                       seed=seed)
+    want = res_b.config
+    differ = [f.name for f in dataclasses.fields(cfg)
+              if getattr(cfg, f.name) != getattr(want, f.name)]
+    check(not differ and (cfg.k, cfg.s, cfg.batch, cfg.sync_every)
+          == (25, 64_000, 8, 2), f"13d: fields differ {differ}")
+    res = fit(X, cfg)
+    check(res.strategy == "batched" and res.objective == res_b.objective
+          and torch.equal(res.centroids, res_b.centroids)
+          and res.trace == res_b.trace
+          and res.n_iterations == res_b.n_iterations,
+          "13d: the workload's fit differs from phase 5's")
+    emit({"phase": "suite_workload", "config_equal_phase5": True,
+          "bitwise_phase5": True, "k": cfg.k, "s": cfg.s,
+          "batch": cfg.batch, "sync_every": cfg.sync_every,
+          "fit_wall_s": res.wall_time_s,
+          "phase5_fit_wall_s": res_b.wall_time_s})
+
+
+def phase_roofline(paths: dict, n: int) -> list:
+    """13e: ``precision_roofline`` on the chunk rates phases 4 and 5
+    measured under each policy: 32 chunks over the ``fit`` wall, Lloyd
+    passes a chunk from the fused launches (D's times the batch, over the
+    chunks).  An achieved share of 3.35 TB/s above 1 fails."""
+    rows = []
+    for prec in POLICIES:
+        suffix = "" if prec == "f32" else f"_{prec}"
+        for batch, path, kname in (
+                (1, "sequential", "fused_step"),
+                (BATCH, "batched", "fused_step_batched")):
+            name = path if prec == "f32" else f"{prec}_{path}"
+            key = kname if prec == "f32" else f"{kname}{suffix}"
+            launches = paths[name][0][key]
+            iters = launches * batch / 32
+            row = roofline.precision_roofline({
+                "s": 64_000, "n": n, "k": 25, "precision": prec,
+                "batch": batch, "lloyd_iters_per_chunk": iters,
+                "chunks_per_s": 32 / FIT_WALLS[name]})
+            check(row["achieved_frac_of_peak"] <= 1.0,
+                  f"13e: {name} at {row['achieved_frac_of_peak']} of the "
+                  "HBM peak: the traffic model counts too little")
+            rows.append(dict(row, path=name, fit_wall_s=FIT_WALLS[name],
+                             fused_launches=launches))
+    emit({"phase": "suite_roofline", "hbm_bytes_per_s": roofline.HBM_BW,
+          "rows": [{key: r[key] for key in (
+              "path", "precision", "batch", "passes", "chunks_per_s",
+              "fit_wall_s", "fused_launches", "model_bytes_per_chunk",
+              "arithmetic_intensity", "dominant", "bound_s",
+              "achieved_bytes_per_s", "achieved_frac_of_peak")}
+              for r in rows]})
+    return rows
+
+
+def phase_suite(X, seed: int, res_b, paths: dict) -> dict:
+    """Phase 13: 13a-13c in a temporary data root (removed after), 13d,
+    13e.  Returns {path: (launches, wall)} for the two tiers."""
+    card = nvidia_smi()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_suite_"))
+    seconds = {}
+    try:
+        quick, launches_q, seconds["13a"] = phase_suite_quick(root, card)
+        doc, launches_f, seconds["13b"] = phase_suite_full(root, quick,
+                                                            card)
+        t0 = time.monotonic()
+        phase_suite_gate(doc, root)
+        seconds["13c"] = time.monotonic() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    t0 = time.monotonic()
+    phase_workload(X, seed, res_b)
+    seconds["13d"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    phase_roofline(paths, X.shape[1])
+    seconds["13e"] = time.monotonic() - t0
+    emit({"phase": "suite_seconds", **seconds, "card": card})
+    return {"evalsuite_quick": (launches_q, seconds["13a"]),
+            "evalsuite_full": (launches_f, seconds["13b"])}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5128,6 +5461,9 @@ def main() -> int:
     times["fused_step_f32"]["at_full_data"] = baseline_times[
         "fused_step_f32"]
     times["kpp_probe"]["at_full_data"] = baseline_times["kpp_probe"]
+    # phase 13: the reproduction suite, the paper's workload config on
+    # phase 4's data and the chunk roofline of phases 4 and 5
+    fault_paths.update(phase_suite(X, args.seed, res_b, paths))
     n_eval = math.ceil(X.shape[0] / EVAL_BATCH)
     for path, (counts, path_wall) in paths.items():
         device_share(path, times, counts, n_eval, path_wall)

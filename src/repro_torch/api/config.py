@@ -39,12 +39,17 @@ tensor, ``'f32'`` otherwise).
 
 ``impl`` takes the port's kernel impls: ``'auto'``, ``'cuda'``, ``'ref'``,
 ``'ref_chunked'`` (see :mod:`repro_torch.kernels.ops`).
+:meth:`BigMeansConfig.resolved_impl` takes the device the impl resolves
+for, because the port's resolver needs one (the reference's probes its
+default backend).  :meth:`BigMeansConfig.from_workload` reads a
+workload descriptor (:mod:`repro_torch.configs.bigmeans_paper`).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
 
+from repro_torch import device as devices
 from repro_torch.kernels import ops
 from repro_torch.kernels import precision as px
 
@@ -186,3 +191,39 @@ class BigMeansConfig:
     def replace(self, **overrides) -> "BigMeansConfig":
         """A copy with ``overrides`` applied (re-validated)."""
         return dataclasses.replace(self, **overrides)
+
+    def resolved_impl(self, device=None) -> str:
+        """The concrete kernel implementation this config runs on
+        ``device``: the card unless ``"cpu"`` (``'cuda'`` there under
+        ``'auto'``, ``'ref'`` on the CPU).  Raises without a card unless
+        the CPU is asked for."""
+        return ops.resolve_impl(self.impl, devices.resolve(device))
+
+    @classmethod
+    def from_workload(cls, workload, **overrides) -> "BigMeansConfig":
+        """Derive a config from a workload descriptor.
+
+        New-style workloads
+        (:class:`repro_torch.configs.bigmeans_paper.BigMeansWorkload`)
+        carry their knobs as an embedded ``.algo`` config, which is
+        returned (with ``overrides`` applied).  Legacy duck-typed
+        workloads are read field by field (``chunks_per_worker`` maps to
+        ``n_chunks``).
+        """
+        algo = getattr(workload, "algo", None)
+        if isinstance(algo, cls):
+            return algo.replace(**overrides) if overrides else algo
+        fields = dict(
+            k=workload.k,
+            s=workload.s,
+            n_chunks=getattr(workload, "chunks_per_worker", 100),
+            sync_every=getattr(workload, "sync_every", 1),
+            max_iters=getattr(workload, "max_iters", 300),
+            tol=getattr(workload, "tol", 1e-4),
+            candidates=getattr(workload, "candidates", 3),
+            batch=getattr(workload, "batch", 1),
+            prefetch=getattr(workload, "prefetch", 2),
+            precision=getattr(workload, "precision", "auto"),
+        )
+        fields.update(overrides)
+        return cls(**fields)

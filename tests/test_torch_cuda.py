@@ -1510,3 +1510,33 @@ def test_baseline_autotune_times_the_chunk_shapes_only(_tuner):
     assert keys and all("|m4000|" in key for key in keys)
     assert _tuner.enabled() == was
     assert torch.equal(tuned.centroids, untuned.centroids)
+
+
+@pytest.mark.cuda
+def test_suite_sequential_row_on_card_against_plain(tmp_path):
+    """The reproduction suite's ``bm/sequential`` cell on ``hepmass-16k``,
+    seed 0, through the kernels (``run_suite`` on the card) and again with
+    ``impl="ref"`` on the card: both rows valid under the port's row
+    schema, the first fit on ``'cuda'``, the two full-data objectives
+    within RTOL."""
+    _card()
+    from repro_torch.evalsuite import datasets, schema, suite
+
+    doc = suite.run_suite("quick", seeds=(0,), dataset_names=["hepmass-16k"],
+                          method_names=["bm/sequential"],
+                          data_root=str(tmp_path), verbose=False)
+    assert schema.validate(doc, schema.SUITE_SCHEMA) == []
+    assert doc["host"]["backend"] == "cuda"
+    (row,) = doc["rows"]
+    assert row["fit"]["impl"] == "cuda" and row["n_chunks"] == 24
+    spec = datasets.get_dataset("hepmass-16k")
+    plain = suite.MethodSpec("bm/sequential", "bigmeans", "sequential",
+                             {"impl": "ref"})
+    src = datasets.source(spec, str(tmp_path))
+    twin = suite._run_cell(spec, plain, 0, src, src.as_array(), False)
+    twin["epsilon"] = (twin["f_full"] - doc["datasets"][0]["f_star"]) / \
+        doc["datasets"][0]["f_star"]
+    twin["success"] = twin["epsilon"] <= doc["success_tol"]
+    assert schema.validate(twin, schema._ROW_SCHEMA) == []
+    assert twin["fit"]["impl"] == "ref" and twin["fit"]["device"] == "cuda"
+    assert abs(row["f_full"] - twin["f_full"]) <= RTOL * twin["f_full"]

@@ -34,6 +34,11 @@ def test_port_imports_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert len(modules) >= 20
+    for new in ("repro_torch.evalsuite", "repro_torch.evalsuite.suite",
+                "repro_torch.evalsuite.hostcell", "repro_torch.configs",
+                "repro_torch.configs.bigmeans_paper",
+                "repro_torch.launch.roofline"):
+        assert new in modules, new
 
 
 def test_scripts_import_neither_jax_nor_repro():
@@ -73,6 +78,18 @@ def test_no_card_means_no_run(monkeypatch):
         big_means(X, 0, k=3, s=100, n_chunks=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         big_means_batched(X, 0, k=3, s=100, batch=2, rounds=1)
+    from repro_torch.evalsuite import datasets, hostcell, schema, suite
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        suite.run_suite("quick", seeds=(0,), dataset_names=["hepmass-16k"],
+                        method_names=["bm/sequential"])
+    host_cell = next(m for m in suite.METHODS if m.runner == "host2p")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hostcell.run_cell(datasets.get_dataset("hepmass-16k"), host_cell, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        schema.host_info()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cfg.resolved_impl()
     assert devices.resolve("cpu") == torch.device("cpu")
 
 
