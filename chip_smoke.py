@@ -5,7 +5,8 @@
 
 Phases, each printing JSON lines:
 
-1. device — card, torch/CUDA versions, power limit; TF32 switched off.
+1. device — card, torch/CUDA versions, power limit; TF32 switched off, and
+   bf16 products' reduced-precision reduction (they accumulate in f32).
 2. build — compile the CUDA sources (kernels/csrc: the twenty-one entry
    points of kernels A-D and their int8, bf16 and bf16x3 bodies, the dma
    pipeline of kernel A under each policy, and kernel P) for sm_90a;
@@ -266,12 +267,45 @@ Phases, each printing JSON lines:
    the ``fit`` wall, Lloyd passes a chunk from the fused launches): the
    dominant term and the share of 3.35 TB/s, which must not exceed 1.
 
+14. the model zoo — ``repro_torch.models`` at the published widths,
+   random weights from ``--seed`` (run last, after the two-pass phases).
+   14a: hymba-1.5b at full width and depth (1.59B parameters in f32),
+   B = 8 x S = 2,048 (the 1,024 window binds on 29 layers, the SSD runs
+   8 chunks of 256): two forwards finite and bitwise equal; prefill 2,040
+   tokens and decode 8, held to the forward (``models.decode_check``:
+   each step within ``DECODE_REL`` of its norm and ``HYMBA_DECODE_TOL``,
+   the decode cache within ``HYMBA_CACHE_REL`` of the forward's);
+   ``examples.embedding_clustering.harvest`` (the forward's first 128
+   logit columns, 16,384 rows) fitted at k = 64, s = 512, 25 chunks and
+   evaluated on the kernels, A / B / C launches counted exactly, the
+   plain twin's full-data objective within 1e-3; A, B and C held to their
+   plain versions at that chunk (s = 512, k = 64, n = 128) and timed.
+   14b: seamless-m4t-medium (12 + 12 layers, 1,024 frames),
+   deepseek-moe-16b at 4 of 28 layers and qwen3-moe-235b-a22b at 2 of 94
+   (16.9B and 235B parameters in f32 do not fit): the B = 8 x 2,048
+   forward twice, bitwise; prefill 248 + 8 decoded at B = 2 with
+   ``capacity_factor = E / top_k``, every decoded row that each layer
+   routed as the forward did within ``DECODE_STEPS`` bf16 steps of the
+   forward, a row routed otherwise only at a router near tie, and the
+   cache of the rows never rerouted within ``CACHE_REL``.  14c: the
+   reference example's own run (``main(["--arch", a])``, reduced
+   configs) for the four archs.  14d:
+   ``launch.train.main`` at ``bigmeans_paper``, 32 chunks, ``--scale
+   0.02`` (m = 210,000, n = 27, k = 25, s = 64,000, batch 8): no chunk
+   failed, D / B / C launches counted, kernel D held at the launcher's
+   shape; again with ``--ckpt`` (bitwise, the reference's step layout)
+   and resumed by a second call to the same f_best; ``--arch
+   hymba-1.5b`` refused.  14e: ``roofline.model_flops`` for the four
+   archs at the four assigned shapes.
+
 Then the one ``{"kernels": [...]}`` line (the assign kernels' rows carry
 their serving times as ``at_serving``; ``launches_per_path`` the serving
 run's launches as ``serve``, phase 11's as ``baselines`` and phase 12's
 as ``sharded``, ``sharded_2x2``, ``sharded_resume``, ``stream_mesh`` and
 ``host_mesh`` (both ranks' fold and persistent fits), phase 13's as
-``evalsuite_quick`` and ``evalsuite_full`` (in-process cells); A's row its
+``evalsuite_quick`` and ``evalsuite_full`` (in-process cells), phase 14's
+as ``embedding`` (14a's fit + evaluate) and ``launch_train`` (14d); A's,
+B's and C's rows their times at 14a's chunk as ``at_embedding``; A's row its
 time over the 10.5M rows as ``at_full_data``, B's and C's theirs at the
 K-means|| pool as ``at_kmeans_parallel_pool``, P's its probe over the
 10.5M rows as ``at_full_data``), the card's name and power
@@ -302,6 +336,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch import device as devices  # noqa: E402
 from repro_torch import random as rnd  # noqa: E402
 from repro_torch import serve as serve_lib  # noqa: E402
 from repro_torch.api import (  # noqa: E402
@@ -313,7 +348,7 @@ from repro_torch.core import big_means_batched  # noqa: E402
 from repro_torch.core import bigmeans as bm_lib  # noqa: E402
 from repro_torch.core.objective import EVAL_BATCH  # noqa: E402
 from repro_torch.data.synthetic import (  # noqa: E402
-    PAPER_DATASETS, GMMSpec, gmm_dataset, gmm_memmap,
+    PAPER_DATASETS, GMMSpec, gmm_chunk, gmm_dataset, gmm_memmap,
 )
 from repro_torch.engine import faults  # noqa: E402
 from repro_torch.engine import hostmesh  # noqa: E402
@@ -323,6 +358,7 @@ from repro_torch.engine import scheduler as sched_lib  # noqa: E402
 from repro_torch.engine import stream  # noqa: E402
 from repro_torch.engine import topology as topo_lib  # noqa: E402
 from repro_torch.configs import bigmeans_paper as paper_cfg  # noqa: E402
+from repro_torch.configs import shapes as zoo_shapes  # noqa: E402
 from repro_torch.evalsuite import datasets as suite_ds  # noqa: E402
 from repro_torch.evalsuite import gate, suite  # noqa: E402
 from repro_torch.evalsuite import metrics as suite_metrics  # noqa: E402
@@ -333,7 +369,12 @@ from repro_torch.kernels import (  # noqa: E402
 from repro_torch.kernels import kpp_probe as kpp  # noqa: E402
 from repro_torch.kernels import precision as px  # noqa: E402
 from repro_torch.kernels import update as upd  # noqa: E402
+from repro_torch.examples import embedding_clustering  # noqa: E402
 from repro_torch.launch import roofline  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.models import decode_check  # noqa: E402
+from repro_torch.models import registry as zoo_registry  # noqa: E402
+from repro_torch.models import transformer as zoo_transformer  # noqa: E402
 from repro_torch.serve import ServeConfig  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
@@ -5358,6 +5399,332 @@ def phase_suite(X, seed: int, res_b, paths: dict) -> dict:
             "evalsuite_full": (launches_f, seconds["13b"])}
 
 
+# --------------------------------------------------------------------------
+# phase 14: the model zoo's serving path and its two entry points
+# --------------------------------------------------------------------------
+
+ZOO_B, ZOO_S = 8, 2048              # 14a's and 14b's forward
+ZOO_DECODE = 8                      # tokens decoded after the prefill
+ZOO_DECODE_B, ZOO_DECODE_S = 2, 256  # 14b's prefill + decode: 248 + 8
+ZOO_FRAMES = 1024                   # seamless's audio frames
+ZOO_DEPTH = {"deepseek-moe-16b": 4,  # of 28: 16.9B parameters in f32 do
+             "qwen3-moe-235b-a22b": 2}  # not fit; of 94: 235B
+# Decoded logits and the decode cache against the forward's:
+# ``repro_torch.models.decode_check`` (its docstring has the bounds and why).
+EMBED_K, EMBED_S, EMBED_CHUNKS = 64, 512, 25   # the example's fit
+LAUNCH_ARGV = ["--arch", "bigmeans_paper", "--chunks", "32", "--scale",
+               "0.02"]
+
+
+def timed(fn):
+    """(fn(), its wall in ms), the card synchronized on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.monotonic() - t0)
+
+
+def zoo_config(arch: str):
+    """The arch at its published width, its depth cut where ZOO_DEPTH
+    says."""
+    cfg = zoo_registry.get_config(arch)
+    if arch in ZOO_DEPTH:
+        cfg = dataclasses.replace(cfg, num_layers=ZOO_DEPTH[arch])
+    return cfg
+
+
+def zoo_forward_twice(cfg, model, tokens, frames, what: str):
+    """Two forwards: logits [B, S, V], finite, bitwise equal; their ms."""
+    a, ms_a = timed(lambda: decode_check.forward(cfg, model, tokens,
+                                                 frames)[0])
+    b, ms_b = timed(lambda: decode_check.forward(cfg, model, tokens,
+                                                 frames)[0])
+    check(tuple(a.shape) == (*tokens.shape, cfg.vocab_size),
+          f"{what}: logits {tuple(a.shape)}")
+    check(bool(torch.isfinite(a).all()), f"{what}: non-finite logits")
+    check(torch.equal(a, b), f"{what}: two forwards differ")
+    return a, [ms_a, ms_b]
+
+
+def embedding_kernels(H, res, seed: int) -> dict:
+    """A, B and C at the embedding fit's chunk shape (s = 512 rows of H, its
+    k = 64 centroids, n = 128): each held to its plain version on the same
+    inputs as phase 3 holds them, then timed as in phase 6."""
+    s, (k, n) = EMBED_S, res.centroids.shape
+    gen = torch.Generator(device=H.device).manual_seed(seed)
+    x = H[torch.randint(0, H.shape[0], (s,), generator=gen,
+                        device=H.device)].contiguous()
+    c = res.centroids.contiguous()
+    ties = near_ties(x, c)
+    errs = {"fused_step_f32": check_fused(x, c, int(ties.sum())),
+            "assign_f32": check_assign(x, c, ties)}
+    ids, _ = distance.assign_plain(x, c)
+    errs["update_f32"] = check_update(x, ids, k)
+    nb, ops_, _ = fused_cost("f32", s, k, n)
+    rows = {"fused_step_f32": timing(
+        lambda: fused_step.fused_step_f32(x, c),
+        lambda: fused_step.fused_step_plain(x, c), None, nb, ops_, 200)}
+    nb, ops_, _ = assign_cost("f32", s, k, n)
+    rows["assign_f32"] = timing(
+        lambda: distance.assign_f32(x, c),
+        lambda: distance.assign_plain(x, c), lambda: torch.mm(x, c.t()),
+        nb, ops_, 200)
+    rows["assign_f32"]["library"] = MM_F32
+    ids64 = ids.long()
+    rows["update_f32"] = timing(
+        lambda: upd.update_f32(x, ids, k),
+        lambda: upd.update_plain(x, ids, k),
+        lambda: torch.zeros((k, n), device="cuda").index_add_(0, ids64, x),
+        4 * (s * n + s + k * n + k), s * n, 200)
+    rows["update_f32"]["library"] = "index_add_ (sums only; counts excluded)"
+    for name, row in rows.items():
+        row.update(s=s, k=k, n=n, max_abs_err=errs[name])
+    return rows
+
+
+def phase_zoo_hymba(seed: int, card: str) -> tuple:
+    """14a: hymba-1.5b at its published width and depth.  Returns
+    ({kernel: row at the embedding shape}, the embedding path's (launches,
+    wall s))."""
+    dev = devices.resolve(None)
+    cfg = zoo_config("hymba-1.5b")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model, init_ms = timed(lambda: zoo_transformer.init_params(
+        cfg, gen, device=dev))
+    tokens, _ = decode_check.random_inputs(cfg, ZOO_B, ZOO_S, gen, dev)
+    windows = zoo_transformer.window_schedule(cfg, cfg.num_layers)
+    torch.cuda.reset_peak_memory_stats()
+    full, fwd_ms = zoo_forward_twice(cfg, model, tokens, None, "14a")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    dec = decode_check.decode_gap(cfg, model, tokens, None, ZOO_DECODE)
+    bad = decode_check.decode_faults(dec, hybrid=True)
+    check(not bad, f"14a: {bad}")
+    H, harvest_ms = timed(lambda: embedding_clustering.harvest(
+        cfg, model, tokens))
+    check(tuple(H.shape) == (ZOO_B * ZOO_S, 128) and torch.equal(
+        H, full.reshape(-1, cfg.vocab_size)[:, :128]),
+        "14a: harvest is not the forward's first 128 logit columns")
+    n_params = sum(p.numel() for p in model.parameters())
+    del full, model
+    torch.cuda.empty_cache()
+
+    kw = dict(k=EMBED_K, s=EMBED_S, n_chunks=EMBED_CHUNKS, seed=seed)
+    for impl in ("auto", "ref"):        # warm both paths (first-use costs)
+        fit(H, **dict(kw, n_chunks=2, seed=seed + 1), impl=impl)
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    res, fit_ms = timed(lambda: fit(H, **kw))
+    (ids, f_full), eval_ms = timed(lambda: evaluate(res, H))
+    wall = time.monotonic() - t0
+    launches = ops.launch_counts()
+    n_eval = math.ceil(H.shape[0] / EVAL_BATCH)
+    check(res.extras["fit"]["impl"] == "cuda" and res.strategy
+          == "sequential", "14a: the embedding fit did not use the kernels")
+    check(launches == dict(dict.fromkeys(launches, 0),
+                           fused_step=res.n_iterations,
+                           assign=EMBED_CHUNKS + n_eval,
+                           update=EMBED_CHUNKS),
+          f"14a: launches {launches}, {res.n_iterations} iterations")
+    check(tuple(ids.shape) == (H.shape[0],) and math.isfinite(f_full),
+          "14a: evaluate")
+    res_ref = fit(H, **kw, impl="ref")
+    check(ops.launch_counts() == launches, "14a: the ref fit launched")
+    _, f_ref = evaluate(res_ref, H)
+    rel = abs(f_full - f_ref) / f_ref
+    check(rel <= 1e-3, f"14a: full objectives differ by {rel:.3e}")
+    rows = embedding_kernels(H, res, seed)
+    emit({"phase": "zoo_hymba", "arch": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "heads": [cfg.num_heads,
+                                            cfg.num_kv_heads],
+          "vocab": cfg.vocab_size, "parameters": n_params,
+          "param_count": cfg.param_count(), "batch": ZOO_B, "seq": ZOO_S,
+          "window_layers": sum(w == cfg.window for w in windows),
+          "ssd_chunks": math.ceil(ZOO_S / cfg.ssm_chunk),
+          "init_ms": init_ms, "forward_ms": fwd_ms,
+          "forward_peak_gb": peak_gb, "forwards_bitwise": True,
+          "decode": dec, "decode_tol": decode_check.HYMBA_DECODE_TOL,
+          "cache_rel_bound": decode_check.HYMBA_CACHE_REL,
+          "harvest_ms": harvest_ms, "rows": list(H.shape),
+          "fit": {"k": EMBED_K, "s": EMBED_S, "n_chunks": EMBED_CHUNKS,
+                  "fit_ms": fit_ms, "fit_wall_s": res.wall_time_s,
+                  "evaluate_ms": eval_ms, "f_full": f_full,
+                  "f_full_ref": f_ref, "f_full_rel_diff": rel,
+                  "n_iterations": res.n_iterations,
+                  "n_accepted": res.n_accepted, "launches": launches},
+          "kernels_at_embedding_shape": rows, "card": card})
+    return rows, (launches, wall)
+
+
+def phase_zoo_others(seed: int, card: str) -> list:
+    """14b: seamless-m4t-medium at full depth, deepseek-moe-16b and
+    qwen3-moe-235b-a22b at their published widths with ZOO_DEPTH layers:
+    the B = 8 forward twice, and prefill + decode at B = 2 (248 + 8, no
+    token dropped) against the forward."""
+    dev = devices.resolve(None)
+    out = []
+    for arch in ("seamless-m4t-medium", "deepseek-moe-16b",
+                 "qwen3-moe-235b-a22b"):
+        cfg = zoo_config(arch)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        model, init_ms = timed(lambda: zoo_transformer.init_params(
+            cfg, gen, device=dev))
+        n_params = sum(p.numel() for p in model.parameters())
+        tokens, frames = decode_check.random_inputs(
+            cfg, ZOO_B, ZOO_S, gen, dev, frames=ZOO_FRAMES)
+        torch.cuda.reset_peak_memory_stats()
+        full, fwd_ms = zoo_forward_twice(cfg, model, tokens, frames,
+                                         f"14b {arch}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        del full, tokens, frames
+        torch.cuda.empty_cache()
+        dcfg = cfg
+        if cfg.moe:                     # no token dropped in the forward
+            dcfg = dataclasses.replace(
+                cfg, capacity_factor=cfg.num_experts / cfg.top_k)
+        tokens, frames = decode_check.random_inputs(
+            dcfg, ZOO_DECODE_B, ZOO_DECODE_S, gen, dev, frames=ZOO_FRAMES)
+        dec = decode_check.decode_gap(dcfg, model, tokens, frames,
+                                      ZOO_DECODE)
+        bad = decode_check.decode_faults(dec, hybrid=False)
+        check(not bad, f"14b {arch}: {bad}")
+        row = {"arch": arch, "layers": cfg.num_layers,
+               "published_layers": zoo_registry.get_config(arch).num_layers,
+               "encoder_layers": cfg.encoder_layers,
+               "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+               "parameters": n_params, "batch": ZOO_B, "seq": ZOO_S,
+               "frames": ZOO_FRAMES if frames is not None else None,
+               "init_ms": init_ms, "forward_ms": fwd_ms,
+               "forward_peak_gb": peak_gb, "forwards_bitwise": True,
+               "decode": dec,
+               "decode_steps_bound": decode_check.DECODE_STEPS,
+               "cache_rel_bound": decode_check.CACHE_REL,
+               "capacity_factor": dcfg.capacity_factor, "card": card}
+        emit({"phase": "zoo_other", **row})
+        out.append(row)
+        del model, tokens, frames
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_zoo_example(card: str) -> list:
+    """14c: the reference example's own run, reduced configs, on the card."""
+    rows = []
+    for arch in zoo_registry.LM_ARCHS:
+        got, ms = timed(lambda: embedding_clustering.main(["--arch", arch]))
+        res = got["result"]
+        check((got["rows"], got["width"]) == (1024, 128)
+              and res.extras["fit"]["impl"] == "cuda"
+              and res.centroids.is_cuda
+              and 0 < got["mse"] < got["variance"],
+              f"14c {arch}: {got['rows']} x {got['width']}, "
+              f"mse {got['mse']}, variance {got['variance']}")
+        rows.append({"arch": arch, "mse": got["mse"],
+                     "variance": got["variance"], "wall_ms": ms})
+    emit({"phase": "zoo_example", "rows": rows, "card": card})
+    return rows
+
+
+def phase_launch_train(seed: int, root: Path, card: str) -> tuple:
+    """14d: the clustering launcher on the card; again with ``--ckpt`` (the
+    reference's step layout), resumed by a second call; an LM arch
+    refused.  Returns the launcher path's (launches, wall s)."""
+    argv = [*LAUNCH_ARGV, "--seed", str(seed)]
+    chunks = int(argv[argv.index("--chunks") + 1])
+    launch_train.main([*argv[:3], str(BATCH), *argv[4:]])   # warm
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    res, ms = timed(lambda: launch_train.main(argv))
+    wall = time.monotonic() - t0
+    launches = ops.launch_counts()
+    failed = res.extras.get("chunks_failed", 0)
+    check(res.strategy == "streaming" and res.n_chunks == chunks
+          and failed == 0
+          and math.isfinite(res.objective) and res.config.batch == BATCH,
+          f"14d: {res.strategy} {res.n_chunks} chunks, {failed} failed")
+    check(launches["fused_step_batched"] > 0 and launches == dict(
+        dict.fromkeys(launches, 0), update=chunks, assign=chunks,
+        fused_step_batched=launches["fused_step_batched"]),
+        f"14d: launches {launches}")
+    # kernel D at the launcher's shape: its 8 streams of chunks, the fit's
+    # incumbent on each
+    cfg = zoo_registry.get_config("bigmeans_paper")
+    scale = float(argv[argv.index("--scale") + 1])
+    spec = GMMSpec(m=max(int(cfg.m * scale), cfg.s * 2), n=cfg.n_features,
+                   components=cfg.k, spread=4.0, seed=seed)
+    xb = torch.stack([gmm_chunk(spec, i, cfg.s) for i in range(BATCH)])
+    cb = res.centroids.expand(BATCH, *res.centroids.shape).contiguous()
+    d_err, _ = check_batched(xb, cb)
+    del xb
+
+    ckpt = root / "launch_train"
+    first = launch_train.main([*argv, "--ckpt", str(ckpt)])
+    check(first.objective == res.objective
+          and torch.equal(first.centroids, res.centroids),
+          "14d: the checkpointed run differs from the plain one")
+    steps = ckpt_lib.steps(str(ckpt))
+    layout = check_layout(root, cfg.k, cfg.n_features, set())
+    again = launch_train.main([*argv, "--ckpt", str(ckpt)])
+    check(again.n_chunks == 0 and again.objective == first.objective,
+          f"14d: resumed {again.n_chunks} chunks to f_best "
+          f"{again.objective} (first {first.objective})")
+    refused = raises(lambda: launch_train.main(["--arch", "hymba-1.5b"]),
+                     "LM archs")
+    emit({"phase": "zoo_launch_train", "argv": argv,
+          "m": spec.m, "n": spec.n, "k": res.config.k, "s": res.config.s,
+          "batch": res.config.batch, "f_best": res.objective,
+          "n_accepted": res.n_accepted, "failed": failed, "wall_ms": ms,
+          "fit_wall_s": res.wall_time_s, "launches": launches,
+          "fused_step_batched_err_at_shape": d_err,
+          "ckpt_steps": steps, "ckpt_steps_checked": layout,
+          "resumed_chunks": again.n_chunks, "resumed_f_best":
+          again.objective, "refused": refused, "card": card})
+    return launches, wall
+
+
+def phase_zoo_flops(card: str) -> list:
+    """14e: ``roofline.model_flops`` for the four archs at the four
+    assigned shapes."""
+    rows = [{"arch": arch, "shape": name, "kind": shape.kind,
+             "model_flops": roofline.model_flops(
+                 zoo_registry.get_config(arch), shape)}
+            for arch in zoo_registry.LM_ARCHS
+            for name, shape in zoo_shapes.SHAPES.items()]
+    emit({"phase": "zoo_model_flops", "rows": rows, "card": card})
+    return rows
+
+
+def phase_zoo(seed: int) -> tuple:
+    """Phase 14.  Returns ({kernel: row at the embedding shape}, {path:
+    (launches, wall s)})."""
+    card = nvidia_smi()
+    torch.cuda.empty_cache()            # 14b's forwards peak at ~67 GB
+    emit({"phase": "zoo_start",
+          "allocated_gb": torch.cuda.memory_allocated() / 1e9, "card": card})
+    seconds, paths = {}, {}
+    t0 = time.monotonic()
+    rows, paths["embedding"] = phase_zoo_hymba(seed, card)
+    seconds["14a"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    phase_zoo_others(seed, card)
+    seconds["14b"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    phase_zoo_example(card)
+    seconds["14c"] = time.monotonic() - t0
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_zoo_"))
+    t0 = time.monotonic()
+    try:
+        paths["launch_train"] = phase_launch_train(seed, root, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seconds["14d"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    phase_zoo_flops(card)
+    seconds["14e"] = time.monotonic() - t0
+    emit({"phase": "zoo_seconds", **seconds, "card": card})
+    return rows, paths
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5372,6 +5739,8 @@ def main() -> int:
     autotune.set_cache_path(None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products accumulate in f32, as XLA's do (the zoo, phase 14)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     smi = nvidia_smi()
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
@@ -5379,6 +5748,8 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "nvidia_smi": smi,
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "matmul_allow_bf16_reduced_precision_reduction":
+          torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
 
     # phase 2: build
@@ -5496,6 +5867,13 @@ def main() -> int:
     # hold the main chunk shape's)
     errs.update(two_pass_errs)
     errs["assign_bf16"] = two_pass_errs_16["assign_bf16"]
+
+    # phase 14: the model zoo on the card, its embedding clustering and
+    # the clustering launcher
+    zoo_rows, zoo_paths = phase_zoo(args.seed)
+    for name, row in zoo_rows.items():
+        times[name]["at_embedding"] = row
+    paths.update(zoo_paths)
 
     # launches: each kernel's from the path that drives it (PATH_OF),
     # every path's counts beside them

@@ -8,6 +8,11 @@ state with a leading batch axis (the batched driver's per-stream states)
 as they take a single one: every field keeps its shape.  A quantized chunk
 travels as its numpy ``(q, scale)`` pair (:func:`quantized_from_numpy`,
 :func:`quantized_to_numpy`), so both packages can be fed the same codes.
+
+The model zoo's weights cross as the reference's parameter pytree read
+out as numpy (:func:`model_params_from_numpy`), and its decode cache both
+ways (:func:`cache_from_numpy`, :func:`cache_to_numpy`), so a decode can
+start from the other package's cache.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import torch
 
 from repro_torch.core.bigmeans import BigMeansState
 from repro_torch.kernels.precision import QuantizedChunk
+from repro_torch.models import transformer
 
 
 def state_from_numpy(centroids, degenerate, f_best, n_accepted,
@@ -52,3 +58,73 @@ def quantized_to_numpy(qx: QuantizedChunk) -> tuple[np.ndarray, np.ndarray]:
     """(q int8, scale f32) as numpy: the fields of the reference's
     ``QuantizedChunk``."""
     return qx.q.detach().cpu().numpy(), qx.scale.detach().cpu().numpy()
+
+
+def _tensor(a, *, device) -> torch.Tensor:
+    """A numpy array (``ml_dtypes.bfloat16`` included) as a tensor."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":          # numpy has no bf16 of its own
+        return torch.from_numpy(np.array(a.view(np.int16))).view(
+            torch.bfloat16).to(device)
+    return torch.as_tensor(np.array(a), device=device)
+
+
+def _load(module, tree: dict, index, path: str) -> int:
+    """Copy ``tree``'s leaves into ``module``'s parameters of the same
+    names (``index`` picks a layer of stacked leaves); returns the count."""
+    n = 0
+    for key, val in tree.items():
+        where = f"{path}/{key}"
+        target = getattr(module, key)
+        if isinstance(val, dict):
+            n += _load(target, val, index, where)
+            continue
+        val = np.asarray(val)
+        if index is not None:
+            val = val[index]
+        if tuple(val.shape) != tuple(target.shape):
+            raise ValueError(f"{where}: shape {val.shape} != {target.shape}")
+        with torch.no_grad():
+            target.copy_(_tensor(val, device=target.device))
+        n += 1
+    return n
+
+
+def model_params_from_numpy(cfg, tree: dict, *, device):
+    """The port's model holding a reference parameter pytree's values.
+
+    ``tree`` is ``jax.tree.map(np.asarray, params)``: the stacked ``[L,
+    ...]`` leaves of ``layers`` and ``encoder`` are split per layer, in the
+    reference's einsum layout (``wq`` [D, H, hd], no transpose).  Every
+    parameter of the port's model must be given exactly once.
+    """
+    model = transformer.init_params(cfg, 0, device=device,
+                                    dtype=torch.float32)
+    n = 0
+    for key, val in tree.items():
+        if key in ("layers", "encoder"):
+            for i, block in enumerate(getattr(model, key)):
+                n += _load(block, val, i, f"{key}[{i}]")
+        else:
+            n += _load(model, {key: val}, None, "")
+    want = sum(1 for _ in model.parameters())
+    if n != want:
+        raise ValueError(f"{n} leaves loaded, the model has {want}")
+    return model
+
+
+def cache_from_numpy(tree: dict, *, device) -> dict:
+    """A decode cache (stacked by layer) from the reference's, as numpy;
+    bf16 leaves keep their bits."""
+    return {key: cache_from_numpy(val, device=device)
+            if isinstance(val, dict) else _tensor(val, device=device)
+            for key, val in tree.items()}
+
+
+def cache_to_numpy(cache: dict) -> dict:
+    """A decode cache as numpy in the reference's layout; bf16 leaves come
+    out as float32, which holds them exactly."""
+    return {key: cache_to_numpy(val) if isinstance(val, dict)
+            else val.detach().cpu().float().numpy()
+            if val.dtype == torch.bfloat16 else val.detach().cpu().numpy()
+            for key, val in cache.items()}

@@ -1,7 +1,10 @@
 """Launch-side tooling of the port.
 
-:mod:`repro_torch.launch.roofline` — the Big-means half of the
-reference's ``repro.launch.roofline`` (roofline terms and the fused-chunk
-traffic model) with the H100's published peaks.  The reference's XLA
-dry-run and HLO tools are not ported.
+:mod:`repro_torch.launch.roofline` — the reference's
+``repro.launch.roofline`` (roofline terms, the fused-chunk traffic model
+and ``model_flops``) with the H100's published peaks; its ``main`` (a
+projection of the reference's TPU benchmark file) is not ported.
+:mod:`repro_torch.launch.train` — the clustering launcher.  The dry-run
+and HLO tools (``dryrun``, ``specs``, ``mesh``, ``perf``, ``report``,
+``hlo_analysis``, ``hlo_profile``) come with the training slice.
 """

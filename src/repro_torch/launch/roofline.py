@@ -17,7 +17,8 @@ Terms:
                  port's runs on one card make no device collective)
 
 ``chunk_bytes`` and ``chunk_traffic`` are the reference's traffic model,
-unchanged, so both packages count the same bytes and FLOPs for a chunk.
+unchanged, so both packages count the same bytes and FLOPs for a chunk;
+``model_flops`` is the reference's count of a zoo model's FLOPs at a shape.
 """
 from __future__ import annotations
 
@@ -118,3 +119,16 @@ def precision_roofline(row: dict) -> dict:
             traffic["flops"] / traffic["bytes"], 3),
         **terms,
     }
+
+
+def model_flops(cfg, shape) -> float:
+    """MODEL_FLOPS = 6·N·D (train) / 2·N·D (inference), N = active params:
+    a zoo config (``repro_torch.models.config.ModelConfig``) at one of
+    ``repro_torch.configs.shapes.SHAPES``."""
+    n_active = cfg.active_param_count()
+    if shape.kind == "train":
+        return 6.0 * n_active * shape.global_batch * shape.seq_len
+    if shape.kind == "prefill":
+        return 2.0 * n_active * shape.global_batch * shape.seq_len
+    # decode: one token per sequence
+    return 2.0 * n_active * shape.global_batch

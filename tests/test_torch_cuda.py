@@ -1540,3 +1540,87 @@ def test_suite_sequential_row_on_card_against_plain(tmp_path):
     assert schema.validate(twin, schema._ROW_SCHEMA) == []
     assert twin["fit"]["impl"] == "ref" and twin["fit"]["device"] == "cuda"
     assert abs(row["f_full"] - twin["f_full"]) <= RTOL * twin["f_full"]
+
+
+@pytest.fixture
+def zoo_card():
+    """The card with bf16 products accumulated in f32, as ``chip_smoke.py``
+    phase 14 runs them; the cuBLAS switch is restored afterwards."""
+    _card()
+    mm = torch.backends.cuda.matmul
+    was = mm.allow_bf16_reduced_precision_reduction
+    mm.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        mm.allow_bf16_reduced_precision_reduction = was
+
+
+def _zoo_forward_twice(cfg, model, tokens, frames):
+    from repro_torch.models import decode_check as dc
+
+    a, _ = dc.forward(cfg, model, tokens, frames)
+    b, _ = dc.forward(cfg, model, tokens, frames)
+    assert tuple(a.shape) == (*tokens.shape, cfg.vocab_size)
+    assert bool(torch.isfinite(a).all()) and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_zoo_hymba_on_card_forward_decode_and_embedding_fit(zoo_card):
+    """``chip_smoke.py`` 14a at a small depth: hymba-1.5b at its published
+    width with 2 layers, B = 2 x S = 512 (2 SSD chunks of 256): two
+    forwards bitwise, prefill + 4 decoded tokens held as 14a holds them
+    (``decode_check``), the harvested rows fitted by the kernels (A, B, C
+    launched) to the plain twin's full-data objective within 1e-3."""
+    import dataclasses
+
+    from repro_torch import api
+    from repro_torch.examples import embedding_clustering as ex
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode_check as dc
+    from repro_torch.models import registry, transformer
+
+    cfg = dataclasses.replace(registry.get_config("hymba-1.5b"),
+                              num_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = transformer.init_params(cfg, gen)
+    tokens, _ = dc.random_inputs(cfg, 2, 512, gen, torch.device("cuda"))
+    _zoo_forward_twice(cfg, model, tokens, None)
+    dec = dc.decode_gap(cfg, model, tokens, None, 4)
+    assert dc.decode_faults(dec, hybrid=True) == []
+    H = ex.harvest(cfg, model, tokens)
+    assert tuple(H.shape) == (1024, 128) and H.is_cuda
+    ops.reset_launch_counts()
+    res = api.fit(H, k=64, s=512, n_chunks=5, seed=0)
+    _, f = api.evaluate(res, H)
+    counts = ops.launch_counts()
+    assert counts["fused_step"] == res.n_iterations
+    assert counts["update"] == 5 and counts["assign"] == 6
+    twin = api.fit(H, k=64, s=512, n_chunks=5, seed=0, impl="ref")
+    _, f_twin = api.evaluate(twin, H)
+    assert abs(f - f_twin) <= 1e-3 * f_twin
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "deepseek-moe-16b",
+                                  "qwen3-moe-235b-a22b"])
+def test_zoo_others_on_card_forward_and_decode(arch, zoo_card):
+    """``chip_smoke.py`` 14b at a small depth: the arch at its published
+    width with 1 layer (seamless 1 + 1), B = 2 x S = 128: two forwards
+    bitwise, prefill 124 + 4 decoded tokens with no token dropped
+    (capacity_factor = E / top_k), held as 14b holds them."""
+    import dataclasses
+
+    from repro_torch.models import decode_check as dc
+    from repro_torch.models import registry, transformer
+
+    cfg = registry.get_config(arch)
+    cfg = dataclasses.replace(
+        cfg, num_layers=1, encoder_layers=min(cfg.encoder_layers, 1),
+        capacity_factor=(cfg.num_experts / cfg.top_k if cfg.moe else 1.0))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = transformer.init_params(cfg, gen)
+    tokens, frames = dc.random_inputs(cfg, 2, 128, gen, torch.device("cuda"))
+    _zoo_forward_twice(cfg, model, tokens, frames)
+    dec = dc.decode_gap(cfg, model, tokens, frames, 4)
+    assert dc.decode_faults(dec, hybrid=False) == []

@@ -37,7 +37,15 @@ def test_port_imports_neither_jax_nor_repro():
     for new in ("repro_torch.evalsuite", "repro_torch.evalsuite.suite",
                 "repro_torch.evalsuite.hostcell", "repro_torch.configs",
                 "repro_torch.configs.bigmeans_paper",
-                "repro_torch.launch.roofline"):
+                "repro_torch.launch.roofline",
+                *(f"repro_torch.models.{m}" for m in (
+                    "config", "decode_check", "layers", "ssm", "moe",
+                    "transformer", "encdec", "registry")),
+                *(f"repro_torch.configs.{m}" for m in (
+                    "hymba_1_5b", "seamless_m4t_medium", "deepseek_moe_16b",
+                    "qwen3_moe_235b_a22b", "shapes")),
+                "repro_torch.examples.embedding_clustering",
+                "repro_torch.launch.train"):
         assert new in modules, new
 
 
@@ -90,6 +98,19 @@ def test_no_card_means_no_run(monkeypatch):
         schema.host_info()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cfg.resolved_impl()
+    from repro_torch.examples import embedding_clustering
+    from repro_torch.launch import train
+    from repro_torch.models import registry, transformer
+
+    zoo = registry.get_config("hymba-1.5b").reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transformer.init_params(zoo, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transformer.init_cache(zoo, 1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        embedding_clustering.main(["--arch", "hymba-1.5b"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--chunks", "8"])
     assert devices.resolve("cpu") == torch.device("cpu")
 
 
