@@ -297,6 +297,24 @@ Phases, each printing JSON lines:
    and resumed by a second call to the same f_best; ``--arch
    hymba-1.5b`` refused.  14e: ``roofline.model_flops`` for the four
    archs at the four assigned shapes.
+15. training the zoo — ``repro_torch.train`` on the card, no kernel of
+   this repository on its path.  15a: hymba-1.5b at its published width and
+   depth, f32 masters, ``adamw(1e-3)``, B = 4 x 2,048 tokens of one seeded
+   batch: ``value_and_grad`` at the initial parameters under
+   ``REMAT_POLICY`` "full" and "dots" (loss and every gradient bitwise),
+   the loss bitwise the inference forward's ``_nll``; 4 steps under "full"
+   (finite, falling; every parameter finite, some moved), again from the
+   seed (bitwise: losses and parameters); a step under each policy timed
+   (CUDA events), its tokens/s and peak GB.  15b: one step of each arch's
+   reduced config and of the CPU tests' VLM config at f32 compute, held to
+   the same step on the CPU (loss within 1e-4, gradients as the CPU tests
+   hold them, new parameters within ``train.step_check``'s gap).  15c:
+   seamless-m4t-medium at full depth, ``CHUNKED_LOSS`` off and on (B = 4 x
+   1,024, 1,024 frames: loss within 1e-5, ms and peak of each);
+   deepseek-moe-16b at 4 of 28 layers, ``MOE_GROUPED_DISPATCH = 4`` at
+   capacity E / top_k against one group (loss within 1e-6); one
+   ``BF16_GRADS`` step on hymba against the f32-gradient one (loss bitwise,
+   only the tied embedding's gradient off, parameters within 2 lr).
 
 Then the one ``{"kernels": [...]}`` line (the assign kernels' rows carry
 their serving times as ``at_serving``; ``launches_per_path`` the serving
@@ -315,6 +333,7 @@ It needs a CUDA card and the repository's ``src`` beside it.
 from __future__ import annotations
 
 import argparse
+import copy
 import cProfile
 import dataclasses
 import json
@@ -373,8 +392,13 @@ from repro_torch.examples import embedding_clustering  # noqa: E402
 from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import decode_check  # noqa: E402
+from repro_torch.models import flags as zoo_flags  # noqa: E402
+from repro_torch.models import layers as zoo_layers  # noqa: E402
 from repro_torch.models import registry as zoo_registry  # noqa: E402
 from repro_torch.models import transformer as zoo_transformer  # noqa: E402
+from repro_torch.train import optimizer as zoo_optimizer  # noqa: E402
+from repro_torch.train import step_check  # noqa: E402
+from repro_torch.train import train_step as zoo_train_step  # noqa: E402
 from repro_torch.serve import ServeConfig  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
@@ -5725,6 +5749,381 @@ def phase_zoo(seed: int) -> tuple:
     return rows, paths
 
 
+# --------------------------------------------------------------------------
+# phase 15: training the zoo (repro_torch.train)
+# --------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S = 4, 2048          # 15a: S as phase 14's, the window binds
+TRAIN_STEPS, TRAIN_LR = 4, 1e-3
+TRAIN_F32_RTOL = 1e-4               # 15b: the CPU tests' F32_RTOL
+TRAIN_HYBRID_STEPS = (1.0, 0.1)     # 15b: hymba's gradient allowance, in
+#                                     bf16 steps of a leaf's scale (largest
+#                                     error, 99th percentile), the CPU tests'
+BF16_STEP = 2.0 ** -7
+CHUNK_B, CHUNK_S, CHUNK = 4, 1024, 256   # 15c: seamless's decoder tokens
+#                                     (1,024 frames), the loss chunk
+GROUPED_DEPTH, GROUPED_G = 4, 4     # 15c: deepseek-moe-16b at 4 of 28 layers
+
+
+def vlm_test_config():
+    """The VLM config of the CPU tests (``tests/test_torch_models.py``):
+    prefix-LM attention over 4 stub patches, softcaps, sandwich norms,
+    scaled embeddings, geglu, local / global layers."""
+    from repro_torch.models.config import ModelConfig
+    return ModelConfig(
+        name="vlm-test", family="vlm", num_layers=2, d_model=64,
+        num_heads=4, num_kv_heads=2, head_dim=16, d_ff=128, vocab_size=512,
+        window=8, layer_pattern="local_global", attn_softcap=50.0,
+        final_softcap=30.0, sandwich_norm=True, scale_embedding=True,
+        mlp="geglu", frontend="vision", frontend_dim=32, frontend_len=4)
+
+
+def lm_batch(cfg, B: int, S: int, gen, device, frames: int = 1024) -> dict:
+    """Random next-token data: tokens [B, S], labels the tokens after them
+    (and the frames of an encoder-decoder, the patches of a VLM)."""
+    seq = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                        device=device)
+    batch = {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+    if cfg.family == "encdec":
+        batch["frontend"] = torch.randn((B, frames, cfg.frontend_dim),
+                                        generator=gen, device=device)
+    elif cfg.family == "vlm":
+        batch["frontend"] = torch.randn(
+            (B, cfg.frontend_len, cfg.frontend_dim), generator=gen,
+            device=device)
+    return batch
+
+
+def event_ms(fn):
+    """(fn(), its device ms by CUDA events, peak GB allocated during it)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end), \
+        torch.cuda.max_memory_allocated() / 1e9
+
+
+def same_grads(a: dict, b: dict) -> bool:
+    return set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def train_run(cfg, seed: int, batch: dict, policy: str):
+    """A model from ``seed`` trained TRAIN_STEPS AdamW steps on ``batch``:
+    (model, [loss], [ms], [peak GB])."""
+    dev = devices.resolve(None)
+    model = zoo_transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    opt = zoo_optimizer.adamw(TRAIN_LR)
+    state = opt.init(model)
+    step = zoo_train_step.make_train_step(cfg, opt)
+    losses, ms, peaks = [], [], []
+    zoo_flags.REMAT_POLICY = policy
+    try:
+        for _ in range(TRAIN_STEPS):
+            (model, state, m), t, gb = event_ms(
+                lambda: step(model, state, batch))
+            losses.append(m["loss"])
+            ms.append(t)
+            peaks.append(gb)
+    finally:
+        zoo_flags.REMAT_POLICY = "full"
+    return model, losses, ms, peaks
+
+
+def phase_train_hymba(seed: int, card: str) -> dict:
+    """15a: hymba-1.5b at its published width and depth, f32 masters and
+    AdamW, B = 4 x 2,048 on one seeded batch."""
+    dev = devices.resolve(None)
+    cfg = zoo_config("hymba-1.5b")
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    batch = lm_batch(cfg, TRAIN_B, TRAIN_S, gen, dev)
+    model = zoo_transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+
+    # the inference forward's NLL: step 0's loss, bitwise
+    logits, _ = zoo_transformer.forward(cfg, model, batch["tokens"])
+    tot, cnt = zoo_transformer._nll(logits, batch["labels"])
+    nll_ref = tot / torch.clamp_min(cnt, 1)
+    del logits
+    torch.cuda.empty_cache()
+
+    # gradients at the initial parameters: "full", "dots", BF16_GRADS
+    vg = {}
+    for policy in ("full", "dots"):
+        zoo_flags.REMAT_POLICY = policy
+        try:
+            vg[policy] = event_ms(lambda: zoo_train_step.value_and_grad(
+                cfg, model, batch))
+        finally:
+            zoo_flags.REMAT_POLICY = "full"
+    (loss0, g32), _, _ = vg["full"]
+    check(torch.equal(loss0, vg["dots"][0][0])
+          and same_grads(g32, vg["dots"][0][1]),
+          "15a: 'dots' loss or gradients differ from 'full'")
+    check(torch.equal(loss0, nll_ref),
+          f"15a: loss {float(loss0)} is not the inference forward's NLL "
+          f"{float(nll_ref)}")
+    grad_ms = {k: v[1] for k, v in vg.items()}
+    grad_gb = {k: v[2] for k, v in vg.items()}
+    del vg
+    torch.cuda.empty_cache()
+    bf16 = phase_train_bf16_grads(cfg, model, batch, loss0, g32)
+    del g32, model
+    torch.cuda.empty_cache()
+
+    # two runs of the 4 steps from the seed, bitwise; then a "dots" step
+    run_a, losses, ms, peaks = train_run(cfg, seed, batch, "full")
+    losses_f = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses_f)
+          and losses_f[-1] < losses_f[0],
+          f"15a: losses {losses_f}")
+    check(torch.equal(losses[0], nll_ref), "15a: step 0's loss")
+    check(all(bool(torch.isfinite(p).all()) for p in run_a.parameters()),
+          "15a: a parameter is not finite")
+    init = zoo_transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    moved = sum(not torch.equal(a, b) for a, b in zip(
+        run_a.parameters(), init.parameters()))
+    check(moved > 0, "15a: no parameter moved")
+    del init
+    run_b, losses_b, ms_b, peaks_b = train_run(cfg, seed, batch, "full")
+    check(all(torch.equal(a, b) for a, b in zip(losses, losses_b))
+          and all(torch.equal(a, b) for a, b in zip(run_a.parameters(),
+                                                    run_b.parameters())),
+          "15a: two runs of the steps differ")
+    del run_a
+    torch.cuda.empty_cache()
+    opt = zoo_optimizer.adamw(TRAIN_LR)
+    state = opt.init(run_b)
+    step = zoo_train_step.make_train_step(cfg, opt)
+    step_ms, step_gb = {}, {}
+    for policy in ("full", "dots"):
+        zoo_flags.REMAT_POLICY = policy
+        try:
+            (run_b, state, _), step_ms[policy], step_gb[policy] = event_ms(
+                lambda: step(run_b, state, batch))
+        finally:
+            zoo_flags.REMAT_POLICY = "full"
+    del run_b, state
+    torch.cuda.empty_cache()
+    tokens = TRAIN_B * TRAIN_S
+    row = {"arch": cfg.name, "layers": cfg.num_layers, "parameters": n_params,
+           "batch": TRAIN_B, "seq": TRAIN_S, "lr": TRAIN_LR,
+           "losses": losses_f, "loss0_is_forward_nll": True,
+           "step_ms": ms, "step_ms_second_run": ms_b,
+           "step_peak_gb": peaks, "tokens_per_s": [tokens / (t / 1e3)
+                                                  for t in ms],
+           "two_runs_bitwise": True, "parameters_moved": moved,
+           "grad_ms": grad_ms, "grad_peak_gb": grad_gb,
+           "dots_bitwise_full": True,
+           "policy_step_ms": step_ms, "policy_step_peak_gb": step_gb,
+           "policy_tokens_per_s": {k: tokens / (t / 1e3)
+                                   for k, t in step_ms.items()},
+           "bf16_grads": bf16, "card": card}
+    emit({"phase": "train_hymba", **row})
+    return row
+
+
+def phase_train_bf16_grads(cfg, model, batch, loss32, g32) -> dict:
+    """15c: one ``BF16_GRADS`` step on hymba from the initial parameters
+    against the f32-gradient step (zero moments both): the loss bitwise
+    (every weight is cast to bf16 before use either way), every gradient
+    but the tied embedding's bitwise the f32 one, the new parameters
+    within 2 lr of each other (a first AdamW step moves an element by at
+    most lr (1 + wd |p|), the decay term the same on both sides)."""
+    zoo_flags.BF16_GRADS = True
+    try:
+        (loss16, g16), ms, gb = event_ms(
+            lambda: zoo_train_step.value_and_grad(cfg, model, batch))
+    finally:
+        zoo_flags.BF16_GRADS = False
+    check(torch.equal(loss16, loss32), f"15c: BF16_GRADS loss "
+          f"{float(loss16)} against {float(loss32)}")
+    differ = sorted(k for k in g32 if not torch.equal(g16[k].float(),
+                                                      g32[k]))
+    check(differ in ([], ["embedding"]),
+          f"15c: BF16_GRADS gradients differ at {differ[:5]}")
+    check(all(g.dtype == (torch.bfloat16 if g.ndim > 1 else torch.float32)
+              for g in g16.values()), "15c: BF16_GRADS gradient dtypes")
+    emb = ((g16["embedding"].float() - g32["embedding"]).abs().max()
+           / (BF16_STEP * g32["embedding"].abs().max())).item()
+    opt = zoo_optimizer.adamw(TRAIN_LR)
+    gaps = {}
+    a = copy.deepcopy(model)
+    opt.update(g32, opt.init(a), a)
+    b = copy.deepcopy(model)
+    opt.update(g16, opt.init(b), b)
+    for (name, pa), pb in zip(a.named_parameters(), b.parameters()):
+        gaps[name] = (pa - pb).abs().max().item()
+    del a, b
+    top = max(gaps.values())
+    bound = 2 * TRAIN_LR * (1 + 1e-4)   # and the new values' f32 rounding
+    check(all(math.isfinite(v) for v in gaps.values()) and top <= bound,
+          f"15c: BF16_GRADS step {top} from the f32 one")
+    others = max(v for k, v in gaps.items() if k != "embedding")
+    return {"loss_bitwise": True, "grads_differing": differ,
+            "embedding_grad_bf16_steps": emb, "grad_ms": ms,
+            "grad_peak_gb": gb, "param_gap_max": top,
+            "param_gap_embedding": gaps["embedding"],
+            "param_gap_others_max": others,
+            "params_differing": sum(v > 0 for v in gaps.values()),
+            "bound": bound}
+
+
+def grads_within(got: dict, want: dict, hybrid: bool) -> float:
+    """The CPU tests' hold of gradients leaf by leaf (largest error and
+    99th percentile against the leaf's scale); returns the largest
+    error over scale."""
+    top, q99 = ((TRAIN_HYBRID_STEPS[0] * BF16_STEP,
+                 TRAIN_HYBRID_STEPS[1] * BF16_STEP) if hybrid
+                else (TRAIN_F32_RTOL, TRAIN_F32_RTOL))
+    worst = 0.0
+    for name, w in want.items():
+        g = got[name].detach().float().cpu()
+        err, scale = (g - w).abs(), w.abs().max().item()
+        q = torch.quantile(err.flatten(), 0.99).item()
+        check(q <= q99 * scale and err.max().item() <= top * scale,
+              f"15b: gradient {name}: {err.max().item()} over {scale}")
+        worst = max(worst, err.max().item() / max(scale, 1e-30))
+    return worst
+
+
+def phase_train_reduced(seed: int, card: str) -> list:
+    """15b: one train step of each arch's reduced config (and the CPU
+    tests' VLM config) on the card at f32 compute, held to the same step
+    on the CPU: the loss within TRAIN_F32_RTOL, the gradients as the CPU
+    tests hold them, the new parameters within ``step_check``'s gap of
+    the two gradients."""
+    dev = devices.resolve(None)
+    rows = []
+    compute = zoo_layers.COMPUTE_DTYPE
+    zoo_layers.COMPUTE_DTYPE = torch.float32
+    try:
+        for arch in [*zoo_registry.LM_ARCHS, "vlm"]:
+            cfg = vlm_test_config() if arch == "vlm" else \
+                zoo_registry.get_config(arch).reduced()
+            cpu = zoo_transformer.init_params(cfg, seed, device="cpu")
+            batch = lm_batch(cfg, 2, 32, torch.Generator().manual_seed(seed),
+                             "cpu", frames=16)
+            gpu = copy.deepcopy(cpu).to(dev)
+            gbatch = {k: v.to(dev) for k, v in batch.items()}
+            p0 = {k: v.detach().clone() for k, v in cpu.named_parameters()}
+            l_cpu, g_cpu = zoo_train_step.value_and_grad(cfg, cpu, batch)
+            l_gpu, g_gpu = zoo_train_step.value_and_grad(cfg, gpu, gbatch)
+            rel = abs(l_gpu.item() - l_cpu.item()) / abs(l_cpu.item())
+            check(rel <= TRAIN_F32_RTOL, f"15b {arch}: loss {rel}")
+            worst = grads_within(g_gpu, g_cpu, cfg.hybrid)
+            opt = zoo_optimizer.adamw(TRAIN_LR)
+            for m, b in ((cpu, batch), (gpu, gbatch)):
+                zoo_train_step.make_train_step(cfg, opt)(m, opt.init(m), b)
+            zeros = {k: torch.zeros_like(v) for k, v in p0.items()}
+            bound = step_check.step_gap_bound(p0, g_cpu, g_gpu, zeros, zeros,
+                                              1, TRAIN_LR)
+            gaps = {k: (v.detach().cpu() - w.detach()).abs().double()
+                    for (k, v), w in zip(gpu.named_parameters(),
+                                         cpu.parameters())}
+            check(all(bool((gaps[k].numpy() <= bound[k]).all())
+                      for k in gaps), f"15b {arch}: new parameters")
+            rows.append({"arch": arch, "loss_cpu": l_cpu.item(),
+                         "loss_card": l_gpu.item(), "loss_rel": rel,
+                         "grad_max_rel": worst,
+                         "param_gap_max": max(v.max().item()
+                                              for v in gaps.values())})
+    finally:
+        zoo_layers.COMPUTE_DTYPE = compute
+    emit({"phase": "train_reduced", "rows": rows, "card": card})
+    return rows
+
+
+def phase_train_switches(seed: int, card: str) -> dict:
+    """15c: seamless-m4t-medium at full depth, ``CHUNKED_LOSS`` off and on
+    (loss and gradients at a batch whose f32 logits fit); deepseek-moe-16b
+    at GROUPED_DEPTH layers, ``MOE_GROUPED_DISPATCH = 4`` at capacity E /
+    top_k against one group (the loss)."""
+    dev = devices.resolve(None)
+    out = {}
+    cfg = zoo_config("seamless-m4t-medium")
+    model = zoo_transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    batch = lm_batch(cfg, CHUNK_B, CHUNK_S,
+                     torch.Generator(device=dev).manual_seed(seed + 2), dev,
+                     frames=ZOO_FRAMES)
+    res = {}
+    for chunk in (None, CHUNK):
+        zoo_flags.CHUNKED_LOSS = chunk
+        try:
+            (loss, grads), ms, gb = event_ms(
+                lambda: zoo_train_step.value_and_grad(cfg, model, batch))
+        finally:
+            zoo_flags.CHUNKED_LOSS = None
+        res[chunk] = (loss.item(), ms, gb)
+        del grads
+        torch.cuda.empty_cache()
+    rel = abs(res[CHUNK][0] - res[None][0]) / abs(res[None][0])
+    check(rel <= 1e-5, f"15c: chunked loss {rel} from the unchunked")
+    out["seamless_chunked"] = {
+        "layers": [cfg.encoder_layers, cfg.num_layers],
+        "vocab": cfg.vocab_size, "batch": CHUNK_B, "seq": CHUNK_S,
+        "frames": ZOO_FRAMES, "chunk": CHUNK, "loss": res[None][0],
+        "loss_chunked": res[CHUNK][0], "rel": rel,
+        "grad_ms": res[None][1], "grad_ms_chunked": res[CHUNK][1],
+        "peak_gb": res[None][2], "peak_gb_chunked": res[CHUNK][2]}
+    del model
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(
+        zoo_registry.get_config("deepseek-moe-16b"), num_layers=GROUPED_DEPTH)
+    cfg = dataclasses.replace(cfg,
+                              capacity_factor=cfg.num_experts / cfg.top_k)
+    model = zoo_transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    batch = lm_batch(cfg, TRAIN_B, TRAIN_S,
+                     torch.Generator(device=dev).manual_seed(seed + 3), dev)
+    losses = {}
+    for groups in (0, GROUPED_G):
+        zoo_flags.MOE_GROUPED_DISPATCH = groups
+        try:
+            with torch.no_grad():
+                losses[groups], ms, gb = event_ms(
+                    lambda: zoo_transformer.loss_fn(cfg, model, batch))
+        finally:
+            zoo_flags.MOE_GROUPED_DISPATCH = -1
+        out.setdefault("deepseek_grouped", {})[f"G{groups}"] = {
+            "loss": losses[groups].item(), "ms": ms, "peak_gb": gb}
+    gap = abs(losses[GROUPED_G].item() - losses[0].item())
+    check(gap <= 1e-6, f"15c: grouped loss {gap} from the global one")
+    out["deepseek_grouped"].update(
+        layers=GROUPED_DEPTH, published_layers=28,
+        parameters=sum(p.numel() for p in model.parameters()),
+        capacity_factor=cfg.capacity_factor, batch=TRAIN_B, seq=TRAIN_S,
+        gap=gap, bitwise=bool(torch.equal(losses[0], losses[GROUPED_G])))
+    del model
+    torch.cuda.empty_cache()
+    emit({"phase": "train_switches", **out, "card": card})
+    return out
+
+
+def phase_train(seed: int) -> None:
+    """Phase 15: the zoo's training path on the card."""
+    card = nvidia_smi()
+    seconds = {}
+    t0 = time.monotonic()
+    phase_train_hymba(seed, card)
+    seconds["15a"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    phase_train_reduced(seed, card)
+    seconds["15b"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    phase_train_switches(seed, card)
+    seconds["15c"] = time.monotonic() - t0
+    emit({"phase": "train_seconds", **seconds, "card": card})
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5874,6 +6273,12 @@ def main() -> int:
     for name, row in zoo_rows.items():
         times[name]["at_embedding"] = row
     paths.update(zoo_paths)
+    del zoo_rows
+    torch.cuda.empty_cache()
+
+    # phase 15: training the zoo (hymba at full width and depth, the
+    # reduced configs against the CPU, the switches at width)
+    phase_train(args.seed)
 
     # launches: each kernel's from the path that drives it (PATH_OF),
     # every path's counts beside them

@@ -12,7 +12,11 @@ travels as its numpy ``(q, scale)`` pair (:func:`quantized_from_numpy`,
 The model zoo's weights cross as the reference's parameter pytree read
 out as numpy (:func:`model_params_from_numpy`), and its decode cache both
 ways (:func:`cache_from_numpy`, :func:`cache_to_numpy`), so a decode can
-start from the other package's cache.
+start from the other package's cache.  A parameter-shaped pytree (a
+gradient, an AdamW moment) maps to the port's parameter names and back
+(:func:`named_leaves`, :func:`stacked_tree`), and AdamW's state crosses
+both ways (:func:`adamw_state_from_numpy`, :func:`adamw_state_to_numpy`),
+so training can continue from the other package's optimizer.
 """
 from __future__ import annotations
 
@@ -22,6 +26,9 @@ import torch
 from repro_torch.core.bigmeans import BigMeansState
 from repro_torch.kernels.precision import QuantizedChunk
 from repro_torch.models import transformer
+from repro_torch.train.optimizer import AdamWState
+
+_STACKED = ("layers", "encoder")
 
 
 def state_from_numpy(centroids, degenerate, f_best, n_accepted,
@@ -128,3 +135,70 @@ def cache_to_numpy(cache: dict) -> dict:
             else val.detach().cpu().float().numpy()
             if val.dtype == torch.bfloat16 else val.detach().cpu().numpy()
             for key, val in cache.items()}
+
+
+def named_leaves(tree: dict, prefix: str = "") -> dict:
+    """{port parameter name: numpy array} of a parameter-shaped reference
+    pytree (parameters, gradients, moments, as numpy): the stacked leaves
+    of ``layers`` and ``encoder`` split per layer
+    (``layers.3.attn.wq``)."""
+    out = {}
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, dict):
+            if not prefix and key in _STACKED:
+                for path, leaf in named_leaves(val).items():
+                    leaf = np.asarray(leaf)
+                    for i in range(leaf.shape[0]):
+                        out[f"{key}.{i}.{path}"] = leaf[i]
+            else:
+                out.update(named_leaves(val, f"{name}."))
+        else:
+            out[name] = np.asarray(val)
+    return dict(sorted(out.items()))
+
+
+def stacked_tree(named: dict) -> dict:
+    """The reference's pytree layout of {port parameter name: tensor or
+    array}: per-layer leaves stacked along a new leading dim, as numpy
+    (f32 for bf16 tensors, which it holds exactly)."""
+    tree: dict = {}
+    stacks: dict = {}
+    for name, val in named.items():
+        if isinstance(val, torch.Tensor):
+            val = val.detach().cpu()
+            val = (val.float() if val.dtype == torch.bfloat16 else val).numpy()
+        parts = name.split(".")
+        if parts[0] in _STACKED:
+            stacks.setdefault((parts[0], *parts[2:]), {})[int(parts[1])] = val
+            continue
+        node = tree
+        for k in parts[:-1]:
+            node = node.setdefault(k, {})
+        node[parts[-1]] = val
+    for (top, *rest), layers in stacks.items():
+        node = tree.setdefault(top, {})
+        for k in rest[:-1]:
+            node = node.setdefault(k, {})
+        node[rest[-1]] = np.stack([layers[i] for i in range(len(layers))])
+    return tree
+
+
+def adamw_state_from_numpy(state, *, device) -> AdamWState:
+    """The port's AdamW state from the reference's ``AdamWState`` (or any
+    object with ``step``, ``mu``, ``nu``) read out as numpy."""
+    def moments(tree):
+        return {name: torch.from_numpy(np.array(a, np.float32)).to(device)
+                for name, a in named_leaves(tree).items()}
+
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                          device=device),
+        mu=moments(state.mu), nu=moments(state.nu))
+
+
+def adamw_state_to_numpy(state: AdamWState) -> AdamWState:
+    """An ``AdamWState`` of numpy values in the reference's layout (step an
+    int32 scalar, the moments stacked by layer)."""
+    return AdamWState(step=np.asarray(int(state.step), np.int32),
+                      mu=stacked_tree(state.mu), nu=stacked_tree(state.nu))

@@ -6,5 +6,6 @@ and ``model_flops``) with the H100's published peaks; its ``main`` (a
 projection of the reference's TPU benchmark file) is not ported.
 :mod:`repro_torch.launch.train` — the clustering launcher.  The dry-run
 and HLO tools (``dryrun``, ``specs``, ``mesh``, ``perf``, ``report``,
-``hlo_analysis``, ``hlo_profile``) come with the training slice.
+``hlo_analysis``, ``hlo_profile``), which lower the train step of
+``repro_torch.train``, are still to be ported.
 """

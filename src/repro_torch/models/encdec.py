@@ -5,6 +5,11 @@ The audio frontend is a stub: callers feed precomputed frame embeddings
 [B, S_src, frontend_dim], and a linear projection maps them into the
 encoder width.  Encoder layers run bidirectional self-attention; decoder
 layers causal self-attention then cross-attention.
+
+:func:`encode_body`, :func:`forward_body` and :func:`loss_fn` are
+differentiable; :func:`encode`, :func:`forward` and :func:`prefill` run
+them under ``torch.inference_mode()`` for serving, and
+:func:`decode_step` is the decoder's (``transformer.decode_step``).
 """
 from __future__ import annotations
 
@@ -15,8 +20,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 
 
-@torch.inference_mode()
-def encode(cfg: ModelConfig, p: T.Model, frames):
+def encode_body(cfg: ModelConfig, p: T.Model, frames):
     """frames [B, S_src, frontend_dim] -> enc_out [B, S_src, D]."""
     x = torch.einsum("bsr,rd->bsd", L.cast(frames), L.cast(p.frontend_proj))
     x, _ = T.run_stack(cfg, p.encoder, x, T._positions(x),
@@ -24,15 +28,40 @@ def encode(cfg: ModelConfig, p: T.Model, frames):
     return L.rmsnorm(x, p.encoder_norm.scale, cfg.norm_eps)
 
 
-@torch.inference_mode()
-def forward(cfg: ModelConfig, p: T.Model, tokens, frames, *,
-            collect_cache=False):
+def forward_body(cfg: ModelConfig, p: T.Model, tokens, frames, *,
+                 collect_cache=False):
     """Teacher-forced decoder pass.  Returns (logits [B,St,V], caches)."""
-    enc_out = encode(cfg, p, frames)
+    enc_out = encode_body(cfg, p, frames)
     x = T.embed(cfg, p, tokens)
     x, caches = T.run_stack(cfg, p.layers, x, T._positions(x), causal=True,
                             enc_out=enc_out, collect_cache=collect_cache)
     return T.unembed(cfg, p, x), caches
+
+
+@torch.inference_mode()
+def encode(cfg: ModelConfig, p: T.Model, frames):
+    """:func:`encode_body` for serving."""
+    return encode_body(cfg, p, frames)
+
+
+@torch.inference_mode()
+def forward(cfg: ModelConfig, p: T.Model, tokens, frames, *,
+            collect_cache=False):
+    """:func:`forward_body` for serving."""
+    return forward_body(cfg, p, tokens, frames, collect_cache=collect_cache)
+
+
+def loss_fn(cfg: ModelConfig, p: T.Model, batch: dict):
+    """Next-token cross-entropy of the decoder (``transformer.head_loss``);
+    labels == -1 masked.  ``batch``: tokens, labels [B,St], frontend
+    [B,S_src,frontend_dim].  It honours ``flags.CHUNKED_LOSS`` as the
+    decoder-only loss does (the reference's encoder-decoder loss is always
+    unchunked; the two agree to f32 rounding)."""
+    enc_out = encode_body(cfg, p, batch["frontend"])
+    x = T.embed(cfg, p, batch["tokens"])
+    h, _ = T.run_stack(cfg, p.layers, x, T._positions(x), causal=True,
+                       enc_out=enc_out)
+    return T.head_loss(cfg, p, h, batch["labels"])
 
 
 @torch.inference_mode()

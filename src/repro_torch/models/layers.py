@@ -15,10 +15,13 @@ softmax in f32, op for op as the reference:
   the f32 product of the operands' values (``_dot32``);
 * the mask value is -1e30 and the softmax runs in f32.
 
-The reference's serving switches take their default values here: RoPE and
-the softmax in f32, the [Sq, Skv] logits materialized (no blockwise
-attention).  The blockwise and bf16-softmax variants wait for the slice
-whose caller needs them (long-context training; see ROADMAP.md).
+The reference's switches are read from :mod:`flags` when a function
+runs: ``ROPE_BF16`` (RoPE arithmetic in bf16), ``ATTN_BF16_SOFTMAX`` (the
+logits and softmax in bf16) and ``BLOCKWISE_ATTN`` (an online softmax over
+KV blocks, :func:`attention_core_blockwise`); their defaults are f32 and
+materialized logits.  Every function here is differentiable: the one
+in-place op, the mask written into the f32 logits, acts on a tensor that
+no backward reads.
 
 Attention is the reference's einsum -> mask -> softmax -> einsum, not
 ``scaled_dot_product_attention``, which has no softcap or prefix mask and
@@ -30,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import flags
 from repro_torch.models.config import ModelConfig
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -47,7 +51,8 @@ def _dot32(equation: str, *operands: torch.Tensor) -> torch.Tensor:
 
 
 def param(gen, shape, scale, *, device, dtype) -> nn.Parameter:
-    """A frozen parameter drawn from N(0, 1) * ``scale`` on ``gen``."""
+    """A frozen parameter drawn from N(0, 1) * ``scale`` on ``gen`` (the
+    train step differentiates copies of it)."""
     t = torch.randn(shape, generator=gen, device=device, dtype=dtype)
     return nn.Parameter(t.mul_(scale), requires_grad=False)
 
@@ -79,9 +84,10 @@ def rope(x, positions, theta: float):
     freqs = theta ** (-torch.arange(half, dtype=torch.float32,
                                     device=x.device) / half)
     ang = positions[..., None].float() * freqs                 # [..., S, half]
-    cos = torch.cos(ang)[..., None, :]                         # [..., S, 1, half]
-    sin = torch.sin(ang)[..., None, :]
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    cdt = COMPUTE_DTYPE if flags.ROPE_BF16 else torch.float32
+    cos = torch.cos(ang)[..., None, :].to(cdt)                 # [..., S, 1, half]
+    sin = torch.sin(ang)[..., None, :].to(cdt)
+    x1, x2 = torch.chunk(x.to(cdt), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
 
@@ -125,12 +131,76 @@ def _attn_mask(q_pos, kv_pos, *, causal, window, prefix_len, kv_valid):
     return mask
 
 
+def attention_core_blockwise(cfg: ModelConfig, q, k, v, q_pos, kv_pos, *,
+                             causal, window, prefix_len, block: int):
+    """Flash-style attention: an online softmax over KV blocks of
+    ``block`` keys, in order; the [Sq, Skv] logits never exist whole (each
+    step holds [.., Sq, block]).  Differentiable (autograd through the
+    loop); each block's mask is rebuilt from the positions, padded keys at
+    position -10**9 and invalid."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    if Skv % block:
+        pad = block - Skv % block
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_pos = F.pad(kv_pos, (0, pad), value=-10 ** 9)
+        Skv += pad
+    qg = cast(q.reshape(B, Sq, KV, G, hd))
+    scale = hd ** -0.5
+    m = torch.full((B, KV, G, Sq), _NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KV, G, Sq, hd), dtype=torch.float32,
+                      device=q.device)
+    for j in range(0, Skv, block):
+        k_j, v_j, p_j = k[:, j:j + block], v[:, j:j + block], \
+            kv_pos[..., j:j + block]
+        logits = _dot32("bqkgd,bskd->bkgqs", qg, cast(k_j)) * scale
+        if cfg.attn_softcap:
+            c = cfg.attn_softcap
+            logits = c * torch.tanh(logits / c)
+        mask = _attn_mask(q_pos, p_j, causal=causal, window=window,
+                          prefix_len=prefix_len, kv_valid=p_j >= 0)
+        # mask [B?,Sq,block] -> [B,1,1,Sq,block]
+        mask = mask[:, None, None] if mask.ndim == 3 \
+            else mask[None, None, None]
+        logits = torch.where(mask, logits, _NEG)
+        m_new = torch.maximum(m, torch.amax(logits, dim=-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(logits - m_new[..., None])
+        l = l * corr + torch.sum(p, dim=-1)
+        acc = acc * corr[..., None] + _dot32("bkgqs,bskd->bkgqd",
+                                             p.to(COMPUTE_DTYPE), cast(v_j))
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]       # [B,KV,G,Sq,hd]
+    out = torch.movedim(out, 3, 1).reshape(B, Sq, H, hd)
+    return out.to(COMPUTE_DTYPE)
+
+
 def attention_core(cfg: ModelConfig, q, k, v, mask):
     """q [B,Sq,H,hd]; k,v [B,Skv,KV,hd]; mask [B?,Sq,Skv] -> [B,Sq,H,hd]."""
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
     qg = q.reshape(B, Sq, KV, G, hd)
+    if flags.ATTN_BF16_SOFTMAX:
+        # the scale folded into Q; the logits / softmax chain stays bf16
+        # (the row max subtracted, outside the gradient)
+        qg = cast(qg) * torch.tensor(hd ** -0.5, dtype=COMPUTE_DTYPE)
+        logits = torch.einsum("bqkgd,bskd->bkgqs", cast(qg), cast(k))
+        if cfg.attn_softcap:
+            c = cfg.attn_softcap
+            logits = (c * torch.tanh(logits / c)).to(COMPUTE_DTYPE)
+        while mask.ndim < logits.ndim:
+            mask = mask[:, None]
+        neg = torch.tensor(-3e38, dtype=COMPUTE_DTYPE, device=q.device)
+        logits = torch.where(mask, logits, neg)
+        mx = torch.amax(logits, dim=-1, keepdim=True).detach()
+        p = torch.exp(logits - mx)
+        w = p / torch.sum(p, dim=-1, keepdim=True)
+        out = _dot32("bkgqs,bskd->bqkgd", w, cast(v))
+        return out.reshape(B, Sq, H, hd).to(COMPUTE_DTYPE)
     logits = _dot32("bqkgd,bskd->bkgqs", cast(qg), cast(k)) * (hd ** -0.5)
     if cfg.attn_softcap:
         c = cfg.attn_softcap
@@ -155,13 +225,21 @@ def _project_qkv(cfg, p: Attention, x):
 
 def self_attention(cfg: ModelConfig, p: Attention, x, positions, *,
                    causal: bool = True, window=None, prefix_len=None):
-    """Full-sequence self-attention (prefill).  Returns (out, (k, v))."""
+    """Full-sequence self-attention (train / prefill).  Returns (out,
+    (k, v)); blockwise under ``flags.BLOCKWISE_ATTN`` when the sequence is
+    longer than a block."""
     q, k, v = _project_qkv(cfg, p, x)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    mask = _attn_mask(positions, positions, causal=causal, window=window,
-                      prefix_len=prefix_len, kv_valid=None)
-    out = attention_core(cfg, q, k, v, mask)
+    block = flags.BLOCKWISE_ATTN
+    if block and q.shape[1] > block:
+        out = attention_core_blockwise(
+            cfg, q, k, v, positions, positions, causal=causal, window=window,
+            prefix_len=prefix_len, block=block)
+    else:
+        mask = _attn_mask(positions, positions, causal=causal, window=window,
+                          prefix_len=prefix_len, kv_valid=None)
+        out = attention_core(cfg, q, k, v, mask)
     out = torch.einsum("bshk,hkd->bsd", cast(out), cast(p.wo))
     return out, (k, v)
 

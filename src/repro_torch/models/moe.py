@@ -7,6 +7,10 @@ gather onto an [E, C] slot table, the experts run as batched products, and
 the combine adds each token's outputs in ascending slot order (expert
 major) in bf16, starting from zeros: the order of the reference's
 scatter-add, with no atomics, so two runs give the same bits.
+
+``flags.MOE_GROUPED_DISPATCH`` slots the tokens within G groups, each with
+its own capacity (:func:`_grouped_moe`); -1, the default, is one group per
+batch shard of the active mesh, so one group on the port's single card.
 """
 from __future__ import annotations
 
@@ -14,8 +18,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import flags
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MLP, cast, param
+from repro_torch.train import sharding
 
 
 class MoE(nn.Module):
@@ -113,25 +119,64 @@ def _shared(cfg: ModelConfig, p: MoE, xt):
     return torch.einsum("tf,fd->td", act(g_) * u_, cast(sp.w_down))
 
 
-def moe_ffn(cfg: ModelConfig, p: MoE, x, *, no_drop: bool = False):
+def _grouped_moe(cfg: ModelConfig, p: MoE, xt, top_p, top_e, factor: float,
+                 G: int):
+    """Grouped dispatch: the T tokens in G groups of T / G, each slotted
+    within its group at a capacity of its own (``factor * Tg * K / E``),
+    gathered and combined within the group.  The expert products run once
+    over every group's slots of an expert ([E, G * capg, D]), as the
+    global path's [E, cap, D] do."""
+    T, D = xt.shape
+    E, K = cfg.num_experts, cfg.top_k
+    Tg = T // G
+    capg = max(int(factor * Tg * K / E + 0.5), 1)
+    xe, gates, slot_of = [], [], []
+    for g in range(G):
+        rows = slice(g * Tg, (g + 1) * Tg)
+        st, sg, so = _slots(top_p[rows], top_e[rows], E, capg)
+        xe.append(_dispatch(xt[rows], st))
+        gates.append(sg)
+        slot_of.append(so)
+    ye = _experts(cfg, p, torch.stack(xe, 1).reshape(E, G * capg, D),
+                  torch.stack(gates, 1).reshape(E, G * capg))
+    ye = ye.reshape(E, G, capg, D)
+    return torch.cat([_combine(ye[:, g], slot_of[g]) for g in range(G)])
+
+
+def _groups() -> int:
+    """``flags.MOE_GROUPED_DISPATCH``, its auto value (-1) resolved: the
+    active mesh's batch shards, 1 off a mesh."""
+    G = flags.MOE_GROUPED_DISPATCH
+    if G < 0:
+        mesh = sharding._current_mesh()
+        G = (sharding._axis_prod(mesh, sharding.physical_axes(mesh, "batch"))
+             if mesh is not None else 1)
+    return G
+
+
+def moe_ffn(cfg: ModelConfig, p: MoE, x, *, no_drop: bool = False,
+            capacity_override: float | None = None):
     """x [B, S, D] -> [B, S, D].  Router in f32, experts in bf16.
 
-    ``no_drop=True`` sets capacity = T (single-token decode).  All T tokens
-    are slotted as one group: the reference's ``MOE_GROUPED_DISPATCH`` auto
-    value off a mesh, and the port runs on one card with no mesh.
+    ``no_drop=True`` sets capacity = T (single-token decode).
+    ``capacity_override`` replaces ``cfg.capacity_factor``.  With more
+    than one group (:func:`_groups`), tokens are slotted per group
+    (:func:`_grouped_moe`) unless ``no_drop`` or T does not divide.
     """
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.top_k
     T = B * S
     xt = x.reshape(T, D)
     top_p, top_e = route(cfg, p, xt)
-    if no_drop:
-        cap = T
+    factor = capacity_override or cfg.capacity_factor
+    G = _groups()
+    if G > 1 and not no_drop and T % G == 0:
+        y = _grouped_moe(cfg, p, xt, top_p, top_e, factor, G)
     else:
-        cap = min(max(int(cfg.capacity_factor * T * K / E + 0.5), 1), T)
-    slot_tok, slot_gate, slot_of = _slots(top_p, top_e, E, cap)
-    ye = _experts(cfg, p, _dispatch(xt, slot_tok), slot_gate)
-    y = _combine(ye, slot_of)
+        cap = T if no_drop else min(max(int(factor * T * K / E + 0.5), 1), T)
+        slot_tok, slot_gate, slot_of = _slots(top_p, top_e, E, cap)
+        ye = _experts(cfg, p, _dispatch(xt, slot_tok), slot_gate)
+        y = _combine(ye, slot_of)
     if cfg.num_shared_experts:
         y = y + _shared(cfg, p, xt)
     return y.reshape(B, S, D)

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import flags
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Norm, _dot32, cast, const, param, rmsnorm
 
@@ -107,14 +108,22 @@ def ssd_full(cfg: ModelConfig, p: SSM, x):
     cum = torch.cumsum(dA, dim=2)                            # within-chunk
 
     # ---- intra-chunk (attention-like, masked decay) ----
-    # the reference's SSD_BF16 off: the [B,c,Q,Q,H] tensors stay f32
-    CB = _dot32("bcqn,bctn->bcqt", Cch, Bch)
-    decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])
+    # the [B,c,Q,Q,H] tensors in f32, or in bf16 under flags.SSD_BF16
+    # The decay is masked before its exp as well as after: above the
+    # diagonal cum[q] - cum[t] >= 0 grows with the chunk (past exp's f32
+    # range at Q = 256 with dt ~ 0.7), and exp's backward multiplies the
+    # masked zero gradient by that inf.  The values are the reference's
+    # (exp(-inf) = 0 is the zero it selects); its gradient is NaN there.
+    sdt = torch.bfloat16 if flags.SSD_BF16 else torch.float32
+    CB = _dot32("bcqn,bctn->bcqt", Cch, Bch).to(sdt)
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    w_ = torch.where(tri[None, None, :, :, None], decay,
-                     torch.zeros((), dtype=decay.dtype, device=x.device))
+    tri = tri[None, None, :, :, None]
+    diff = (cum[:, :, :, None, :] - cum[:, :, None, :, :]).to(sdt)
+    decay = torch.exp(torch.where(tri, diff, -torch.inf))
+    del diff
+    w_ = torch.where(tri, decay, torch.zeros((), dtype=sdt, device=x.device))
     del decay
-    scores = CB[..., None] * w_ * dtc[:, :, None, :, :]
+    scores = CB[..., None] * w_ * dtc[:, :, None, :, :].to(sdt)
     del w_
     y_intra = _dot32("bcqth,bcthp->bcqhp", scores.to(torch.bfloat16), cast(xh))
     del scores

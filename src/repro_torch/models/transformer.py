@@ -1,5 +1,5 @@
 """Unified decoder stack for all assigned families, the reference's
-``repro.models.transformer`` (its serving half: forward, prefill, decode).
+``repro.models.transformer``: forward, loss, prefill and decode.
 
 The stack is an ``nn.ModuleList`` of per-layer :class:`Block`s, run in
 order; layer heterogeneity (hymba's 3 global layers among sliding-window
@@ -7,17 +7,28 @@ ones) is the per-layer window of :func:`window_schedule`, as in the
 reference's scanned window vector.  The encoder-decoder (seamless) reuses
 the same blocks in ``encdec.py``.
 
-Public functions take the config, the :class:`Model` and tensors, and run
-under ``torch.inference_mode()``.  The decode cache is a dict of tensors
-stacked by layer, in the reference's layout; :func:`decode_step` writes
-each layer's slice in place and returns the same dict.
+Public functions take the config, the :class:`Model` and tensors.
+:func:`forward_body`, :func:`loss_fn` and :func:`_nll` are differentiable
+(autograd reaches every parameter); :func:`forward`, :func:`prefill` and
+:func:`decode_step`, the serving path, run under ``torch.inference_mode()``
+(``forward`` is ``forward_body`` there: the same ops, the same bits).
+Under autograd :func:`run_stack` recomputes each layer in the backward as
+``flags.REMAT_POLICY`` says (the reference's per-layer ``jax.checkpoint``);
+remat changes what is kept, never a value.  The decode cache is a dict of
+tensors stacked by layer, in the reference's layout; :func:`decode_step`
+writes each layer's slice in place and returns the same dict.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch import device as devices
+from repro_torch.models import flags
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -96,7 +107,8 @@ def init_params(cfg: ModelConfig, generator, *, device=None,
     ``generator`` (a ``torch.Generator`` on ``device``, or an int seed for
     one).  The values are not ``jax.random``'s: weights cross between the
     packages through ``repro_torch.convert.model_params_from_numpy``.
-    Runs on the card unless ``device="cpu"``."""
+    Its parameters are frozen: the train step differentiates copies of
+    them.  Runs on the card unless ``device="cpu"``."""
     dev = devices.resolve(device)
     if isinstance(generator, int):
         generator = torch.Generator(device=dev).manual_seed(generator)
@@ -169,6 +181,35 @@ def block_full(cfg: ModelConfig, lp: Block, x, positions, window, *,
     return x + mlp_out, cache
 
 
+def _save_projections(ctx, op, *args, **kwargs):
+    """``REMAT_POLICY="dots"``: keep the outputs of the products with no
+    batch dims (the weight projections; ``torch.einsum`` runs them as
+    ``bmm`` with a batch of 1, or ``mm``) and recompute the rest (the
+    batched attention, SSD and expert products among them), the
+    reference's ``dots_with_no_batch_dims_saveable``."""
+    if op is torch.ops.aten.mm.default or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(fn):
+    """``fn`` recomputed in the backward as ``flags.REMAT_POLICY`` says
+    ("full": all of it; "dots": all but the weight projections; None: not
+    at all); ``fn`` itself where autograd records nothing."""
+    policy = flags.REMAT_POLICY
+    if policy is None or not torch.is_grad_enabled():
+        return fn
+    if policy == "full":
+        kw = {}
+    elif policy == "dots":
+        kw = dict(context_fn=functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_projections))
+    else:
+        raise ValueError(f"REMAT_POLICY {policy!r}: 'full', 'dots' or None")
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
+
+
 def run_stack(cfg: ModelConfig, p_layers, x, positions, *, n_layers=None,
               causal=True, prefix_len=None, enc_out=None,
               collect_cache=False):
@@ -177,8 +218,13 @@ def run_stack(cfg: ModelConfig, p_layers, x, positions, *, n_layers=None,
         raise ValueError(f"{len(p_layers)} layers, config says {n_layers}")
     caches = []
     for lp, w_l in zip(p_layers, window_schedule(cfg, n_layers)):
-        x, cache = block_full(cfg, lp, x, positions, w_l, causal=causal,
-                              prefix_len=prefix_len, enc_out=enc_out)
+        def layer(x, lp=lp, w_l=w_l):
+            out, cache = block_full(cfg, lp, x, positions, w_l,
+                                    causal=causal, prefix_len=prefix_len,
+                                    enc_out=enc_out)
+            return (out, cache) if collect_cache else (out, None)
+
+        x, cache = remat(layer)(x)
         if collect_cache:
             caches.append(cache)
     return x, (_stack(caches) if collect_cache else None)
@@ -215,8 +261,11 @@ def block_decode(cfg: ModelConfig, lp: Block, x, cache, pos, window):
 
     h = L.rmsnorm(x, lp.ln2.scale, cfg.norm_eps)
     if cfg.moe and cfg.family == "moe":
-        # the reference's SERVE_MOE_CAP unset: no decoded token dropped
-        mlp_out = moe_mod.moe_ffn(cfg, lp.moe, h, no_drop=True)
+        # SERVE_MOE_CAP unset: capacity T, no decoded token dropped
+        cap = flags.SERVE_MOE_CAP
+        mlp_out = moe_mod.moe_ffn(cfg, lp.moe, h, **(
+            dict(no_drop=True) if cap is None
+            else dict(capacity_override=cap)))
     else:
         mlp_out = L.mlp(cfg, lp.mlp, h)
     if cfg.sandwich_norm:
@@ -292,10 +341,10 @@ def _positions(x):
 # ---------------------------------------------------------------------------
 # Public model functions (decoder-only families)
 # ---------------------------------------------------------------------------
-@torch.inference_mode()
-def forward(cfg: ModelConfig, p: Model, tokens, *, frontend=None,
-            collect_cache=False):
-    """Full-sequence forward.  tokens [B,St]; frontend [B,Lf,raw] for VLM.
+def forward_body(cfg: ModelConfig, p: Model, tokens, *, frontend=None,
+                 collect_cache=False):
+    """Full-sequence forward, differentiable.  tokens [B,St]; frontend
+    [B,Lf,raw] for VLM.
 
     Returns (logits [B,S,V] f32, caches stacked by layer or None).  For
     VLM, S = Lf + St.
@@ -304,6 +353,68 @@ def forward(cfg: ModelConfig, p: Model, tokens, *, frontend=None,
     x, caches = run_stack(cfg, p.layers, x, _positions(x),
                           prefix_len=prefix_len, collect_cache=collect_cache)
     return unembed(cfg, p, x), caches
+
+
+@torch.inference_mode()
+def forward(cfg: ModelConfig, p: Model, tokens, *, frontend=None,
+            collect_cache=False):
+    """:func:`forward_body` for serving (``torch.inference_mode()``)."""
+    return forward_body(cfg, p, tokens, frontend=frontend,
+                        collect_cache=collect_cache)
+
+
+def _nll(logits, labels):
+    """(sum of the next-token NLL over labels >= 0, their count)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    valid = labels >= 0
+    safe = torch.clamp_min(labels, 0).long()
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    return torch.sum(torch.where(valid, nll, 0.0)), torch.sum(valid)
+
+
+def _chunk_nll(cfg: ModelConfig, p: Model, h, labels):
+    return _nll(unembed(cfg, p, h), labels)
+
+
+def head_loss(cfg: ModelConfig, p: Model, h, labels):
+    """Mean next-token NLL of the stack's output ``h`` [B,S,D] over
+    ``labels`` >= 0.  Under ``flags.CHUNKED_LOSS`` the logits are made per
+    sequence chunk (the sequence padded with label -1), each chunk
+    recomputed in the backward, and the chunks' sums added in chunk
+    order."""
+    c = flags.CHUNKED_LOSS
+    if not c:
+        tot, cnt = _chunk_nll(cfg, p, h, labels)
+        return tot / torch.clamp_min(cnt, 1)
+    S = h.shape[1]
+    pad_s = (-S) % c
+    if pad_s:
+        h = F.pad(h, (0, 0, 0, pad_s))
+        labels = F.pad(labels, (0, pad_s), value=-1)
+    chunk = functools.partial(_chunk_nll, cfg, p)
+    if torch.is_grad_enabled():
+        chunk = functools.partial(ckpt.checkpoint, chunk, use_reentrant=False)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=h.device)
+    for j in range(0, S + pad_s, c):
+        s_j, n_j = chunk(h[:, j:j + c], labels[:, j:j + c])
+        tot, cnt = tot + s_j, cnt + n_j
+    return tot / torch.clamp_min(cnt, 1)
+
+
+def loss_fn(cfg: ModelConfig, p: Model, batch: dict):
+    """Next-token cross-entropy (:func:`head_loss`); labels == -1 are
+    masked, the VLM's image prefix among them.  ``batch``: tokens [B,St],
+    labels [B,St] and, for VLM, frontend [B,Lf,raw]."""
+    labels = batch["labels"]
+    frontend = batch.get("frontend")
+    if cfg.frontend and frontend is not None:
+        pad = torch.full((labels.shape[0], cfg.frontend_len), -1,
+                         dtype=labels.dtype, device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    x, prefix_len = _prefix_inputs(cfg, p, batch["tokens"], frontend)
+    h, _ = run_stack(cfg, p.layers, x, _positions(x), prefix_len=prefix_len)
+    return head_loss(cfg, p, h, labels)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,

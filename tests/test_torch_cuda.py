@@ -1624,3 +1624,154 @@ def test_zoo_others_on_card_forward_and_decode(arch, zoo_card):
     _zoo_forward_twice(cfg, model, tokens, frames)
     dec = dc.decode_gap(cfg, model, tokens, frames, 4)
     assert dc.decode_faults(dec, hybrid=False) == []
+
+
+def _train_batch(cfg, B, S, gen, device, frames=64):
+    seq = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                        device=device)
+    batch = {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+    if cfg.family == "encdec":
+        batch["frontend"] = torch.randn((B, frames, cfg.frontend_dim),
+                                        generator=gen, device=device)
+    return batch
+
+
+@pytest.mark.cuda
+def test_train_hymba_on_card_remat_determinism_and_nll(zoo_card):
+    """``chip_smoke.py`` 15a at a small depth: hymba-1.5b at its published
+    width with 2 layers, B = 2 x S = 512 (2 SSD chunks of 256): the loss
+    bitwise the inference forward's NLL, "dots" bitwise "full", two runs
+    of 3 AdamW steps bitwise, the loss falling, every gradient finite."""
+    import dataclasses
+
+    from repro_torch.models import flags, registry, transformer
+    from repro_torch.train import optimizer, train_step
+
+    cfg = dataclasses.replace(registry.get_config("hymba-1.5b"),
+                              num_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = _train_batch(cfg, 2, 512, gen, "cuda")
+
+    def model():
+        return transformer.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(1))
+
+    m = model()
+    logits, _ = transformer.forward(cfg, m, batch["tokens"])
+    tot, cnt = transformer._nll(logits, batch["labels"])
+    out = {}
+    for policy in ("full", "dots"):
+        flags.REMAT_POLICY = policy
+        try:
+            out[policy] = train_step.value_and_grad(cfg, m, batch)
+        finally:
+            flags.REMAT_POLICY = "full"
+    assert torch.equal(out["full"][0], tot / cnt)
+    assert torch.equal(out["full"][0], out["dots"][0])
+    for k, g in out["full"][1].items():
+        assert torch.isfinite(g).all(), k
+        assert torch.equal(g, out["dots"][1][k]), k
+    runs = []
+    for _ in range(2):
+        m = model()
+        opt = optimizer.adamw(1e-3)
+        state, step = opt.init(m), train_step.make_train_step(cfg, opt)
+        losses = []
+        for _ in range(3):
+            m, state, met = step(m, state, batch)
+            losses.append(met["loss"])
+        runs.append((losses, m))
+    assert float(runs[0][0][-1]) < float(runs[0][0][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][0], runs[1][0]))
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1].parameters(),
+                                                 runs[1][1].parameters()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "seamless-m4t-medium",
+                                  "deepseek-moe-16b", "qwen3-moe-235b-a22b"])
+def test_train_step_reduced_on_card_matches_the_cpu(arch, zoo_card,
+                                                    monkeypatch):
+    """``chip_smoke.py`` 15b: one train step of the reduced config at f32
+    compute on the card and on the CPU, from the same weights and batch:
+    the loss within 1e-4, the new parameters within ``step_check``'s gap
+    of the two steps' gradients."""
+    import copy
+
+    from repro_torch.models import layers, registry, transformer
+    from repro_torch.train import optimizer, step_check, train_step
+
+    monkeypatch.setattr(layers, "COMPUTE_DTYPE", torch.float32)
+    cfg = registry.get_config(arch).reduced()
+    cpu = transformer.init_params(cfg, 0, device="cpu")
+    gpu = copy.deepcopy(cpu).to("cuda")
+    batch = _train_batch(cfg, 2, 32, torch.Generator().manual_seed(0), "cpu",
+                         frames=16)
+    gbatch = {k: v.cuda() for k, v in batch.items()}
+    p0 = {k: v.detach().clone() for k, v in cpu.named_parameters()}
+    l_cpu, g_cpu = train_step.value_and_grad(cfg, cpu, batch)
+    l_gpu, g_gpu = train_step.value_and_grad(cfg, gpu, gbatch)
+    assert abs(l_gpu.item() - l_cpu.item()) <= 1e-4 * abs(l_cpu.item())
+    opt = optimizer.adamw(1e-3)
+    for m, b in ((cpu, batch), (gpu, gbatch)):
+        train_step.make_train_step(cfg, opt)(m, opt.init(m), b)
+    zeros = {k: torch.zeros_like(v) for k, v in p0.items()}
+    bound = step_check.step_gap_bound(p0, g_cpu, g_gpu, zeros, zeros, 1,
+                                      1e-3)
+    for (k, v), w in zip(gpu.named_parameters(), cpu.parameters()):
+        gap = (v.detach().cpu() - w.detach()).abs().double().numpy()
+        assert (gap <= bound[k]).all(), k
+
+
+@pytest.mark.cuda
+def test_train_switches_on_card(zoo_card):
+    """``chip_smoke.py`` 15c at a small depth: seamless (1 + 1 layers, its
+    256,206 vocab) with ``CHUNKED_LOSS`` within 1e-5 of the unchunked loss;
+    deepseek (1 layer) grouped into 4 at capacity E / top_k within 1e-6 of
+    one group; hymba (1 layer) under ``BF16_GRADS``: the loss bitwise the
+    f32-gradient one, only the tied embedding's gradient otherwise."""
+    import dataclasses
+
+    from repro_torch.models import flags, registry, transformer
+    from repro_torch.train import train_step
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cfg = dataclasses.replace(registry.get_config("seamless-m4t-medium"),
+                              num_layers=1, encoder_layers=1)
+    m = transformer.init_params(cfg, gen)
+    batch = _train_batch(cfg, 2, 256, gen, "cuda", frames=256)
+    base = train_step.value_and_grad(cfg, m, batch)[0]
+    flags.CHUNKED_LOSS = 64
+    try:
+        chunked = train_step.value_and_grad(cfg, m, batch)[0]
+    finally:
+        flags.CHUNKED_LOSS = None
+    assert abs(chunked.item() - base.item()) <= 1e-5 * base.item()
+
+    cfg = dataclasses.replace(registry.get_config("deepseek-moe-16b"),
+                              num_layers=1)
+    cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.top_k)
+    m = transformer.init_params(cfg, gen)
+    batch = _train_batch(cfg, 4, 256, gen, "cuda")
+    losses = []
+    for groups in (0, 4):
+        flags.MOE_GROUPED_DISPATCH = groups
+        try:
+            with torch.no_grad():
+                losses.append(transformer.loss_fn(cfg, m, batch))
+        finally:
+            flags.MOE_GROUPED_DISPATCH = -1
+    assert abs(losses[0].item() - losses[1].item()) <= 1e-6
+
+    cfg = dataclasses.replace(registry.get_config("hymba-1.5b"), num_layers=1)
+    m = transformer.init_params(cfg, gen)
+    batch = _train_batch(cfg, 2, 256, gen, "cuda")
+    l32, g32 = train_step.value_and_grad(cfg, m, batch)
+    flags.BF16_GRADS = True
+    try:
+        l16, g16 = train_step.value_and_grad(cfg, m, batch)
+    finally:
+        flags.BF16_GRADS = False
+    assert torch.equal(l16, l32)
+    assert [k for k in g32 if not torch.equal(g16[k].float(), g32[k])] in (
+        [], ["embedding"])

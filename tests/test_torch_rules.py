@@ -40,7 +40,10 @@ def test_port_imports_neither_jax_nor_repro():
                 "repro_torch.launch.roofline",
                 *(f"repro_torch.models.{m}" for m in (
                     "config", "decode_check", "layers", "ssm", "moe",
-                    "transformer", "encdec", "registry")),
+                    "transformer", "encdec", "registry", "flags")),
+                "repro_torch.train",
+                *(f"repro_torch.train.{m}" for m in (
+                    "optimizer", "train_step", "sharding", "step_check")),
                 *(f"repro_torch.configs.{m}" for m in (
                     "hymba_1_5b", "seamless_m4t_medium", "deepseek_moe_16b",
                     "qwen3_moe_235b_a22b", "shapes")),
