@@ -91,7 +91,10 @@ Phases, each printing JSON lines:
    pinning
    ``{"pipeline": "dma"}``, the sequential fit under each policy (the dma
    kernel launched once per Lloyd iteration): each bitwise the untuned fit
-   (trace, centroids, full-data objective).
+   (trace, centroids, full-data objective); then, tuning off, the
+   committed H100 profile (``results/autotune/cuda-sm_90.json``, written
+   by ``tools/tune_profile.py``, timed by CUDA events) pinned: every fit
+   bitwise the untuned one, its winners printed.
 6. times — each kernel, its plain version and a PyTorch library call where
    one computes the same function, by CUDA events over CUDA-graph replays
    (device time; host launch overhead excluded), beside the bound; kernel D
@@ -265,7 +268,9 @@ Phases, each printing JSON lines:
    phase 4's data bitwise phase 5's.  13e: ``launch.roofline.
    precision_roofline`` on the chunk rates of phases 4-5e (32 chunks over
    the ``fit`` wall, Lloyd passes a chunk from the fused launches): the
-   dominant term and the share of 3.35 TB/s, which must not exceed 1.
+   dominant term and the share of 3.35 TB/s, which must not exceed 1; the
+   rates written to ``build/chunk_rates.json`` and projected by
+   ``roofline.main`` into a ``repro.bench/1`` envelope naming the card.
 
 14. the model zoo — ``repro_torch.models`` at the published widths,
    random weights from ``--seed`` (run last, after the two-pass phases).
@@ -315,6 +320,21 @@ Phases, each printing JSON lines:
    capacity E / top_k against one group (loss within 1e-6); one
    ``BF16_GRADS`` step on hymba against the f32-gradient one (loss bitwise,
    only the tied embedding's gradient off, parameters within 2 lr).
+16. the dry run (``repro_torch.launch.dryrun``), counted after every
+   timed phase in processes of their own, one a cell, all at once on the
+   host's cores, each bound to ``DRYRUN_BOUND_S`` from its start.  16a:
+   each LM arch at train_4k and decode_32k on the 16 x 16 fake mesh (``cuda``
+   device type) and ``bigmeans_paper``: every cell ``ok`` with the
+   reference's keys; its dominant term, roofline fraction, dispatch
+   seconds and per-device argument + temp GB (counts, not times).  16b:
+   hymba-1.5b at 15a's step counted on a 1 x 1 fake mesh: its FLOPs equal
+   ``FlopCounterMode``'s count of that step run on the card, exactly; its
+   argument + temp bytes over 15a's measured peak inside
+   ``HELD_MEMORY_BAND``; 15a's median step over the record's ``bound_s``.
+   16c: the cluster cell on the card, ``fit(method="sharded")`` at 256
+   worker positions (16 x 16 dealt onto the card), 4 chunks a worker,
+   ``max_iters`` 8: A once per Lloyd iteration, A's device time beside
+   the record's modeled bytes.
 
 Then the one ``{"kernels": [...]}`` line (the assign kernels' rows carry
 their serving times as ``at_serving``; ``launches_per_path`` the serving
@@ -338,6 +358,7 @@ import cProfile
 import dataclasses
 import json
 import math
+import os
 import pstats
 import re
 import shutil
@@ -464,6 +485,8 @@ PATH_OF = {"fused_step_f32": "sequential", "assign_f32": "sequential",
               for prec in ("f32", "int8", "bf16", "bf16x3")},
            "kpp_probe": "kpp_probe_entry"}
 BATCH, SYNC_EVERY = 8, 2        # the paper's (configs/bigmeans_paper.py)
+# The committed H100 tuner profile (tools/tune_profile.py), read in 4e.
+PROFILE = ROOT / "results" / "autotune" / "cuda-sm_90.json"
 # Each main-path fit's `fit` wall (phases 4-5e), read by phase 13e.
 FIT_WALLS: dict = {}
 
@@ -2192,7 +2215,10 @@ def phase_autotuned(X, seed: int, seq, batched) -> dict:
     cache file pinning ``{"pipeline": "dma"}`` for the fit's fused key:
     the sequential fit under each policy launches the policy's dma kernel
     once per Lloyd iteration (and its blocks twin never), bitwise the
-    untuned fit.  Returns (b)'s paths: {name: (launches, wall)}."""
+    untuned fit.  (c) With tuning off, the committed profile (``PROFILE``)
+    pinned: every fit of (a) bitwise the untuned one, the profile loaded
+    with no anomaly, its winners printed.  Returns (b)'s paths: {name:
+    (launches, wall)}."""
     m, n = X.shape
     base = BigMeansConfig(k=25, s=64_000, n_chunks=32, seed=seed)
     runs = {(prec, name): base.replace(precision=prec, **extra)
@@ -2272,6 +2298,25 @@ def phase_autotuned(X, seed: int, seq, batched) -> dict:
               "fit_wall_s": res.wall_time_s, "f_full": f_full,
               "bitwise_equal_to_untuned": True})
         paths[f"dma_{prec}_sequential"] = (launches, wall)
+
+    # (c) the committed H100 profile, tuning off: every fit bitwise the
+    # untuned one, no load anomaly, the winners printed
+    autotune.clear()
+    autotune.set_cache_path(PROFILE)
+    n_events = len(autotune.events())
+    entries = json.loads(PROFILE.read_text())["entries"]
+    check(entries and all(key.split("|")[1] == backend for key in entries),
+          f"4e: the profile's keys name another backend than {backend}")
+    for (prec, name), cfg in runs.items():
+        res = fit(X, cfg)
+        _, f_full = evaluate(res, X)
+        same_fit(res, f_full, *untuned[prec, name],
+                 f"profile-pinned {prec} {name} fit")
+    check(autotune.events()[n_events:] == [], "4e: the profile did not load "
+          f"cleanly: {autotune.events()[n_events:]}")
+    emit({"phase": "autotuned_profile",
+          "profile": str(PROFILE.relative_to(ROOT)), "winners": entries,
+          "fits_bitwise_untuned": True})
     autotune.clear()
     autotune.set_cache_path(None)
     return paths
@@ -5367,8 +5412,11 @@ def phase_roofline(paths: dict, n: int) -> list:
     """13e: ``precision_roofline`` on the chunk rates phases 4 and 5
     measured under each policy: 32 chunks over the ``fit`` wall, Lloyd
     passes a chunk from the fused launches (D's times the batch, over the
-    chunks).  An achieved share of 3.35 TB/s above 1 fails."""
-    rows = []
+    chunks).  An achieved share of 3.35 TB/s above 1 fails.  The measured
+    rows go to ``build/chunk_rates.json`` and ``roofline.main`` projects
+    them into ``build/roofline_torch.json`` (a ``repro.bench/1`` envelope
+    naming the card), whose rows must be the ones computed here."""
+    rows, measured = [], []
     for prec in POLICIES:
         suffix = "" if prec == "f32" else f"_{prec}"
         for batch, path, kname in (
@@ -5378,10 +5426,11 @@ def phase_roofline(paths: dict, n: int) -> list:
             key = kname if prec == "f32" else f"{kname}{suffix}"
             launches = paths[name][0][key]
             iters = launches * batch / 32
-            row = roofline.precision_roofline({
-                "s": 64_000, "n": n, "k": 25, "precision": prec,
-                "batch": batch, "lloyd_iters_per_chunk": iters,
-                "chunks_per_s": 32 / FIT_WALLS[name]})
+            rate = {"s": 64_000, "n": n, "k": 25, "precision": prec,
+                    "batch": batch, "lloyd_iters_per_chunk": iters,
+                    "chunks_per_s": 32 / FIT_WALLS[name]}
+            measured.append(rate)
+            row = roofline.precision_roofline(rate)
             check(row["achieved_frac_of_peak"] <= 1.0,
                   f"13e: {name} at {row['achieved_frac_of_peak']} of the "
                   "HBM peak: the traffic model counts too little")
@@ -5394,6 +5443,27 @@ def phase_roofline(paths: dict, n: int) -> list:
               "arithmetic_intensity", "dominant", "bound_s",
               "achieved_bytes_per_s", "achieved_frac_of_peak")}
               for r in rows]})
+    bench = ROOT / "build" / "chunk_rates.json"
+    out = ROOT / "build" / "roofline_torch.json"
+    bench.parent.mkdir(parents=True, exist_ok=True)
+    bench.write_text(json.dumps({"rows": measured}))
+    out.unlink(missing_ok=True)
+    roofline.main(["--bench", str(bench), "--out", str(out)])
+    doc = json.loads(out.read_text())
+    suite_schema.check(doc, suite_schema.ENVELOPE_SCHEMA, what=out.name)
+    check(doc["host"]["device"] == torch.cuda.get_device_name(0)
+          and doc["host"]["power_limit"]
+          and doc["hbm_bw"] == roofline.HBM_BW,
+          f"13e: the envelope's host {doc['host']}")
+    check([{k: r[k] for k in ("precision", "batch", "bound_s",
+                              "achieved_frac_of_peak")}
+           for r in doc["rows"]]
+          == [{k: r[k] for k in ("precision", "batch", "bound_s",
+                                 "achieved_frac_of_peak")} for r in rows],
+          "13e: roofline.main's rows differ from precision_roofline's")
+    emit({"phase": "suite_roofline_main", "path": str(out.relative_to(ROOT)),
+          "bench": doc["bench"], "rows": len(doc["rows"]),
+          "host": doc["host"]})
     return rows
 
 
@@ -6108,12 +6178,12 @@ def phase_train_switches(seed: int, card: str) -> dict:
     return out
 
 
-def phase_train(seed: int) -> None:
-    """Phase 15: the zoo's training path on the card."""
+def phase_train(seed: int) -> dict:
+    """Phase 15: the zoo's training path on the card; returns 15a's row."""
     card = nvidia_smi()
     seconds = {}
     t0 = time.monotonic()
-    phase_train_hymba(seed, card)
+    row = phase_train_hymba(seed, card)
     seconds["15a"] = time.monotonic() - t0
     t0 = time.monotonic()
     phase_train_reduced(seed, card)
@@ -6122,6 +6192,247 @@ def phase_train(seed: int) -> None:
     phase_train_switches(seed, card)
     seconds["15c"] = time.monotonic() - t0
     emit({"phase": "train_seconds", **seconds, "card": card})
+    return row
+
+# --------------------------------------------------------------------------
+# phase 16: the dry run (launch.dryrun) on a fake mesh, and held to the card
+# --------------------------------------------------------------------------
+DRYRUN_SHAPES = ("train_4k", "decode_32k")      # 16a, with bigmeans_paper
+DRYRUN_BOUND_S = 300.0          # 16a and 16b's counts, from their start
+HELD_MEMORY_BAND = (0.8, 1.25)  # 16b: dry-run argument + temp over the peak
+CLUSTER_MESH = ((16, 16), ("data", "model"))    # 16c: 256 worker positions
+_HELD = """
+import json, sys
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.launch import dryrun
+from repro_torch.models.registry import get_config
+rec = dryrun.cell(get_config("hymba-1.5b"),
+                  ShapeSpec("train_b4_s2048", "train", 2048, 4),
+                  mesh_shape=((1, 1), ("data", "model")), device_type="cuda")
+with open(sys.argv[1], "w") as f:
+    json.dump(rec, f)
+"""
+
+
+def start_dryruns(out: Path) -> dict:
+    """Start 16a (``python -m repro_torch.launch.dryrun --arch A --shape S
+    --device-type cuda``, one process a cell: every LM arch at each of
+    ``DRYRUN_SHAPES`` on the 16 x 16 fake mesh, and ``bigmeans_paper``) and
+    16b's count (hymba-1.5b at phase 15a's step on a 1 x 1 fake mesh), all
+    at once, after the timed phases: they count on the host's cores.
+    Returns {name: (process, output path, log path, start)}."""
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    cells = {f"{a}|{s}": ["--arch", a, "--shape", s]
+             for a in zoo_registry.LM_ARCHS for s in DRYRUN_SHAPES}
+    cells["bigmeans_paper"] = ["--arch", "bigmeans_paper"]
+    procs = {}
+    for name in (*cells, "held"):
+        stem = name.replace("|", "_")
+        path, log = out / f"dryrun_{stem}.jsonl", out / f"dryrun_{stem}.log"
+        path.unlink(missing_ok=True)
+        cmd = ([sys.executable, "-m", "repro_torch.launch.dryrun",
+                *cells[name], "--device-type", "cuda", "--json", str(path)]
+               if name != "held"
+               else [sys.executable, "-c", _HELD, str(path)])
+        with open(log, "w") as f:
+            procs[name] = (subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                            stdout=f,
+                                            stderr=subprocess.STDOUT),
+                           path, log, time.monotonic())
+    return procs
+
+
+def stop_dryruns(procs: dict) -> None:
+    for proc, *_ in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def dryrun_records(procs: dict, name: str) -> tuple[list, float]:
+    """The records of one dry-run process, waited for within
+    ``DRYRUN_BOUND_S`` of its start; (records, seconds waited here)."""
+    proc, path, log, t0 = procs[name]
+    t_wait = time.monotonic()
+    left = DRYRUN_BOUND_S - (t_wait - t0)
+    try:
+        rc = proc.wait(timeout=max(left, 1.0))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        check(False, f"16: the {name} dry run passed its "
+              f"{DRYRUN_BOUND_S} s bound")
+    seconds = time.monotonic() - t_wait
+    check(rc == 0, f"16: the {name} dry run exited {rc}: "
+          f"{log.read_text()[-3000:]}")
+    return [json.loads(line) for line in path.read_text().splitlines()
+            if line.strip()], seconds
+
+
+def phase_dryrun_matrix(procs: dict, card: str) -> list:
+    """16a: each LM arch at train_4k and decode_32k on the 16 x 16 fake
+    mesh (``cuda`` device type) and ``bigmeans_paper``: status ok, the
+    reference's keys, finite positive counts; each cell's dominant term,
+    roofline fraction, dispatch seconds and per-device argument + temp
+    GB (counts on a fake mesh, not times)."""
+    keys = {"arch", "shape", "mesh", "devices", "status", "memory_analysis",
+            "compile_s", "raw_flops_per_device", "raw_bytes_per_device",
+            "collective_raw", "flops_per_device", "bytes_per_device",
+            "collective_bytes_per_device", "roofline"}
+    rows, waited, dispatch = [], {}, {}
+    for name in procs:
+        if name == "held":
+            continue
+        recs, waited[name] = dryrun_records(procs, name)
+        dispatch[name] = sum(r.get("compile_s", 0.0) for r in recs)
+        arch, _, shape = name.partition("|")
+        check([(r["arch"], r["shape"]) for r in recs]
+              == [(arch, shape or "cluster")],
+              f"16a: {name} records {[r['arch'] for r in recs]}")
+        for r in recs:
+            check(r["status"] == "ok", f"16a: {r['arch']} x {r['shape']}: "
+                  f"{r.get('error', r['status'])}")
+            want = keys | ({"model_flops_global", "useful_flops_ratio"}
+                           if r["arch"] != "bigmeans_paper" else set())
+            check(want <= set(r), f"16a: {r['arch']} lacks "
+                  f"{sorted(want - set(r))}")
+            check(r["flops_per_device"] > 0 and r["bytes_per_device"] > 0
+                  and math.isfinite(r["roofline"]["bound_s"]),
+                  f"16a: {r['arch']} x {r['shape']} counts")
+            mem = r["memory_analysis"]
+            rows.append({
+                "arch": r["arch"], "shape": r["shape"], "mesh": r["mesh"],
+                "dominant": r["roofline"]["dominant"],
+                "roofline_fraction": r["roofline"]["roofline_fraction"],
+                "bound_s": r["roofline"]["bound_s"],
+                "dispatch_s": r["compile_s"],
+                "argument_plus_temp_gb_per_device": (
+                    mem["argument_bytes"] / r["devices"]
+                    + mem["temp_bytes"]) / 1e9,
+                "flops_per_device": r["flops_per_device"],
+                "collectives": r["collective_raw"]["by_op_count"],
+                "useful_flops_ratio": r.get("useful_flops_ratio")})
+    emit({"phase": "dryrun_matrix", "mesh": "16x16 (fake)",
+          "device_type": "cuda", "cells": rows,
+          "dispatch_seconds": dispatch, "waited_s": waited,
+          "bound_s": DRYRUN_BOUND_S, "card": card})
+    return rows
+
+
+def phase_dryrun_held(seed: int, procs: dict, train_row: dict,
+                      card: str) -> dict:
+    """16b: hymba-1.5b at 15a's step (B = 4 x 2,048, full width and depth,
+    ``REMAT_POLICY="full"``) counted on a 1 x 1 fake mesh, held to the
+    card: its FLOPs equal ``FlopCounterMode``'s count of the same step run
+    on the card, exactly; its argument + temp bytes beside 15a's measured
+    peak, their ratio inside ``HELD_MEMORY_BAND``; 15a's step time over the
+    record's ``bound_s`` (the measured roofline fraction)."""
+    from repro_torch.launch import hlo_analysis
+
+    dev = devices.resolve(None)
+    cfg = zoo_config("hymba-1.5b")
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    batch = lm_batch(cfg, TRAIN_B, TRAIN_S, gen, dev)
+    model = zoo_transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    opt = zoo_optimizer.adamw(TRAIN_LR)
+    state = opt.init(model)
+    step = zoo_train_step.make_train_step(cfg, opt)
+    check(zoo_flags.REMAT_POLICY == "full", "16b: remat policy")
+    with hlo_analysis.flop_counter() as counter:
+        _, _, out = step(model, state, batch)
+    torch.cuda.synchronize()
+    real = counter.get_total_flops()
+    check(math.isfinite(float(out["loss"])), "16b: the step's loss")
+    del model, state, batch, out
+    torch.cuda.empty_cache()
+    (rec,), count_s = dryrun_records(procs, "held")
+    check(rec["status"] == "ok", f"16b: {rec}")
+    check(real == rec["flops_per_device"],
+          f"16b: the dry run counts {rec['flops_per_device']} FLOPs, the "
+          f"card's step {real}")
+    mem = rec["memory_analysis"]
+    predicted = mem["argument_bytes"] + mem["temp_bytes"]
+    peak = max(train_row["step_peak_gb"]) * 1e9
+    ratio = predicted / peak
+    lo, hi = HELD_MEMORY_BAND
+    check(lo <= ratio <= hi, f"16b: argument + temp {predicted / 1e9:.2f} "
+          f"GB is {ratio:.3f}x the measured peak {peak / 1e9:.2f} GB")
+    steps = sorted(train_row["step_ms"][1:])
+    step_s = steps[len(steps) // 2] / 1e3
+    row = {"arch": cfg.name, "batch": TRAIN_B, "seq": TRAIN_S,
+           "mesh": rec["mesh"], "flops_dry_run": rec["flops_per_device"],
+           "flops_card_flop_counter": real, "flops_equal": True,
+           "model_flops": rec["model_flops_global"],
+           "argument_gb": mem["argument_bytes"] / 1e9,
+           "temp_gb": mem["temp_bytes"] / 1e9,
+           "argument_plus_temp_gb": predicted / 1e9,
+           "measured_peak_gb": peak / 1e9,
+           "predicted_over_measured": ratio, "band": HELD_MEMORY_BAND,
+           "roofline": rec["roofline"], "step_s_median": step_s,
+           "measured_roofline_fraction": rec["roofline"]["bound_s"]
+           / step_s,
+           "dispatch_s": rec["compile_s"], "waited_s": count_s,
+           "card": card}
+    emit({"phase": "dryrun_held", **row})
+    return row
+
+
+def phase_dryrun_cluster(seed: int, card: str) -> dict:
+    """16c: the cluster cell on the card: ``fit(method="sharded")`` at the
+    cell's 256 worker positions (16 x 16, dealt round-robin onto the one
+    card), 4 chunks a worker, ``max_iters`` 8, on a bigmeans_paper-shaped
+    mixture (n = 27, the rows padded to the worker grid); A once per Lloyd
+    iteration; A's device time (launches x its µs at the chunk shape)
+    against the record's modeled bytes (``dryrun.build_bigmeans``)."""
+    from repro_torch.launch import dryrun
+
+    cell = paper_cfg.CONFIG
+    dims, axes = CLUSTER_MESH
+    W = math.prod(dims)
+    m = -(-cell.m // W) * W
+    rec = dryrun.build_bigmeans(cell, dims)
+    X = gmm_dataset(GMMSpec(m=m, n=cell.n_features, components=cell.k,
+                            seed=seed + 16), device="cuda")
+    cfg = BigMeansConfig(
+        k=cell.k, s=cell.s, n_chunks=cell.chunks_per_worker * W,
+        sync_every=cell.sync_every, max_iters=dryrun.MAX_ITERS, seed=seed,
+        topology=TopologySpec(kind="worker_mesh", devices=dims, axes=axes))
+    ops.reset_launch_counts()
+    res = fit(X, cfg, method="sharded")
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check(res.extras["workers"] == W and res.extras["fit"]["impl"] == "cuda",
+          f"16c: {res.extras}")
+    check(launches["fused_step"] == res.n_iterations > 0,
+          f"16c: A launches {launches['fused_step']} against "
+          f"{res.n_iterations} iterations")
+    check(res.n_iterations <= dryrun.MAX_ITERS * cfg.n_chunks,
+          "16c: more iterations than the cell's budget")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    xc = X[torch.randint(0, m, (cell.s,), generator=gen, device="cuda")]
+    c = xc[:cell.k].clone()
+    a_ms = device_ms(lambda: fused_step.fused_step_f32(xc, c), 20)
+    kernel_s = launches["fused_step"] * a_ms / 1e3
+    modeled = rec["bytes"] * W
+    row = {"workers": W, "mesh": "x".join(map(str, dims)),
+           "chunks": cfg.n_chunks, "m": m, "n": cell.n_features,
+           "k": cell.k, "s": cell.s, "max_iters": dryrun.MAX_ITERS,
+           "n_iterations": res.n_iterations, "launches": launches,
+           "a_us": 1e3 * a_ms, "a_kernel_s": kernel_s,
+           "modeled_passes_per_chunk": dryrun.MAX_ITERS + 2,
+           "measured_passes_per_chunk": res.n_iterations / cfg.n_chunks
+           + 2,
+           "modeled_bytes_all_workers": modeled,
+           "modeled_bytes_over_a_time_per_s": modeled / kernel_s,
+           "modeled_bound_s": modeled / roofline.HBM_BW,
+           "fit_wall_s": res.wall_time_s, "f_best": res.objective,
+           "card": card}
+    emit({"phase": "dryrun_cluster", **row})
+    del X
+    torch.cuda.empty_cache()
+    return row
 
 
 def main() -> int:
@@ -6150,7 +6461,15 @@ def main() -> int:
           "matmul_allow_bf16_reduced_precision_reduction":
           torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
+    procs: dict = {}
+    try:
+        return run_phases(args, smi, procs)
+    finally:
+        stop_dryruns(procs)
 
+
+def run_phases(args, smi: str, procs: dict) -> int:
+    """Phases 2-16 and the final lines."""
     # phase 2: build
     build.load(rebuild=True)
     info = build.info()
@@ -6278,7 +6597,22 @@ def main() -> int:
 
     # phase 15: training the zoo (hymba at full width and depth, the
     # reduced configs against the CPU, the switches at width)
-    phase_train(args.seed)
+    train_row = phase_train(args.seed)
+
+    # phase 16: the dry run (16a the fake 16 x 16 matrix, 16b held to
+    # 15a's step, 16c the cluster cell on the card), counted on the host's
+    # cores after every timed phase; 16b's step on the card and 16c after
+    # the counts
+    card = nvidia_smi()
+    t0 = time.monotonic()
+    procs.update(start_dryruns(ROOT / "build" / "dryrun"))
+    phase_dryrun_held(args.seed, procs, train_row, card)
+    phase_dryrun_matrix(procs, card)
+    waited = time.monotonic() - t0
+    t0 = time.monotonic()
+    phase_dryrun_cluster(args.seed, card)
+    emit({"phase": "dryrun_seconds", "16ab_wait": waited,
+          "16c": time.monotonic() - t0, "card": card})
 
     # launches: each kernel's from the path that drives it (PATH_OF),
     # every path's counts beside them

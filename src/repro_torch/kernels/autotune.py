@@ -59,7 +59,8 @@ _loaded_paths: set[str] = set()
 _enabled: bool = os.environ.get("REPRO_AUTOTUNE", "") not in ("", "0")
 _cache_path: str | None = os.environ.get("REPRO_AUTOTUNE_CACHE") or None
 
-_WARMUP, _REPS = 1, 3
+_WARMUP, _REPS = 2, 5
+_LAUNCHES = 10      # a timed rep on the card: launches between two events
 
 # Cache files that failed to load (corrupt JSON, stale or unknown schema)
 # are ignored, never fatal — and each ignore is recorded here, so that
@@ -202,15 +203,41 @@ def candidates(kind: str, *, b: int, m: int, k: int, n: int,
     raise ValueError(f"unknown autotune kind {kind!r}")
 
 
-def _time(run: Callable[[], object]) -> float:
+def _time(run: Callable[[], object], device_clock: bool) -> float:
+    """Best seconds a run of ``_REPS`` reps after ``_WARMUP`` runs: on a
+    card (``device_clock``) by CUDA events around ``_LAUNCHES``
+    back-to-back launches, so the card never waits for the host, else by
+    the host clock around one call."""
+    if not device_clock:
+        for _ in range(_WARMUP):
+            run()                              # first use + warm caches
+        best = float("inf")
+        for _ in range(_REPS):
+            t0 = time.perf_counter()
+            run()
+            best = min(best, time.perf_counter() - t0)
+        return best
+    import torch
+
     for _ in range(_WARMUP):
-        run()                                  # first use + warm caches
+        run()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
     best = float("inf")
     for _ in range(_REPS):
-        t0 = time.perf_counter()
-        run()
-        best = min(best, time.perf_counter() - t0)
+        start.record()
+        for _ in range(_LAUNCHES):
+            run()
+        stop.record()
+        stop.synchronize()
+        best = min(best, start.elapsed_time(stop) / 1e3 / _LAUNCHES)
     return best
+
+
+def _cuda_available() -> bool:
+    import torch
+    return torch.cuda.is_available()
 
 
 def get_blocks(
@@ -229,9 +256,11 @@ def get_blocks(
     Resolution order: in-process cache -> on-disk cache -> (when tuning is
     enabled and a ``bench_factory`` is given) time the candidates once and
     cache the winner -> the defaults.  ``bench_factory(blocks)`` must
-    return a zero-argument callable that runs the kernel to completion
-    (the launch, then ``torch.cuda.synchronize()``).  A candidate whose
-    bench raises makes this raise ``RuntimeError`` naming it.
+    return a zero-argument callable that launches the kernel; for a card's
+    backend (``cuda-*``, with a card present) it is timed by CUDA events
+    around back-to-back launches, else by the host clock around the call.  A
+    candidate whose bench raises makes this raise ``RuntimeError`` naming
+    it.
     """
     key = cache_key(kind, backend=backend, b=b, m=m, k=k, n=n,
                     precision=precision)
@@ -243,10 +272,11 @@ def get_blocks(
     if not _enabled or bench_factory is None:
         return dict(_DEFAULTS[kind])
 
+    device_clock = backend.startswith("cuda-") and _cuda_available()
     best_blocks, best_t = dict(_DEFAULTS[kind]), float("inf")
     for blocks in candidates(kind, b=b, m=m, k=k, n=n, precision=precision):
         try:
-            t = _time(bench_factory(blocks))
+            t = _time(bench_factory(blocks), device_clock)
         except Exception as exc:
             raise RuntimeError(
                 f"autotune candidate {blocks} for {key} failed: "

@@ -188,13 +188,10 @@ def tune_backend(device: torch.device) -> str:
 
 
 def _tuned(kind: str, launch, x, b: int, k: int, precision: str):
-    """``launch(**choice)`` with the tuner's choice for this launch; the
-    bench runs the launch and synchronises the device."""
+    """``launch(**choice)`` with the tuner's choice for this launch (the
+    tuner times each candidate's launch by CUDA events)."""
     def bench(blocks):
-        def run():
-            launch(**blocks)
-            torch.cuda.synchronize(x.device)
-        return run
+        return lambda: launch(**blocks)
 
     m, n = x.shape[-2], x.shape[-1]
     blocks = autotune.get_blocks(kind, bench, backend=tune_backend(x.device),

@@ -19,6 +19,7 @@ Terms:
 ``chunk_bytes`` and ``chunk_traffic`` are the reference's traffic model,
 unchanged, so both packages count the same bytes and FLOPs for a chunk;
 ``model_flops`` is the reference's count of a zoo model's FLOPs at a shape.
+:func:`main` projects chunk rates measured on the card onto these peaks.
 """
 from __future__ import annotations
 
@@ -132,3 +133,65 @@ def model_flops(cfg, shape) -> float:
         return 2.0 * n_active * shape.global_batch * shape.seq_len
     # decode: one token per sequence
     return 2.0 * n_active * shape.global_batch
+
+
+def main(argv=None) -> None:
+    """Project measured chunk rates onto the H100's roofline.
+
+    ``--bench`` is a JSON file ``{"rows": [...]}`` of rows in the keys
+    :func:`precision_roofline` reads (``chip_smoke.py`` writes the rates
+    of its HEPMASS fits so); it is required: the port has no committed
+    rates of its own and never reads the reference's TPU file.  Writes a
+    ``repro.bench/1`` envelope (``repro_torch.evalsuite.schema``) with the
+    H100 peaks and the card's name and power limit (``--device cpu`` for a
+    run without a card: the host then names the CPU).
+    """
+    import argparse
+    import json
+    import os
+
+    from repro_torch.evalsuite import schema as bench_schema
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--bench", required=True,
+                    help="JSON file of measured rows ({'rows': [...]})")
+    ap.add_argument("--out", default="results/roofline_torch.json")
+    ap.add_argument("--device", default=None,
+                    help="'cpu' to record the CPU as the host")
+    args = ap.parse_args(argv)
+
+    with open(args.bench) as f:
+        bench = json.load(f)
+    rows = [precision_roofline(r) for r in bench["rows"]]
+    f32 = {r["batch"]: r for r in rows if r["precision"] == "f32"}
+    for r in rows:
+        twin = f32.get(r["batch"])
+        if twin:
+            r["bytes_ratio_vs_f32"] = round(
+                r["model_bytes_per_chunk"] / twin["model_bytes_per_chunk"],
+                4)
+    d = os.path.dirname(args.out)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    out = bench_schema.write_bench(
+        args.out,
+        bench_schema.envelope(
+            "precision_roofline", rows,
+            host=bench_schema.host_info(args.device),
+            source=os.path.basename(args.bench),
+            peak_flops=PEAK_FLOPS, hbm_bw=HBM_BW, nvlink_bw=NVLINK_BW,
+            traffic_model="per pass: 4*s*k*n + 3*s*k FLOPs; "
+                          "chunk_bytes(precision) + 2*4*k*n + 4*k bytes; "
+                          "passes = lloyd_iters_per_chunk + 2",
+        ))
+    for r in rows:
+        print(f"prec={r['precision']:6s} batch={r['batch']:<3d} "
+              f"AI={r['arithmetic_intensity']:6.2f} flop/byte  "
+              f"dominant={r['dominant']:7s} "
+              f"bytes/chunk={r['model_bytes_per_chunk']:.3e}  "
+              f"achieved/peak={r['achieved_frac_of_peak']:.2e}")
+    print(f"# wrote {out}")
+
+
+if __name__ == "__main__":
+    main()

@@ -8,21 +8,23 @@ layers causal self-attention then cross-attention.
 
 :func:`encode_body`, :func:`forward_body` and :func:`loss_fn` are
 differentiable; :func:`encode`, :func:`forward` and :func:`prefill` run
-them under ``torch.inference_mode()`` for serving, and
+them for serving (``transformer.serving``), and
 :func:`decode_step` is the decoder's (``transformer.decode_step``).
 """
 from __future__ import annotations
 
-import torch
-
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.train import sharding
+from repro_torch.train.sharding import shard
 
 
 def encode_body(cfg: ModelConfig, p: T.Model, frames):
     """frames [B, S_src, frontend_dim] -> enc_out [B, S_src, D]."""
-    x = torch.einsum("bsr,rd->bsd", L.cast(frames), L.cast(p.frontend_proj))
+    x = sharding.project("bsr,rd->bsd", L.cast(frames),
+                         L.cast(p.frontend_proj), "frontend_proj")
+    x = shard(x, "batch", None, None)
     x, _ = T.run_stack(cfg, p.encoder, x, T._positions(x),
                        n_layers=cfg.encoder_layers, causal=False)
     return L.rmsnorm(x, p.encoder_norm.scale, cfg.norm_eps)
@@ -38,13 +40,13 @@ def forward_body(cfg: ModelConfig, p: T.Model, tokens, frames, *,
     return T.unembed(cfg, p, x), caches
 
 
-@torch.inference_mode()
+@T.serving
 def encode(cfg: ModelConfig, p: T.Model, frames):
     """:func:`encode_body` for serving."""
     return encode_body(cfg, p, frames)
 
 
-@torch.inference_mode()
+@T.serving
 def forward(cfg: ModelConfig, p: T.Model, tokens, frames, *,
             collect_cache=False):
     """:func:`forward_body` for serving."""
@@ -64,11 +66,12 @@ def loss_fn(cfg: ModelConfig, p: T.Model, batch: dict):
     return T.head_loss(cfg, p, h, batch["labels"])
 
 
-@torch.inference_mode()
+@T.serving
 def prefill(cfg: ModelConfig, p: T.Model, tokens, frames, max_seq: int):
     logits, caches = forward(cfg, p, tokens, frames, collect_cache=True)
-    cache = T.init_cache(cfg, tokens.shape[0], max_seq,
-                         enc_len=frames.shape[1], device=logits.device)
+    cache = sharding.shard_cache(T.init_cache(
+        cfg, tokens.shape[0], max_seq, enc_len=frames.shape[1],
+        device=logits.device))
     T._fill(cache, caches)
     for key in ("cross_k", "cross_v"):
         cache[key].copy_(caches[key])

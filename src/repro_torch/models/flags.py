@@ -3,9 +3,18 @@
 
 Each switch is read where the reference reads it, when the function runs,
 so a caller (or a test) sets the module attribute and the next call sees
-it.  The dry run's ``UNROLL_SCAN`` / ``scan_unroll`` and the cluster cell's
-``CLUSTER_BF16`` wait for the dry-run tools; ``DECODE_CACHE_CARRY`` has no
-counterpart (the port's decode writes each layer's cache slice in place).
+it.
+
+Two of the reference's switches have no counterpart, since they would
+change nothing here.  ``UNROLL_SCAN`` / ``scan_unroll`` unroll the
+reference's scanned layer stack and SSD chunk recurrence so that XLA's
+cost analysis, which visits a loop body once, counts every layer; the
+port's stacks (``transformer.run_stack``, ``run_stack_decode``) and its
+chunk recurrence are Python loops, so the dry run's dispatch-level count
+(``repro_torch.launch.dryrun``) already sees every layer.
+``DECODE_CACHE_CARRY`` threads the reference's decode cache through its
+layer scan as a carry; the port's decode writes each layer's cache slice
+in place.
 """
 
 # Blockwise (flash-style) attention: an online softmax over KV blocks of
@@ -56,3 +65,7 @@ KV_SHARD_SEQ: bool = True
 # SSD (hymba): keep the [B, c, Q, Q, H] intra-chunk decay and score tensors
 # in bf16 (the products still accumulate in f32).
 SSD_BF16: bool = False
+
+# Cluster cell of the dry run: the dataset and its chunks in bf16 (f32
+# accumulation).
+CLUSTER_BF16: bool = False

@@ -9,10 +9,12 @@ major) in bf16, starting from zeros: the order of the reference's
 scatter-add, with no atomics, so two runs give the same bits.
 
 ``flags.MOE_GROUPED_DISPATCH`` slots the tokens within G groups, each with
-its own capacity (:func:`_grouped_moe`); -1, the default, is one group per
+its own capacity (:func:`_routed`); -1, the default, is one group per
 batch shard of the active mesh, so one group on the port's single card.
 """
 from __future__ import annotations
+
+import types
 
 import torch
 import torch.nn.functional as F
@@ -75,15 +77,18 @@ def _slots(top_p, top_e, E: int, cap: int):
     starts = torch.searchsorted(sorted_e, torch.arange(E, device=dev))
     rank = torch.arange(T * K, device=dev) - starts[sorted_e]  # within-expert
     keep = rank < cap
-    e_k, c_k, o_k = sorted_e[keep], rank[keep], order[keep]
 
-    slot_tok = torch.full((E, cap), T, dtype=torch.int64, device=dev)
-    slot_tok[e_k, c_k] = o_k // K
-    slot_gate = torch.zeros((E, cap), dtype=torch.float32, device=dev)
-    slot_gate[e_k, c_k] = top_p.reshape(-1)[o_k].float()
+    # the dropped choices write a spare column, cut off after: shapes stay
+    # static (no boolean indexing), the kept slots' values are the same
+    col = torch.where(keep, rank, cap)
+    slot_tok = torch.full((E, cap + 1), T, dtype=torch.int64, device=dev)
+    slot_tok[sorted_e, col] = order // K
+    slot_gate = torch.zeros((E, cap + 1), dtype=torch.float32, device=dev)
+    slot_gate[sorted_e, col] = top_p.reshape(-1)[order].float()
     slot_of = torch.full((T * K,), E * cap, dtype=torch.int64, device=dev)
-    slot_of[o_k] = e_k * cap + c_k
-    return slot_tok, slot_gate, torch.sort(slot_of.view(T, K), dim=1).values
+    slot_of[order] = torch.where(keep, sorted_e * cap + rank, E * cap)
+    return (slot_tok[:, :cap], slot_gate[:, :cap],
+            torch.sort(slot_of.view(T, K), dim=1).values)
 
 
 def _dispatch(xt, slot_tok):
@@ -114,33 +119,44 @@ def _experts(cfg: ModelConfig, p: MoE, xe, slot_gate):
 
 def _shared(cfg: ModelConfig, p: MoE, xt):
     sp, act = p.shared, _act(cfg)
-    g_ = torch.einsum("td,df->tf", cast(xt), cast(sp.w_gate))
-    u_ = torch.einsum("td,df->tf", cast(xt), cast(sp.w_up))
-    return torch.einsum("tf,fd->td", act(g_) * u_, cast(sp.w_down))
+    g_ = sharding.project("td,df->tf", cast(xt), cast(sp.w_gate), "w_gate")
+    u_ = sharding.project("td,df->tf", cast(xt), cast(sp.w_up), "w_up")
+    return sharding.project("tf,fd->td", act(g_) * u_, cast(sp.w_down),
+                            "w_down")
 
 
-def _grouped_moe(cfg: ModelConfig, p: MoE, xt, top_p, top_e, factor: float,
-                 G: int):
-    """Grouped dispatch: the T tokens in G groups of T / G, each slotted
-    within its group at a capacity of its own (``factor * Tg * K / E``),
-    gathered and combined within the group.  The expert products run once
-    over every group's slots of an expert ([E, G * capg, D]), as the
-    global path's [E, cap, D] do."""
+def _routed(cfg: ModelConfig, p, xt, factor: float, groups: int, *,
+            no_drop: bool, grouped: bool, e0: int = 0):
+    """The routed experts on the tokens ``xt`` [T, D], one core for the
+    one-device path and each rank's shards: the tokens slotted within
+    ``groups`` groups of T / groups, each at a capacity of its own
+    (``factor * Tg * K / E``; at most Tg unless ``grouped``, as the
+    reference's ungrouped path clamps it; Tg under ``no_drop``), the
+    experts of ``p`` (``e0`` onward: ``p``'s slice of the expert axis, all
+    of them off a mesh) run once over every group's slots of an expert
+    ([El, groups * cap, D], as the reference's [E, cap, D]), and each token
+    gets the outputs of the chosen experts that ``p`` holds."""
     T, D = xt.shape
-    E, K = cfg.num_experts, cfg.top_k
-    Tg = T // G
-    capg = max(int(factor * Tg * K / E + 0.5), 1)
+    E, K, El = cfg.num_experts, cfg.top_k, p.e_gate.shape[0]
+    Tg = T // groups
+    cap = Tg if no_drop else max(int(factor * Tg * K / E + 0.5), 1)
+    if not grouped:
+        cap = min(cap, Tg)
+    top_p, top_e = route(cfg, p, xt)
     xe, gates, slot_of = [], [], []
-    for g in range(G):
+    for g in range(groups):
         rows = slice(g * Tg, (g + 1) * Tg)
-        st, sg, so = _slots(top_p[rows], top_e[rows], E, capg)
-        xe.append(_dispatch(xt[rows], st))
-        gates.append(sg)
-        slot_of.append(so)
-    ye = _experts(cfg, p, torch.stack(xe, 1).reshape(E, G * capg, D),
-                  torch.stack(gates, 1).reshape(E, G * capg))
-    ye = ye.reshape(E, G, capg, D)
-    return torch.cat([_combine(ye[:, g], slot_of[g]) for g in range(G)])
+        st, sg, so = _slots(top_p[rows], top_e[rows], E, cap)
+        xe.append(_dispatch(xt[rows], st[e0:e0 + El]))
+        gates.append(sg[e0:e0 + El])
+        # slots of experts held elsewhere read the zero row
+        mine = (so >= e0 * cap) & (so < (e0 + El) * cap)
+        slot_of.append(torch.where(mine, so - e0 * cap, El * cap))
+    ye = _experts(cfg, p, torch.stack(xe, 1).reshape(El, groups * cap, D),
+                  torch.stack(gates, 1).reshape(El, groups * cap))
+    ye = ye.reshape(El, groups, cap, D)
+    return torch.cat([_combine(ye[:, g], slot_of[g])
+                      for g in range(groups)])
 
 
 def _groups() -> int:
@@ -161,22 +177,69 @@ def moe_ffn(cfg: ModelConfig, p: MoE, x, *, no_drop: bool = False,
     ``no_drop=True`` sets capacity = T (single-token decode).
     ``capacity_override`` replaces ``cfg.capacity_factor``.  With more
     than one group (:func:`_groups`), tokens are slotted per group
-    (:func:`_grouped_moe`) unless ``no_drop`` or T does not divide.
+    (:func:`_routed`) unless ``no_drop`` or T does not divide.
     """
     B, S, D = x.shape
-    E, K = cfg.num_experts, cfg.top_k
     T = B * S
     xt = x.reshape(T, D)
-    top_p, top_e = route(cfg, p, xt)
     factor = capacity_override or cfg.capacity_factor
     G = _groups()
-    if G > 1 and not no_drop and T % G == 0:
-        y = _grouped_moe(cfg, p, xt, top_p, top_e, factor, G)
-    else:
-        cap = T if no_drop else min(max(int(factor * T * K / E + 0.5), 1), T)
-        slot_tok, slot_gate, slot_of = _slots(top_p, top_e, E, cap)
-        ye = _experts(cfg, p, _dispatch(xt, slot_tok), slot_gate)
-        y = _combine(ye, slot_of)
+    grouped = G > 1 and not no_drop and T % G == 0
+    routed = _routed_on_shards if sharding._current_mesh() is not None \
+        else _routed
+    y = routed(cfg, p, xt, factor, G if grouped else 1, no_drop=no_drop,
+               grouped=grouped)
     if cfg.num_shared_experts:
         y = y + _shared(cfg, p, xt)
-    return y.reshape(B, S, D)
+    return sharding.shard(y.reshape(B, S, D), "batch", sharding.seq_axis(),
+                          None)
+
+
+def _routed_on_shards(cfg: ModelConfig, p: MoE, xt, factor: float,
+                      groups: int, *, no_drop: bool, grouped: bool):
+    """:func:`_routed` under a mesh, on each rank's shards
+    (``sharding.on_shards``; DTensor has no strategy for the slotting's
+    sort, search and scatters).  A rank routes and slots its batch rows'
+    tokens, which are its groups' when the groups divide the batch shards
+    (the default: one group a shard) and all it needs under ``no_drop``,
+    else every token; it runs the experts it holds (its slice of the expert
+    axis when the experts divide the model axis) on their slots and adds
+    their outputs into its tokens' rows.  The result is a ``Partial`` sum
+    over the model axis where the experts are split (DTensor's all-reduce
+    or reduce-scatter completes it), and the FSDP-sharded expert weights
+    are all-gathered over the data axes first.  Values are the one-device
+    path's up to the order of the expert sums."""
+    mesh = sharding._current_mesh()
+    nb = sharding._axis_prod(mesh, sharding.physical_axes(mesh, "batch"))
+    # a rank's own tokens where no capacity drops one, or where its groups
+    # are whole; every token where the capacity is the whole batch's
+    by_batch = no_drop or groups % nb == 0
+    rows = sharding.spec(mesh, "batch" if by_batch else None, None,
+                         shape=tuple(xt.shape))
+    local_groups = groups // nb if rows[0] is not None and not no_drop \
+        else groups
+    experts = sharding.spec(mesh, "expert", None, None,
+                            shape=tuple(p.e_gate.shape))
+    by_experts = sharding.physical_axes(mesh, "expert") \
+        if experts[0] is not None else None
+    weights = (p.router, p.e_gate, p.e_up, p.e_down)
+    specs = ((None, None), experts, experts, experts, rows)
+    out = sharding.partial(by_experts, rows)
+    # gradients: the weights' are partial over the ranks' token rows, the
+    # router's and the tokens' also over the ranks' experts
+    by_rows = rows[0] if isinstance(rows[0], tuple) else \
+        ((rows[0],) if rows[0] else ())
+    both = by_rows + (by_experts or ())
+    grads = (sharding.partial(both, (None, None)),
+             *(sharding.partial(by_rows, experts),) * 3,
+             sharding.partial(by_experts, rows))
+
+    def local(router, e_gate, e_up, e_down, xt_l):
+        w = types.SimpleNamespace(router=router, e_gate=e_gate, e_up=e_up,
+                                  e_down=e_down)
+        e0 = sharding.coordinate(experts[0]) * e_gate.shape[0] \
+            if by_experts else 0
+        return _routed(cfg, w, xt_l, factor, local_groups, no_drop=no_drop,
+                       grouped=grouped, e0=e0)
+
+    return sharding.on_shards(local, (*weights, xt), specs, out, grads)

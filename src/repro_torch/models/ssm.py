@@ -18,6 +18,8 @@ from torch import nn
 from repro_torch.models import flags
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Norm, _dot32, cast, const, param, rmsnorm
+from repro_torch.train import sharding
+from repro_torch.train.sharding import shard
 
 
 def _dims(cfg: ModelConfig):
@@ -51,19 +53,20 @@ def init_ssm(cfg: ModelConfig, gen, *, device, dtype) -> SSM:
 
 def _split_proj(cfg, p: SSM, x):
     di, N, H, _ = _dims(cfg)
-    zxbcdt = torch.einsum("bsd,dz->bsz", cast(x), cast(p.in_proj))
+    zxbcdt = sharding.project("bsd,dz->bsz", cast(x), cast(p.in_proj),
+                              "in_proj")
     return torch.split(zxbcdt, [di, di, N, N, H], dim=-1)
 
 
-def _causal_conv_full(p: SSM, u):
+def _causal_conv_full(w: dict, u):
     """Depthwise causal conv over [B,S,C] with width w."""
-    w = p.conv_w                                             # [w, C]
-    width, S = w.shape[0], u.shape[1]
+    cw = w["conv_w"]                                         # [w, C]
+    width, S = cw.shape[0], u.shape[1]
     up = F.pad(u, (0, 0, width - 1, 0))
     out = 0
     for i in range(width):
-        out = out + up[:, i:i + S, :] * cast(w[i])[None, None, :]
-    return out + cast(p.conv_b)[None, None, :]
+        out = out + up[:, i:i + S, :] * cast(cw[i])[None, None, :]
+    return out + cast(w["conv_b"])[None, None, :]
 
 
 def _softplus(x):
@@ -76,19 +79,58 @@ def ssd_full(cfg: ModelConfig, p: SSM, x):
 
     x [B,S,D] -> (y [B,S,D], cache {'conv': [B,w-1,C], 'state': [B,H,P,N]})
     where the cache is the decode-ready state after the last token.
+    Between the two projections the mixer runs on each rank's batch rows
+    under a mesh (:func:`_on_rows`).
     """
-    di, N, H, P = _dims(cfg)
-    B_, S, _ = x.shape
-    Q = min(cfg.ssm_chunk, S)
+    parts = _split_proj(cfg, p, x)
+    y, conv_tail, h = _on_rows(_ssd_core, cfg, p, parts, 3)
+    out = sharding.project("bsd,dk->bsk", cast(y), cast(p.out_proj),
+                           "out_proj")
+    return shard(out, "batch", None, None), {"conv": conv_tail, "state": h}
 
-    z, xs, Bc, Cc, dt = _split_proj(cfg, p, x)
+
+def _core_params(p: SSM) -> dict:
+    """The mixer's parameters between its two projections."""
+    return {"conv_w": p.conv_w, "conv_b": p.conv_b, "A_log": p.A_log,
+            "ssm_D": p.ssm_D, "dt_bias": p.dt_bias,
+            "norm": p.gate_norm.scale}
+
+
+def _on_rows(core, cfg: ModelConfig, p: SSM, acts: tuple, n_out: int):
+    """``core(cfg, params, *acts)``; under a mesh on each rank's batch rows
+    (``sharding.on_shards``): the activations and the ``n_out`` results
+    split by batch, the parameters whole.  DTensor has no strategy for the
+    chunked scan's grouped products; every op of the core is row-local, so
+    the shards need no collective."""
+    w = _core_params(p)
+    mesh = sharding._current_mesh()
+    if mesh is None:
+        return core(cfg, w, *acts)
+    names = list(w)
+
+    def local(*tensors):
+        return core(cfg, dict(zip(names, tensors)), *tensors[len(names):])
+
+    rows = [sharding.spec(mesh, "batch", *(None,) * (a.ndim - 1),
+                          shape=tuple(a.shape)) for a in acts]
+    whole = [(None,) * t.ndim for t in w.values()]
+    # each rank's rows add their part to the parameters' gradients
+    grads = [sharding.partial(rows[0][0], s) for s in whole]
+    return sharding.on_shards(local, (*w.values(), *acts), (*whole, *rows),
+                              [rows[0]] * n_out, (*grads, *rows))
+
+
+def _ssd_core(cfg: ModelConfig, w: dict, z, xs, Bc, Cc, dt):
+    di, N, H, P = _dims(cfg)
+    B_, S, _ = z.shape
+    Q = min(cfg.ssm_chunk, S)
     conv_in = torch.cat([xs, Bc, Cc], dim=-1)
     tail = max(cfg.ssm_conv - 1, 0)
     conv_tail = conv_in[:, S - tail:, :] if tail else conv_in[:, :0, :]
-    conv_out = F.silu(_causal_conv_full(p, conv_in))
+    conv_out = F.silu(_causal_conv_full(w, conv_in))
     xs, Bc, Cc = torch.split(conv_out, [di, N, N], dim=-1)
 
-    dt = _softplus(dt.float() + p.dt_bias.float())
+    dt = _softplus(dt.float() + w["dt_bias"].float())
 
     # Pad the sequence to a chunk multiple; padded steps get dt=0 (identity
     # state transition, zero input) so the returned state is exact.
@@ -97,7 +139,7 @@ def ssd_full(cfg: ModelConfig, p: SSM, x):
         pad = (0, 0, 0, S_pad - S)
         xs, Bc, Cc, dt = (F.pad(t, pad) for t in (xs, Bc, Cc, dt))
     nc = S_pad // Q
-    A = -torch.exp(p.A_log.float())                          # [H]
+    A = -torch.exp(w["A_log"].float())                          # [H]
 
     xh = xs.reshape(B_, nc, Q, H, P)
     dtc = dt.reshape(B_, nc, Q, H)
@@ -116,12 +158,12 @@ def ssd_full(cfg: ModelConfig, p: SSM, x):
     # (exp(-inf) = 0 is the zero it selects); its gradient is NaN there.
     sdt = torch.bfloat16 if flags.SSD_BF16 else torch.float32
     CB = _dot32("bcqn,bctn->bcqt", Cch, Bch).to(sdt)
-    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=z.device))
     tri = tri[None, None, :, :, None]
     diff = (cum[:, :, :, None, :] - cum[:, :, None, :, :]).to(sdt)
     decay = torch.exp(torch.where(tri, diff, -torch.inf))
     del diff
-    w_ = torch.where(tri, decay, torch.zeros((), dtype=sdt, device=x.device))
+    w_ = torch.where(tri, decay, torch.zeros((), dtype=sdt, device=z.device))
     del decay
     scores = CB[..., None] * w_ * dtc[:, :, None, :, :].to(sdt)
     del w_
@@ -135,7 +177,7 @@ def ssd_full(cfg: ModelConfig, p: SSM, x):
                  Bch.to(torch.bfloat16), cast(xh))           # [B,c,H,P,N]
     chunk_decay = torch.exp(last[:, :, 0, :])                # [B,c,H]
 
-    h = torch.zeros((B_, H, P, N), dtype=torch.float32, device=x.device)
+    h = torch.zeros((B_, H, P, N), dtype=torch.float32, device=z.device)
     h_prev = []                                              # state entering chunk
     for c in range(nc):
         h_prev.append(h)
@@ -146,12 +188,11 @@ def ssd_full(cfg: ModelConfig, p: SSM, x):
                      torch.exp(cum).to(torch.bfloat16),
                      h_prev.to(torch.bfloat16))
 
-    y = (y_intra + y_inter + p.ssm_D.float()[None, None, None, :, None]
+    y = (y_intra + y_inter + w["ssm_D"].float()[None, None, None, :, None]
          * xh.float())
     y = y.reshape(B_, S_pad, di)[:, :S, :]
-    y = rmsnorm(y * F.silu(z.float()), p.gate_norm.scale, cfg.norm_eps)
-    out = torch.einsum("bsd,dk->bsk", cast(y), cast(p.out_proj))
-    return out, {"conv": conv_tail, "state": h}
+    y = rmsnorm(y * F.silu(z.float()), w["norm"], cfg.norm_eps)
+    return y, conv_tail, h
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, *, device,
@@ -166,20 +207,28 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, *, device,
 
 
 def ssd_decode(cfg: ModelConfig, p: SSM, x, cache):
-    """One-token state update.  x [B,1,D] -> (y [B,1,D], new cache)."""
-    di, N, H, P = _dims(cfg)
-    z, xs, Bc, Cc, dt = _split_proj(cfg, p, x)
+    """One-token state update.  x [B,1,D] -> (y [B,1,D], new cache); the
+    update runs on each rank's batch rows under a mesh (:func:`_on_rows`)."""
+    parts = _split_proj(cfg, p, x)
+    y, new_conv, state = _on_rows(_decode_core, cfg, p,
+                                  (*parts, cache["conv"], cache["state"]), 3)
+    out = sharding.project("bsd,dk->bsk", cast(y), cast(p.out_proj),
+                           "out_proj")
+    return out, {"conv": new_conv, "state": state}
 
+
+def _decode_core(cfg: ModelConfig, w: dict, z, xs, Bc, Cc, dt, conv, state):
+    di, N, H, P = _dims(cfg)
     conv_in = torch.cat([xs, Bc, Cc], dim=-1)                # [B,1,C]
-    hist = torch.cat([cache["conv"], conv_in], dim=1)        # [B,w,C]
-    w = cast(p.conv_w)                                       # [w,C]
-    conv_out = torch.einsum("bwc,wc->bc", cast(hist), w) + cast(p.conv_b)
+    hist = torch.cat([conv, conv_in], dim=1)                 # [B,w,C]
+    cw = cast(w["conv_w"])                                   # [w,C]
+    conv_out = torch.einsum("bwc,wc->bc", cast(hist), cw) + cast(w["conv_b"])
     conv_out = F.silu(conv_out)[:, None, :]
     new_conv = hist[:, 1:, :]
     xs, Bc, Cc = torch.split(conv_out, [di, N, N], dim=-1)
 
-    dt = _softplus(dt.float() + p.dt_bias.float())
-    A = -torch.exp(p.A_log.float())
+    dt = _softplus(dt.float() + w["dt_bias"].float())
+    A = -torch.exp(w["A_log"].float())
     dA = torch.exp(dt[:, 0, :] * A[None, :])                 # [B,H]
 
     xh = xs.reshape(-1, H, P).float()
@@ -187,11 +236,10 @@ def ssd_decode(cfg: ModelConfig, p: SSM, x, cache):
     Cv = Cc[:, 0, :].float()
     dtv = dt[:, 0, :]                                        # [B,H]
 
-    state = cache["state"] * dA[:, :, None, None] + torch.einsum(
+    state = state * dA[:, :, None, None] + torch.einsum(
         "bh,bhp,bn->bhpn", dtv, xh, Bv)
     y = torch.einsum("bhpn,bn->bhp", state, Cv)
-    y = y + p.ssm_D.float()[None, :, None] * xh
+    y = y + w["ssm_D"].float()[None, :, None] * xh
     y = y.reshape(-1, 1, di)
-    y = rmsnorm(y * F.silu(z.float()), p.gate_norm.scale, cfg.norm_eps)
-    out = torch.einsum("bsd,dk->bsk", cast(y), cast(p.out_proj))
-    return out, {"conv": new_conv, "state": state}
+    y = rmsnorm(y * F.silu(z.float()), w["norm"], cfg.norm_eps)
+    return y, new_conv, state

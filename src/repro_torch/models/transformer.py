@@ -11,7 +11,9 @@ Public functions take the config, the :class:`Model` and tensors.
 :func:`forward_body`, :func:`loss_fn` and :func:`_nll` are differentiable
 (autograd reaches every parameter); :func:`forward`, :func:`prefill` and
 :func:`decode_step`, the serving path, run under ``torch.inference_mode()``
-(``forward`` is ``forward_body`` there: the same ops, the same bits).
+(``forward`` is ``forward_body`` there: the same ops, the same bits;
+under a mesh, where DTensors need version counters, they run under
+``torch.no_grad()`` instead: :func:`serving`).
 Under autograd :func:`run_stack` recomputes each layer in the backward as
 ``flags.REMAT_POLICY`` says (the reference's per-layer ``jax.checkpoint``);
 remat changes what is kept, never a value.  The decode cache is a dict of
@@ -33,8 +35,22 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
+from repro_torch.train import sharding
+from repro_torch.train.sharding import seq_axis, shard
 
 FULL_WINDOW = 1 << 30
+
+
+def serving(fn):
+    """``fn`` under ``torch.inference_mode()``, or under a mesh (DTensors
+    keep version counters) ``torch.no_grad()``."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with torch.no_grad(), \
+                torch.inference_mode(sharding._current_mesh() is None):
+            return fn(*args, **kwargs)
+
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -113,6 +129,13 @@ def init_params(cfg: ModelConfig, generator, *, device=None,
     if isinstance(generator, int):
         generator = torch.Generator(device=dev).manual_seed(generator)
     return Model(cfg, generator, device=dev, dtype=dtype)
+
+
+def abstract_params(cfg: ModelConfig, dtype=torch.float32) -> Model:
+    """A :class:`Model` on the ``meta`` device: the shapes and dtypes of
+    :func:`init_params`' parameters, no storage and no draws (the dry
+    run's input; the reference's ``ShapeDtypeStruct`` pytree)."""
+    return Model(cfg, None, device=torch.device("meta"), dtype=dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -303,23 +326,54 @@ def run_stack_decode(cfg: ModelConfig, p_layers, x, caches, pos, *,
 # ---------------------------------------------------------------------------
 # Embedding / head
 # ---------------------------------------------------------------------------
+def _lookup(w, tokens):
+    """``w[tokens]``; under a mesh on each rank's shards, vocabulary
+    parallel: a rank looks up its batch rows' tokens in its slice of the
+    vocabulary (the model axis where that splits the rows), zeros for the
+    others, so the rows are a partial sum over that axis; the FSDP-split
+    width is gathered first.  (DTensor's strategy for the lookup's
+    backward, an ``index_put``, fails on some torch versions.)"""
+    mesh = sharding._current_mesh()
+    if mesh is None:
+        return w[tokens]
+    ws = sharding.spec(mesh, "model", None, shape=tuple(w.shape))
+    ts = sharding.spec(mesh, "batch", *(None,) * (tokens.ndim - 1),
+                       shape=tuple(tokens.shape))
+    V = w.shape[0]
+
+    def local(wl, tl):
+        if wl.shape[0] == V:
+            return wl[tl]
+        v0 = sharding.coordinate(ws[0]) * wl.shape[0]
+        mine = (tl >= v0) & (tl < v0 + wl.shape[0])
+        rows = wl[torch.where(mine, tl - v0, 0)]
+        return torch.where(mine[..., None], rows, 0.0)
+
+    return sharding.on_shards(
+        local, (w, tokens), (ws, ts),
+        sharding.partial(ws[0], (*ts, None)),
+        (sharding.partial(ts[0], ws), ts))
+
+
 def embed(cfg: ModelConfig, p: Model, tokens):
-    e = p.embedding[tokens]
+    e = _lookup(p.embedding, tokens)
     if cfg.scale_embedding:
         e = e * torch.sqrt(torch.tensor(float(cfg.d_model))).to(e.dtype)
-    return L.cast(e)
+    return shard(L.cast(e), "batch", seq_axis(), None)
 
 
 def unembed(cfg: ModelConfig, p: Model, h):
     h = L.rmsnorm(h, p.final_norm.scale, cfg.norm_eps)
     if cfg.tie_embeddings:
-        logits = L._dot32("bsd,vd->bsv", L.cast(h), L.cast(p.embedding))
+        logits = sharding.project("bsd,vd->bsv", L.cast(h).float(),
+                                  L.cast(p.embedding).float(), "embedding")
     else:
-        logits = L._dot32("bsd,dv->bsv", L.cast(h), L.cast(p.lm_head))
+        logits = sharding.project("bsd,dv->bsv", L.cast(h).float(),
+                                  L.cast(p.lm_head).float(), "lm_head")
     if cfg.final_softcap:
         c = cfg.final_softcap
         logits = c * torch.tanh(logits / c)
-    return logits
+    return shard(logits, "batch", None, "model")
 
 
 def _prefix_inputs(cfg: ModelConfig, p: Model, tokens, frontend):
@@ -327,9 +381,10 @@ def _prefix_inputs(cfg: ModelConfig, p: Model, tokens, frontend):
     x_txt = embed(cfg, p, tokens)
     if frontend is None:
         return x_txt, None
-    proj = torch.einsum("bpr,rd->bpd", L.cast(frontend),
-                        L.cast(p.frontend_proj))
-    return torch.cat([proj, x_txt], dim=1), cfg.frontend_len
+    proj = sharding.project("bpr,rd->bpd", L.cast(frontend),
+                            L.cast(p.frontend_proj), "frontend_proj")
+    return shard(torch.cat([proj, x_txt], dim=1), "batch", None, None), \
+        cfg.frontend_len
 
 
 def _positions(x):
@@ -355,7 +410,7 @@ def forward_body(cfg: ModelConfig, p: Model, tokens, *, frontend=None,
     return unembed(cfg, p, x), caches
 
 
-@torch.inference_mode()
+@serving
 def forward(cfg: ModelConfig, p: Model, tokens, *, frontend=None,
             collect_cache=False):
     """:func:`forward_body` for serving (``torch.inference_mode()``)."""
@@ -422,25 +477,37 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                device=None) -> dict:
     """Stacked-by-layer decode cache of zeros (the reference's layout)."""
     dev = devices.resolve(device)
+    return _cache(cfg, batch, max_seq, enc_len=enc_len, dtype=dtype,
+                  device=dev)
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_seq: int, **kw) -> dict:
+    """:func:`init_cache`'s dict as ``meta`` tensors (no storage)."""
+    return _cache(cfg, batch, max_seq, **kw, device=torch.device("meta"))
+
+
+def _cache(cfg: ModelConfig, batch: int, max_seq: int, *,
+           enc_len: int | None = None, dtype=torch.bfloat16,
+           device: torch.device) -> dict:
     Lc, KV, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
     cache: dict = {}
     if cfg.family != "ssm":
         for key in ("k", "v"):
             cache[key] = torch.zeros((Lc, batch, max_seq, KV, hd),
-                                     dtype=dtype, device=dev)
+                                     dtype=dtype, device=device)
     if cfg.family in ("ssm", "hybrid"):
-        one = ssm_mod.init_ssm_cache(cfg, batch, device=dev)
+        one = ssm_mod.init_ssm_cache(cfg, batch, device=device)
         cache["ssm"] = {key: torch.zeros((Lc,) + a.shape, dtype=a.dtype,
-                                         device=dev)
+                                         device=device)
                         for key, a in one.items()}
     if cfg.cross_attention and enc_len:
         for key in ("cross_k", "cross_v"):
             cache[key] = torch.zeros((Lc, batch, enc_len, KV, hd),
-                                     dtype=dtype, device=dev)
+                                     dtype=dtype, device=device)
     return cache
 
 
-@torch.inference_mode()
+@serving
 def decode_step(cfg: ModelConfig, p: Model, cache, token, pos):
     """One serving step: token [B,1], ``pos`` the position it takes.
 
@@ -454,13 +521,21 @@ def _fill(cache: dict, caches: dict) -> None:
     """Copy a prefill's stacked caches into the padded decode cache."""
     for key in ("k", "v"):
         if key in cache:
-            cache[key][:, :, :caches[key].shape[2]] = caches[key]
+            n, S = caches[key].shape[2], cache[key].shape[2]
+            if n == S:
+                cache[key].copy_(caches[key])
+            elif sharding._current_mesh() is not None:
+                # a slice of a split sequence is a copy, not a view: the
+                # prompt's entries padded to the cache's length instead
+                cache[key].copy_(F.pad(caches[key], (0, 0, 0, 0, 0, S - n)))
+            else:
+                cache[key][:, :, :n].copy_(caches[key])
     if "ssm" in cache:
         for key, z in cache["ssm"].items():
             z.copy_(caches["ssm"][key])
 
 
-@torch.inference_mode()
+@serving
 def prefill(cfg: ModelConfig, p: Model, tokens, max_seq: int, *,
             frontend=None):
     """Process the prompt, build the decode cache padded to max_seq.
@@ -468,6 +543,7 @@ def prefill(cfg: ModelConfig, p: Model, tokens, max_seq: int, *,
     Returns (last-position logits [B,V], cache)."""
     logits, caches = forward(cfg, p, tokens, frontend=frontend,
                              collect_cache=True)
-    cache = init_cache(cfg, tokens.shape[0], max_seq, device=logits.device)
+    cache = sharding.shard_cache(
+        init_cache(cfg, tokens.shape[0], max_seq, device=logits.device))
     _fill(cache, caches)
     return logits[:, -1, :], cache

@@ -20,6 +20,7 @@ from torch import nn
 
 from repro_torch.models import flags
 from repro_torch.models.registry import model_fns
+from repro_torch.train import sharding
 from repro_torch.train.optimizer import Optimizer
 
 
@@ -52,6 +53,10 @@ def value_and_grad(cfg, params: nn.Module, batch: dict):
         loss, grads = torch.func.functional_call(
             wrapper, {f"model.{k}": v for k, v in leaves.items()},
             (batch, list(leaves.values())))
+    if sharding._current_mesh() is not None:
+        # each gradient placed as its parameter: a partial sum is reduced
+        # here (the optimizer's global norm squares it)
+        grads = [sharding.like(g, p) for g, p in zip(grads, named.values())]
     return loss, dict(zip(named, grads))
 
 
@@ -69,7 +74,10 @@ def make_serve_step(cfg):
 
     def serve_step(params, cache, token, pos):
         logits, new_cache = mod.decode_step(cfg, params, cache, token, pos)
-        next_token = torch.argmax(logits, dim=-1).to(torch.int32)
+        # under a mesh the argmax reads whole rows (DTensor's argmax over a
+        # split vocabulary reads the host); the identity off a mesh
+        whole = sharding.shard(logits, "batch", None)
+        next_token = torch.argmax(whole, dim=-1).to(torch.int32)
         return next_token, logits, new_cache
 
     return serve_step

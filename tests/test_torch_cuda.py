@@ -1775,3 +1775,66 @@ def test_train_switches_on_card(zoo_card):
     assert torch.equal(l16, l32)
     assert [k for k in g32 if not torch.equal(g16[k].float(), g32[k])] in (
         [], ["embedding"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "deepseek-moe-16b"])
+def test_dryrun_flops_equal_the_card_step(arch, zoo_card):
+    """``chip_smoke.py`` 16b at a small depth: the dry run's count of a
+    train step on a 1 x 1 fake mesh (``cuda`` device type) equals
+    ``FlopCounterMode``'s count of the same step run on the card, exactly;
+    its argument bytes are the f32 parameters and AdamW's two moments."""
+    import dataclasses
+
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun, hlo_analysis
+    from repro_torch.models import registry, transformer
+    from repro_torch.train import optimizer, train_step
+
+    cfg = dataclasses.replace(registry.get_config(arch), num_layers=2)
+    shape = ShapeSpec("t", "train", 512, 2)
+    rec = dryrun.cell(cfg, shape, mesh_shape=((1, 1), ("data", "model")),
+                      device_type="cuda")
+    assert rec["status"] == "ok"
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = transformer.init_params(cfg, gen)
+    batch = _train_batch(cfg, shape.global_batch, shape.seq_len, gen, "cuda")
+    opt = optimizer.adamw(optimizer.warmup_cosine(3e-4, 2000, 100_000))
+    step = train_step.make_train_step(cfg, opt)
+    state = opt.init(model)
+    with hlo_analysis.flop_counter() as counter:
+        step(model, state, batch)
+    torch.cuda.synchronize()
+    assert rec["flops_per_device"] == counter.get_total_flops() > 0
+    n = sum(p.numel() for p in model.parameters())
+    tokens = 2 * 4 * shape.global_batch * shape.seq_len      # int32 pair
+    assert rec["memory_analysis"]["argument_bytes"] == 12 * n + 4 + tokens
+
+
+@pytest.mark.cuda
+def test_dryrun_cluster_cell_runs_on_card():
+    """``chip_smoke.py`` 16c at 16 worker positions (4 x 4, dealt onto the
+    one card), 4 chunks a worker, ``max_iters`` 8: one A launch a Lloyd
+    iteration, at most the cell's budget; the cell's model counts the
+    exchange of each window."""
+    from repro_torch.api import BigMeansConfig, TopologySpec, fit
+    from repro_torch.data.synthetic import GMMSpec, gmm_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+
+    _card()
+    X = gmm_dataset(GMMSpec(m=16 * 4_000, n=27, components=25, seed=1),
+                    device="cuda")
+    cfg = BigMeansConfig(k=25, s=2_000, n_chunks=16 * 4, sync_every=2,
+                         max_iters=dryrun.MAX_ITERS, seed=0,
+                         topology=TopologySpec(kind="worker_mesh",
+                                               devices=(4, 4),
+                                               axes=("data", "model")))
+    ops.reset_launch_counts()
+    res = fit(X, cfg, method="sharded")
+    launches = ops.launch_counts()
+    assert res.extras["workers"] == 16
+    assert launches["fused_step"] == res.n_iterations
+    assert 0 < res.n_iterations <= dryrun.MAX_ITERS * cfg.n_chunks
+    assert launches["update"] == launches["assign"] == cfg.n_chunks
+    assert bool(torch.isfinite(res.centroids).all())

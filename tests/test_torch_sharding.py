@@ -136,7 +136,16 @@ def test_param_pspec_on_names_and_paths():
 
 
 def test_shard_is_the_identity_off_a_mesh_and_refuses_on_one():
+    """Off a mesh ``shard`` and ``shard_kv_cache`` return their argument;
+    on a fabricated mesh (the rules' alone) they refuse to place; on a
+    torch ``DeviceMesh`` over a fake world they place by the rules' spec
+    (a plain tensor distributed, a DTensor redistributed)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.launch import mesh as pmesh
+
     x = torch.arange(6.0).reshape(2, 3)
+    kv = torch.zeros((2, 16, 2, 4))                   # [B, S, KV, hd]
     assert psh.shard(x, "batch", None) is x
     assert psh.shard_kv_cache(x) is x
     assert psh._current_mesh() is None
@@ -145,11 +154,25 @@ def test_shard_is_the_identity_off_a_mesh_and_refuses_on_one():
         with psh.use_mesh(None):
             assert psh._current_mesh() is None
             assert psh.shard(x, "batch", None) is x
-        with pytest.raises(NotImplementedError, match="dry-run"):
+        with pytest.raises(TypeError, match="torch DeviceMesh"):
             psh.shard(x, "batch", None)
-        with pytest.raises(NotImplementedError, match="dry-run"):
-            psh.shard_kv_cache(x)
+        with pytest.raises(TypeError, match="torch DeviceMesh"):
+            psh.shard_kv_cache(kv)
     assert psh._current_mesh() is None
+    y = torch.arange(32.0).reshape(4, 8)
+    with pmesh.fake_world(4):
+        mesh = pmesh.make_mesh((2, 2), ("data", "model"))
+        with psh.use_mesh(mesh):
+            d = psh.shard(y, "batch", "model")
+            assert isinstance(d, DTensor)
+            assert list(d.placements) == [Shard(0), Shard(1)]
+            assert torch.equal(d.to_local(), y[:2, :4])       # rank 0
+            r = psh.shard(d, None, "model")
+            assert list(r.placements) == [Replicate(), Shard(1)]
+            assert psh.shard(r, None, "model") is r
+            c = psh.shard_kv_cache(kv)
+            assert list(c.placements) == [Shard(0), Shard(2)]
+    assert not torch.distributed.is_initialized()
 
 
 @pytest.mark.parametrize("mesh,groups", [("data16_model16", 16),
