@@ -300,8 +300,23 @@ Phases, each printing JSON lines:
    failed, D / B / C launches counted, kernel D held at the launcher's
    shape; again with ``--ckpt`` (bitwise, the reference's step layout)
    and resumed by a second call to the same f_best; ``--arch
-   hymba-1.5b`` refused.  14e: ``roofline.model_flops`` for the four
-   archs at the four assigned shapes.
+   hymba-1.5b`` refused.  14e: the reference's three public-API
+   examples, ``repro_torch.examples.{quickstart, bigdata_clustering,
+   serve_assignments}.main([])`` at their default sizes (each one's temp
+   directory under the smoke's own): the fits on the kernels, each call's
+   A / B / C launches counted; quickstart's fit held to its plain twin as
+   in phase 4 and its K-means++ as in phase 11; bigdata's resume run again
+   at ``log_every=1`` (bitwise) against its plain twin (accepts as in phase
+   4, f on the 1M-row sample within 1e-3); serving under 8 clients while
+   the second fit runs on the card: every request served, no capture after
+   warmup, every response's ids and d held to the plain version on the
+   centroids of the version it names (each swap's recorded as it is made;
+   ids off near ties, d within RTOL, as in 10a), B = the fits' chunks +
+   one eager warmup launch a bucket + one a replay; ``--topology host_mesh`` under ``launch_local``: two ranks
+   refuse as the reference's example does, one rank runs the host path
+   (its fits equal the in-process run's).  14f:
+   ``roofline.model_flops`` for the four archs at the four assigned
+   shapes.
 15. training the zoo — ``repro_torch.train`` on the card, no kernel of
    this repository on its path.  15a: hymba-1.5b at its published width and
    depth, f32 masters, ``adamw(1e-3)``, B = 4 x 2,048 tokens of one seeded
@@ -342,7 +357,9 @@ run's launches as ``serve``, phase 11's as ``baselines`` and phase 12's
 as ``sharded``, ``sharded_2x2``, ``sharded_resume``, ``stream_mesh`` and
 ``host_mesh`` (both ranks' fold and persistent fits), phase 13's as
 ``evalsuite_quick`` and ``evalsuite_full`` (in-process cells), phase 14's
-as ``embedding`` (14a's fit + evaluate) and ``launch_train`` (14d); A's,
+as ``embedding`` (14a's fit + evaluate), ``launch_train`` (14d) and
+``example_quickstart``, ``example_bigdata``, ``example_serve`` and
+``example_host_mesh`` (14e, each example's whole run; the one rank's); A's,
 B's and C's rows their times at 14a's chunk as ``at_embedding``; A's row its
 time over the 10.5M rows as ``at_full_data``, B's and C's theirs at the
 K-means|| pool as ``at_kmeans_parallel_pool``, P's its probe over the
@@ -409,7 +426,10 @@ from repro_torch.kernels import (  # noqa: E402
 from repro_torch.kernels import kpp_probe as kpp  # noqa: E402
 from repro_torch.kernels import precision as px  # noqa: E402
 from repro_torch.kernels import update as upd  # noqa: E402
-from repro_torch.examples import embedding_clustering  # noqa: E402
+from repro_torch.examples import (  # noqa: E402
+    bigdata_clustering, embedding_clustering, quickstart,
+    serve_assignments,
+)
 from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import decode_check  # noqa: E402
@@ -421,6 +441,7 @@ from repro_torch.train import optimizer as zoo_optimizer  # noqa: E402
 from repro_torch.train import step_check  # noqa: E402
 from repro_torch.train import train_step as zoo_train_step  # noqa: E402
 from repro_torch.serve import ServeConfig  # noqa: E402
+from repro_torch.serve import registry as serve_registry  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOP_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
@@ -1526,20 +1547,20 @@ def incumbents_before(trace, batch: int, sync_every: int,
     return out
 
 
-def check_accepts(res, res_ref, batch: int, sync_every: int,
+def check_accepts(trace, trace_ref, batch: int, sync_every: int,
                   start: float = math.inf):
-    """The two paths take the same accept decisions up to the first one
-    that is a near tie (f_new within TIE_RTOL of its incumbent on either
-    path); after such a decision the trajectories may part."""
-    parting = first_parting(res.trace, res_ref.trace)
+    """The two paths' ``(i, f_new, accepted)`` traces take the same accept
+    decisions up to the first one that is a near tie (f_new within
+    TIE_RTOL of its incumbent on either path); after such a decision the
+    trajectories may part."""
+    parting = first_parting(trace, trace_ref)
     if parting is None:
         return None
     i = parting["chunk"]
+    incs = [incumbents_before(tr, batch, sync_every, start)[i]
+            for tr in (trace, trace_ref)]
     near = [abs(tr[i][1] - inc) <= TIE_RTOL * abs(inc)
-            for tr, inc in ((res.trace, incumbents_before(
-                                res.trace, batch, sync_every, start)[i]),
-                            (res_ref.trace, incumbents_before(
-                                res_ref.trace, batch, sync_every, start)[i]))]
+            for tr, inc in zip((trace, trace_ref), incs)]
     check(any(near), f"accept sequences part at chunk {i} without a near "
           f"tie: {parting}")
     return parting
@@ -1635,7 +1656,7 @@ def phase_batched(X, seed: int, seq_fit_walls: dict):
     wall_ref_fit = time.monotonic() - t1
     _, f_full_ref = evaluate(res_ref, X, impl="ref")
     rel = abs(f_full - f_full_ref) / f_full_ref
-    parting = check_accepts(res, res_ref, BATCH, SYNC_EVERY)
+    parting = check_accepts(res.trace, res_ref.trace, BATCH, SYNC_EVERY)
 
     # batch=1 through the batched strategy is the sequential fit, bitwise
     one_cfg = cfg.replace(batch=1, n_chunks=8)
@@ -1726,7 +1747,7 @@ def phase_main_int8(X, seed: int, f_full_f32: float):
     check(ops.launch_counts() == launches, "the ref fit launched a kernel")
     _, f_full_ref = evaluate(res_ref, X)
     rel = abs(f_full - f_full_ref) / f_full_ref
-    parting = check_accepts(res, res_ref, 1, 1)
+    parting = check_accepts(res.trace, res_ref.trace, 1, 1)
     walls = {"f32": [], "int8": []}     # cuda fit walls, in turns
     for prec in ("f32", "int8", "int8", "f32"):
         walls[prec].append(fit(X, cfg.replace(precision=prec)).wall_time_s)
@@ -1788,7 +1809,7 @@ def phase_batched_int8(X, seed: int, f_full_f32: float):
     res_ref = fit(X, cfg.replace(impl="ref"), method="auto")
     _, f_full_ref = evaluate(res_ref, X, impl="ref")
     rel = abs(f_full - f_full_ref) / f_full_ref
-    parting = check_accepts(res, res_ref, BATCH, SYNC_EVERY)
+    parting = check_accepts(res.trace, res_ref.trace, BATCH, SYNC_EVERY)
     emit({"phase": "main_path_batched_int8", "m": m, "n": n, "k": cfg.k,
           "s": cfg.s, "n_chunks": cfg.n_chunks, "batch": BATCH,
           "sync_every": SYNC_EVERY, "rounds": rounds,
@@ -1852,7 +1873,7 @@ def phase_two_pass_int8(spec, X, gen_s: float, seed: int):
     check(ops.launch_counts() == launches, "the ref fit launched a kernel")
     _, f_full_ref = evaluate(res_ref, X)
     rel = abs(f_full - f_full_ref) / f_full_ref
-    parting = check_accepts(res, res_ref, 1, 1)
+    parting = check_accepts(res.trace, res_ref.trace, 1, 1)
 
     # B8 and C8 against their plain versions at the shape this path gives
     # them (one chunk against the final centroids), then their times
@@ -1960,7 +1981,7 @@ def phase_main_16(X, seed: int, prec: str, f_full_f32: float):
     check(ops.launch_counts() == launches, "the ref fit launched a kernel")
     _, f_full_ref = evaluate(res_ref, X)
     rel = abs(f_full - f_full_ref) / f_full_ref
-    parting = check_accepts(res, res_ref, 1, 1)
+    parting = check_accepts(res.trace, res_ref.trace, 1, 1)
     drift = (f_full - f_full_f32) / f_full_f32
     row = {}
     if prec == "bf16":
@@ -2036,7 +2057,7 @@ def phase_batched_16(X, seed: int, prec: str, f_full_f32: float):
     res_ref = fit(X, cfg.replace(impl="ref"), method="auto")
     _, f_full_ref = evaluate(res_ref, X, impl="ref")
     rel = abs(f_full - f_full_ref) / f_full_ref
-    parting = check_accepts(res, res_ref, BATCH, SYNC_EVERY)
+    parting = check_accepts(res.trace, res_ref.trace, BATCH, SYNC_EVERY)
     drift = (f_full - f_full_f32) / f_full_f32
     emit({"phase": f"main_path_batched_{prec}", "m": m, "n": n, "k": cfg.k,
           "s": cfg.s, "n_chunks": cfg.n_chunks, "batch": BATCH,
@@ -2091,7 +2112,7 @@ def phase_two_pass_16(X, seed: int):
     check(ops.launch_counts() == launches, "the ref fit launched a kernel")
     _, f_full_ref = evaluate(res_ref, X)
     rel = abs(f_full - f_full_ref) / f_full_ref
-    parting = check_accepts(res, res_ref, 1, 1)
+    parting = check_accepts(res.trace, res_ref.trace, 1, 1)
 
     # B16 and C16 against their plain versions at the shape this path
     # gives them (one bf16 chunk against the final centroids), then times
@@ -2949,9 +2970,8 @@ def phase_streaming(X, path: str, seed: int, in_core: dict) -> dict:
             _, f_full_ref = evaluate(state_ref.centroids, X, impl="ref")
             rel = abs(f_full - f_full_ref) / f_full_ref
             b, t = extra.get("batch", 1), extra.get("sync_every", 1)
-            parting = check_accepts(
-                types.SimpleNamespace(trace=windows.trace()),
-                types.SimpleNamespace(trace=ref_windows.trace()), b, t)
+            parting = check_accepts(windows.trace(), ref_windows.trace(),
+                                    b, t)
             if prec == "f32":
                 f_f32[name] = f_full
             drift = (f_full - f_f32[name]) / f_f32[name]
@@ -3584,10 +3604,8 @@ def phase_resume_persistent(X, path: str, base, root: Path,
     half = cfg.n_chunks // 2
     check(m.chunks_done == m_ref.chunks_done == half,
           f"persistent resume: {m.chunks_done} / {m_ref.chunks_done} chunks")
-    parting = check_accepts(
-        types.SimpleNamespace(trace=log.trace()),
-        types.SimpleNamespace(trace=log_ref.trace()), BATCH, SYNC_EVERY,
-        start)
+    parting = check_accepts(log.trace(), log_ref.trace(), BATCH, SYNC_EVERY,
+                            start)
     _, f_full = evaluate(state.centroids, X)
     _, f_full_ref = evaluate(state_ref.centroids, X, impl="ref")
     _, f_full_u = evaluate(full, X)
@@ -5776,8 +5794,393 @@ def phase_launch_train(seed: int, root: Path, card: str) -> tuple:
     return launches, wall
 
 
+# 14e: the reference's three public-API examples, at their default sizes
+EXAMPLE_HOST_ARGV = ["--chunks", "24", "--s", "2048", "--topology",
+                     "host_mesh"]
+# What the reference's example does under two ranks (run on the CPU
+# through repro.engine.hostmesh.launch_local): every rank refuses in phase
+# 1, the example's batch of 1 not divisible by 2 hosts.
+EXAMPLE_HOST_REFUSAL = ("ValueError: host_mesh needs hosts (2) to divide "
+                        "the global batch (1)")
+EXAMPLE_RANK = """\
+import json, os, sys, time
+import torch
+from repro_torch.engine import hostmesh
+from repro_torch.examples import bigdata_clustering
+from repro_torch.kernels import build, ops
+build.load()
+ops.reset_launch_counts()
+t0 = time.monotonic()
+got = bigdata_clustering.main(sys.argv[1:])
+torch.cuda.synchronize()
+runs = (got["phase1"], got["phase2"])
+print("RESULT " + json.dumps({
+    "rank": int(os.environ[hostmesh.ENV_RANK]),
+    "wall_s": time.monotonic() - t0, "built_here": build.info().built,
+    "jax": any(m == "jax" or m.startswith("jax.") for m in sys.modules),
+    "impl": [r.extras["fit"]["impl"] for r in runs],
+    "on_card": [r.centroids.is_cuda for r in runs],
+    "objective": [r.objective for r in runs],
+    "n_chunks": [r.n_chunks for r in runs],
+    "n_accepted": [r.n_accepted for r in runs],
+    "n_iterations": [r.n_iterations for r in runs],
+    "fit_s": [r.wall_time_s for r in runs],
+    "host": runs[1].extras.get("host"), "per_point": got["per_point"],
+    "sample_rows": got["sample_rows"], "launches": ops.launch_counts()}),
+    flush=True)
+"""
+
+
+def counted_calls(module, calls: list, *names):
+    """Wrap ``module.<name>`` for each of ``names``: every call appends
+    (name, result, ms, {kernel: launches it made}) to ``calls``, the card
+    synchronized on both sides.  Returns the restore function."""
+    originals = {name: getattr(module, name) for name in names}
+
+    def wrap(name, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            before = ops.launch_counts()
+            t0 = time.monotonic()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.monotonic() - t0)
+            after = ops.launch_counts()
+            calls.append((name, out, ms, {
+                k: v - before[k] for k, v in after.items() if v != before[k]}))
+            return out
+        return wrapper
+
+    for name, fn in originals.items():
+        setattr(module, name, wrap(name, fn))
+
+    def restore():
+        for name, fn in originals.items():
+            setattr(module, name, fn)
+    return restore
+
+
+def run_example(module, argv: list, *names) -> tuple:
+    """``module.main(argv)`` on the card with ``names`` counted
+    (:func:`counted_calls`): (what it returned, its calls, the launches of
+    the whole run, its wall s)."""
+    calls: list = []
+    restore = counted_calls(module, calls, *names)
+    try:
+        ops.reset_launch_counts()
+        got, ms = timed(lambda: module.main(argv))
+        launches = ops.launch_counts()
+    finally:
+        restore()
+    return got, calls, launches, ms / 1e3
+
+
+def on_card(res, what: str) -> None:
+    check(res.extras["fit"]["impl"] == "cuda" and res.centroids.is_cuda,
+          f"{what}: the fit did not run the kernels on the card")
+
+
+def lloyd_launches(res) -> dict:
+    """A sequential fit's launches: A once per Lloyd iteration, its
+    epilogue's B and C once a chunk."""
+    return {"fused_step": res.n_iterations, "assign": res.n_chunks,
+            "update": res.n_chunks}
+
+
+def stream_accepts(*runs) -> list:
+    """The ``(i, f_new, accepted)`` trace of streamed fits run one after
+    another at ``log_every=1`` (a chunk is accepted where the incumbent
+    after it is its f_new)."""
+    rows = [(fn, fb == fn) for r in runs for t in r.trace
+            if isinstance(t[0], int) for _, fb, fn in (t,)]
+    return [(i, fn, acc) for i, (fn, acc) in enumerate(rows)]
+
+
+def example_quickstart() -> tuple:
+    """14e: ``quickstart.main([])``: the fit's, ``evaluate``'s and the
+    K-means++ baseline's launches; the fit held to its plain twin on the
+    same rows as phase 4 holds it, the baseline as phase 11 does."""
+    got, calls, launches, wall = run_example(quickstart, [], "fit",
+                                             "evaluate")
+    (_, res, fit_ms, fit_l), (_, _, eval_ms, eval_l), \
+        (_, base, base_ms, base_l) = calls
+    X, cfg = got["X"], got["config"]
+    on_card(res, "14e quickstart")
+    on_card(base, "14e quickstart's K-means++")
+    n_eval = math.ceil(X.shape[0] / EVAL_BATCH)
+    check(res.strategy == "sequential" and fit_l == lloyd_launches(res)
+          and eval_l == {"assign": n_eval}
+          and set(base_l) == {"fused_step", "assign", "update"},
+          f"14e quickstart: launches {fit_l}, {eval_l}, {base_l}")
+    twin = fit(X, cfg.replace(impl="ref"))
+    parting = check_accepts(res.trace, twin.trace, 1, 1)
+    _, f_twin = evaluate(twin, X, impl="ref")
+    rel = abs(got["objective"] - f_twin) / f_twin
+    check(rel <= 1e-3, f"14e quickstart: f {got['objective']} against the "
+          f"plain twin's {f_twin} ({rel:.3e})")
+    base_twin = fit(X, cfg.replace(impl="ref"), method="kmeanspp", seed=1)
+    check(base.objective <= base_twin.objective * (1 + 1e-3),
+          f"14e quickstart: K-means++ f {base.objective} above the plain "
+          f"twin's {base_twin.objective}")
+    row = {"m": X.shape[0], "k": cfg.k, "s": cfg.s,
+           "n_chunks": res.n_chunks, "n_accepted": res.n_accepted,
+           "n_iterations": res.n_iterations, "wall_s": wall,
+           "fit_ms": fit_ms, "fit_wall_s": res.wall_time_s,
+           "evaluate_ms": eval_ms, "f_full": got["objective"],
+           "f_full_plain": f_twin, "f_full_rel_diff": rel,
+           "first_parting": parting, "kmeanspp": {
+               "ms": base_ms, "fit_wall_s": base.wall_time_s,
+               "n_iterations": base.n_iterations, "f": base.objective,
+               "f_plain": base_twin.objective, "launches": base_l},
+           "launches": launches}
+    return row, (launches, wall)
+
+
+def example_bigdata(root: Path) -> tuple:
+    """14e: ``bigdata_clustering.main([])``: phase 1, the resume and the
+    final pass, each one's launches; the resume held to its plain twin as
+    phase 9 holds it (both runs again at ``log_every=1``: the kernels' is
+    bitwise the example's, the accept sequences as phase 4's, f on the
+    sample within 1e-3)."""
+    got, calls, launches, wall = run_example(bigdata_clustering, [], "fit",
+                                             "evaluate")
+    (_, r1, ms1, l1), (_, r2, ms2, l2), (_, _, eval_ms, eval_l) = calls
+    cfg = got["config"]
+    half = cfg.n_chunks // 2
+    for res, what in ((r1, "phase 1"), (r2, "phase 2")):
+        on_card(res, f"14e bigdata {what}")
+    n_eval = math.ceil(got["sample_rows"] / EVAL_BATCH)
+    check(l1 == lloyd_launches(r1) and l2 == lloyd_launches(r2)
+          and eval_l == {"assign": n_eval},
+          f"14e bigdata: launches {l1}, {l2}, {eval_l}")
+    check(r1.n_chunks == r2.n_chunks == half
+          and r2.extras["health"]["ckpt_fallback"] is None
+          and len(r2.extras["checkpoint"]["restore_ms"]) == 1,
+          f"14e bigdata: {r1.n_chunks} + {r2.n_chunks} chunks, resume "
+          f"{r2.extras['checkpoint']}")
+    spec, s = bigdata_clustering.SPEC, cfg.s
+
+    def fetch(chunk_id: int) -> np.ndarray:
+        return devices.host_array(gmm_chunk(spec, chunk_id, s), np.float32)
+
+    runs = {}
+    for impl in ("auto", "ref"):        # auto: the example's (the kernels)
+        c = cfg.replace(ckpt_dir=str(root / f"bigdata_{impl}"), impl=impl,
+                        log_every=1)
+        runs[impl] = [fit(fetch, c.replace(n_chunks=half, resume=False),
+                          method="streaming", n_features=spec.n),
+                      fit(fetch, c, method="streaming", n_features=spec.n)]
+    again = runs["auto"][1]
+    check(torch.equal(again.centroids, r2.centroids)
+          and again.objective == r2.objective,
+          "14e bigdata: the kernels' run again at log_every=1 differs")
+    accepts = {impl: stream_accepts(*r) for impl, r in runs.items()}
+    check(len(accepts["auto"]) == len(accepts["ref"]) == cfg.n_chunks,
+          f"14e bigdata: traces of {len(accepts['auto'])} and "
+          f"{len(accepts['ref'])} chunks")
+    parting = check_accepts(accepts["auto"], accepts["ref"], 1, 1)
+    _, f_twin = evaluate(runs["ref"][1].centroids, got["sample"], impl="ref")
+    rel = abs(got["objective"] - f_twin) / f_twin
+    check(rel <= 1e-3, f"14e bigdata: f on the sample {got['objective']} "
+          f"against the plain twin's {f_twin} ({rel:.3e})")
+    row = {"chunks": cfg.n_chunks, "k": cfg.k, "s": s,
+           "sample_rows": got["sample_rows"], "wall_s": wall,
+           "phase1": {"ms": ms1, "fit_wall_s": r1.wall_time_s,
+                      "n_accepted": r1.n_accepted, "f_best": r1.objective},
+           "phase2": {"ms": ms2, "fit_wall_s": r2.wall_time_s,
+                      "n_accepted": r2.n_accepted, "f_best": r2.objective,
+                      "restore_ms": r2.extras["checkpoint"]["restore_ms"]},
+           "sample_evaluate_ms": eval_ms, "per_point": got["per_point"],
+           "f_sample_plain": f_twin, "f_sample_rel_diff": rel,
+           "first_parting": parting,
+           "sizes": [int(v) for v in got["sizes"]], "launches": launches}
+    return row, (launches, wall)
+
+
+def recording_serving(responses: list, snapshots: dict):
+    """Wrap ``Server.assign`` and ``ModelEntry.swap``: each response is
+    appended to ``responses`` with its rows and the entry's policy, each
+    swap's centroids kept in ``snapshots`` by version as it is made.
+    Returns the restore function."""
+    assign, swap = serve_lib.Server.assign, serve_registry.ModelEntry.swap
+    lock = threading.Lock()
+
+    def recording_assign(self, model_id, points, *args, **kwargs):
+        resp = assign(self, model_id, points, *args, **kwargs)
+        prec = self.registry.get(model_id).precision
+        with lock:
+            responses.append((np.array(points), resp, prec))
+        return resp
+
+    def recording_swap(self, centroids, **kwargs):
+        snap = swap(self, centroids, **kwargs)
+        with lock:
+            snapshots[snap.version] = snap.centroids.clone()
+        return snap
+
+    serve_lib.Server.assign = recording_assign
+    serve_registry.ModelEntry.swap = recording_swap
+
+    def restore():
+        serve_lib.Server.assign = assign
+        serve_registry.ModelEntry.swap = swap
+    return restore
+
+
+def check_served(responses: list, snapshots: dict) -> dict:
+    """Every response's ids and distances held to the plain version on its
+    rows and the centroids of the version it names, as 10a holds a replay
+    (ids equal off near ties, d within RTOL of its terms): one check a
+    version over all its rows.  Returns {version: [responses, rows, near
+    ties, max abs err of d]}."""
+    by_version: dict = {}
+    for points, resp, prec in responses:
+        check(resp.version in snapshots and len(resp.ids) == len(points),
+              f"14e serve: a response of {len(resp.ids)} ids for "
+              f"{len(points)} rows, version {resp.version} of "
+              f"{sorted(snapshots)}")
+        by_version.setdefault((resp.version, prec), []).append(
+            (points, resp))
+    rows = {}
+    for (version, prec), got in sorted(by_version.items()):
+        x = torch.from_numpy(np.concatenate([p for p, _ in got])).cuda()
+        ids = np.concatenate([r.ids for _, r in got])
+        d = np.concatenate([r.dists for _, r in got])
+        err = check_against_plain(prec, x, snapshots[version], ids, d,
+                                  f"14e serve, version {version}")
+        ties = int(assign_ties_at(prec, x, snapshots[version]).sum())
+        rows[version] = [len(got), int(x.shape[0]), ties, err]
+    return rows
+
+
+def example_serve() -> tuple:
+    """14e: ``serve_assignments.main([])``: 8 clients of 60 requests while
+    a second fit runs on the card; no request dropped, no capture after
+    warmup; every response held to the plain version on the centroids of
+    the version it names (each swap's recorded as it is made); A, B, C:
+    the fits', the buckets' warmup launches (B, eager, one a bucket) and
+    one B a replay."""
+    responses, snapshots = [], {}
+    restore = recording_serving(responses, snapshots)
+    try:
+        got, calls, launches, wall = run_example(serve_assignments, [],
+                                                 "fit")
+    finally:
+        restore()
+    (_, trained, ms1, l1), (_, more, ms2, _) = calls
+    on_card(trained, "14e serve, training")
+    on_card(more, "14e serve, retraining")
+    stats = got["stats"]
+    replays = sum(stats["replays"].values())
+    chunks = trained.n_chunks + more.n_chunks
+    check(l1 == lloyd_launches(trained) and launches == dict(
+        dict.fromkeys(launches, 0),
+        fused_step=trained.n_iterations + more.n_iterations,
+        update=chunks, assign=chunks + len(got["buckets"]) + replays),
+        f"14e serve: launches {l1}, {launches}; {replays} replays")
+    check(got["completed"] == stats["n_requests"] == 8 * 60
+          and replays == stats["n_batches"]
+          and stats["n_launch_faults"] == 0
+          and got["recompiles_after_warmup"] == 0
+          and len(responses) == 8 * 60,
+          f"14e serve: {got['completed']} completed, {len(responses)} "
+          f"recorded, stats {stats}")
+    snapshots[0] = trained.centroids
+    served = check_served(responses, snapshots)
+    changed = [v for v in snapshots
+               if v and not torch.equal(snapshots[v], snapshots[0])]
+    row = {"wall_s": wall, "train": {"ms": ms1,
+                                     "fit_wall_s": trained.wall_time_s},
+           "retrain": {"ms": ms2, "fit_wall_s": more.wall_time_s,
+                       "n_chunks": more.n_chunks},
+           "requests": got["completed"], "n_batches": stats["n_batches"],
+           "requests_per_batch": stats["requests_per_batch"],
+           "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
+           "recompiles_after_warmup": got["recompiles_after_warmup"],
+           "n_swaps": got["n_swaps"], "trace": got["trace"],
+           "versions": got["versions"],
+           "served_per_version": served, "swaps_that_changed_centroids":
+           changed, "launches": launches}
+    return row, (launches, wall)
+
+
+def example_host_mesh(root: Path) -> tuple:
+    """14e: ``bigdata_clustering`` with ``--topology host_mesh`` under the
+    port's ``launch_local``.  Two ranks: each refuses in phase 1 as the
+    reference's example does, writing no checkpoint.  One rank: the host
+    path on the card, its launches from the rank, its fits and its sample's
+    f equal to the example run in this process on the same arguments."""
+    env = {"PYTHONPATH": str(ROOT / "src"), "TMPDIR": str(root)}
+    cmd = [sys.executable, "-c", EXAMPLE_RANK, *EXAMPLE_HOST_ARGV]
+    ckpt = root / "bigmeans_demo_ckpt"
+    t0 = time.monotonic()
+    procs = hostmesh.launch_local(cmd, 2, timeout_s=300, env_extra=env)
+    refused_s = time.monotonic() - t0
+    for p in procs:
+        lines = p.output.splitlines()
+        check(p.returncode == 1 and lines[-1] == EXAMPLE_HOST_REFUSAL
+              and lines[0] == "phase 1: clustering 12 chunks, then "
+              "'crashing'…", f"14e host_mesh, 2 ranks: rank {p.rank} exit "
+              f"{p.returncode}: {p.output[-2000:]}")
+    check(not ckpt.exists() or not ckpt_lib.steps(str(ckpt)),
+          "14e host_mesh, 2 ranks: a checkpoint was written")
+    t0 = time.monotonic()
+    procs = hostmesh.launch_local(cmd, 1, timeout_s=300, env_extra=env)
+    wall = time.monotonic() - t0
+    check(procs[0].returncode == 0, f"14e host_mesh, 1 rank: exit "
+          f"{procs[0].returncode}: {procs[0].output[-2000:]}")
+    out, = rank_results(procs, "14e host_mesh, 1 rank")
+    single = bigdata_clustering.main(EXAMPLE_HOST_ARGV[:4])
+    runs = (single["phase1"], single["phase2"])
+    lc = out["launches"]
+    n_eval = math.ceil(out["sample_rows"] / EVAL_BATCH)
+    check(out["impl"] == ["cuda", "cuda"] and all(out["on_card"])
+          and not out["jax"] and not out["built_here"]
+          and out["host"]["processes"] == 1, f"14e host_mesh rank: {out}")
+    check(lc == dict(dict.fromkeys(lc, 0),
+                     fused_step=sum(out["n_iterations"]),
+                     update=sum(out["n_chunks"]),
+                     assign=sum(out["n_chunks"]) + n_eval),
+          f"14e host_mesh rank: launches {lc}")
+    check(out["objective"] == [r.objective for r in runs]
+          and out["n_accepted"] == [r.n_accepted for r in runs]
+          and out["per_point"] == single["per_point"],
+          f"14e host_mesh rank: {out['objective']}, {out['per_point']} "
+          f"against one process's {[r.objective for r in runs]}, "
+          f"{single['per_point']}")
+    row = {"argv": EXAMPLE_HOST_ARGV, "two_ranks_refused":
+           EXAMPLE_HOST_REFUSAL, "two_ranks_launch_s": refused_s,
+           "one_rank_launch_s": wall, "rank_wall_s": out["wall_s"],
+           "rank_fit_s": out["fit_s"], "single_process_fit_s":
+           [r.wall_time_s for r in runs], "launches": lc}
+    return row, (lc, wall)
+
+
+def phase_examples(root: Path, card: str) -> dict:
+    """14e: the reference's three examples on the card at their default
+    sizes (``repro_torch.examples``), and the streaming one under
+    ``host_mesh``; each one's temp directory under ``root``.  Returns
+    {path: (launches, wall s)}."""
+    rows, paths, seconds = {}, {}, {}
+    saved = tempfile.tempdir
+    tempfile.tempdir = str(root)
+    try:
+        for name, run in (("quickstart", example_quickstart),
+                          ("bigdata", lambda: example_bigdata(root)),
+                          ("serve", example_serve),
+                          ("host_mesh", lambda: example_host_mesh(root))):
+            t0 = time.monotonic()
+            rows[name], paths[f"example_{name}"] = run()
+            seconds[name] = time.monotonic() - t0
+    finally:
+        tempfile.tempdir = saved
+    emit({"phase": "zoo_examples", **rows, "seconds": seconds,
+          "card": card})
+    return paths
+
+
 def phase_zoo_flops(card: str) -> list:
-    """14e: ``roofline.model_flops`` for the four archs at the four
+    """14f: ``roofline.model_flops`` for the four archs at the four
     assigned shapes."""
     rows = [{"arch": arch, "shape": name, "kind": shape.kind,
              "model_flops": roofline.model_flops(
@@ -5812,9 +6215,16 @@ def phase_zoo(seed: int) -> tuple:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     seconds["14d"] = time.monotonic() - t0
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_examples_"))
+    t0 = time.monotonic()
+    try:
+        paths.update(phase_examples(root, card))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seconds["14e"] = time.monotonic() - t0
     t0 = time.monotonic()
     phase_zoo_flops(card)
-    seconds["14e"] = time.monotonic() - t0
+    seconds["14f"] = time.monotonic() - t0
     emit({"phase": "zoo_seconds", **seconds, "card": card})
     return rows, paths
 

@@ -11,6 +11,7 @@ on ``PATH``).  There is no fallback: a failed build raises.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -18,6 +19,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -95,6 +97,7 @@ class BuildInfo:
 
 _LIB: ctypes.CDLL | None = None
 _INFO: BuildInfo | None = None
+_tally = threading.local()
 
 
 def nvcc() -> str:
@@ -224,6 +227,27 @@ def load(rebuild: bool = False) -> ctypes.CDLL:
 def info() -> BuildInfo | None:
     """How the loaded library was obtained (None before :func:`load`)."""
     return _INFO
+
+
+def count_launch(name: str) -> None:
+    """Note one launch of the kernel that ``ops.launch_counts`` names
+    ``name`` in this thread's open :func:`tally`, if there is one.  Every
+    wrapper calls it beside its own counter's increment."""
+    counts = getattr(_tally, "counts", None)
+    if counts is not None:
+        counts[name] = counts.get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def tally():
+    """``{name: launches}`` that the wrappers count on this thread inside
+    the ``with``, and none of another thread's: the serving registry reads
+    a capture's launches so while a fit launches on another thread."""
+    _tally.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _tally.counts = None
 
 
 def check(err: int, what: str) -> None:

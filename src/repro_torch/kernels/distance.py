@@ -87,6 +87,7 @@ def assign_f32(x: torch.Tensor, c: torch.Tensor, ctas_per_sm: int = 2
     lib = build.load()
     global launches
     launches += 1
+    build.count_launch("assign")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.repro_assign_f32(
         x.data_ptr(), c.data_ptr(), csq.data_ptr(), sbest.data_ptr(),
@@ -115,6 +116,7 @@ def assign_16(x: torch.Tensor, c: torch.Tensor, precision: str,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = build.load()
     launches16[precision] += 1
+    build.count_launch(f"assign_{precision}")
     bn = mma_n_tile(k)
     ids, d, sbest, sidx, grid = _tile_launch(x, m, k, bn, ctas_per_sm)
     if precision == "bf16":
@@ -173,6 +175,7 @@ def launch_assign_int8(q: torch.Tensor, scale: torch.Tensor,
     lib = build.load()
     global int8_launches
     int8_launches += 1
+    build.count_launch("assign_int8")
     err = lib.repro_assign_int8(
         q.data_ptr(), cq.data_ptr(), c.data_ptr(), csq.data_ptr(),
         t.data_ptr(), scale.data_ptr(), sbest.data_ptr(), sidx.data_ptr(),

@@ -74,6 +74,8 @@ def _launch(precision: str, pipeline: str):
     entry = f"repro_fused_step_{precision}"
     if check_pipeline(pipeline) == "dma":
         dma_launches[precision] += 1
+        build.count_launch("fused_step_dma"
+                           + ("" if precision == "f32" else f"_{precision}"))
         return getattr(lib, f"{entry}_dma")
     if precision == "f32":
         launches += 1
@@ -81,6 +83,8 @@ def _launch(precision: str, pipeline: str):
         int8_launches += 1
     else:
         launches16[precision] += 1
+    build.count_launch(f"fused_step_{precision}" if precision != "f32"
+                       else "fused_step")
     return getattr(lib, entry)
 
 
@@ -178,6 +182,7 @@ def fused_step_batched_f32(x: torch.Tensor, c: torch.Tensor
     for b0 in range(0, batch, group):
         nb = min(group, batch - b0)
         batched_launches += 1
+        build.count_launch("fused_step_batched")
         err = lib.repro_fused_step_batched_f32(
             x[b0].data_ptr(), c[b0].data_ptr(), part.data_ptr(),
             out[b0].data_ptr(), nb, m, k, n, grid, st)
@@ -251,6 +256,7 @@ def fused_step_batched_16(x: torch.Tensor, c: torch.Tensor, precision: str
     for b0 in range(0, batch, group):
         nb = min(group, batch - b0)
         batched_launches16[precision] += 1
+        build.count_launch(f"fused_step_batched_{precision}")
         err = launch(x[b0].data_ptr(), c[b0].data_ptr(), csq[b0].data_ptr(),
                      part.data_ptr(), out[b0].data_ptr(), nb, m, k, n, grid,
                      st)
@@ -382,6 +388,7 @@ def launch_fused_step_batched_int8(q: torch.Tensor, scale: torch.Tensor,
     for b0 in range(0, batch, group):
         nb = min(group, batch - b0)
         batched_int8_launches += 1
+        build.count_launch("fused_step_batched_int8")
         err = lib.repro_fused_step_batched_int8(
             q[b0].data_ptr(), cq[b0].data_ptr(), c[b0].data_ptr(),
             csq[b0].data_ptr(), t[b0].data_ptr(), scale[b0].data_ptr(),

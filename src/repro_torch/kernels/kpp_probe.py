@@ -82,6 +82,7 @@ def kpp_probe_cuda(x: torch.Tensor, cands: torch.Tensor, d: torch.Tensor
     pot = torch.empty(L, dtype=torch.float32, device=x.device)
     global launches
     launches += 1
+    build.count_launch("kpp_probe")
     err = lib.repro_kpp_probe(
         x.data_ptr(), cands.data_ptr(), d.data_ptr(), newd.data_ptr(),
         scratch.data_ptr(), pot.data_ptr(), ticket.data_ptr(), m, L, n,

@@ -136,24 +136,34 @@ ASSIGN_COUNTERS = {"f32": "assign", "int8": "assign_int8",
                    "bf16": "assign_bf16", "bf16x3": "assign_bf16x3"}
 
 _count_lock = threading.RLock()
+# What add_launch_counts added (the serving registry's replays, its
+# captures taken back), kept apart from the wrappers' own counters: an add
+# on the batcher's thread then never writes a counter that a wrapper on
+# another thread (a fit's) increments, and no increment is lost between
+# the add's read and its write.
+_added: dict[str, int] = {}
 
 
 def counts_held():
     """The counters' lock, as a context manager: while one thread holds
     it, no other adds to the counters through :func:`add_launch_counts` or
-    resets them (the serving registry reads a capture's count under it)."""
+    resets them (the serving registry captures, and takes the capture's
+    count back, under it)."""
     return _count_lock
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last reset, per kernel."""
-    return {name: _get(holder, key) for name, holder, key in _counters()}
+    with _count_lock:
+        return {name: _get(holder, key) + _added.get(name, 0)
+                for name, holder, key in _counters()}
 
 
 def reset_launch_counts() -> None:
     with _count_lock:
         for _, holder, key in _counters():
             _set(holder, key, 0)
+        _added.clear()
 
 
 def add_launch_counts(delta: dict[str, int]) -> None:
@@ -164,11 +174,12 @@ def add_launch_counts(delta: dict[str, int]) -> None:
     the serving registry takes the capture's count back and adds each
     replay's here (``serve/registry.py``).
     """
-    rows = {name: (holder, key) for name, holder, key in _counters()}
+    names = {name for name, _, _ in _counters()}
     with _count_lock:
         for name, value in delta.items():
-            holder, key = rows[name]
-            _set(holder, key, _get(holder, key) + value)
+            if name not in names:
+                raise KeyError(name)
+            _added[name] = _added.get(name, 0) + value
 
 
 def resolve_precision(precision: str | None, x) -> str:

@@ -77,6 +77,7 @@ def update_f32(x: torch.Tensor, ids: torch.Tensor, k: int
     lib = build.load()
     global launches
     launches += 1
+    build.count_launch("update")
     err = lib.repro_update_f32(
         x.data_ptr(), ids.data_ptr(), rec.data_ptr(), rcnt.data_ptr(),
         idx.data_ptr(), out.data_ptr(), m, k, n, order(x.device, m, k, n),
@@ -103,6 +104,7 @@ def update_16(x: torch.Tensor, ids: torch.Tensor, k: int, precision: str
     out = torch.empty(k * n + k, dtype=torch.float32, device=x.device)
     launch = getattr(build.load(), f"repro_update_{precision}")
     launches16[precision] += 1
+    build.count_launch(f"update_{precision}")
     err = launch(x.data_ptr(), ids.data_ptr(), rec.data_ptr(),
                  rcnt.data_ptr(), idx.data_ptr(), out.data_ptr(), m, k, n,
                  order(x.device, m, k, n),
@@ -152,6 +154,7 @@ def launch_update_int8(q: torch.Tensor, ids: torch.Tensor, k: int
     lib = build.load()
     global int8_launches
     int8_launches += 1
+    build.count_launch("update_int8")
     err = lib.repro_update_int8(
         q.data_ptr(), ids.data_ptr(), rec.data_ptr(), rcnt.data_ptr(),
         idx.data_ptr(), isums.data_ptr(), counts.data_ptr(), m, k, n,

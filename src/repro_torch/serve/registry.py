@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as devices
-from repro_torch.kernels import ops
+from repro_torch.kernels import build, ops
 from repro_torch.kernels import precision as px
 
 
@@ -100,7 +100,8 @@ class _GraphPlan:
     and one synchronisation of the entry's stream.
 
     ``launches`` is what the kernel wrappers counted during the capture
-    ({counter: launches}, read from ``ops.launch_counts()`` around it).  A
+    on the capturing thread ({counter: launches}, their ``build.tally``;
+    a fit launching on another thread meanwhile adds nothing to it).  A
     capture launches nothing, so that count is taken back, and each replay
     adds it again: the counters then show what the replays launched.
     """
@@ -116,23 +117,22 @@ class _GraphPlan:
         # A graph that the cyclic collector frees inside this capture (a
         # closed server's plan, say) invalidates it: no collection during
         # a capture.  Holding the counters' lock keeps other entries'
-        # replays from adding to them meanwhile.
+        # replays from adding to them, and a reset from clearing them,
+        # until the capture's count is taken back.
         with ops.counts_held():
-            before = ops.launch_counts()
             collecting = gc.isenabled()
             gc.disable()
             try:
-                with torch.cuda.graph(self.graph, stream=entry.stream,
-                                      capture_error_mode="thread_local"):
+                with build.tally() as launched, torch.cuda.graph(
+                        self.graph, stream=entry.stream,
+                        capture_error_mode="thread_local"):
                     self.ids, self.d = ops.assign(
                         self.x, entry.centroid_buffer, impl=entry.impl,
                         precision=entry.precision)
             finally:
                 if collecting:
                     gc.enable()
-            after = ops.launch_counts()
-            self.launches = {name: v - before[name]
-                             for name, v in after.items() if v != before[name]}
+            self.launches = dict(launched)
             ops.add_launch_counts(
                 {name: -v for name, v in self.launches.items()})
 

@@ -12,6 +12,8 @@ are used by the CPU parity tests too.
 """
 import json
 import math
+import sys
+import threading
 
 import numpy as np
 import pytest
@@ -1312,6 +1314,113 @@ def test_serve_coalesced_bitwise_per_request_on_card(precision):
     for a, r in zip(alone, coalesced):
         assert np.array_equal(a.ids, r.ids)
         assert np.array_equal(a.dists, r.dists)
+
+
+@pytest.mark.cuda
+def test_launch_counts_lose_nothing_across_threads():
+    """A fit's kernel wrappers count on one thread while a server adds its
+    replays' counts (``ops.add_launch_counts``) on another, the interpreter
+    switching threads every microsecond: no launch is lost from the
+    counts."""
+    _card()
+    from repro_torch.kernels import ops
+
+    x, c = blobs(512, 8, 4, seed=5)
+    x, c = torch.from_numpy(x).cuda(), torch.from_numpy(c).cuda()
+    n = 3000
+    ops.assign(x, c, impl="cuda")
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        ops.reset_launch_counts()
+        adder = threading.Thread(target=lambda: [
+            ops.add_launch_counts({"assign": 1}) for _ in range(n)])
+        adder.start()
+        for _ in range(n):
+            ops.assign(x, c, impl="cuda")
+        adder.join(timeout=120)
+        assert not adder.is_alive()
+    finally:
+        sys.setswitchinterval(interval)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["assign"] == 2 * n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "int8", "bf16", "bf16x3"])
+def test_tally_names_the_counter_each_wrapper_counts(precision):
+    """Every wrapper of the policy (B·, C·, A· and its dma twin, D·; P
+    beside f32) notes in this thread's ``build.tally`` exactly what it adds
+    to ``ops.launch_counts``."""
+    _card()
+    from repro_torch.kernels import build, kpp_probe, ops
+    from repro_torch.kernels import precision as px
+
+    x, c = blobs(512, 8, 16, seed=2)
+    x, c = torch.from_numpy(x).cuda(), torch.from_numpy(c).cuda()
+    xs = px.cast_storage(px.as_quantized(x) if precision == "int8" else x,
+                         precision)
+    xb = torch.stack([x, x.flip(0)])
+    xbs = px.cast_storage(px.as_quantized(xb) if precision == "int8"
+                          else xb, precision)
+    ids = torch.zeros(512, dtype=torch.int32, device="cuda")
+    table = ops._KERNELS[precision]
+    calls = [lambda: table["assign"](xs, c),
+             lambda: table["update"](xs, ids, 8),
+             lambda: table["fused"](xs, c),
+             lambda: table["fused"](xs, c, pipeline="dma"),
+             lambda: table["batched"](xbs, torch.stack([c, c]))]
+    if precision == "f32":
+        calls.append(lambda: kpp_probe.kpp_probe_cuda(
+            x, c[:4], torch.ones(512, device="cuda")))
+    for call in calls:
+        call()                                  # built and tuned
+        torch.cuda.synchronize()
+        before = ops.launch_counts()
+        with build.tally() as launched:
+            call()
+        after = ops.launch_counts()
+        assert launched == {k: v - before[k] for k, v in after.items()
+                            if v != before[k]} != {}
+
+
+@pytest.mark.cuda
+def test_capture_counts_none_of_a_concurrent_fit():
+    """Tenants registered (each bucket captured) while a fit launches on
+    another thread: every capture counts its one B launch, and the counts
+    after both are the fit's launches plus one eager warmup launch a
+    bucket, none lost and none added."""
+    _card()
+    from repro_torch.api import BigMeansConfig, fit
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeConfig, Server
+
+    x, c = blobs(20_000, 10, 12, seed=4)
+    x = torch.from_numpy(x).cuda()
+    cfg = BigMeansConfig(k=10, s=2048, n_chunks=40, seed=0)
+    fit(x, cfg.replace(n_chunks=2))
+    ops.reset_launch_counts()
+    results = []
+    fitter = threading.Thread(target=lambda: results.append(fit(x, cfg)))
+    srv = Server(ServeConfig(min_bucket=64, max_batch=1024))
+    n_tenants = 6
+    with srv:
+        fitter.start()
+        for i in range(n_tenants):
+            srv.register(f"t{i}", np.roll(c, i, axis=0))
+        fitter.join(timeout=300)
+        assert not fitter.is_alive()
+        buckets = srv.config.buckets()
+        for i in range(n_tenants):
+            entry = srv.registry.get(f"t{i}")
+            assert all(entry.plan(b).launches == {"assign": 1}
+                       for b in buckets)
+    torch.cuda.synchronize()
+    res, = results
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    assert counts == {"fused_step": res.n_iterations,
+                      "update": res.n_chunks,
+                      "assign": res.n_chunks + n_tenants * len(buckets)}
 
 
 @pytest.mark.cuda

@@ -10,6 +10,8 @@ The CUDA kernels themselves run only on the card: ``test_torch_cuda.py``
 holds each against its plain version on CUDA tensors, and
 ``test_torch_csrc.py`` checks their source logic on the CPU.
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -118,6 +120,24 @@ def test_fits_envelope_matches_reference():
     for k in (1, 25, 127, 128, 129, 256, 1000, 1024, 1025):
         for n in (1, 3, 28, 128, 129, 512, 900, 1024, 1025, 2048, 4096, 4097):
             assert fused_step.fits(k, n) == jfused.fits(k, n), (k, n)
+
+
+def test_tally_holds_only_its_own_threads_launches():
+    """``build.tally`` keeps what the wrappers note (``count_launch``) on
+    its own thread inside the ``with``: nothing another thread notes
+    meanwhile, nothing noted before or after it."""
+    from repro_torch.kernels import build
+
+    build.count_launch("assign")
+    with build.tally() as mine:
+        other = threading.Thread(target=lambda: [
+            build.count_launch("update") for _ in range(1000)])
+        other.start()
+        for _ in range(3):
+            build.count_launch("assign")
+        other.join()
+    build.count_launch("assign")
+    assert mine == {"assign": 3}
 
 
 def test_cpu_wrappers_take_the_plain_version():

@@ -48,6 +48,8 @@ def test_port_imports_neither_jax_nor_repro():
                     "hymba_1_5b", "seamless_m4t_medium", "deepseek_moe_16b",
                     "qwen3_moe_235b_a22b", "shapes")),
                 "repro_torch.examples.embedding_clustering",
+                *(f"repro_torch.examples.{m}" for m in (
+                    "quickstart", "bigdata_clustering", "serve_assignments")),
                 "repro_torch.launch.train"):
         assert new in modules, new
 
@@ -101,7 +103,10 @@ def test_no_card_means_no_run(monkeypatch):
         schema.host_info()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cfg.resolved_impl()
-    from repro_torch.examples import embedding_clustering
+    from repro_torch.examples import (
+        bigdata_clustering, embedding_clustering, quickstart,
+        serve_assignments,
+    )
     from repro_torch.launch import train
     from repro_torch.models import registry, transformer
 
@@ -114,6 +119,11 @@ def test_no_card_means_no_run(monkeypatch):
         embedding_clustering.main(["--arch", "hymba-1.5b"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--chunks", "8"])
+    for example, argv in ((quickstart, ["--m", "20000", "--chunks", "8"]),
+                          (bigdata_clustering, ["--chunks", "24"]),
+                          (serve_assignments, ["--chunks", "24"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            example.main(argv)
     assert devices.resolve("cpu") == torch.device("cpu")
 
 
