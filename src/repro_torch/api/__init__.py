@@ -60,6 +60,7 @@ import torch
 
 from repro_torch import device as devices
 from repro_torch import random as rnd
+from repro_torch import tracing
 from repro_torch.api import baselines as baselines
 from repro_torch.api import strategies as strategies
 from repro_torch.api.baselines import (
@@ -209,9 +210,11 @@ def fit(
             if method in list_baselines():
                 autotune.enable(False)
         t0 = time.monotonic()
-        result = fn(cfg, source, key, rng=rng, device=dev)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        with tracing.span("api.fit", dev):
+            result = fn(cfg, source, key, rng=rng, device=dev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+                tracing.count("host_sync.api.fit")
         result.wall_time_s = time.monotonic() - t0
     finally:
         if prev_tuning is not None:
@@ -243,6 +246,8 @@ def evaluate(result_or_centroids, data, *, device=None, impl: str = "auto"
 
     dev = devices.resolve(device)
     centroids = getattr(result_or_centroids, "centroids", result_or_centroids)
-    X = devices.to_f32(as_source(data).as_array(), dev)
-    ids, f = full_assignment(X, torch.as_tensor(centroids), impl=impl)
-    return ids, float(f)
+    with tracing.span("api.evaluate", dev):
+        X = devices.to_f32(as_source(data).as_array(), dev)
+        ids, f = full_assignment(X, torch.as_tensor(centroids), impl=impl)
+        tracing.count("host_sync.api.evaluate")
+        return ids, float(f)

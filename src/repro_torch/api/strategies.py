@@ -35,6 +35,7 @@ from typing import Callable
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.api.config import BigMeansConfig
 from repro_torch.api.result import FitResult
 from repro_torch.api.sources import DataSource
@@ -84,17 +85,26 @@ def _largest_divisor_le(n: int, cap: int) -> int:
 
 
 def _result_from_state(state, infos, cfg, strategy, **extras) -> FitResult:
-    f_new = infos.f_new.double().cpu().numpy()
-    accepted = infos.accepted.cpu().numpy()
+    with tracing.span("api.strategies.result", state.f_best):
+        f_new = infos.f_new.double().cpu().numpy()
+        accepted = infos.accepted.cpu().numpy()
+        objective = float(state.f_best)
+        n_accepted = int(state.n_accepted)
+        n_dist_evals = float(state.n_dist_evals)
+        # the sequential loops count Lloyd's iterations on the host
+        iters = infos.lloyd_iters
+        tracing.count("host_sync.api.result",
+                      5 + (iters.device.type != "cpu"))
+        n_iterations = int(np.sum(iters.cpu().numpy()))
     return FitResult(
         centroids=state.centroids,
-        objective=float(state.f_best),
+        objective=objective,
         algorithm="big_means",
         strategy=strategy,
         n_chunks=int(f_new.size),
-        n_accepted=int(state.n_accepted),
-        n_iterations=int(np.sum(infos.lloyd_iters.cpu().numpy())),
-        n_dist_evals=float(state.n_dist_evals),
+        n_accepted=n_accepted,
+        n_iterations=n_iterations,
+        n_dist_evals=n_dist_evals,
         trace=[(int(i), float(f), bool(a))
                for i, (f, a) in enumerate(zip(f_new, accepted))],
         config=cfg,

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch import random as rnd
+from repro_torch import tracing
 from repro_torch.core import kmeans, kmeanspp
 
 
@@ -41,6 +42,8 @@ class ChunkInfo(NamedTuple):
 
 
 def init_state(k: int, n: int, *, device) -> BigMeansState:
+    # three scalars copied from the host, each copy waited for
+    tracing.count("host_sync.core.bigmeans.init", 3)
     return BigMeansState(
         centroids=torch.zeros((k, n), dtype=torch.float32, device=device),
         degenerate=torch.ones((k,), dtype=torch.bool, device=device),
@@ -63,40 +66,42 @@ def chunk_step(
     rng=rnd.TORCH,
 ) -> tuple[BigMeansState, ChunkInfo]:
     """Process one chunk P (Algorithm 3, lines 5-12)."""
-    k = state.centroids.shape[0]
-    s = points.shape[0]
+    with tracing.span("core.bigmeans.chunk_step", points):
+        k = state.centroids.shape[0]
+        s = points.shape[0]
 
-    # line 7: re-initialize degenerate centroids with K-means++ on this
-    # chunk; the identity when no slot is degenerate.
-    n_deg = int(torch.sum(state.degenerate))
-    if n_deg:
-        c_init = kmeanspp.seed(points, key, k, init=state.centroids,
-                               degenerate=state.degenerate,
-                               candidates=candidates, rng=rng)
-    else:
-        c_init = state.centroids.float()
-    # line 8: local search
-    res = kmeans.lloyd(points, c_init, max_iters=max_iters, tol=tol,
-                       impl=impl, precision=precision)
+        # line 7: re-initialize degenerate centroids with K-means++ on this
+        # chunk; the identity when no slot is degenerate.
+        n_deg = int(torch.sum(state.degenerate))
+        tracing.count("host_sync.core.bigmeans.degenerate")
+        if n_deg:
+            c_init = kmeanspp.seed(points, key, k, init=state.centroids,
+                                   degenerate=state.degenerate,
+                                   candidates=candidates, rng=rng)
+        else:
+            c_init = state.centroids.float()
+        # line 8: local search
+        res = kmeans.lloyd(points, c_init, max_iters=max_iters, tol=tol,
+                           impl=impl, precision=precision)
 
-    # lines 9-11: keep the best (objectives of equal-size chunks compared)
-    accepted = res.objective < state.f_best
-    n_d = state.n_dist_evals + float(
-        _n_dist_evals(k, s, candidates, res.iterations, n_deg))
-    new_state = BigMeansState(
-        centroids=torch.where(accepted, res.centroids, state.centroids),
-        degenerate=torch.where(accepted, res.degenerate, state.degenerate),
-        f_best=torch.where(accepted, res.objective, state.f_best),
-        n_accepted=state.n_accepted + accepted.to(torch.int32),
-        n_dist_evals=n_d,
-    )
-    info = ChunkInfo(
-        f_new=res.objective,
-        accepted=accepted,
-        lloyd_iters=torch.tensor(res.iterations, dtype=torch.int32),
-        n_degenerate=torch.sum(res.degenerate),
-    )
-    return new_state, info
+        # lines 9-11: keep the best (objectives of equal-size chunks compared)
+        accepted = res.objective < state.f_best
+        n_d = state.n_dist_evals + float(
+            _n_dist_evals(k, s, candidates, res.iterations, n_deg))
+        new_state = BigMeansState(
+            centroids=torch.where(accepted, res.centroids, state.centroids),
+            degenerate=torch.where(accepted, res.degenerate, state.degenerate),
+            f_best=torch.where(accepted, res.objective, state.f_best),
+            n_accepted=state.n_accepted + accepted.to(torch.int32),
+            n_dist_evals=n_d,
+        )
+        info = ChunkInfo(
+            f_new=res.objective,
+            accepted=accepted,
+            lloyd_iters=torch.tensor(res.iterations, dtype=torch.int32),
+            n_degenerate=torch.sum(res.degenerate),
+        )
+        return new_state, info
 
 
 def sample_chunk(X: torch.Tensor, key, s: int, *,
@@ -104,11 +109,12 @@ def sample_chunk(X: torch.Tensor, key, s: int, *,
                  rng=rnd.TORCH) -> torch.Tensor:
     """Uniform random chunk of s rows (the paper's decomposition sampler)."""
     m = X.shape[0]
-    if with_replacement:
-        idx = rng.randint(key, (s,), 0, m, X.device)
-    else:
-        idx = rng.choice(key, m, s, X.device)
-    return X.index_select(0, idx.to(device=X.device, dtype=torch.int64))
+    with tracing.span("core.bigmeans.sample_chunk", X):
+        if with_replacement:
+            idx = rng.randint(key, (s,), 0, m, X.device)
+        else:
+            idx = rng.choice(key, m, s, X.device)
+        return X.index_select(0, idx.to(device=X.device, dtype=torch.int64))
 
 
 def _n_dist_evals(k: int, s: int, candidates: int, iterations, n_deg):
@@ -170,6 +176,7 @@ def reduce_state(states: BigMeansState,
     they count work done, not who won — and added onto ``base`` when
     given."""
     winner = torch.argmin(states.f_best)
+    tracing.count("host_sync.core.bigmeans.winner", 3)    # a[winner] reads it
     n_acc = torch.sum(states.n_accepted).to(torch.int32)
     n_d = torch.sum(states.n_dist_evals)
     if base is not None:
@@ -188,6 +195,7 @@ def _sync_streams(states: BigMeansState) -> BigMeansState:
     """Give every stream the winner's incumbent (the first stream wins a
     tie); counters stay per stream."""
     winner = torch.argmin(states.f_best)
+    tracing.count("host_sync.core.bigmeans.winner", 3)    # a[winner] reads it
     batch = states.f_best.shape[0]
 
     def tile(a):
@@ -217,39 +225,43 @@ def chunk_step_batched(
     slots, Lloyd, keep-the-best, n_d); Lloyd advances all streams at once
     (:func:`kmeans.lloyd_batched`, one kernel-D launch per iteration).
     """
-    k = states.centroids.shape[1]
-    s = points.shape[1]
-    n_deg = torch.sum(states.degenerate, dim=1).cpu().numpy()    # [B]
-    # seeding is skipped when no stream has a degenerate slot
-    if n_deg.any():
-        c_init = kmeanspp.seed_batched(
-            points, keys, k, init=states.centroids,
-            degenerate=states.degenerate, candidates=candidates, rng=rng)
-    else:
-        c_init = states.centroids.float()
-    res = kmeans.lloyd_batched(points, c_init, max_iters=max_iters, tol=tol,
-                               impl=impl, precision=precision)
+    with tracing.span("core.bigmeans.chunk_step", points):
+        k = states.centroids.shape[1]
+        s = points.shape[1]
+        n_deg = torch.sum(states.degenerate, dim=1).cpu().numpy()    # [B]
+        tracing.count("host_sync.core.bigmeans.batched")
+        # seeding is skipped when no stream has a degenerate slot
+        if n_deg.any():
+            c_init = kmeanspp.seed_batched(
+                points, keys, k, init=states.centroids,
+                degenerate=states.degenerate, candidates=candidates, rng=rng)
+        else:
+            c_init = states.centroids.float()
+        res = kmeans.lloyd_batched(points, c_init, max_iters=max_iters,
+                                   tol=tol, impl=impl, precision=precision)
 
-    accepted = res.objective < states.f_best                    # [B]
-    n_d = _n_dist_evals(k, s, candidates, res.iterations.cpu().numpy(),
-                        n_deg)
-    new_states = BigMeansState(
-        centroids=torch.where(accepted[:, None, None], res.centroids,
-                              states.centroids),
-        degenerate=torch.where(accepted[:, None], res.degenerate,
-                               states.degenerate),
-        f_best=torch.where(accepted, res.objective, states.f_best),
-        n_accepted=states.n_accepted + accepted.to(torch.int32),
-        n_dist_evals=states.n_dist_evals + torch.from_numpy(n_d).to(
-            states.n_dist_evals.device),
-    )
-    info = ChunkInfo(
-        f_new=res.objective,
-        accepted=accepted,
-        lloyd_iters=res.iterations,
-        n_degenerate=torch.sum(res.degenerate, dim=1),
-    )
-    return new_states, info
+        accepted = res.objective < states.f_best                    # [B]
+        n_d = _n_dist_evals(k, s, candidates, res.iterations.cpu().numpy(),
+                            n_deg)
+        # the read of the iterations and the copy of n_d back, waited for
+        tracing.count("host_sync.core.bigmeans.batched", 2)
+        new_states = BigMeansState(
+            centroids=torch.where(accepted[:, None, None], res.centroids,
+                                  states.centroids),
+            degenerate=torch.where(accepted[:, None], res.degenerate,
+                                   states.degenerate),
+            f_best=torch.where(accepted, res.objective, states.f_best),
+            n_accepted=states.n_accepted + accepted.to(torch.int32),
+            n_dist_evals=states.n_dist_evals + torch.from_numpy(n_d).to(
+                states.n_dist_evals.device),
+        )
+        info = ChunkInfo(
+            f_new=res.objective,
+            accepted=accepted,
+            lloyd_iters=res.iterations,
+            n_degenerate=torch.sum(res.degenerate, dim=1),
+        )
+        return new_states, info
 
 
 def big_means_batched(

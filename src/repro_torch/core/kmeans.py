@@ -3,7 +3,9 @@
 The reference runs a masked ``while_loop``; for one chunk that is a plain
 loop that stops as soon as the search is inactive, which is what this is.
 Each iteration is one ``ops.fused_step`` (kernel A on the card) followed by
-the stop test on the host, so every iteration waits for the device once.
+the stop test on the host, so every iteration waits for the device once
+(counted as ``host_sync.core.kmeans.stop`` while :mod:`repro_torch.tracing`
+is on).
 
 :func:`lloyd_batched` runs B searches at once: one ``ops.fused_step_batched``
 (kernel D on the card) advances every stream per iteration, with the
@@ -33,6 +35,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import ops
 from repro_torch.kernels import precision as px
 
@@ -96,24 +99,29 @@ def lloyd(
     c = init_centroids.float()
     k = c.shape[0]
     f_prev = f_curr = torch.tensor(float("inf"), device=points.device)
+    tracing.count("host_sync.core.kmeans.init")       # a copy, waited for
     it = 0
     active = max_iters > 0
-    while active:
-        sums, counts, f = ops.fused_step(points, c, weights=weights,
-                                         impl=impl, precision=precision)
-        c = torch.where(counts[:, None] > 0, sums / counts[:, None], c)
-        f_prev, f_curr = f_curr, f
-        it += 1
-        converged = bool(torch.abs(f_prev - f_curr) <= tol * torch.abs(f_prev))
-        active = it < max_iters and (it < 2 or not converged)
+    with tracing.span("core.kmeans.lloyd", c):
+        while active:
+            sums, counts, f = ops.fused_step(points, c, weights=weights,
+                                             impl=impl, precision=precision)
+            c = torch.where(counts[:, None] > 0, sums / counts[:, None], c)
+            f_prev, f_curr = f_curr, f
+            it += 1
+            converged = bool(
+                torch.abs(f_prev - f_curr) <= tol * torch.abs(f_prev))
+            active = it < max_iters and (it < 2 or not converged)
+        tracing.count("host_sync.core.kmeans.stop", it)
 
     # One last assignment against the final centroids: exact f(C, P), final
     # cluster sizes and the degeneracy mask (reference kmeans.py:131-146).
     eval_prec, upd_prec = _epilogue_precisions(precision)
-    ids, d = ops.assign(points_eval, c, impl=impl, precision=eval_prec)
-    _, counts = ops.update(points_eval, ids, k, weights=weights, impl=impl,
-                           precision=upd_prec)
-    f = torch.sum(d) if weights is None else torch.sum(d * weights)
+    with tracing.span("core.kmeans.epilogue", c):
+        ids, d = ops.assign(points_eval, c, impl=impl, precision=eval_prec)
+        _, counts = ops.update(points_eval, ids, k, weights=weights,
+                               impl=impl, precision=upd_prec)
+        f = torch.sum(d) if weights is None else torch.sum(d * weights)
     return KMeansResult(
         centroids=c,
         objective=f,
@@ -155,28 +163,34 @@ def lloyd_batched(
     f_prev = f_curr = torch.full((batch,), float("inf"), device=dev)
     it = torch.zeros(batch, dtype=torch.int32, device=dev)
     active = torch.full((batch,), max_iters > 0, device=dev)
-    while bool(active.any()):
-        sums, counts, f = ops.fused_step_batched(points, c, impl=impl,
-                                                 precision=precision)
-        new_c = torch.where(counts[..., None] > 0, sums / counts[..., None], c)
-        c = torch.where(active[:, None, None], new_c, c)
-        f_prev = torch.where(active, f_curr, f_prev)
-        f_curr = torch.where(active, f, f_curr)
-        it = it + active.to(torch.int32)
-        converged = torch.abs(f_prev - f_curr) <= tol * torch.abs(f_prev)
-        active = active & (it < max_iters) & ((it < 2) | ~converged)
+    steps = 0
+    with tracing.span("core.kmeans.lloyd", c):
+        while bool(active.any()):
+            sums, counts, f = ops.fused_step_batched(points, c, impl=impl,
+                                                     precision=precision)
+            new_c = torch.where(counts[..., None] > 0,
+                                sums / counts[..., None], c)
+            c = torch.where(active[:, None, None], new_c, c)
+            f_prev = torch.where(active, f_curr, f_prev)
+            f_curr = torch.where(active, f, f_curr)
+            it = it + active.to(torch.int32)
+            converged = torch.abs(f_prev - f_curr) <= tol * torch.abs(f_prev)
+            active = active & (it < max_iters) & ((it < 2) | ~converged)
+            steps += 1
+        tracing.count("host_sync.core.kmeans.stop", steps + 1)
 
     eval_prec, upd_prec = _epilogue_precisions(precision)
     ids, objective, final_counts = [], [], []
-    for b in range(batch):
-        ids_b, d_b = ops.assign(points_eval[b], c[b], impl=impl,
-                                precision=eval_prec)
-        _, counts_b = ops.update(points_eval[b], ids_b, k, impl=impl,
-                                 precision=upd_prec)
-        ids.append(ids_b)
-        objective.append(torch.sum(d_b))
-        final_counts.append(counts_b)
-    counts = torch.stack(final_counts)
+    with tracing.span("core.kmeans.epilogue", c):
+        for b in range(batch):
+            ids_b, d_b = ops.assign(points_eval[b], c[b], impl=impl,
+                                    precision=eval_prec)
+            _, counts_b = ops.update(points_eval[b], ids_b, k, impl=impl,
+                                     precision=upd_prec)
+            ids.append(ids_b)
+            objective.append(torch.sum(d_b))
+            final_counts.append(counts_b)
+        counts = torch.stack(final_counts)
     return KMeansResult(
         centroids=c,
         objective=torch.stack(objective),

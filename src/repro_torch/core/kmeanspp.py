@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import random as rnd
+from repro_torch import tracing
 from repro_torch.kernels.ref import pairwise_sqdist_ref
 
 _BIG = 1e30
@@ -48,7 +49,18 @@ def seed(
     ``weights`` (optional, [s]) makes this the weighted D² sampling of the
     coreset, K-means|| and DA-MSSC baselines: sampling probabilities and
     potentials are both scaled by w_i.
+
+    The host reads the degenerate mask once, and each seeded slot's pick
+    twice (``cands[b]`` and ``newd[:, b]``: indexing by a 0-d tensor reads
+    it): on a CUDA device each read waits for the card.
     """
+    with tracing.span("core.kmeanspp.seed", points):
+        return _seed(points, key, k, init=init, degenerate=degenerate,
+                     candidates=candidates, weights=weights, rng=rng)
+
+
+def _seed(points, key, k: int, *, init, degenerate, candidates: int,
+          weights, rng) -> torch.Tensor:
     if points.dtype != torch.bfloat16:
         points = points.float()
     s, n = points.shape
@@ -69,7 +81,9 @@ def seed(
     d_all = torch.where(degenerate[None, :], _BIG, d_all)
     d = torch.clamp_max(torch.min(d_all, dim=1).values, _BIG)      # [s]
 
-    for j, is_deg in enumerate(degenerate.tolist()):
+    mask = degenerate.tolist()
+    tracing.count("host_sync.core.kmeanspp.mask")
+    for j, is_deg in enumerate(mask):
         key, k1 = rng.split(key)
         if not is_deg:
             continue
@@ -83,6 +97,7 @@ def seed(
         b = torch.argmin(torch.sum(pot, dim=0))
         c[j] = cands[b]
         d = newd[:, b]
+    tracing.count("host_sync.core.kmeanspp.pick", 2 * sum(mask))
     return c
 
 
@@ -111,10 +126,13 @@ def seed_batched(
     degenerate slot gets ``init`` back unchanged from :func:`seed` (every
     row is kept), so only the streams with a degenerate slot are seeded.
     """
-    c = init.float().clone()
-    for b, any_deg in enumerate(degenerate.any(dim=1).tolist()):
-        if any_deg:
-            c[b] = seed(points[b], keys[b], k, init=init[b],
-                        degenerate=degenerate[b], candidates=candidates,
-                        rng=rng)
-    return c
+    with tracing.span("core.kmeanspp.seed", points):
+        c = init.float().clone()
+        seeded = degenerate.any(dim=1).tolist()
+        tracing.count("host_sync.core.kmeanspp.mask")
+        for b, any_deg in enumerate(seeded):
+            if any_deg:
+                c[b] = _seed(points[b], keys[b], k, init=init[b],
+                             degenerate=degenerate[b], candidates=candidates,
+                             weights=None, rng=rng)
+        return c
