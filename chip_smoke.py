@@ -9,7 +9,7 @@ Phases, each printing JSON lines:
    bf16 products' reduced-precision reduction (they accumulate in f32).
 2. build — compile the CUDA sources (kernels/csrc: the twenty-one entry
    points of kernels A-D and their int8, bf16 and bf16x3 bodies, the dma
-   pipeline of kernel A under each policy, and kernel P) for sm_90a;
+   pipeline of kernel A under each policy, and kernels P and G) for sm_90a;
    print ptxas's registers, shared memory and spills, and check in the
    SASS (``cuobjdump -sass``) that B8's, B16's and B3's tensor-core pass
    issues GMMA instructions (IGMMA; HGMMA on BF16), and that kernel B's
@@ -47,11 +47,25 @@ Phases, each printing JSON lines:
    each, every replay bitwise a lone launch (each launch owns its
    ticket); then the entry point ``kpp_probe`` once at the seeding shape,
    its launch counted.
+3f. kernel G and the slot chain — ``kpp_probe.SlotChain`` (kernels G and
+   P, ``core.kmeanspp.seed``'s slot loop on the card) at the seeding shape
+   (64,000 x 28, L = 3) and at the codebook seeding shape (163,840 x 768,
+   L = 3; P first held to its plain version there as in 3e): two chained
+   slots and the last pick, each slot's candidate rows and candidates
+   bitwise ``kpp_draw_plain`` on the chain's d and the slot's Gumbel noise,
+   each pick (the candidate of least potential into its centroid row,
+   newd's column into d; the last its row alone) bitwise; its launches
+   counted (G 3, P 2).  Then
+   G (pick and draw, as a slot after the first launches it) timed by graph
+   replay beside its plain version (the oracle chain's pick and draw) and
+   its bound (noise, newd and d once over 3.35 TB/s), and P beside its
+   plain version at the codebook seeding shape.
 4. main path, sequential — ``repro_torch.api.fit`` + ``evaluate`` on a
    HEPMASS-shaped mixture (m = 10.5M, n = 28, 25 components) generated on
    the card, with k = 25, s = 64,000, 32 chunks, through the kernels
-   (launch counts checked); the same fit on the plain path must reach the
-   same full-data objective within 1e-3.
+   (launch counts checked; the seeding's G and P exactly against the slots
+   and seedings the fit counts under ``repro_torch.tracing``); the same fit
+   on the plain path must reach the same full-data objective within 1e-3.
 5. main path, batched — the same data and chunk budget with the paper's
    ``batch=8, sync_every=2``, through kernel D (launch counts checked
    against the per-round iterations); the plain path within 1e-3 and with
@@ -221,8 +235,8 @@ Phases, each printing JSON lines:
    same inputs (B's ids off near ties and d, C's counts equal and sums
    within their bound, A's counts, sums and objective, as phase 3 holds
    them), then timed as in phase 6.  11e: ``kmeanspp`` seeding all 10.5M
-   rows alone, warm; kernel P (which ``seed`` does not call) held to its
-   plain version and timed at one slot's probe of that seeding.
+   rows alone, warm; kernel P (one launch a slot of that seeding) held to
+   its plain version and timed at one slot's probe of that seeding.
 
 12. multi-device and multi-host — on phase 4's data, inside phase 7's
    temporary directory (run after phase 10).  The workers of a mesh, and
@@ -363,7 +377,10 @@ as ``embedding`` (14a's fit + evaluate), ``launch_train`` (14d) and
 B's and C's rows their times at 14a's chunk as ``at_embedding``; A's row its
 time over the 10.5M rows as ``at_full_data``, B's and C's theirs at the
 K-means|| pool as ``at_kmeans_parallel_pool``, P's its probe over the
-10.5M rows as ``at_full_data``), the card's name and power
+10.5M rows as ``at_full_data``; P's and G's their times at the codebook
+seeding shape as ``at_codebook_seeding``, phase 3e's entry point run as
+``kpp_probe_entry`` and phase 3f's chain as ``kpp_chain``), the card's
+name and power
 limit, and the final ``{"ok": true, "device": {...}}`` line.  Any failed check raises.
 It needs a CUDA card and the repository's ``src`` beside it.
 """
@@ -396,6 +413,7 @@ import torch  # noqa: E402
 from repro_torch import device as devices  # noqa: E402
 from repro_torch import random as rnd  # noqa: E402
 from repro_torch import serve as serve_lib  # noqa: E402
+from repro_torch import tracing  # noqa: E402
 from repro_torch.api import (  # noqa: E402
     BigMeansConfig, MemmapSource, ProviderSource, TopologySpec, evaluate,
     fit,
@@ -483,6 +501,8 @@ KERNELS = {
        for prec in ("f32", "int8", "bf16", "bf16x3")},
     "kpp_probe": ("src/repro_torch/kernels/csrc/kpp_probe.cu",
                   "src/repro/kernels/kpp_probe.py:64"),
+    "kpp_draw": ("src/repro_torch/kernels/csrc/kpp_draw.cu",
+                 "src/repro/core/kmeanspp.py:80"),
 }
 COUNTS = {"fused_step_f32": "fused_step", "assign_f32": "assign",
           "update_f32": "update",
@@ -504,7 +524,7 @@ PATH_OF = {"fused_step_f32": "sequential", "assign_f32": "sequential",
            "update_bf16x3": "bf16x3_sequential",
            **{f"fused_step_dma_{prec}": f"dma_{prec}_sequential"
               for prec in ("f32", "int8", "bf16", "bf16x3")},
-           "kpp_probe": "kpp_probe_entry"}
+           "kpp_probe": "sequential", "kpp_draw": "sequential"}
 BATCH, SYNC_EVERY = 8, 2        # the paper's (configs/bigmeans_paper.py)
 # The committed H100 tuner profile (tools/tune_profile.py), read in 4e.
 PROFILE = ROOT / "results" / "autotune" / "cuda-sm_90.json"
@@ -526,6 +546,27 @@ def nvidia_smi() -> str:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+SEEDING = ("kpp_draw", "kpp_probe")     # the K-means++ slot kernels G, P
+
+
+def seeded_zeros(launches: dict) -> dict:
+    """0 for each kernel of ``launches`` but the seeding's G and P, which
+    keep their counts once checked: a fit on the card seeds each degenerate
+    slot with one launch of G and one of P, and launches G once more a
+    seeding (its last pick); how many slots it seeds it does not report."""
+    draw, probe = (launches.get(name, 0) for name in SEEDING)
+    check(draw == probe == 0 or probe >= draw - probe >= 1,
+          f"seeding launches: G {draw}, P {probe}")
+    return {**dict.fromkeys(launches, 0), "kpp_draw": draw,
+            "kpp_probe": probe}
+
+
+def off_seeding(launches: dict) -> dict:
+    """``launches`` less the seeding's G and P, once checked."""
+    seeded_zeros(launches)
+    return {k: v for k, v in launches.items() if k not in SEEDING}
 
 
 SASS_OPS = ("GMMA", "HMMA", "FFMA")   # tensor-core and fp32 FMA opcodes
@@ -1439,6 +1480,107 @@ def phase_kpp(seed: int):
     return err, (launches, wall)
 
 
+def kpp_draw_cost(s: int, n: int, L: int) -> tuple:
+    """(bytes, operations) of kernel G after a probe: the noise and newd
+    read once, d written once (the draw reads it from registers), the
+    candidates gathered and written; a noise add and a compare a draw."""
+    return 4 * (2 * L * s + s + 2 * L * n), 2 * L * s
+
+
+def check_chain(x, d, L: int, seed: int, why: str) -> dict:
+    """Two chained slots of ``SlotChain`` on ``x``, ``d`` and its finish,
+    each slot's Gumbel noise drawn as ``core.kmeanspp`` draws it: every
+    draw (candidate rows and candidates) bitwise ``kpp_draw_plain`` on the
+    chain's d, every pick (the first candidate of least potential into its
+    centroid row, newd's column into d; the last pick writes its row alone,
+    as the seeding needs no d after it) bitwise; G launched 3 times, P 2.
+    Returns the path's counts and wall."""
+    s, n = x.shape
+    keys = rnd.TORCH.split(rnd.TORCH.key(seed), 2)
+    c = torch.zeros((2, n), device="cuda")
+    dd = d.clone()
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    chain = kpp.SlotChain(x, dd, c, L)
+    want_d, pick = d, None     # the d a draw sees; the pick G must write
+    for j, key in enumerate(keys):
+        noise = rnd.TORCH.gumbel(key, (L, s), x.device)
+        chain.slot(noise, j)            # G: slot j - 1's pick, j's draw; P
+        if pick is not None:
+            check(torch.equal(c[j - 1], pick[0]) and torch.equal(dd, pick[1]),
+                  f"kernel G's pick of slot {j - 1} at {why}")
+        idx, cands = kpp.kpp_draw_plain(x, noise, want_d)
+        check(torch.equal(chain.idx, idx) and torch.equal(chain.cands, cands),
+              f"kernel G's draw of slot {j} differs from kpp_draw_plain at "
+              f"{why}")
+        b = int(torch.argmin(chain.pot))
+        pick = (chain.cands[b].clone(), chain.newd[:, b].clone())
+        want_d = pick[1]
+    chain.finish()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    check(torch.equal(c[1], pick[0]), f"kernel G's last pick at {why}")
+    launches = ops.launch_counts()
+    want = dict.fromkeys(launches, 0)
+    want.update(kpp_draw=3, kpp_probe=2)
+    check(launches == want, f"slot chain launches {launches} at {why}")
+    emit({"phase": "kernels_kpp_chain", "m": s, "n": n, "L": L,
+          "case": why, "draws_bitwise_plain": True,
+          "picks_bitwise": True, "launches": launches})
+    return launches, wall
+
+
+def time_draw(x, d, L: int, seed: int, launches: int) -> dict:
+    """Kernel G as a slot after the first launches it (the previous slot's
+    pick, then the draw) by graph replay, beside the oracle chain's pick
+    and draw (``argmin`` of the potentials, the ``index_select`` of the
+    candidate and of newd's column, ``kpp_draw_plain``) and its bound."""
+    s, n = x.shape
+    noise = rnd.TORCH.gumbel(rnd.TORCH.key(seed), (L, s), x.device)
+    c = torch.zeros((1, n), device="cuda")
+    chain = kpp.SlotChain(x, d.clone(), c, L)
+    chain.slot(noise, 0)                 # a probe for each draw to pick from
+    newd, pot, cands = chain.newd, chain.pot, chain.cands
+
+    def plain():
+        b = torch.argmin(pot, dim=0, keepdim=True)
+        c[0] = cands.index_select(0, b)[0]
+        return kpp.kpp_draw_plain(x, noise, newd.index_select(1, b)[:, 0])
+
+    row = timing(lambda: chain.draw(noise), plain, None,
+                 *kpp_draw_cost(s, n, L), launches)
+    row.update(m=s, n=n, L=L, library="none (no single call computes it)")
+    return row
+
+
+def phase_kpp_chain(seed: int):
+    """Phase 3f: kernel G and the slot chain (see the module docstring).
+    Returns (G's max abs error, 0 as every check is bitwise; G's timing row
+    at the seeding shape, its codebook seeding row under
+    ``at_codebook_seeding``; P's timing row at the codebook seeding shape;
+    the chain's counts and wall at the seeding shape)."""
+    x, _ = separated(64_000, 25, 28, seed)
+    _, d = seeding_probe(x, seed)
+    path = check_chain(x, d, 3, seed, "seeding shape")
+    row = time_draw(x, d, 3, seed, 200)
+    del x, d
+    xb, _ = separated(163_840, 64, 768, seed)
+    cands, d = seeding_probe(xb, seed)
+    check_kpp(xb, cands, d, "codebook seeding shape")
+    check_chain(xb, d, 3, seed, "codebook seeding shape")
+    row["at_codebook_seeding"] = time_draw(xb, d, 3, seed, 50)
+    probe = timing(
+        lambda: kpp.kpp_probe_cuda(xb, cands, d),
+        lambda: kpp.kpp_probe_plain(xb, cands, d), None,
+        *kpp_cost(*xb.shape, 3), 50)
+    probe.update(m=xb.shape[0], n=xb.shape[1], L=3)
+    for name, r in (("kpp_draw", row), ("kpp_probe", probe)):
+        emit({"phase": "kernels_kpp_chain_times", "kernel": name, **r})
+    del xb, cands, d
+    torch.cuda.empty_cache()
+    return 0.0, row, probe, path
+
+
 # --------------------------------------------------------------------------
 # phase 4: the sequential main path at full size
 # --------------------------------------------------------------------------
@@ -1463,12 +1605,18 @@ def phase_main(seed: int):
         fit(X, cfg.replace(n_chunks=2, impl=impl, seed=seed + 1))
 
     ops.reset_launch_counts()
+    tracing.snapshot()                  # the slots the fit seeds, counted
+    tracing.enable(True)
     t0 = time.monotonic()
-    res = fit(X, cfg, method="auto")
+    try:
+        res = fit(X, cfg, method="auto")
+    finally:
+        tracing.enable(False)
     ids, f_full = evaluate(res, X)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = ops.launch_counts()
+    counters = tracing.snapshot()["counters"]
 
     n_eval = math.ceil(m / EVAL_BATCH)
     check(res.strategy == "sequential" and res.extras.get("auto"),
@@ -1488,6 +1636,16 @@ def phase_main(seed: int):
     check(launches["assign"] == cfg.n_chunks + n_eval,
           f"assign launches {launches['assign']} != {cfg.n_chunks} + "
           f"{n_eval}")
+    # P once a seeded slot, G once more a seeding (each chunk_step that
+    # re-seeds reads its degenerate mask once)
+    slots = counters.get("core.kmeanspp.probe.kernel", 0)
+    seedings = counters.get("host_sync.core.kmeanspp.mask", 0)
+    check(slots > 0 and counters.get("core.kmeanspp.probe.plain", 0) == 0
+          and launches["kpp_probe"] == slots
+          and launches["kpp_draw"] == slots + seedings,
+          f"seeding launches G {launches['kpp_draw']}, P "
+          f"{launches['kpp_probe']} against {slots} slots in {seedings} "
+          f"seedings")
 
     t1 = time.monotonic()
     res_ref = fit(X, cfg.replace(impl="ref"), method="auto")
@@ -1505,7 +1663,8 @@ def phase_main(seed: int):
           "f_best": res.objective, "f_full": f_full,
           "f_full_per_point": f_full / m, "n_accepted": res.n_accepted,
           "n_iterations": res.n_iterations, "wall_s": wall,
-          "fit_wall_s": res.wall_time_s,
+          "fit_wall_s": res.wall_time_s, "seeded_slots": slots,
+          "seedings": seedings,
           "fit_ms_per_lloyd_iteration": 1e3 * res.wall_time_s
           / res.n_iterations, "launches": launches,
           "eval_batches": n_eval,
@@ -1518,7 +1677,7 @@ def phase_main(seed: int):
           "accepts_ref": [int(a) for _, _, a in res_ref.trace],
           "first_parting": first_parting(res.trace, res_ref.trace)})
     check(rel <= 1e-3, f"full objectives differ by {rel:.3e} (> 1e-3)")
-    check({k for k, v in launches.items() if v}
+    check({k for k, v in off_seeding(launches).items() if v}
           == {"fused_step", "assign", "update"},
           f"sequential path launches {launches}")
     FIT_WALLS["sequential"] = res.wall_time_s
@@ -1645,7 +1804,7 @@ def phase_batched(X, seed: int, seq_fit_walls: dict):
           f"kernel D launches {replay_launches['fused_step_batched']} != "
           f"sum over rounds of the slowest stream's iterations {slowest}")
     check(int(iters.sum()) == res.n_iterations, "iterations")
-    want = dict.fromkeys(launches, 0)
+    want = seeded_zeros(launches)
     want.update(fused_step_batched=slowest, update=cfg.n_chunks,
                 assign=cfg.n_chunks + n_eval)
     check(launches == want, f"batched path launches {launches} != {want}")
@@ -1738,7 +1897,7 @@ def phase_main_int8(X, seed: int, f_full_f32: float):
     n_eval = math.ceil(m / EVAL_BATCH)
     check(res.strategy == "sequential", f"auto resolved to {res.strategy}")
     fit_checks(res, X, ids, f_full, cfg.k, "int8")
-    want = dict.fromkeys(launches, 0)
+    want = seeded_zeros(launches)
     want.update(fused_step_int8=res.n_iterations, update=cfg.n_chunks,
                 assign=cfg.n_chunks + n_eval)
     check(launches == want, f"int8 sequential launches {launches} != {want}")
@@ -1801,7 +1960,7 @@ def phase_batched_int8(X, seed: int, f_full_f32: float):
           "the core replay of the int8 batched fit differs from it")
     iters = infos.lloyd_iters.view(rounds, BATCH)
     slowest = int(iters.max(dim=1).values.sum())
-    want = dict.fromkeys(launches, 0)
+    want = seeded_zeros(launches)
     want.update(fused_step_batched_int8=slowest, update=cfg.n_chunks,
                 assign=cfg.n_chunks + n_eval)
     check(launches == want, f"int8 batched launches {launches} != {want}")
@@ -1861,7 +2020,7 @@ def phase_two_pass_int8(spec, X, gen_s: float, seed: int):
 
     n_eval = math.ceil(spec.m / EVAL_BATCH)
     fit_checks(res, X, ids, f_full, cfg.k, "int8")
-    want = dict.fromkeys(launches, 0)
+    want = seeded_zeros(launches)
     want.update(assign_int8=res.n_iterations, update_int8=res.n_iterations,
                 update=cfg.n_chunks, assign=cfg.n_chunks + n_eval)
     check(launches == want, f"two-pass int8 launches {launches} != {want}")
@@ -1971,7 +2130,7 @@ def phase_main_16(X, seed: int, prec: str, f_full_f32: float):
     n_eval = math.ceil(m / EVAL_BATCH)
     check(res.strategy == "sequential", f"auto resolved to {res.strategy}")
     fit_checks(res, X, ids, f_full, cfg.k, prec)
-    want = dict.fromkeys(launches, 0)
+    want = seeded_zeros(launches)
     want[f"fused_step_{prec}"] = res.n_iterations
     want.update(epilogue_launches(prec, cfg.n_chunks, n_eval))
     check(launches == want, f"{prec} sequential launches {launches} != "
@@ -2049,7 +2208,7 @@ def phase_batched_16(X, seed: int, prec: str, f_full_f32: float):
           f"the core replay of the {prec} batched fit differs from it")
     iters = infos.lloyd_iters.view(rounds, BATCH)
     slowest = int(iters.max(dim=1).values.sum())
-    want = dict.fromkeys(launches, 0)
+    want = seeded_zeros(launches)
     want[f"fused_step_batched_{prec}"] = slowest
     want.update(epilogue_launches(prec, cfg.n_chunks, n_eval))
     check(launches == want, f"{prec} batched launches {launches} != {want}")
@@ -2099,7 +2258,7 @@ def phase_two_pass_16(X, seed: int):
 
     n_eval = math.ceil(m / EVAL_BATCH)
     fit_checks(res, X, ids, f_full, cfg.k, "bf16")
-    want = dict.fromkeys(launches, 0)
+    want = seeded_zeros(launches)
     want.update(assign_bf16=res.n_iterations,
                 update_bf16=res.n_iterations + cfg.n_chunks,
                 assign=cfg.n_chunks + n_eval)
@@ -2954,7 +3113,7 @@ def phase_streaming(X, path: str, seed: int, in_core: dict) -> dict:
             windows = Windows()
             state, _ = run_path(path, cfg, windows)
             same_state(state, res, f"{prec} {name}: run_stream replay")
-            want = dict.fromkeys(launches, 0)
+            want = seeded_zeros(launches)
             want.update(stream_launches(prec, name,
                                         windows.fused_launches(),
                                         cfg.n_chunks, n_eval))
@@ -3179,7 +3338,7 @@ def phase_vns(X, path: str, base, card: str) -> tuple:
     _, f_full_ref = evaluate(state_ref.centroids, X, impl="ref")
     rel = abs(f_full - f_full_ref) / f_full_ref
     parting = vns_parting(log, log_ref)
-    want = dict.fromkeys(launches, 0)
+    want = seeded_zeros(launches)
     want.update(fused_step=log.fused_launches(), update=cfg.n_chunks,
                 assign=cfg.n_chunks)
     check(launches == want, f"VNS launches {launches} != {want}")
@@ -3516,7 +3675,7 @@ def resumed_launches(prec: str, name: str, res, launches: dict) -> None:
     iteration (sequential), or D· (batched) and never A·; the epilogue's
     B· and C· once a chunk."""
     if name == "sequential":
-        want = dict.fromkeys(launches, 0)
+        want = seeded_zeros(launches)
         want.update(stream_launches(prec, name, res.n_iterations,
                                     res.n_chunks, 0))
         check(launches == want, f"{prec} resume launches {launches} != "
@@ -4010,7 +4169,7 @@ def serve_traffic(servers: dict, tenants: dict) -> tuple[dict, dict]:
                        for b, v in sorted(entry.replays.items())
                        if v - before.get(b, 0)}
             kernel = ops.ASSIGN_COUNTERS[t.prec]
-            want = dict.fromkeys(launches, 0)
+            want = seeded_zeros(launches)
             for b, r in replays.items():
                 for key, v in entry.plan(b).launches.items():
                     want[key] += r * v
@@ -4540,9 +4699,10 @@ def baseline_fit(X, cfg, name: str, key, f_full_bm: float) -> tuple:
            "launches": {"A": launches["fused_step"],
                         "B": launches["assign"], "C": launches["update"]},
            "launches_by_k": seen,
+           "seeding_launches": {k: launches[k] for k in SEEDING},
            "other_launches": {k: v for k, v in launches.items()
                               if v and k not in ("fused_step", "assign",
-                                                 "update")}}
+                                                 "update") + SEEDING}}
     check(not row["other_launches"], f"{name}: {row['other_launches']}")
     emit(row)
     return row, launches
@@ -4854,7 +5014,7 @@ def phase_sharded(X, seed: int, f_full_seq: float, card: str) -> tuple:
               f"{name} evaluate")
         check(res.n_chunks == base.n_chunks == len(res.trace),
               f"{name} trace length {len(res.trace)}")
-        want = dict.fromkeys(launches, 0)
+        want = seeded_zeros(launches)
         want.update(fused_step=res.n_iterations, update=base.n_chunks,
                     assign=base.n_chunks + n_eval)
         check(launches == want, f"{name} launches {launches} != {want}")
@@ -4941,7 +5101,7 @@ def phase_sharded_resume(X, seed: int, root: Path, card: str) -> dict:
     check([t[1:] for t in resumed.trace] == tail,
           "the resumed sharded trace differs from windows 2-3")
     same_checkpoints(r_dir, u_dir, "sharded resume")
-    want = dict.fromkeys(launches, 0)
+    want = seeded_zeros(launches)
     want.update(fused_step=resumed.n_iterations, update=resumed.n_chunks,
                 assign=resumed.n_chunks)
     check(launches == want, f"sharded resume launches {launches}")
@@ -4995,7 +5155,7 @@ def phase_stream_mesh(X, seed: int, res_b, f_full_b: float,
     slowest = int(iters.max(dim=2).values.sum())
     check(ops.launch_counts()["fused_step_batched"] == slowest,
           "kernel D launches != the groups' slowest streams' iterations")
-    want = dict.fromkeys(launches, 0)
+    want = seeded_zeros(launches)
     want.update(fused_step_batched=slowest, update=cfg.n_chunks,
                 assign=cfg.n_chunks + n_eval)
     check(launches == want, f"stream mesh launches {launches} != {want}")
@@ -5633,7 +5793,7 @@ def phase_zoo_hymba(seed: int, card: str) -> tuple:
     n_eval = math.ceil(H.shape[0] / EVAL_BATCH)
     check(res.extras["fit"]["impl"] == "cuda" and res.strategy
           == "sequential", "14a: the embedding fit did not use the kernels")
-    check(launches == dict(dict.fromkeys(launches, 0),
+    check(launches == dict(seeded_zeros(launches),
                            fused_step=res.n_iterations,
                            assign=EMBED_CHUNKS + n_eval,
                            update=EMBED_CHUNKS),
@@ -5755,7 +5915,7 @@ def phase_launch_train(seed: int, root: Path, card: str) -> tuple:
           and math.isfinite(res.objective) and res.config.batch == BATCH,
           f"14d: {res.strategy} {res.n_chunks} chunks, {failed} failed")
     check(launches["fused_step_batched"] > 0 and launches == dict(
-        dict.fromkeys(launches, 0), update=chunks, assign=chunks,
+        seeded_zeros(launches), update=chunks, assign=chunks,
         fused_step_batched=launches["fused_step_batched"]),
         f"14d: launches {launches}")
     # kernel D at the launcher's shape: its 8 streams of chunks, the fit's
@@ -5908,9 +6068,10 @@ def example_quickstart() -> tuple:
     on_card(res, "14e quickstart")
     on_card(base, "14e quickstart's K-means++")
     n_eval = math.ceil(X.shape[0] / EVAL_BATCH)
-    check(res.strategy == "sequential" and fit_l == lloyd_launches(res)
+    check(res.strategy == "sequential"
+          and off_seeding(fit_l) == lloyd_launches(res)
           and eval_l == {"assign": n_eval}
-          and set(base_l) == {"fused_step", "assign", "update"},
+          and set(off_seeding(base_l)) == {"fused_step", "assign", "update"},
           f"14e quickstart: launches {fit_l}, {eval_l}, {base_l}")
     twin = fit(X, cfg.replace(impl="ref"))
     parting = check_accepts(res.trace, twin.trace, 1, 1)
@@ -5950,7 +6111,8 @@ def example_bigdata(root: Path) -> tuple:
     for res, what in ((r1, "phase 1"), (r2, "phase 2")):
         on_card(res, f"14e bigdata {what}")
     n_eval = math.ceil(got["sample_rows"] / EVAL_BATCH)
-    check(l1 == lloyd_launches(r1) and l2 == lloyd_launches(r2)
+    check(off_seeding(l1) == lloyd_launches(r1)
+          and off_seeding(l2) == lloyd_launches(r2)
           and eval_l == {"assign": n_eval},
           f"14e bigdata: launches {l1}, {l2}, {eval_l}")
     check(r1.n_chunks == r2.n_chunks == half
@@ -6073,8 +6235,8 @@ def example_serve() -> tuple:
     stats = got["stats"]
     replays = sum(stats["replays"].values())
     chunks = trained.n_chunks + more.n_chunks
-    check(l1 == lloyd_launches(trained) and launches == dict(
-        dict.fromkeys(launches, 0),
+    check(off_seeding(l1) == lloyd_launches(trained) and launches == dict(
+        seeded_zeros(launches),
         fused_step=trained.n_iterations + more.n_iterations,
         update=chunks, assign=chunks + len(got["buckets"]) + replays),
         f"14e serve: launches {l1}, {launches}; {replays} replays")
@@ -6137,7 +6299,7 @@ def example_host_mesh(root: Path) -> tuple:
     check(out["impl"] == ["cuda", "cuda"] and all(out["on_card"])
           and not out["jax"] and not out["built_here"]
           and out["host"]["processes"] == 1, f"14e host_mesh rank: {out}")
-    check(lc == dict(dict.fromkeys(lc, 0),
+    check(lc == dict(seeded_zeros(lc),
                      fused_step=sum(out["n_iterations"]),
                      update=sum(out["n_chunks"]),
                      assign=sum(out["n_chunks"]) + n_eval),
@@ -6897,12 +7059,15 @@ def run_phases(args, smi: str, procs: dict) -> int:
           "dynamic_smem_bytes": info.mma_smem_bytes, "sass": passes})
 
     # phase 3: kernels vs plain (3b: the int8 kernels; 3c: bf16, bf16x3;
-    # 3d: the dma kernels; 3e: kernel P, and its entry point's run)
+    # 3d: the dma kernels; 3e: kernel P, and its entry point's run; 3f:
+    # kernel G and the slot chain)
     errs = phase_kernels(args.seed)
     errs.update(phase_kernels_int8(args.seed))
     errs.update(phase_kernels_16(args.seed))
     errs.update(phase_kernels_dma(args.seed))
     errs["kpp_probe"], kpp_path = phase_kpp(args.seed)
+    errs["kpp_draw"], draw_row, probe_row, chain_path = phase_kpp_chain(
+        args.seed)
 
     # phase 4: the sequential main path (4b: at int8)
     X, res, launches, wall, seq_walls, f_full = phase_main(args.seed)
@@ -6928,6 +7093,8 @@ def run_phases(args, smi: str, procs: dict) -> int:
 
     # phase 6: times
     times = phase_times(X, res, args.seed)
+    times["kpp_draw"] = draw_row
+    times["kpp_probe"]["at_codebook_seeding"] = probe_row
     # phase 7: the streaming strategy, fit("data.npy") out of core; phase
     # 8: faults and middleware on the same file
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_stream_"))
@@ -6968,6 +7135,7 @@ def run_phases(args, smi: str, procs: dict) -> int:
         device_share(path, times, counts, n_eval, path_wall)
     paths.update(fault_paths)
     paths["kpp_probe_entry"] = kpp_path
+    paths["kpp_chain"] = chain_path
     del X
     torch.cuda.empty_cache()
 

@@ -32,6 +32,7 @@ def lightweight_coreset_kmeans(X: torch.Tensor, key, *, k: int, s: int,
     """
     key, ks, kc = rng.split(key, 3)
     C, w = sample(X, ks, s, rng=rng)
-    c0 = kmeanspp(C, kc, k, candidates=candidates, weights=w, rng=rng)
+    c0 = kmeanspp(C, kc, k, candidates=candidates, weights=w, impl=impl,
+                  rng=rng)
     return kmeans.lloyd(C, c0, weights=w, max_iters=max_iters, tol=tol,
                         impl=impl)

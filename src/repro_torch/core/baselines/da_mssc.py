@@ -28,7 +28,8 @@ def da_mssc(X: torch.Tensor, key, *, k: int, s: int, q: int,
     cents, counts = [], []
     for chunk_idx, chunk_key in zip(idx, keys[1:]):
         chunk = X[chunk_idx]
-        c0 = kmeanspp(chunk, chunk_key, k, candidates=candidates, rng=rng)
+        c0 = kmeanspp(chunk, chunk_key, k, candidates=candidates,
+                      impl=impl, rng=rng)
         res = kmeans.lloyd(chunk, c0, max_iters=max_iters, tol=tol,
                            impl=impl)
         cents.append(res.centroids)
@@ -37,6 +38,6 @@ def da_mssc(X: torch.Tensor, key, *, k: int, s: int, q: int,
     w = torch.stack(counts).reshape(q * k)
 
     c0 = kmeanspp(pool, keys[0], k, candidates=candidates, weights=w,
-                  rng=rng)
+                  impl=impl, rng=rng)
     return kmeans.lloyd(pool, c0, weights=w, max_iters=max_iters, tol=tol,
                         impl=impl)

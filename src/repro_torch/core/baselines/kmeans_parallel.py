@@ -14,8 +14,9 @@ import torch
 
 from repro_torch import random as rnd
 from repro_torch.core import kmeans
-from repro_torch.core.kmeanspp import _safe_d2_logits, kmeanspp
+from repro_torch.core.kmeanspp import kmeanspp
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.kpp_probe import d2_logits
 
 
 def kmeans_parallel(X: torch.Tensor, key, *, k: int, l: int | None = None,
@@ -36,7 +37,7 @@ def kmeans_parallel(X: torch.Tensor, key, *, k: int, l: int | None = None,
                            first)
     for r in range(rounds):
         key, kr = rng.split(key)
-        idx = rng.categorical(kr, _safe_d2_logits(d), l, dev)
+        idx = rng.categorical(kr, d2_logits(d), l, dev)
         newpts = X[idx]                              # [l, n]
         pool[1 + r * l:1 + (r + 1) * l] = newpts
         dc = ref.pairwise_sqdist_ref(X, newpts)      # [m, l]
@@ -48,7 +49,7 @@ def kmeans_parallel(X: torch.Tensor, key, *, k: int, l: int | None = None,
     ids, _ = ops.assign(X, pool, impl=impl)
     _, w = ops.update(X, ids, pool.shape[0], impl=impl)
     key, k1 = rng.split(key)
-    c0 = kmeanspp(pool, k1, k, weights=w, rng=rng)
+    c0 = kmeanspp(pool, k1, k, weights=w, impl=impl, rng=rng)
     pooled = kmeans.lloyd(pool, c0, weights=w, max_iters=max_iters, tol=tol,
                           impl=impl)
     # Final Lloyd on the full dataset from the K-means|| seeds.

@@ -25,7 +25,8 @@ def multistart_kmeans(X: torch.Tensor, key, *, k: int, n_init: int = 3,
     best = None
     for start in rng.split(key, n_init):
         if init == "kmeans++":
-            c0 = kmeanspp(X, start, k, candidates=candidates, rng=rng)
+            c0 = kmeanspp(X, start, k, candidates=candidates, impl=impl,
+                          rng=rng)
         else:
             c0 = X[rng.choice(start, X.shape[0], k, X.device)]
         res = kmeans.lloyd(X, c0, max_iters=max_iters, tol=tol, impl=impl)

@@ -77,7 +77,7 @@ def chunk_step(
         if n_deg:
             c_init = kmeanspp.seed(points, key, k, init=state.centroids,
                                    degenerate=state.degenerate,
-                                   candidates=candidates, rng=rng)
+                                   candidates=candidates, impl=impl, rng=rng)
         else:
             c_init = state.centroids.float()
         # line 8: local search
@@ -234,7 +234,8 @@ def chunk_step_batched(
         if n_deg.any():
             c_init = kmeanspp.seed_batched(
                 points, keys, k, init=states.centroids,
-                degenerate=states.degenerate, candidates=candidates, rng=rng)
+                degenerate=states.degenerate, candidates=candidates,
+                impl=impl, rng=rng)
         else:
             c_init = states.centroids.float()
         res = kmeans.lloyd_batched(points, c_init, max_iters=max_iters,

@@ -32,7 +32,8 @@ SOURCES = ("assign.cu", "update.cu", "fused_step.cu",
            "fused_step_batched.cu", "assign_int8.cu", "update_int8.cu",
            "fused_step_int8.cu", "fused_step_batched_int8.cu",
            "assign_bf16.cu", "update_bf16.cu", "fused_step_bf16.cu",
-           "fused_step_batched_bf16.cu", "fused_step_dma.cu", "kpp_probe.cu")
+           "fused_step_batched_bf16.cu", "fused_step_dma.cu", "kpp_probe.cu",
+           "kpp_draw.cu")
 HEADERS = ("common.cuh", "update.cuh", "assign_mma.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = "sm_90a"
@@ -63,6 +64,8 @@ SIGNATURES = {
     "repro_fused_step_batched_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _I, _I64, _I, _I, _I, _P),
     "repro_kpp_probe": (_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P),
+    "repro_kpp_draw": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I,
+                       _I, _I, _P),
 }
 # The bf16 and bf16x3 entry points of the update and fused kernels share
 # one signature.

@@ -43,11 +43,11 @@
 //   * One launch, no float atomics: the last CTA to finish, found by an
 //     integer ticket (atomicAdd after __threadfence), adds the partials in
 //     a fixed order (contiguous runs of CTAs in CTA order, then the runs by
-//     a tree).  The ticket belongs to the launch: the caller allocates it
-//     with the launch's partials, and the entry point zeroes it on the
-//     launch's stream before the kernel (a memset node when captured into
-//     a graph), so launches and graph replays on other streams never share
-//     one.  Repeated launches are bitwise equal.
+//     a tree).  The caller hands the launch a ticket at zero that no
+//     launch in flight on another stream uses (kpp_probe_cuda allocates
+//     one with the launch's partials and zeroes it on the stream, a memset
+//     node when captured into a graph); the last CTA leaves it at zero.
+//     Repeated launches are bitwise equal.
 #include "common.cuh"
 
 namespace repro {
@@ -651,17 +651,16 @@ int kpp_launch(const KppArgs& a, int grid, int ct, cudaStream_t st) {
 using namespace repro;
 
 // x [m,n], cands [L,n], d [m] (f32, 4-byte aligned); newd: [m, L]; part:
-// scratch [grid, L]; pot: [L]; ticket: an int of this launch alone (no
-// other launch in flight may use it), zeroed here on the stream first.
+// scratch [grid, L]; pot: [L]; ticket: an int at zero that no other launch
+// in flight uses.  The last CTA leaves it at zero, so launches in order on
+// one stream (one K-means++ seeding's slots, core/kmeanspp.py) may share
+// it.
 extern "C" int repro_kpp_probe(const float* x, const float* cands,
                                const float* d, float* newd, float* part,
                                float* pot, int* ticket, int64_t m, int L,
                                int n, int grid, void* stream) {
   const KppArgs a{x, cands, d, newd, part, pot, ticket, m, L, n,
                   (m + TM - 1) / TM};
-  const cudaError_t err =
-      cudaMemsetAsync(ticket, 0, sizeof(int), (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
   return kpp_launch(a, grid, candidate_tile(L), (cudaStream_t)stream);
 }
 

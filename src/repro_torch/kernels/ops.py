@@ -112,7 +112,8 @@ def _counters() -> list[tuple]:
             ("fused_step_batched_int8", fused, "batched_int8_launches"),
             ("assign_int8", distance, "int8_launches"),
             ("update_int8", upd, "int8_launches"),
-            ("kpp_probe", kpp, "launches")]
+            ("kpp_probe", kpp, "launches"),
+            ("kpp_draw", kpp, "draw_launches")]
     for name, per_policy in _COUNTS16:
         rows += [(f"{name}_{p}", per_policy, p) for p in per_policy]
     rows += [("fused_step_dma" + ("" if p == "f32" else f"_{p}"),

@@ -17,8 +17,7 @@ buffer (the CTAs run one after another).  Kernel P's ``cp.async.bulk``
 copies fill their destination with NaN when issued and land when an
 ``mbarrier`` wait finds every expected arrival of their phase made, so a
 tile read before its wait, or a stage overwritten while it is read, shows
-too; its integer ticket is an atomic add, ``__threadfence`` a fence and
-``cudaMemsetAsync`` a ``memset``.
+too; its integer ticket is an atomic add and ``__threadfence`` a fence.
 The tensor-core kernels B8 and B16 (``assign_mma.cuh``) run their entry
 points (``REPRO_LAUNCH`` runs the CTAs); each ``wgmma`` is emulated on the card's fragment layout, reading
 its operands through the 128-byte swizzle, and held like a copy until the
@@ -93,10 +92,6 @@ const int cudaSuccess = 0;
 const int cudaErrorInvalidValue = 1;
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return ""; }
-inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
-  std::memset(p, v, n);
-  return 0;
-}
 // CTAs one after another (x fastest); the threads of a CTA concurrently.
 inline void launch2(unsigned gx, unsigned gy, unsigned block,
                     std::function<void()> fn) {
@@ -862,8 +857,8 @@ HARNESS_KPP = r"""
 // (f32); x and d start `shift` floats past a 16-byte boundary of their
 // buffers, with slack around them; ct: the candidate tile (0: the entry
 // point's, from L).  out = newd [m,L] ++ pot [L] ++ the ticket after the
-// launch (int32), twice (two launches).  The entry point takes a ticket
-// left at garbage: it zeroes the launch's ticket itself.
+// launch (int32), twice (two launches).  The ticket starts at zero (the
+// caller's) and the second launch takes it as the first left it.
 static float* placed(std::vector<float>& buf, int64_t count, int shift) {
   buf.assign(count + 16 + shift, 0.f);
   const uintptr_t a = (reinterpret_cast<uintptr_t>(buf.data()) + 15) & ~15;
@@ -887,7 +882,6 @@ int main(int argc, char** argv) {
   for (int rep = 0; rep < 2; ++rep) {
     int err;
     if (ct == 0) {
-      ticket = 0x5eed + rep;
       err = repro_kpp_probe(x, c.data(), d, newd.data(), part.data(),
                             pot.data(), &ticket, m, L, n, grid, nullptr);
     } else {
@@ -901,6 +895,52 @@ int main(int argc, char** argv) {
     fwrite(pot.data(), 4, pot.size(), o);
     fwrite(&ticket, 4, 1, o);
   }
+  fclose(o);
+  return 0;
+}
+"""
+
+
+HARNESS_DRAW = r"""
+#include "cuda_runtime.h"
+#include "kpp_draw.inc"
+#include <cstdio>
+#include <cstdlib>
+// harness_draw s L n grid mode in out: in = x[s,n], noise[L,s], d[s],
+// newd[s,L], pot[L], cands[L,n] (f32).  mode 0: the first slot (no
+// previous probe); 1: a slot after a probe (newd, pot); 2: the pick alone
+// (no noise).  out = d [s] ++ c_row [n] ++ cands [L,n] ++ idx [L] (int64)
+// ++ the ticket after the launch (int32).  The ticket starts at zero (the
+// caller's), c_row and idx at garbage.
+int main(int argc, char** argv) {
+  const int64_t s = atoll(argv[1]);
+  const int L = atoi(argv[2]), n = atoi(argv[3]), grid = atoi(argv[4]);
+  const int mode = atoi(argv[5]);
+  std::vector<float> x(s * n), noise((size_t)L * s), d(s), newd(s * L),
+      pot(L), cands((size_t)L * n), c_row(n, -7.f), pv(grid * L * 2);
+  std::vector<int> pi(grid * (L * 2 + 1));
+  std::vector<int64_t> idx(L, -5);
+  FILE* f = fopen(argv[6], "rb");
+  if (fread(x.data(), 4, x.size(), f) != x.size() ||
+      fread(noise.data(), 4, noise.size(), f) != noise.size() ||
+      fread(d.data(), 4, d.size(), f) != d.size() ||
+      fread(newd.data(), 4, newd.size(), f) != newd.size() ||
+      fread(pot.data(), 4, pot.size(), f) != pot.size() ||
+      fread(cands.data(), 4, cands.size(), f) != cands.size()) return 1;
+  fclose(f);
+  int ticket = 0;
+  const int err = repro_kpp_draw(
+      x.data(), mode == 2 ? nullptr : noise.data(), d.data(),
+      mode == 0 ? nullptr : newd.data(), mode == 0 ? nullptr : pot.data(),
+      mode == 0 ? nullptr : c_row.data(), cands.data(), idx.data(),
+      pv.data(), pi.data(), &ticket, s, L, n, grid, nullptr);
+  if (err) return 2;
+  FILE* o = fopen(argv[7], "wb");
+  fwrite(d.data(), 4, d.size(), o);
+  fwrite(c_row.data(), 4, c_row.size(), o);
+  fwrite(cands.data(), 4, cands.size(), o);
+  fwrite(idx.data(), 8, idx.size(), o);
+  fwrite(&ticket, 4, 1, o);
   fclose(o);
   return 0;
 }
@@ -1263,7 +1303,8 @@ int main(int argc, char** argv) {
 
 
 HARNESSES = ("harness", "harness_batched", "harness_int8", "harness_16",
-             "harness_dma", "harness_kpp", "harness_update", "harness_mma",
+             "harness_dma", "harness_kpp", "harness_draw", "harness_update",
+             "harness_mma",
              "harness_b", "harness_onehot")
 
 
@@ -1286,6 +1327,7 @@ def harness(tmp_path_factory):
     (d / "harness_16.cpp").write_text(HARNESS_16)
     (d / "harness_dma.cpp").write_text(HARNESS_DMA)
     (d / "harness_kpp.cpp").write_text(HARNESS_KPP)
+    (d / "harness_draw.cpp").write_text(HARNESS_DRAW)
     (d / "harness_update.cpp").write_text(HARNESS_UPDATE)
     (d / "harness_mma.cpp").write_text(HARNESS_MMA)
     (d / "harness_b.cpp").write_text(HARNESS_B)
@@ -1882,8 +1924,8 @@ def test_kpp_probe_source_matches_plain(harness, tmp_path, shape):
     """Kernel P against ``kpp_probe_plain``.  Tolerances: newd within
     ``RTOL`` of the magnitude of its terms, (||x|| + ||c||)^2 (norms and
     dots summed in another order); pot within ``RTOL``; two launches
-    bitwise equal, each from a ticket left at garbage (the entry point
-    zeroes the launch's ticket), the ticket back at 0 after each."""
+    bitwise equal, the second from the ticket the first left, the ticket
+    back at 0 after each."""
     m, L, n, grid, shift = shape
     x, c, d = kpp_inputs(m, L, n)
     (newd, pot, ticket), again = run_kpp(harness, tmp_path, x, c, d, grid,
@@ -1915,6 +1957,116 @@ def test_kpp_probe_newd_bitwise_across_grids_and_tiles(harness, tmp_path, n):
         np.testing.assert_array_equal(newd.view(np.uint32),
                                       runs[0][0].view(np.uint32))
         np.testing.assert_allclose(pot, runs[0][1], rtol=RTOL)
+
+
+# --------------------------------------------------------------------------
+# kernel G (kpp_draw): a K-means++ slot's D² draw and the previous pick
+# --------------------------------------------------------------------------
+
+DRAW_CASES = [  # (s, L, n, data): every CTA of several grids, ragged
+    (1000, 3, 7, "gauss"),     # ranges, L at 1 and at P's 128, rows of one
+    (777, 1, 28, "gauss"),     # feature; all distances 0 (uniform draw);
+    (600, 128, 3, "gauss"),    # exact ties of the best entry within a
+    (900, 3, 1, "zeros"),      # thread, across threads and across CTAs
+    (1500, 3, 5, "ties"),      # (the first index wins); a NaN (it wins,
+    (800, 4, 6, "nan"),        # first of two)
+]
+
+
+def draw_inputs(s, L, n, data):
+    """x, Gumbel noise [L, s], d >= 0 (a tenth of it 0), the previous
+    slot's newd [s, L] and pot [L] (a tie for the least at 0 and L - 1),
+    and its candidates [L, n]."""
+    rng = np.random.default_rng(s + L)
+    x = rng.normal(size=(s, n)).astype(np.float32)
+    noise = rng.gumbel(size=(L, s)).astype(np.float32)
+    d = (rng.uniform(size=s) * 9.0).astype(np.float32)
+    d[rng.integers(0, s, s // 10)] = 0.0
+    if data == "zeros":
+        d[:] = 0.0
+    if data in ("ties", "nan"):
+        for l in range(L):
+            logits = np.log(np.maximum(d, 1e-30))
+            best = int(np.argmax(noise[l] + logits))
+            # the same entry at a later row: in this thread, another
+            # thread, another CTA
+            for i in (best + 256, best + 1, s - 1 - l):
+                if best < i < s:
+                    noise[l, i], d[i] = noise[l, best], d[best]
+    if data == "nan":
+        noise[0, s // 3] = noise[0, s // 2] = np.nan
+    newd = (rng.uniform(size=(s, L)) * 9.0).astype(np.float32)
+    pot = rng.uniform(1.0, 2.0, size=L).astype(np.float32)
+    pot[0] = pot[-1] = 0.5
+    cands = rng.normal(size=(L, n)).astype(np.float32)
+    return x, noise, d, newd, pot, cands
+
+
+def run_draw(harness, tmp_path, inputs, grid, mode):
+    """Kernel G through the stand-in: (d, c_row, cands, idx, ticket)."""
+    x, noise, d, newd, pot, cands = inputs
+    (s, n), L = x.shape, noise.shape[0]
+    (tmp_path / "in.bin").write_bytes(b"".join(
+        a.tobytes() for a in inputs))
+    subprocess.run([str(harness.parent / "harness_draw"), str(s), str(L),
+                    str(n), str(grid), str(mode), str(tmp_path / "in.bin"),
+                    str(tmp_path / "out.bin")], check=True, timeout=300)
+    out = np.fromfile(tmp_path / "out.bin", dtype=np.uint8)
+    sizes = [4 * s, 4 * n, 4 * L * n, 8 * L, 4]
+    d, c_row, cands, idx, ticket = (out[a:b] for a, b in zip(
+        np.cumsum([0] + sizes[:-1]), np.cumsum(sizes)))
+    return (d.view(np.float32), c_row.view(np.float32),
+            cands.view(np.float32).reshape(L, n), idx.view(np.int64),
+            int(ticket.view(np.int32)[0]))
+
+
+def draw_oracle(x, noise, d):
+    """The oracle chain's draw (``kmeanspp._seed``), in torch on the CPU:
+    (idx, x[idx])."""
+    d = torch.from_numpy(d)
+    logits = torch.where(torch.sum(d) > 0,
+                         torch.log(torch.clamp_min(d, 1e-30)),
+                         torch.zeros_like(d))
+    idx = torch.argmax(torch.from_numpy(noise) + logits[None, :], dim=1)
+    return idx.numpy(), x[idx.numpy()]
+
+
+@pytest.mark.parametrize("case", DRAW_CASES, ids=[
+    f"s{s}-L{L}-n{n}-{data}" for s, L, n, data in DRAW_CASES])
+def test_kpp_draw_source_matches_the_oracle_chain(harness, tmp_path, case):
+    """Kernel G at one, three and seven CTAs: with no previous probe, the
+    oracle chain's candidates from d; after one, the pick b = argmin pot
+    (first of a tie), d rewritten as newd[:, b], the previous candidate
+    cands[b] in the centroid row, then the oracle chain's candidates from
+    the new d; with no noise the pick alone.  Bitwise, whatever the grid,
+    and the ticket back at 0."""
+    inputs = draw_inputs(*case)
+    x, noise, d, newd, pot, cands = inputs
+    want_idx, want_cands = draw_oracle(x, noise, d)
+    b = int(torch.argmin(torch.from_numpy(pot)))
+    assert b == 0
+    want_idx1, want_cands1 = draw_oracle(x, noise, newd[:, b].copy())
+    for grid in (1, 3, 7):
+        got_d, _, got_cands, got_idx, ticket = run_draw(
+            harness, tmp_path, inputs, grid, 0)
+        np.testing.assert_array_equal(got_idx, want_idx)
+        np.testing.assert_array_equal(got_cands, want_cands)
+        np.testing.assert_array_equal(got_d.view(np.uint32), d.view(np.uint32))
+        assert ticket == 0
+        got_d, c_row, got_cands, got_idx, ticket = run_draw(
+            harness, tmp_path, inputs, grid, 1)
+        np.testing.assert_array_equal(got_d.view(np.uint32),
+                                      newd[:, b].view(np.uint32))
+        np.testing.assert_array_equal(c_row, cands[b])
+        np.testing.assert_array_equal(got_idx, want_idx1)
+        np.testing.assert_array_equal(got_cands, want_cands1)
+        assert ticket == 0
+    got_d, c_row, got_cands, got_idx, ticket = run_draw(
+        harness, tmp_path, inputs, 1, 2)
+    np.testing.assert_array_equal(c_row, cands[b])
+    np.testing.assert_array_equal(got_cands, cands)
+    np.testing.assert_array_equal(got_d, d)
+    assert ticket == 0
 
 
 # --------------------------------------------------------------------------

@@ -890,6 +890,175 @@ def test_kpp_probe_two_graphs_on_two_streams_on_card():
         assert torch.equal(newd, newd0)
 
 
+SEED_CARD_SHAPES = [(64_000, 25, 28), (16_384, 256, 768)]  # (s, k, n)
+
+
+def seed_card_points(s, n, data):
+    """Points on the card: 'exact', integers (0..2 at n <= 32, else 0..1)
+    whose distances and their sums over the rows are exact in f32 in any
+    order (below 2**24); 'gauss', standard normal."""
+    gen = torch.Generator(device="cuda").manual_seed(s + n)
+    if data == "exact":
+        hi = 3 if n <= 32 else 2
+        return torch.randint(0, hi, (s, n), generator=gen,
+                             device="cuda").float()
+    return torch.randn(s, n, generator=gen, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64_000, 28, 3), (163_840, 768, 3),
+                                   (1000, 7, 128), (5000, 28, 3)],
+                         ids=["seeding", "codebook", "L128", "zeros"])
+def test_kpp_draw_matches_plain_on_card(shape):
+    """Kernel G against ``kpp_draw_plain`` on the same d and noise: the
+    candidates' rows and the candidates bitwise; the next slot's draw
+    makes the pick of the last (the least of P's potentials, its
+    candidate into the centroid row, newd's column into d), the last
+    pick alone after it; each launch counted."""
+    _card()
+    from repro_torch.kernels import kpp_probe as kpp
+    from repro_torch.kernels import ops
+
+    s, n, L = shape
+    gen = torch.Generator(device="cuda").manual_seed(s)
+    x = torch.randn(s, n, generator=gen, device="cuda")
+    d = 4.0 * n * torch.rand(s, generator=gen, device="cuda")
+    if s == 5000:
+        d.zero_()                         # no distance: a uniform draw
+    c = torch.zeros(4, n, device="cuda")
+    ops.reset_launch_counts()
+    chain = kpp.SlotChain(x, d, c, L)
+    for j in (1, 3):
+        d0 = d.clone()
+        noise = torch.empty(L, s, device="cuda").exponential_(
+            generator=gen).log_().neg_()
+        if j == 3:
+            b = int(torch.argmin(chain.pot))
+            newd, prev = chain.newd.clone(), chain.cands.clone()
+        chain.slot(noise, j)
+        if j == 3:
+            assert torch.equal(d, newd[:, b]) and torch.equal(c[1], prev[b])
+            d0 = newd[:, b]
+        idx, cands = kpp.kpp_draw_plain(x, noise, d0)
+        assert torch.equal(chain.idx, idx) and torch.equal(chain.cands, cands)
+    prev = chain.cands.clone()
+    b = int(torch.argmin(chain.pot))
+    chain.finish()
+    assert torch.equal(c[3], prev[b])
+    assert not bool(c[0].any()) and not bool(c[2].any())
+    counts = ops.launch_counts()
+    assert counts["kpp_draw"] == 3 and counts["kpp_probe"] == 2
+
+
+def _seed_pair(x, k, key, init=None, degenerate=None):
+    """The seeding on the slot kernels and on the oracle chain, same key."""
+    from repro_torch.core import kmeanspp
+
+    kw = {"init": init, "degenerate": degenerate}
+    return (kmeanspp.seed(x, key, k, **kw),
+            kmeanspp.seed(x, key, k, impl="ref", **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SEED_CARD_SHAPES,
+                         ids=["hepmass", "wide"])
+def test_seed_slot_kernels_bitwise_oracle_chain_on_exact_data_on_card(shape):
+    """On integer points every distance and potential is exact in f32 in
+    either association (P's ``(c2 - 2 dots) + x2``, the oracle chain's
+    ``x2 - 2 dots + c2``), so ``seed`` on the slot kernels is bitwise the
+    oracle chain (``impl="ref"``) under the same keys: fresh, and
+    re-seeding every other slot.  Launches: P a seeded slot, G a seeded
+    slot and one more a seeding; the oracle chain launches neither."""
+    _card()
+    from repro_torch import random as rnd
+    from repro_torch import tracing
+    from repro_torch.kernels import ops
+
+    s, k, n = shape
+    x = seed_card_points(s, n, "exact")
+    ops.reset_launch_counts()
+    tracing.snapshot()
+    tracing.enable(True)
+    try:
+        got, want = _seed_pair(x, k, rnd.TORCH.key(s))
+        deg = torch.arange(k, device="cuda") % 2 == 0
+        got2, want2 = _seed_pair(x, k, rnd.TORCH.key(s + 1), init=got,
+                                 degenerate=deg)
+        counters = tracing.snapshot()["counters"]
+    finally:
+        tracing.enable(False)
+    assert torch.equal(got, want) and torch.equal(got2, want2)
+    assert torch.equal(got2[1::2], got[1::2])
+    slots = k + (k + 1) // 2
+    counts = ops.launch_counts()
+    assert counts["kpp_probe"] == slots and counts["kpp_draw"] == slots + 2
+    assert counters["core.kmeanspp.probe.kernel"] == slots
+    assert counters["core.kmeanspp.probe.plain"] == slots
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SEED_CARD_SHAPES,
+                         ids=["hepmass", "wide"])
+def test_seed_slot_kernels_pick_the_best_candidate_on_card(shape,
+                                                           monkeypatch):
+    """On Gaussian points each slot's pick, its potential recomputed in
+    float64 from the centroids chosen before it, is within 1e-5 of the
+    least potential of the slot's L candidates (recorded from kernel G)."""
+    _card()
+    from repro_torch import random as rnd
+    from repro_torch.core import kmeanspp
+    from repro_torch.kernels import kpp_probe as kpp
+
+    s, k, n = shape
+    x = seed_card_points(s, n, "gauss")
+    drawn = []
+
+    class Recording(kpp.SlotChain):
+        def slot(self, noise, j):
+            super().slot(noise, j)
+            drawn.append(self.cands.clone())
+
+    monkeypatch.setattr(kpp, "SlotChain", Recording)
+    c = kmeanspp.seed(x, rnd.TORCH.key(s), k)
+    assert len(drawn) == k
+    x64 = x.double()
+    d64 = torch.full((s,), math.inf, dtype=torch.float64, device="cuda")
+
+    def potentials(cands):
+        dist = torch.cdist(x64, cands.double()) ** 2            # [s, L]
+        return torch.minimum(d64[:, None], dist).sum(0), dist
+
+    for j, cands in enumerate(drawn):
+        pot, _ = potentials(cands)
+        picked, dist = potentials(c[j:j + 1])
+        assert float(picked[0]) <= float(pot.min()) * (1 + 1e-5), j
+        assert bool((cands == c[j]).all(dim=1).any()), j
+        d64 = torch.minimum(d64, dist[:, 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SEED_CARD_SHAPES,
+                         ids=["hepmass", "wide"])
+def test_seed_slot_kernels_never_sync_on_card(shape):
+    """A fresh seeding on the slot kernels under
+    ``torch.cuda.set_sync_debug_mode("error")`` raises nothing: the host
+    reads no mask (it makes it) and no pick."""
+    _card()
+    from repro_torch import random as rnd
+    from repro_torch.core import kmeanspp
+
+    s, k, n = shape
+    x = seed_card_points(s, n, "gauss")
+    want = kmeanspp.seed(x, rnd.TORCH.key(s), k)        # builds, warms up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = kmeanspp.seed(x, rnd.TORCH.key(s), k)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, want)
+
+
 @pytest.fixture
 def _tuner(tmp_path):
     from repro_torch.kernels import autotune
@@ -1389,7 +1558,8 @@ def test_capture_counts_none_of_a_concurrent_fit():
     """Tenants registered (each bucket captured) while a fit launches on
     another thread: every capture counts its one B launch, and the counts
     after both are the fit's launches plus one eager warmup launch a
-    bucket, none lost and none added."""
+    bucket, none lost and none added (the fit's seeding launches, G and P,
+    read from the same fit run again alone)."""
     _card()
     from repro_torch.api import BigMeansConfig, fit
     from repro_torch.kernels import ops
@@ -1418,9 +1588,16 @@ def test_capture_counts_none_of_a_concurrent_fit():
     torch.cuda.synchronize()
     res, = results
     counts = {k: v for k, v in ops.launch_counts().items() if v}
+    ops.reset_launch_counts()
+    alone = fit(x, cfg)
+    seeding = {k: v for k, v in ops.launch_counts().items()
+               if k in ("kpp_probe", "kpp_draw")}
+    assert alone.trace == res.trace
+    assert seeding["kpp_draw"] > seeding["kpp_probe"] > 0
     assert counts == {"fused_step": res.n_iterations,
                       "update": res.n_chunks,
-                      "assign": res.n_chunks + n_tenants * len(buckets)}
+                      "assign": res.n_chunks + n_tenants * len(buckets),
+                      **seeding}
 
 
 @pytest.mark.cuda

@@ -171,14 +171,16 @@ def test_cpu_wrappers_take_the_plain_version():
                                                         pipeline="dma")
                    for p in ("bf16", "bf16x3")),
                  lambda: kpp_probe.kpp_probe_cuda(xt, ct[:3],
-                                                  torch.ones(300))):
+                                                  torch.ones(300)),
+                 lambda: kpp_probe.SlotChain(xt, torch.ones(300), ct.clone(),
+                                             3)):
         with pytest.raises(ValueError, match="must be a CUDA tensor"):
             call()
     entry = ("fused_step", "assign", "update", "fused_step_batched",
              "fused_step_dma")
     assert ops.launch_counts() == dict.fromkeys(
         [e + p for p in ("", "_int8", "_bf16", "_bf16x3") for e in entry]
-        + ["kpp_probe"], 0)
+        + ["kpp_probe", "kpp_draw"], 0)
     sums, counts = ops.update(xt, ids, 25)
     assert all(torch.equal(a, b) for a, b in
                zip((sums, counts), update.update_plain(xt, ids, 25)))

@@ -105,3 +105,76 @@ def test_cpu_runs_the_plain_version_and_the_kernel_refuses_it():
     with pytest.raises(ValueError, match="impl='cuda' needs CUDA"):
         kpp.kpp_probe(X, C, D, impl="cuda")
     assert kpp.launches == before
+
+
+class PlainSlotChain:
+    """:class:`kpp.SlotChain` with kernels G and P replaced by their plain
+    versions (``kpp_draw_plain``, ``kpp_probe_plain``), in the order and
+    with the pending pick of the kernels."""
+
+    def __init__(self, x, d, c, L):
+        self.x, self.d, self.c, self.pending = x, d, c, None
+
+    def _pick(self):
+        b = int(torch.argmin(self.pot))
+        self.c[self.pending] = self.cands[b]
+        return b
+
+    def slot(self, noise, j):
+        if self.pending is not None:
+            self.d.copy_(self.newd[:, self._pick()])
+        _, self.cands = kpp.kpp_draw_plain(self.x, noise, self.d)
+        self.newd, self.pot = kpp.kpp_probe_plain(self.x, self.cands, self.d)
+        self.pending = j
+
+    def finish(self):
+        if self.pending is not None:
+            self._pick()
+
+
+@pytest.mark.parametrize("n", [3, 28])
+def test_seed_through_the_slot_chain_on_exact_data(n, monkeypatch):
+    """``seed`` where the slot kernels apply (``resolve_impl`` made to say
+    ``'cuda'``; the chain's kernels replaced by their plain versions) on
+    integer points, where every distance and potential is exact in f32 in
+    either association: bitwise the reference's seeding under the replayed
+    keys, fresh and re-seeding, and bitwise the oracle chain
+    (``impl="ref"``) under the port's keys; each seeded slot counted as
+    ``probe.kernel``."""
+    import importlib
+
+    import jax
+
+    from repro_torch import tracing
+    from repro_torch.core import kmeanspp
+    from repro_torch.kernels import ops
+    from test_torch_rng import REPLAY
+
+    # the module (repro.core re-exports the function under its name)
+    jkmeanspp = importlib.import_module("repro.core.kmeanspp")
+
+    X = np.random.default_rng(n).integers(0, 3, size=(2048, n)).astype(
+        np.float32)
+    key = jax.random.PRNGKey(4 + n)
+    deg = np.zeros(15, bool)
+    deg[[0, 6, 14]] = True
+    want = np.asarray(jkmeanspp.seed(X, key, 15))
+    want2 = np.asarray(jkmeanspp.seed(X, key, 15, init=want, degenerate=deg))
+    plain = kmeanspp.seed(torch.from_numpy(X), 5, 15, impl="ref")
+    monkeypatch.setattr(ops, "resolve_impl", lambda impl, device: "cuda")
+    monkeypatch.setattr(kpp, "SlotChain", PlainSlotChain)
+    tracing.snapshot()
+    tracing.enable(True)
+    try:
+        got = kmeanspp.seed(torch.from_numpy(X), key, 15, rng=REPLAY)
+        got2 = kmeanspp.seed(torch.from_numpy(X), key, 15, init=got,
+                             degenerate=torch.from_numpy(deg), rng=REPLAY)
+        ours = kmeanspp.seed(torch.from_numpy(X), 5, 15)
+        counters = tracing.snapshot()["counters"]
+    finally:
+        tracing.enable(False)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got2.numpy(), want2)
+    assert torch.equal(ours, plain)
+    assert counters == {"core.kmeanspp.probe.kernel": 15 + 3 + 15,
+                        "host_sync.core.kmeanspp.mask": 1}

@@ -16,7 +16,8 @@ import torch
 
 from repro_torch import api, tracing
 from repro_torch import random as rnd
-from repro_torch.core import bigmeans
+from repro_torch.core import bigmeans, kmeanspp
+from repro_torch.kernels import ops
 
 SPANS = ("api.fit", "core.bigmeans.sample_chunk", "core.bigmeans.chunk_step",
          "core.kmeanspp.seed", "core.kmeans.lloyd", "core.kmeans.epilogue",
@@ -129,7 +130,7 @@ def test_counters_agree_with_the_fit_result(kind, traced):
         "host_sync.core.bigmeans.init": 3,
         "host_sync.core.bigmeans.degenerate": res.n_chunks,
         "host_sync.core.kmeanspp.mask": chunks,
-        "host_sync.core.kmeanspp.pick": 2 * slots,
+        "core.kmeanspp.probe.plain": slots,
         "host_sync.core.kmeans.init": res.n_chunks,
         "host_sync.core.kmeans.stop": res.n_iterations,
         "host_sync.api.result": 5,
@@ -160,8 +161,35 @@ def test_batched_counters_agree_with_the_streams(kind, traced):
     if kind == "blobs":
         # round 0 seeds both streams from scratch, later rounds none
         assert counters["host_sync.core.kmeanspp.mask"] == 1 + cfg.batch
-        assert counters["host_sync.core.kmeanspp.pick"] == \
-            2 * cfg.batch * cfg.k
+        assert counters["core.kmeanspp.probe.plain"] == cfg.batch * cfg.k
+
+
+@pytest.mark.parametrize("case", ["weighted", "bf16"])
+def test_seeds_the_slot_kernels_cannot_take_count_as_plain(case, traced,
+                                                           monkeypatch):
+    """A weighted seeding and a bf16 chunk keep the oracle chain even where
+    the slot kernels would run (``resolve_impl`` made to say ``'cuda'``):
+    kernel P has no weights operand and would take a bf16 chunk at f32.
+    A fresh seeding reads no mask; a re-seeding reads it once."""
+    X = _data("blobs")[:600]
+    w = torch.rand(600, generator=torch.Generator().manual_seed(1)) + 0.5
+    points, weights = (X, w) if case == "weighted" else (X.bfloat16(), None)
+    key = rnd.TORCH.key(3)
+    want = kmeanspp.seed(points, key, 8, weights=weights)
+    deg = torch.tensor([True, False] * 4)
+    want2 = kmeanspp.seed(points, key, 8, init=want, degenerate=deg,
+                          weights=weights)
+    assert tracing.snapshot()["counters"] == {
+        "core.kmeanspp.probe.plain": 12,
+        "host_sync.core.kmeanspp.mask": 1}
+    monkeypatch.setattr(ops, "resolve_impl", lambda impl, device: "cuda")
+    got = kmeanspp.seed(points, key, 8, weights=weights)
+    got2 = kmeanspp.seed(points, key, 8, init=got, degenerate=deg,
+                         weights=weights)
+    assert tracing.snapshot()["counters"] == {
+        "core.kmeanspp.probe.plain": 12,
+        "host_sync.core.kmeanspp.mask": 1}
+    assert torch.equal(got, want) and torch.equal(got2, want2)
 
 
 @pytest.mark.parametrize("method", ["sequential", "batched"])

@@ -3,10 +3,11 @@
 
     python3 tools/profile_kpp.py [--against DIR]
 
-At the three shapes P is timed at — the chunk seeding (m = 64,000, n = 28,
+At the four shapes P is timed at — the chunk seeding (m = 64,000, n = 28,
 L = 3), one slot's probe of a seeding of all HEPMASS rows (m = 10,500,000,
-n = 28, L = 3) and the two-pass data's chunk seeding (m = 16,384,
-n = 1,024, L = 3; ``src/repro/configs/seamless_m4t_medium.py:10``) — on
+n = 28, L = 3), the two-pass data's chunk seeding (m = 16,384,
+n = 1,024, L = 3; ``src/repro/configs/seamless_m4t_medium.py:10``) and the
+benchmark's codebook chunk seeding (m = 163,840, n = 768, L = 3) — on
 points around well-separated centres generated on the card from fixed
 seeds, three candidates drawn from the points and d the distances to a
 fourth: the device µs per call of ``kpp_probe_cuda`` and of
@@ -14,7 +15,16 @@ fourth: the device µs per call of ``kpp_probe_cuda`` and of
 ``torch.profiler`` (CUDA activity), the bound (bytes read and written once
 over 3.35 TB/s; the operations over 67 TFLOP/s fp32 are below it), and as a
 yardstick of the card's read rate, ``x.sum()`` (one read of x) by graph
-replay.  Prints P's ptxas registers, shared memory and spills.  Two more
+replay.  Where the tree has the seeding's slot kernels
+(``kpp_probe.SlotChain``), also a whole K-means++ slot: the stream µs a
+slot of 200 slots in a row (CUDA events; each slot's Gumbel noise drawn as
+``seed`` draws it) and the host µs to issue one, for kernels G + P and for
+the oracle chain's slot they replace (``core/kmeanspp.py``: the draw, then
+``mm`` + ``minimum`` + ``sum`` and the pick); each kernel's device µs
+(``launches_us``); the plain versions of G (``kpp_draw_plain``) and of
+the probe chain alone (``pairwise_sqdist_ref`` + ``minimum`` + ``sum``) by
+graph replay; and G's bound (noise, newd and d once over 3.35 TB/s).
+Prints P's and G's ptxas registers, shared memory and spills.  Two more
 shapes say what holds the small ones: one 256-row tile (m = 256: one
 CTA's path from launch to pot) and the two-pass width at 132 tiles
 (m = 33,792: one tile an SM).
@@ -35,7 +45,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 SHAPES = {"seeding": (64_000, 28, 3), "full_data": (10_500_000, 28, 3),
-          "two_pass_width": (16_384, 1024, 3)}     # (m, n, L)
+          "two_pass_width": (16_384, 1024, 3),
+          "codebook_seeding": (163_840, 768, 3)}   # (m, n, L)
 # What holds the small shapes: one 256-row tile (a CTA's latency from
 # launch to pot), and the two-pass width at 132 tiles (one an SM of the
 # H100, where the two-pass width has 64)
@@ -108,6 +119,73 @@ def probe_inputs(m: int, n: int, L: int, seed: int):
     return x, x[idx[1:]].contiguous(), d
 
 
+def slot_times(x, d, L: int, slots: int = 200) -> dict:
+    """A K-means++ slot on kernels G + P and on the oracle chain (see the
+    module docstring); {} for a tree without ``SlotChain``."""
+    import time
+
+    import torch
+
+    from repro_torch import random as rnd
+    from repro_torch.kernels import kpp_probe as kpp
+    from repro_torch.kernels.ref import pairwise_sqdist_ref
+
+    if not hasattr(kpp, "SlotChain"):
+        return {}
+    m, n = x.shape
+    rng, dev = rnd.TORCH, x.device
+    keys = rng.split(rng.key(m), slots)
+    c = torch.zeros((2, n), device=dev)
+    x2 = torch.sum(x * x, dim=-1, keepdim=True)
+
+    def kernels(dd):
+        chain = kpp.SlotChain(x, dd, c, L)
+        for j, k1 in enumerate(keys):
+            chain.slot(rng.gumbel(k1, (L, m), dev), j % 2)
+        chain.finish()
+
+    def oracle(dd):
+        for j, k1 in enumerate(keys):
+            logits = torch.where(torch.sum(dd) > 0,
+                                 torch.log(torch.clamp_min(dd, 1e-30)),
+                                 torch.zeros_like(dd))
+            noise = rng.gumbel(k1, (L, m), dev)
+            cands = x[torch.argmax(noise + logits[None, :], dim=1)]
+            newd = torch.minimum(dd[:, None],
+                                 pairwise_sqdist_ref(x, cands, x2))
+            b = torch.argmin(torch.sum(newd, dim=0), dim=0, keepdim=True)
+            c[j % 2] = cands.index_select(0, b)[0]
+            dd = newd.index_select(1, b)[:, 0]
+
+    out = {}
+    for name, loop in (("slot", kernels), ("oracle_slot", oracle)):
+        loop(d.clone())                                  # warm
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        dd = d.clone()
+        start.record()
+        t0 = time.perf_counter()
+        loop(dd)
+        host = time.perf_counter() - t0
+        stop.record()
+        torch.cuda.synchronize()
+        out[f"{name}_stream_us"] = 1e3 * start.elapsed_time(stop) / slots
+        out[f"{name}_host_us"] = 1e6 * host / slots
+    noise = rng.gumbel(keys[0], (L, m), dev)
+    cands = x[:L].contiguous()
+    out["draw_plain_us"] = graph_us(lambda: kpp.kpp_draw_plain(x, noise, d),
+                                    20)
+    out["probe_chain_us"] = graph_us(lambda: torch.minimum(
+        d[:, None], pairwise_sqdist_ref(x, cands, x2)).sum(0), 20)
+    out["draw_bound_us"] = 1e6 * 4 * (2 * L * m + m + 2 * L * n) \
+        / HBM_BYTES_PER_S
+    out["slot_launches_us"] = launch_us(lambda: kernels(d.clone()), 1)
+    for key in out["slot_launches_us"]:
+        out["slot_launches_us"][key] /= slots
+    return out
+
+
 def turn(src: str) -> dict:
     """Time kernel P of the package under ``src`` at every shape."""
     sys.path.insert(0, str(Path(src).resolve()))
@@ -140,6 +218,7 @@ def turn(src: str) -> dict:
             if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOP_PER_S
             else "operations", "bytes": nbytes, "flops": flops,
             "share_of_bound": bound_us / us}
+        out[shape].update(slot_times(x, d, L, 20 if m > 1_000_000 else 200))
         del x, cands, d
         torch.cuda.empty_cache()
     return out
